@@ -1,3 +1,4 @@
-from .matrix import DeviceMatrix, Matrix, dia_arrays
+from .matrix import DeviceMatrix, Matrix, dia_arrays, pack_device, pack_kind
 
-__all__ = ["DeviceMatrix", "Matrix", "dia_arrays"]
+__all__ = ["DeviceMatrix", "Matrix", "dia_arrays", "pack_device",
+           "pack_kind"]

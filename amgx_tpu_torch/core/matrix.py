@@ -1,28 +1,45 @@
-"""Sparse matrix containers (port of the scalar DIA and ELL parts of
-``amgx_tpu/core/matrix.py``).
+"""Sparse matrix containers (port of the DIA, ELL, CSR and block parts
+of ``amgx_tpu/core/matrix.py``).
 
-* :class:`Matrix` — the host handle: a scipy CSR and/or the canonical
-  row-aligned diagonal arrays, plus a cached device pack.
-* :class:`DeviceMatrix` — the frozen device pack, in one of two formats:
+* :class:`Matrix` — the host handle: a scipy CSR (scalar) or BSR
+  (``block_dim`` b > 1) and/or the canonical row-aligned diagonal arrays,
+  plus a cached device pack.
+* :class:`DeviceMatrix` — the frozen device pack, in one of three
+  formats:
 
   - ``fmt == "dia"``: ``vals`` (nd, n) with ``A[i, i+off_k] =
-    vals[k, i]`` and the static offset tuple ``dia_offsets``;
-  - ``fmt == "ell"``: ``cols`` (n, K) int32 and ``vals`` (n, K), padded
-    with value 0 (host packs pad with column 0); rectangular allowed.
+    vals[k, i]`` and the static offset tuple ``dia_offsets``; block-DIA
+    packs hold (nd, n, b, b) planes (a view of (b, b, nd, n) component
+    planes, so each component is one contiguous DIA) and an (n, b, b)
+    diagonal;
+  - ``fmt == "ell"``: ``cols`` (n, K) int32 and ``vals`` (n, K[, b, b]),
+    padded with value 0 (host packs pad with column 0); rectangular
+    allowed;
+  - ``fmt == "csr"``: ``cols``/``vals``/``row_ids`` flat over the stored
+    (block) entries — the pack of a scalar matrix with a row wider than
+    the ELL budget (2048), or of a block matrix past it.
 
+  ELL and CSR packs of block matrices, and CSR packs of scalar ones,
+  carry the binned sliced-ELL planes (``bn_*``, :mod:`..ops.binned_spmv`)
+  when the plan fits the padding budget: block-native planes by default,
+  the scalar expansion's with ``block_native=False`` or
+  ``AMGX_BLOCK_NATIVE=0``.  Unlike the JAX package, which attaches them
+  only on a TPU or under its interpreter, the port attaches them on every
+  device and in f64 too: the card runs kernels B4/B5 on them, the CPU
+  their plain version.
 * :class:`ComposedDIA` — fmt ``dia3``: a coarse operator applied as the
   Galerkin composition R·(A·(P·x)) of three DIA packs.
 
 A square scalar matrix with at most 48 distinct diagonals packs as DIA,
-any other as ELL; a matrix whose widest row exceeds the ELL width budget
-(2048) raises :class:`~amgx_tpu_torch.errors.NotImplementedError_` (the
-CSR pack is a later slice).  The TPU window, shift, binned and dense
-attachments of the JAX package are not carried over: on the card the
-ELL kernel gathers x directly.
+a square block matrix with at most 48 distinct block diagonals as
+block-DIA.  The TPU window, shift and dense attachments of the JAX
+package are not carried over: on the card the ELL kernel gathers x
+directly.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -30,7 +47,8 @@ import scipy.sparse as sp
 import torch
 
 from ..device import numpy_dtype, resolve_device, torch_dtype
-from ..errors import NotImplementedError_
+from ..errors import BadParametersError
+from ..ops import binned_spmv
 
 #: the DIA diagonal budget (``pack_device(dia_max_diags=48)`` upstream)
 DIA_MAX_DIAGS = 48
@@ -40,16 +58,33 @@ ELL_MAX_WIDTH = 2048
 
 @dataclasses.dataclass(frozen=True)
 class DeviceMatrix:
-    """Frozen device-side matrix (fmt ``dia`` or ``ell``)."""
+    """Frozen device-side matrix (fmt ``dia``, ``ell`` or ``csr``)."""
 
-    vals: torch.Tensor       # dia: (nd, n) diagonals; ell: (n, K)
-    diag: torch.Tensor       # (n,) main diagonal
+    vals: Optional[torch.Tensor]   # dia: (nd, n[, b, b]); ell: (n, K[, b, b])
+    diag: torch.Tensor             # (n,[ b, b]) main (block) diagonal
     n_rows: int
     n_cols: int
     dia_offsets: tuple = ()
     fmt: str = "dia"
-    cols: Optional[torch.Tensor] = None   # ell: (n, K) int32
+    cols: Optional[torch.Tensor] = None   # ell: (n, K); csr: (nnz,) int32
     ell_width: int = 0
+    block_dim: int = 1
+    row_ids: Optional[torch.Tensor] = None   # csr: (nnz,) int32
+    #: binned sliced-ELL planes (ops/binned_spmv.py) and static dims
+    bn_codes: Optional[torch.Tensor] = None
+    bn_vals: Optional[torch.Tensor] = None
+    bn_meta: Optional[torch.Tensor] = None
+    bn_pos: Optional[torch.Tensor] = None
+    bn_dims: tuple = ()
+    #: derived once at upload for the card's kernels
+    #: (:func:`~amgx_tpu_torch.ops.binned_spmv.kernel_aux`)
+    bn_tile_ptr: Optional[torch.Tensor] = None
+    bn_row_of_pos: Optional[torch.Tensor] = None
+
+    @property
+    def n(self) -> int:
+        """Scalar dimension (rows × block_dim)."""
+        return self.n_rows * self.block_dim
 
     @property
     def dtype(self) -> torch.dtype:
@@ -61,8 +96,10 @@ class DeviceMatrix:
 
     def astype(self, dtype) -> "DeviceMatrix":
         dt = torch_dtype(dtype)
-        return dataclasses.replace(self, vals=self.vals.to(dt),
-                                   diag=self.diag.to(dt))
+        return dataclasses.replace(
+            self, vals=None if self.vals is None else self.vals.to(dt),
+            diag=self.diag.to(dt),
+            bn_vals=None if self.bn_vals is None else self.bn_vals.to(dt))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,15 +152,10 @@ def ell_layout(indptr: np.ndarray, indices: np.ndarray):
 def ell_host_arrays(host: sp.spmatrix, dtype):
     """The ELL pack of a scalar CSR on the host (the ELL branch of
     ``pack_host_arrays`` upstream): ``(cols (n, K) int32, vals (n, K),
-    diag (n,))``, padded with column 0 and value 0; raises past the ELL
-    width budget."""
+    diag (n,))``, padded with column 0 and value 0."""
     csr = sp.csr_matrix(host)
     csr.sort_indices()
     for_rows, pos, k = ell_layout(csr.indptr, csr.indices)
-    if k > ELL_MAX_WIDTH:
-        raise NotImplementedError_(
-            f"a row of {k} entries is past the ELL width budget "
-            f"({ELL_MAX_WIDTH}); the CSR pack is a later slice")
     n = csr.shape[0]
     cols = np.zeros((n, k), dtype=np.int32)
     vals = np.zeros((n, k), dtype=dtype)
@@ -202,16 +234,259 @@ def dia_device_matrix(offsets, dvals: torch.Tensor,
                         dia_offsets=offsets)
 
 
+def pack_kind(Ad) -> str:
+    """Human-readable pack/kernel selection of a device matrix, under the
+    JAX package's labels (``core/matrix.py::pack_kind`` upstream).  A
+    scalar ELL pack is ``ell/window``: the port serves every one with
+    kernel B3 (the JAX package's ``ell/window`` kernel)."""
+    fmt = getattr(Ad, "fmt", "?")
+    binned = getattr(Ad, "bn_codes", None) is not None
+    suffix = "-block" if binned and \
+        binned_spmv.bn_block_dim(Ad.bn_dims) > 1 else ""
+    if fmt == "dia" and getattr(Ad, "block_dim", 1) > 1:
+        return "dia/block"
+    if fmt == "ell":
+        if binned:
+            return "ell/binned" + suffix
+        return "ell/window" if Ad.block_dim == 1 else "ell/gather"
+    if fmt == "csr":
+        return "csr/binned" + suffix if binned else "csr/segsum"
+    return fmt
+
+
+def dia_arrays_block(bsr: sp.bsr_matrix, max_diags: Optional[int] = None):
+    """Block row-aligned diagonals of a square BSR matrix: (offsets list,
+    vals (nd, n, b, b)) with block ``A[i, i+d_k] = vals[k, i]``, or None
+    when the block pattern has more than ``max_diags`` distinct block
+    diagonals."""
+    b = bsr.blocksize[0]
+    n, m = bsr.shape[0] // b, bsr.shape[1] // b
+    if bsr.nnz == 0:
+        return None
+    idx_t = np.int32 if (n + m - 1) < 2**31 else np.int64
+    rows = np.repeat(np.arange(n, dtype=idx_t), np.diff(bsr.indptr))
+    shifted = bsr.indices.astype(idx_t, copy=False) - rows + idx_t(n - 1)
+    counts = np.bincount(shifted, minlength=n + m - 1)
+    offsets = np.flatnonzero(counts)
+    if max_diags is not None and len(offsets) > max_diags:
+        return None
+    lut = np.empty(n + m - 1, dtype=idx_t)
+    lut[offsets] = np.arange(len(offsets), dtype=idx_t)
+    vals = np.zeros((len(offsets), n, b, b), dtype=bsr.data.dtype)
+    vals[lut[shifted], rows] = bsr.data
+    return [int(o) - (n - 1) for o in offsets], vals
+
+
+def _block_native_on(block_native: Optional[bool] = None) -> bool:
+    """The block-native layout knob: b×b systems pack block-DIA planes or
+    block-native binned planes by default; ``AMGX_BLOCK_NATIVE=0`` (or an
+    explicit ``block_native=False``) keeps the scalar expansion."""
+    if block_native is not None:
+        return bool(block_native)
+    return os.environ.get("AMGX_BLOCK_NATIVE", "1") != "0"
+
+
+def _bsr_from_any(a, block_dim: int):
+    if block_dim == 1:
+        return sp.csr_matrix(a)
+    return sp.bsr_matrix(a, blocksize=(block_dim, block_dim))
+
+
+def binned_planes(host, block_dim: int, dtype, native: bool):
+    """The binned sliced-ELL planes ``(arrays, bn_dims)`` of a host
+    matrix in ``dtype`` (:func:`~..ops.binned_spmv.csr_binned_pack`):
+    the block-native planes of its b×b blocks when ``native`` and b > 1,
+    else the planes of its scalar CSR (a block matrix's scalar
+    expansion).  None over the padding budget.  The layout depends on the
+    pattern alone, so two dtypes give the same lanes."""
+    b = int(block_dim)
+    if native and b > 1:
+        bsr = host if isinstance(host, sp.bsr_matrix) else \
+            sp.bsr_matrix(host, blocksize=(b, b))
+        bsr.sort_indices()
+        return binned_spmv.csr_binned_pack(
+            bsr.indptr, bsr.indices, bsr.data.astype(dtype, copy=False),
+            bsr.shape[1] // b, dtype, block_dim=b)
+    csr = sp.csr_matrix(host)
+    csr.sort_indices()
+    return binned_spmv.csr_binned_pack(
+        csr.indptr, csr.indices, csr.data.astype(dtype, copy=False),
+        csr.shape[1], dtype)
+
+
+def _try_binned(host, block_dim: int, dtype, arrays, meta,
+                native: bool) -> bool:
+    """Attach the binned planes (:func:`binned_planes`) when the plan
+    fits the padding budget (``_try_binned`` upstream, on every device
+    and in f32 or f64).  Returns True when attached."""
+    if not np.issubdtype(np.dtype(dtype), np.floating):
+        return False
+    out = binned_planes(host, block_dim, dtype, native)
+    if out is None:
+        return False
+    arrays.update(out[0])
+    meta.update(bn_dims=out[1])
+    return True
+
+
+def _try_binned_block(bsr: sp.bsr_matrix, dtype, arrays, meta) -> bool:
+    """Block-native binned pack (kernel B5): one column code per b×b
+    block and (b², L) component planes; falls back to the
+    scalar-expansion planes (kernel B4) when the block plan exceeds the
+    padding budget."""
+    return _try_binned(bsr, bsr.blocksize[0], dtype, arrays, meta, True) \
+        or _try_binned(bsr, 1, dtype, arrays, meta, False)
+
+
+def pack_host_arrays(host, block_dim: int, dtype,
+                     ell_max_width: int = ELL_MAX_WIDTH,
+                     dia_max_diags: int = DIA_MAX_DIAGS,
+                     block_native: Optional[bool] = None):
+    """The device pack computed on the host: ``(arrays, meta)`` with no
+    transfer (``pack_host_arrays`` upstream, without the TPU window,
+    shift and dense attachments).
+
+    Scalar: DIA when square with at most ``dia_max_diags`` diagonals, ELL
+    up to ``ell_max_width`` entries a row, else CSR with the binned
+    planes.  Block (b > 1): block-DIA first (square, block-native on, at
+    most ``dia_max_diags`` block diagonals), then a block ELL (or CSR) pack
+    with the block-native binned planes, or the scalar expansion's with
+    ``block_native=False`` / ``AMGX_BLOCK_NATIVE=0``."""
+    b = int(block_dim)
+    if b == 1 and host.shape[0] == host.shape[1]:
+        csr = sp.csr_matrix(host)
+        if csr.shape[0] and csr.nnz:
+            arrs = dia_arrays(csr, max_diags=dia_max_diags)
+            if arrs is not None:
+                offsets, vals = arrs
+                return ({"vals": vals.astype(dtype, copy=False)},
+                        dict(fmt="dia", offsets=offsets,
+                             n_cols=csr.shape[1]))
+    if b > 1 and host.shape[0] == host.shape[1] and dia_max_diags and \
+            _block_native_on(block_native):
+        bsr0 = host if isinstance(host, sp.bsr_matrix) else \
+            sp.bsr_matrix(host, blocksize=(b, b))
+        if bsr0.shape[0] and bsr0.nnz:
+            bsr0.sort_indices()
+            arrs = dia_arrays_block(bsr0, max_diags=dia_max_diags)
+            if arrs is not None:
+                offsets, bvals = arrs
+                n_b = bsr0.shape[0] // b
+                diag = np.zeros((n_b, b, b), dtype=dtype)
+                if 0 in offsets:
+                    diag[:] = bvals[offsets.index(0)]
+                return ({"vals": bvals.astype(dtype, copy=False),
+                         "diag": diag},
+                        dict(fmt="dia", offsets=offsets, block_dim=b,
+                             n_cols=bsr0.shape[1] // b))
+    if b == 1:
+        csr = sp.csr_matrix(host)
+        csr.sort_indices()
+        indptr, indices, vals = csr.indptr, csr.indices, csr.data
+        n_rows, n_cols = csr.shape
+        block_shape = ()
+    else:
+        bsr = host if isinstance(host, sp.bsr_matrix) else sp.bsr_matrix(
+            host, blocksize=(b, b))
+        bsr.sort_indices()
+        indptr, indices, vals = bsr.indptr, bsr.indices, bsr.data
+        n_rows, n_cols = bsr.shape[0] // b, bsr.shape[1] // b
+        block_shape = (b, b)
+    for_rows, pos_in_row, k = ell_layout(indptr, indices)
+    diag = np.zeros((n_rows,) + block_shape, dtype=dtype)
+    on_diag = indices == for_rows
+    diag[for_rows[on_diag]] = vals[on_diag]
+    meta = dict(n_rows=n_rows, n_cols=n_cols, block_dim=b)
+    if k <= ell_max_width:
+        cols = np.zeros((n_rows, k), dtype=np.int32)
+        ell_vals = np.zeros((n_rows, k) + block_shape, dtype=dtype)
+        cols[for_rows, pos_in_row] = indices
+        ell_vals[for_rows, pos_in_row] = vals
+        arrays = {"cols": cols, "vals": ell_vals, "diag": diag}
+        meta.update(fmt="ell", ell_width=k)
+    else:
+        arrays = {"cols": indices.astype(np.int32),
+                  "vals": vals.astype(dtype), "diag": diag,
+                  "row_ids": for_rows.astype(np.int32)}
+        meta.update(fmt="csr", ell_width=0)
+    if b == 1:
+        if meta["fmt"] == "csr":
+            # the scalar ELL pack is kernel B3's; only a row past the
+            # ELL budget takes the binned planes (kernel B4)
+            _try_binned(csr, 1, dtype, arrays, meta, False)
+    elif _block_native_on(block_native):
+        _try_binned_block(bsr, dtype, arrays, meta)
+    else:
+        # the scalar expansion's planes (kernel B4)
+        _try_binned(bsr, b, dtype, arrays, meta, False)
+    return arrays, meta
+
+
+def assemble_device_matrix(arrays, meta, device) -> DeviceMatrix:
+    """Upload host ``(arrays, meta)`` (:func:`pack_host_arrays`) onto
+    ``device`` as a :class:`DeviceMatrix`; the binned kernels' auxiliary
+    arrays are derived there."""
+    dev = resolve_device(device)
+
+    def up(key):
+        a = arrays.get(key)
+        return None if a is None else \
+            torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    if meta["fmt"] == "dia":
+        b = int(meta.get("block_dim", 1))
+        if b > 1:
+            # (nd, n, b, b) as a view of contiguous (b, b, nd, n)
+            # component planes: each component is one contiguous DIA
+            planes = torch.from_numpy(np.ascontiguousarray(
+                np.transpose(arrays["vals"], (2, 3, 0, 1)))).to(dev)
+            dvals = planes.permute(2, 3, 0, 1)
+            return DeviceMatrix(
+                vals=dvals, diag=up("diag"), n_rows=int(dvals.shape[1]),
+                n_cols=int(meta["n_cols"]),
+                dia_offsets=tuple(int(o) for o in meta["offsets"]),
+                fmt="dia", ell_width=len(meta["offsets"]), block_dim=b)
+        return dia_device_matrix(meta["offsets"], up("vals"), None,
+                                 meta["n_cols"])
+    extra = {}
+    if "bn_dims" in meta:
+        bn_meta, bn_pos = up("bn_meta"), up("bn_pos")
+        tile_ptr, row_of_pos = binned_spmv.kernel_aux(bn_meta, bn_pos,
+                                                      meta["bn_dims"])
+        extra = dict(bn_codes=up("bn_codes"), bn_vals=up("bn_vals"),
+                     bn_meta=bn_meta, bn_pos=bn_pos,
+                     bn_dims=tuple(meta["bn_dims"]), bn_tile_ptr=tile_ptr,
+                     bn_row_of_pos=row_of_pos)
+    return DeviceMatrix(
+        vals=up("vals"), diag=up("diag"), n_rows=int(meta["n_rows"]),
+        n_cols=int(meta["n_cols"]), fmt=meta["fmt"], cols=up("cols"),
+        ell_width=int(meta["ell_width"]),
+        block_dim=int(meta["block_dim"]), row_ids=up("row_ids"), **extra)
+
+
+def pack_device(host, block_dim: int, dtype,
+                ell_max_width: int = ELL_MAX_WIDTH,
+                dia_max_diags: int = DIA_MAX_DIAGS, device="cuda",
+                block_native: Optional[bool] = None) -> DeviceMatrix:
+    """Host pack (:func:`pack_host_arrays`) + upload onto ``device``."""
+    arrays, meta = pack_host_arrays(host, block_dim, dtype, ell_max_width,
+                                    dia_max_diags,
+                                    block_native=block_native)
+    return assemble_device_matrix(arrays, meta, device)
+
+
 class Matrix:
-    """Host-side matrix handle wrapping a scipy CSR and/or DIA arrays plus
-    a cached device pack on ``device`` (default ``"cuda"``; raises when
-    no card is present and ``device="cpu"`` was not asked for)."""
+    """Host-side matrix handle wrapping a scipy CSR (or, for
+    ``block_dim`` b > 1, BSR) and/or DIA arrays plus a cached device pack
+    on ``device`` (default ``"cuda"``; raises when no card is present and
+    ``device="cpu"`` was not asked for)."""
 
     def __init__(self, a=None, block_dim: int = 1, dtype=np.float64,
                  device="cuda"):
         self.placement = resolve_device(device)
         self.dtype = np.dtype(dtype)
-        self._host: Optional[sp.csr_matrix] = None
+        self.block_dim = 1
+        self._host: Optional[sp.spmatrix] = None
         self._device: Optional[DeviceMatrix] = None
         self._device_dtype = None
         self.device_dtype = None
@@ -235,10 +510,14 @@ class Matrix:
         self._device_dtype_pref = None if v is None else numpy_dtype(v)
 
     def set(self, a, block_dim: int = 1):
-        if int(block_dim) != 1:
-            raise NotImplementedError_(
-                "block matrices are a later slice of the port")
-        self._host = sp.csr_matrix(a)
+        """Upload a scipy/dense matrix: a CSR for ``block_dim`` 1, else a
+        BSR of b×b blocks (the scalar size must divide by b)."""
+        b = int(block_dim)
+        if b < 1 or any(d % b for d in np.shape(a)):
+            raise BadParametersError(
+                f"block_dim {b} does not divide the shape {np.shape(a)}")
+        self.block_dim = b
+        self._host = _bsr_from_any(a, b)
         self._host.sort_indices()
         self.dtype = np.dtype(self._host.dtype)
         self._device = None
@@ -250,7 +529,8 @@ class Matrix:
                      "_vals_f32_exact"):
             self.__dict__.pop(attr, None)
         dia = getattr(a, "_amgx_dia", None)
-        if dia is not None and _dia_attach_matches(self._host, dia):
+        if dia is not None and b == 1 and \
+                _dia_attach_matches(self._host, dia):
             self._dia = dia
             self._dia_checked_max = 10**9
         gd = getattr(a, "_amgx_grid_dims", None)
@@ -352,7 +632,8 @@ class Matrix:
         return self.scalar_csr().diagonal()
 
     @property
-    def host(self) -> sp.csr_matrix:
+    def host(self) -> sp.spmatrix:
+        """The host matrix: scipy CSR, or BSR for a block matrix."""
         if self._host is None:
             from ..amg.pairwise import dia_to_scipy
             offs, vals = self.dia_cache()
@@ -369,7 +650,7 @@ class Matrix:
             return self._n_dia[0]
         if self._host is None and self._dia is not None:
             return self._dia[1].shape[1]
-        return self._host.shape[0]
+        return self._host.shape[0] // self.block_dim
 
     @property
     def n_block_cols(self) -> int:
@@ -377,10 +658,13 @@ class Matrix:
             return self._n_dia[1]
         if self._host is None and self._dia is not None:
             return self._dia[1].shape[1]
-        return self._host.shape[1]
+        return self._host.shape[1] // self.block_dim
 
     @property
     def shape(self):
+        """The scalar shape (rows × block_dim, cols × block_dim)."""
+        if self._host is not None:
+            return self._host.shape
         return (self.n_block_rows, self.n_block_cols)
 
     @property
@@ -391,7 +675,7 @@ class Matrix:
         if self._host is None:
             arrs = self.dia_cache()
             return int(np.count_nonzero(arrs[1]))
-        return self._host.nnz
+        return self._host.nnz       # a BSR counts scalars: blocks × b²
 
     def device(self, dtype=None) -> DeviceMatrix:
         """The device pack in ``dtype`` (default: ``device_dtype``, else
@@ -399,10 +683,11 @@ class Matrix:
         dtype = np.dtype(dtype or self.device_dtype or self.dtype)
         if self._device is not None and self._device_dtype == dtype:
             return self._device
-        dia = self.dia_cache(DIA_MAX_DIAGS)
+        dia = self.dia_cache(DIA_MAX_DIAGS) if self.block_dim == 1 \
+            else None
         if dia is not None and (len(dia[0]) == 0 or
                                 self.n_block_rows != self.n_block_cols):
-            dia = None          # empty or rectangular: ELL pack
+            dia = None          # empty or rectangular: ELL/CSR pack
         if dia is not None:
             offs, vals = dia
             dvals = torch.from_numpy(
@@ -411,9 +696,12 @@ class Matrix:
             self._device = dia_device_matrix(offs, dvals, None,
                                              self.n_block_cols)
         else:
-            cols, vals, diag = ell_host_arrays(self.host, dtype)
-            up = lambda a: torch.from_numpy(a).to(self.placement)
-            self._device = ell_device_matrix(up(cols), up(vals), up(diag),
-                                             self.n_block_cols)
+            # the scalar cache above already proved the matrix non-DIA;
+            # block matrices try block-DIA in the pack
+            arrays, meta = pack_host_arrays(
+                self.host, self.block_dim, dtype,
+                dia_max_diags=0 if self.block_dim == 1 else DIA_MAX_DIAGS)
+            self._device = assemble_device_matrix(arrays, meta,
+                                                  self.placement)
         self._device_dtype = dtype
         return self._device

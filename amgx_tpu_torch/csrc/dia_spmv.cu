@@ -17,7 +17,9 @@
 // across a warp, and L1/L2 serve the reuse of x across diagonals.  The
 // offsets travel by value in the kernel-parameter struct.  The kernel
 // checks the column bounds itself (it does not rely on vals being zero
-// outside the matrix), accumulates in x's type, launches on the caller's
+// outside the matrix), accumulates in x's type in diagonal order with
+// each product and sum rounded on its own (no fused multiply-add), so it
+// reproduces its plain version bit for bit, launches on the caller's
 // stream, allocates nothing, and the launcher returns cudaGetLastError().
 // The TPU kernel's (rows, 128) x view, VMEM windows and lane concat are
 // TPU layout rules and are not carried over; nor is its n % 128 == 0,
@@ -52,6 +54,19 @@ __device__ __forceinline__ float widen<float, __nv_bfloat16>(
   return __bfloat162float(v);
 }
 
+__device__ __forceinline__ float mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
 template <typename V, typename X>
 __global__ void __launch_bounds__(kThreads)
     dia_spmv_kernel(const V* __restrict__ vals, const X* __restrict__ x,
@@ -64,7 +79,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int k = 0; k < offs.nd; ++k) {
     const int64_t j = i + offs.off[k];
     if (j >= 0 && j < n_cols) {
-      acc += widen<X>(vals[static_cast<int64_t>(k) * n + i]) * x[j];
+      acc = add(acc, mul(widen<X>(vals[static_cast<int64_t>(k) * n + i]),
+                         x[j]));
     }
   }
   y[i] = acc;

@@ -51,6 +51,25 @@ class FailureKind(str, enum.Enum):
     NAN_POISON = "nan_poison"
     STAGNATION = "stagnation"
     DIVERGENCE = "divergence"
+    KRYLOV_BREAKDOWN = "krylov_breakdown"
+
+
+#: breakdown codes carried by a solver's iteration state (0 = healthy;
+#: values as in ``amgx_tpu.errors``)
+BREAKDOWN_KRYLOV = 1
+BREAKDOWN_NAN = 3
+BREAKDOWN_DIVERGENCE = 4
+
+_BREAKDOWN_KINDS = {
+    BREAKDOWN_KRYLOV: FailureKind.KRYLOV_BREAKDOWN,
+    BREAKDOWN_NAN: FailureKind.NAN_POISON,
+    BREAKDOWN_DIVERGENCE: FailureKind.DIVERGENCE,
+}
+
+
+def breakdown_kind(code: int) -> Optional[FailureKind]:
+    """The :class:`FailureKind` of a breakdown code (None for 0)."""
+    return _BREAKDOWN_KINDS.get(int(code))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +98,11 @@ class BadParametersError(AMGXError):
 class BadConfigurationError(AMGXError):
     def __init__(self, message: str):
         super().__init__(message, RC.BAD_CONFIGURATION)
+
+
+class IOError_(AMGXError):
+    def __init__(self, message: str):
+        super().__init__(message, RC.IO_ERROR)
 
 
 class NotImplementedError_(AMGXError, NotImplementedError):

@@ -14,8 +14,11 @@ from .amg.hierarchy import AMGHierarchy
 from .amg.level import ClassicalLevel, PairwiseLevel, StructuredLevel
 from .config import AMGConfig
 from .core.matrix import (ComposedDIA, DeviceMatrix, Matrix,
-                          dia_device_matrix, ell_device_matrix)
+                          assemble_device_matrix, dia_device_matrix,
+                          ell_device_matrix)
 from .device import resolve_device
+from .solvers.dilu import MulticolorDILUSolver
+from .solvers.gs import ColorSlab
 
 
 def matrix_from_numpy(offsets: Sequence[int], vals: np.ndarray,
@@ -127,3 +130,62 @@ def classical_hierarchy_from_numpy(cfg: AMGConfig, scope: str, levels,
     h._setup_smoothers_and_coarse(Matrix.from_device_pack(
         device_pack_from_numpy(coarsest, dtype, dev)))
     return h
+
+
+#: array fields of a pack (``pack_host_arrays`` names)
+_PACK_ARRAYS = ("vals", "diag", "cols", "row_ids", "bn_codes", "bn_vals",
+                "bn_meta", "bn_pos")
+
+
+def dilu_from_numpy(cfg: AMGConfig, scope: str, Ad: DeviceMatrix,
+                    Einv: np.ndarray, L_slabs, U_slabs,
+                    dtype=None) -> MulticolorDILUSolver:
+    """A set-up :class:`~amgx_tpu_torch.solvers.dilu.MulticolorDILUSolver`
+    from numpy state instead of a setup pass: ``Einv`` ((n,) or
+    (n, b, b)) and, per color, ``(rows, cols, vals)`` of the lower and
+    upper slabs; ``Ad`` is the operator its sweeps' residuals use.  Values
+    are cast to ``dtype`` (default: the pack's)."""
+    dev = Ad.device
+    tdt = Ad.dtype if dtype is None else dtype
+
+    def t(a, floating=True):
+        out = torch.from_numpy(np.array(a)).to(dev)
+        return out.to(tdt) if floating else out
+
+    slv = MulticolorDILUSolver(cfg, scope)
+    slv.A, slv.Ad = None, Ad
+    slv.set_state(t(Einv),
+                  [ColorSlab(t(r, False), t(c, False), t(v))
+                   for r, c, v in L_slabs],
+                  [ColorSlab(t(r, False), t(c, False), t(v))
+                   for r, c, v in U_slabs])
+    return slv
+
+
+def device_matrix_from_fields(other, dtype=None,
+                              device="cuda") -> DeviceMatrix:
+    """The port's pack of another package's device matrix: any object
+    with the JAX package's ``DeviceMatrix`` fields (``fmt``, ``n_rows``,
+    ``n_cols``, ``block_dim``, ``ell_width``, ``dia_offsets``,
+    ``bn_dims`` and the arrays ``vals``, ``diag``, ``cols``, ``row_ids``,
+    ``bn_codes``, ``bn_vals``, ``bn_meta``, ``bn_pos``), each array read
+    through ``np.asarray`` — scalar or block DIA, ELL or CSR, with or
+    without binned planes.  Value arrays are cast to ``dtype`` when it is
+    given; a scalar pack carrying the JAX package's window or shift
+    attachments keeps only its ``cols`` and ``vals``."""
+    arrays = {}
+    for k in _PACK_ARRAYS:
+        a = getattr(other, k, None)
+        if a is None:
+            continue
+        a = np.array(a)
+        if dtype is not None and np.issubdtype(a.dtype, np.floating):
+            a = a.astype(dtype)
+        arrays[k] = a
+    meta = dict(fmt=other.fmt, n_rows=int(other.n_rows),
+                n_cols=int(other.n_cols), block_dim=int(other.block_dim),
+                ell_width=int(other.ell_width),
+                offsets=tuple(other.dia_offsets))
+    if getattr(other, "bn_dims", ()):
+        meta["bn_dims"] = tuple(int(v) for v in other.bn_dims)
+    return assemble_device_matrix(arrays, meta, device)

@@ -42,15 +42,26 @@ def nrmmax(x):
     return torch.max(torch.abs(x))
 
 
-def norm(v, norm_type: str = NORM_L2):
-    """Scalar convergence norm of a vector (block norms are a later
-    slice: this slice's operators are scalar)."""
+def norm(v, norm_type: str = NORM_L2, block_dim: int = 1,
+         use_scalar_norm: bool = True):
+    """Convergence norm of a vector: a 0-d tensor with ``use_scalar_norm``
+    (or block_dim 1), else the per-block-component norms, shape
+    (block_dim,), as the reference's block norms (``norm.cu``;
+    ``use_scalar_norm``, core.cu:542)."""
+    if use_scalar_norm or block_dim == 1:
+        if norm_type in (NORM_L1, NORM_L1_SCALED):
+            r = nrm1(v)
+            return r / v.shape[0] if norm_type == NORM_L1_SCALED else r
+        if norm_type == NORM_LMAX:
+            return nrmmax(v)
+        return nrm2(v)
+    vb = v.reshape(-1, block_dim)
     if norm_type in (NORM_L1, NORM_L1_SCALED):
-        r = nrm1(v)
-        return r / v.shape[0] if norm_type == NORM_L1_SCALED else r
+        r = torch.sum(torch.abs(vb), dim=0)
+        return r / vb.shape[0] if norm_type == NORM_L1_SCALED else r
     if norm_type == NORM_LMAX:
-        return nrmmax(v)
-    return nrm2(v)
+        return torch.amax(torch.abs(vb), dim=0)
+    return torch.sqrt(torch.sum(torch.abs(vb) ** 2, dim=0))
 
 
 def gram_dots(V, w):

@@ -26,14 +26,17 @@ import numpy as np
 import torch
 
 from ..config import AMGConfig
-from ..core.matrix import DeviceMatrix, Matrix, ell_host_arrays
+from ..core.matrix import (DeviceMatrix, Matrix, binned_planes,
+                           dia_arrays_block, ell_host_arrays, ell_layout)
 from ..core.precision import (is_floating, promotion_target,
                               tolerance_floor)
 from ..device import numpy_dtype, torch_dtype
-from ..errors import (BadConfigurationError, BadParametersError,
-                      FailureInfo, FailureKind, NotImplementedError_,
-                      SolveStatus)
+from ..errors import (BREAKDOWN_DIVERGENCE, BREAKDOWN_KRYLOV,
+                      BREAKDOWN_NAN, BadConfigurationError,
+                      BadParametersError, FailureInfo, FailureKind,
+                      NotImplementedError_, SolveStatus, breakdown_kind)
 from ..ops import blas
+from ..ops.binned_spmv import bn_block_dim
 from ..ops.spmv import spmv
 
 
@@ -149,6 +152,7 @@ class Solver:
         self.alt_rel_tolerance = float(g("alt_rel_tolerance"))
         self.convergence = str(g("convergence"))
         self.norm_type = str(g("norm"))
+        self.use_scalar_norm = bool(g("use_scalar_norm"))
         self.monitor_residual = bool(g("monitor_residual"))
         self.store_res_history = bool(g("store_res_history"))
         self.print_solve_stats = bool(g("print_solve_stats"))
@@ -168,8 +172,8 @@ class Solver:
             self.A = None
             self.Ad = A
         self.solver_setup()
-        # new matrix values: a later refined solve rebuilds the residue
-        self.__dict__.pop("_refine_lo", None)
+        # new matrix values: a later refined solve rebuilds its operator
+        self.__dict__.pop("_wide", None)
         if self.Ad.device.type == "cuda":
             torch.cuda.synchronize(self.Ad.device)
         self.setup_time = time.perf_counter() - t0
@@ -208,8 +212,20 @@ class Solver:
             x, state = self.solve_iteration(b, x, state, i)
         return x
 
+    def norm(self, v):
+        """The configured convergence norm of ``v``: per block component
+        for a block operator unless ``use_scalar_norm`` is set."""
+        return blas.norm(v, self.norm_type, self.Ad.block_dim,
+                         self.use_scalar_norm)
+
     def compute_residual_norm(self, b, x):
-        return blas.norm(b - spmv(self.Ad, x), self.norm_type)
+        return self.norm(b - spmv(self.Ad, x))
+
+    def breakdown_code(self, state) -> Optional[torch.Tensor]:
+        """The int32 breakdown code (``errors.BREAKDOWN_*``, 0 = healthy)
+        a solver's iteration state carries, or None for solvers without
+        in-loop guards."""
+        return getattr(state, "brk", None)
 
     # ------------------------------------------------ tolerance and ladder
     def _promotion_plan(self):
@@ -263,15 +279,15 @@ class Solver:
         x0 = None if zero_initial_guess else x0
         t0 = time.perf_counter()
         if refine:
-            self._ensure_refine_data()
-            x, iters, nrm, nrm_ini, history = \
+            x, iters, nrm, nrm_ini, history, fail = \
                 self._solve_refined(b, x0, wide)
         else:
             b = _as_device(b, dtype, dev)
             x0 = torch.zeros_like(b) if x0 is None \
                 else _as_device(x0, dtype, dev)
-            x, iters, nrm, nrm_ini, history, _ = \
+            x, iters, nrm, nrm_ini, history, fail = \
                 self._solve_loop(b, x0, self.tolerance, self.max_iters)
+        brk_code, first_bad = fail
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         solve_time = time.perf_counter() - t0
@@ -290,10 +306,14 @@ class Solver:
             conv = check_convergence(self.convergence, nrm, nrm_ini, nrm_max,
                                      self.tolerance, self.alt_rel_tolerance)
             diverged = bool(np.any(~np.isfinite(nrm)))
+            # a breakdown code with a finite residual reports FAILED: the
+            # guard, not the iteration budget, cut the loop
             status = (SolveStatus.SUCCESS if conv else
-                      (SolveStatus.DIVERGED if diverged
-                       else SolveStatus.NOT_CONVERGED))
-            failure = _classify_failure(conv, diverged, nrm, iters)
+                      (SolveStatus.DIVERGED if diverged else
+                       (SolveStatus.FAILED if brk_code
+                        else SolveStatus.NOT_CONVERGED)))
+            failure = _classify_failure(conv, diverged, brk_code,
+                                        first_bad, nrm, iters)
         else:
             status = SolveStatus.SUCCESS
         keep = self.store_res_history or self.print_solve_stats
@@ -310,20 +330,21 @@ class Solver:
     def _solve_loop(self, b, x0, tolerance, it_limit,
                     final_residual: bool = True):
         """The monitored iteration loop (``_build_solve_fn`` upstream):
-        returns ``(x, iterations, nrm, nrm_ini, history, bad_it)``:
-        norms are host numpy arrays in the solve dtype, ``history``
-        stacks the monitored norms, ``bad_it`` is the first iteration
-        whose norm was not finite (-1 if none)."""
+        returns ``(x, iterations, nrm, nrm_ini, history, fail)``: norms
+        are host numpy arrays in the solve dtype (one entry, or one per
+        block component), ``history`` stacks the monitored norms, ``fail``
+        is ``(breakdown code, first bad iteration)`` — ``(0, -1)`` for a
+        healthy loop.  A solver's breakdown code is fetched with the
+        norm, in the iteration's one host sync."""
         monitor = self.monitor_residual
         crit, alt = self.convergence, self.alt_rel_tolerance
-        nrm_ini = host_norm(blas.norm(b - spmv(self.Ad, x0),
-                                      self.norm_type))
+        nrm_ini = host_norm(self.norm(b - spmv(self.Ad, x0)))
         state = self.solve_init(b, x0)
         hist = [nrm_ini]
         nrm = nmax = nrm_ini
         done = monitor and check_convergence(crit, nrm_ini, nrm_ini,
                                              nrm_ini, tolerance, alt)
-        x, it, bad_it = x0, 0, -1
+        x, it, brk, bad_it = x0, 0, 0, -1
         limit = min(int(it_limit), self.max_iters)
         while not done and it < limit:
             x, state = self.solve_iteration(b, x, state, it)
@@ -331,52 +352,109 @@ class Solver:
                 est = self.residual_norm_estimate(b, x, state)
                 if est is None:
                     est = self.compute_residual_norm(b, x)
-                nrm = host_norm(est)
+                code_t = self.breakdown_code(state)
+                if code_t is None:
+                    nrm, code = host_norm(est), 0
+                else:
+                    est = torch.as_tensor(est, device=code_t.device)
+                    got = host_norm(torch.cat([
+                        est.reshape(-1).to(torch.float64),
+                        code_t.reshape(1).to(torch.float64)]))
+                    nrm = got[:-1].astype(hist[0].dtype)
+                    code = int(got[-1])
+                # a Krylov breakdown is provisional: it sticks only while
+                # the monitored residual is alive
+                if code == BREAKDOWN_KRYLOV and not np.any(nrm > 0):
+                    code = 0
+                if brk == 0 and code != 0:
+                    brk, bad_it = code, it + 1
                 nmax = np.maximum(nmax, nrm)
                 done = check_convergence(crit, nrm, nrm_ini, nmax,
                                          tolerance, alt)
-                if not np.all(np.isfinite(nrm)):
+                if brk == 0 and not np.all(np.isfinite(nrm)):
+                    brk = BREAKDOWN_NAN if np.any(np.isnan(nrm)) \
+                        else BREAKDOWN_DIVERGENCE
                     bad_it = it + 1
-                    done = True
+                done = done or brk != 0
             hist.append(nrm)
             it += 1
         x = self.solve_finalize(b, x, state)
         if monitor and final_residual:
             nrm = host_norm(self.compute_residual_norm(b, x))
-        return x, it, nrm, nrm_ini, np.stack(hist), bad_it
+        return x, it, nrm, nrm_ini, np.stack(hist), (brk, bad_it)
 
     # -------------------------------------------------- defect correction
-    def _ensure_refine_data(self):
-        """The rounding residue ``lo = vals64 − vals64(pack)`` that makes
-        the wide operator exact (``base.py:1617-1665`` upstream); None for
-        operators exactly representable in the pack dtype."""
-        if hasattr(self, "_refine_lo"):
-            return
-        pdt = numpy_dtype(self.Ad.dtype)
-        if pdt == np.float32 and getattr(self.A, "_vals_f32_exact", False):
-            self._refine_lo = None
-            return
-        if self.Ad.fmt == "ell":
-            # the host ELL layout is deterministic: the same slots as
-            # the narrow pack's
-            _, vals, _ = ell_host_arrays(self.A.host, np.float64)
-        else:
-            offs, vals = self.A.dia_cache()
-            assert tuple(offs) == tuple(self.Ad.dia_offsets)
-        vals64 = vals.astype(np.float64, copy=False)
-        lo = (vals64 - vals64.astype(pdt).astype(np.float64)) \
-            .astype(np.float32)
-        self._refine_lo = torch.from_numpy(lo).to(self.Ad.device) \
-            if np.any(lo) else None
-
     def _wide_pack(self, wide) -> DeviceMatrix:
-        """The wide device pack of the exact host operator."""
+        """The wide device pack of the exact host operator
+        (``base.py:1617-1710`` upstream), built at the first refined
+        solve after a setup and kept until the next.  Values exactly
+        representable in the pack dtype widen on the device.  Otherwise
+        a binned pack takes planes packed from the host values in
+        ``wide`` (the lanes depend on the pattern alone), and the other
+        packs take their ``vals`` rebuilt on the host in ``wide``
+        (:meth:`_host_pack_vals64`).  A binned pack keeps only its
+        planes: the wide SpMV runs B4/B5 on them and never reads the
+        gather-form arrays.  No host copy outlives the upload."""
+        cached = self.__dict__.get("_wide")
+        if cached is not None and cached[0] == wide:
+            return cached[1]
         wdt = torch_dtype(wide)
-        Ad64 = self.Ad.astype(wdt)
-        if self._refine_lo is not None:
+        Ad = self.Ad
+        pdt = numpy_dtype(Ad.dtype)
+        binned = Ad.bn_codes is not None
+        if binned:
+            Ad = dataclasses.replace(Ad, vals=None, cols=None,
+                                     row_ids=None)
+        if pdt == np.float32 and getattr(self.A, "_vals_f32_exact", False):
+            exact = True
+        else:
+            host = np.asarray(self.A.host.data) if binned \
+                else self._host_pack_vals64()
+            exact = _representable(host, pdt)
+        if exact:
+            Ad64 = Ad.astype(wdt)
+        elif binned:
+            native = bn_block_dim(Ad.bn_dims) > 1
+            arrays, dims = binned_planes(self.A.host, Ad.block_dim, wide,
+                                         native)
+            assert tuple(dims) == tuple(Ad.bn_dims)
             Ad64 = dataclasses.replace(
-                Ad64, vals=Ad64.vals + self._refine_lo.to(wdt))
+                dataclasses.replace(Ad, bn_vals=None).astype(wdt),
+                bn_vals=torch.from_numpy(arrays["bn_vals"]).to(Ad.device))
+        else:
+            # the narrow pack's strides: block-DIA keeps each component
+            # plane contiguous
+            vals64 = torch.empty_strided(
+                Ad.vals.shape, Ad.vals.stride(), dtype=wdt,
+                device=Ad.device).copy_(torch.from_numpy(host))
+            Ad64 = dataclasses.replace(
+                dataclasses.replace(Ad, vals=None).astype(wdt),
+                vals=vals64)
+        self._wide = (wide, Ad64)
         return Ad64
+
+    def _host_pack_vals64(self) -> np.ndarray:
+        """The device pack's ``vals`` layout rebuilt on the host in f64
+        (mirrors :func:`~amgx_tpu_torch.core.matrix.pack_host_arrays`)."""
+        Ad = self.Ad
+        if Ad.fmt == "dia" and Ad.block_dim > 1:
+            offs, vals = dia_arrays_block(self.A.host)
+            assert tuple(offs) == tuple(Ad.dia_offsets)
+            return vals.astype(np.float64, copy=False)
+        if Ad.fmt == "dia":
+            offs, vals = self.A.dia_cache()
+            assert tuple(offs) == tuple(Ad.dia_offsets)
+            return vals.astype(np.float64, copy=False)
+        if Ad.block_dim == 1 and Ad.fmt == "ell":
+            return ell_host_arrays(self.A.host, np.float64)[1]
+        host = self.A.host
+        if Ad.fmt == "csr":
+            return np.asarray(host.data, dtype=np.float64)
+        for_rows, pos, k = ell_layout(host.indptr, host.indices)
+        b = Ad.block_dim
+        out = np.zeros((Ad.n_rows, k, b, b), dtype=np.float64)
+        out[for_rows, pos] = host.data
+        return out
 
     def _solve_refined(self, b, x0, wide):
         """Mixed-precision iterative refinement (``base.py:1755-1899``
@@ -418,37 +496,52 @@ class Solver:
         b64 = widen(*split(b))
         x64 = torch.zeros_like(b64) if x0 is None else widen(*split(x0))
         r64 = b64 - spmv(Ad64, x64)
-        nrm_ini = host_norm(blas.norm(r64, self.norm_type))
-        hist = np.zeros((self.max_iters + 1, 1), hist_dt)
+        nrm_ini = host_norm(self.norm(r64))
+        m = nrm_ini.shape[0]
+        hist = np.zeros((self.max_iters + 1, m), hist_dt)
         hist[0] = nrm_ini.astype(hist_dt)
         nrm = nrm_ini
         done = check_convergence(crit, nrm_ini, nrm_ini, nrm_ini,
                                  self.tolerance, alt)
-        it_tot, k, bad = 0, 0, False
+        it_tot, k, fail = 0, 0, (0, -1)
         while not done and it_tot < self.max_iters and k < max_outer:
             scale = torch.clamp(torch.max(torch.abs(r64)), min=tiny)
             rb = (r64 / scale).to(dtype)
-            dx, it, _, _, h_in, bad_it = self._solve_loop(
+            dx, it, _, _, h_in, f_in = self._solve_loop(
                 rb, torch.zeros_like(rb), inner_tol,
                 self.max_iters - it_tot, final_residual=False)
-            bad = bad or bad_it >= 0
+            # the first inner breakdown wins, re-based onto the global
+            # iteration count
+            if fail[0] == 0 and f_in[0] != 0:
+                fail = (f_in[0], it_tot + f_in[1])
             x64 = x64 + scale * dx.to(wdt)
             r64 = b64 - spmv(Ad64, x64)
-            nrm_t = blas.norm(r64, self.norm_type)
+            nrm_t = self.norm(r64)
             if keep_history:
-                fetched = host_norm(torch.stack([nrm_t, scale]))
-                nrm = fetched[:1]
+                fetched = host_norm(torch.cat([nrm_t.reshape(-1),
+                                               scale.reshape(1)]))
+                nrm = fetched[:-1]
                 rows = h_in[1:it + 1].astype(hist_dt) * hist_dt.type(
-                    fetched[1])
-                hist[it_tot + 1:it_tot + it + 1] = rows
+                    fetched[-1])
+                hist[it_tot + 1:it_tot + it + 1] = rows.reshape(-1, m)
             else:
                 nrm = host_norm(nrm_t)
             done = check_convergence(crit, nrm, nrm_ini, nrm_ini,
                                      self.tolerance, alt) \
-                or not np.all(np.isfinite(nrm)) or bad
+                or not np.all(np.isfinite(nrm)) or fail[0] != 0
             it_tot += it
             k += 1
-        return x64, it_tot, nrm, nrm_ini, hist
+        return x64, it_tot, nrm, nrm_ini, hist, fail
+
+
+def _representable(vals64: np.ndarray, pdt) -> bool:
+    """Every value of ``vals64`` survives the round trip through ``pdt``
+    (chunked, stopping at the first chunk that does not)."""
+    flat = vals64.reshape(-1)
+    step = 1 << 22
+    return all(np.array_equal(c.astype(pdt).astype(c.dtype), c)
+               for c in (flat[s:s + step]
+                         for s in range(0, flat.size, step)))
 
 
 def _as_device(v, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
@@ -457,11 +550,20 @@ def _as_device(v, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(v), dtype=dtype, device=dev)
 
 
-def _classify_failure(conv: bool, diverged: bool, nrm,
-                      iters: int) -> Optional[FailureInfo]:
-    """The terminal :class:`FailureInfo` of a monitored solve."""
+def _classify_failure(conv: bool, diverged: bool, brk_code: int,
+                      first_bad: int, nrm, iters: int
+                      ) -> Optional[FailureInfo]:
+    """The terminal :class:`FailureInfo` of a monitored solve: the
+    in-loop guard's code wins (with its first bad iteration); a
+    non-finite final norm without one classifies by NaN against inf;
+    anything else that burned the budget is stagnation."""
     if conv:
         return None
+    if brk_code:
+        kind = breakdown_kind(brk_code)
+        if kind is not None:
+            return FailureInfo(kind=kind, iteration=first_bad
+                               if first_bad >= 0 else None)
     if diverged:
         nan = bool(np.any(np.isnan(nrm)))
         return FailureInfo(kind=(FailureKind.NAN_POISON if nan

@@ -20,6 +20,22 @@ def invert_diag(d: torch.Tensor) -> torch.Tensor:
     return torch.where(d != 0, 1.0 / safe, torch.zeros_like(d))
 
 
+def apply_dinv(dinv: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """D⁻¹·v for a scalar (n,) or block (n, b, b) inverse diagonal and a
+    flat vector (``_apply_dinv`` upstream).  The b×b form adds each row's
+    b products left to right, one elementwise op at a time: a batched
+    matrix product orders and fuses them its own way on each device, and
+    the card's f32 results then differ from the CPU's."""
+    if dinv.dim() == 1:
+        return dinv * v
+    b = dinv.shape[-1]
+    p = dinv * v.reshape(-1, 1, b)
+    out = p[..., 0]
+    for c in range(1, b):
+        out = out + p[..., c]
+    return out.reshape(-1)
+
+
 def setup_dinv(slv) -> torch.Tensor:
     """The inverted diagonal of a smoother's operator: the one the
     hierarchy derived on the device with the level when present, else

@@ -1,7 +1,12 @@
-"""Krylov solvers: CG, PCG and flexible GMRES (port of ``_PrecondMixin``,
-``CGSolver``, ``PCGSolver``, ``_GMRESBase`` and ``FGMRESSolver`` of
-``amgx_tpu/solvers/krylov.py``; reference ``core/src/solvers/
-{cg,pcg,fgmres}_solver.cu``).
+"""Krylov solvers: CG, PCG, BiCGStab and flexible GMRES (port of
+``_PrecondMixin``, ``CGSolver``, ``PCGSolver``, ``_BiCGStabBase``,
+``BiCGStabSolver``, ``PBiCGStabSolver``, ``_GMRESBase`` and
+``FGMRESSolver`` of ``amgx_tpu/solvers/krylov.py``; reference
+``core/src/solvers/{cg,pcg,bicgstab,pbicgstab,fgmres}_solver.cu``).
+
+BiCGStab keeps ρ, α, ω and its breakdown code as 0-d device tensors; the
+code (``errors.BREAKDOWN_KRYLOV`` when r ⊥ r*) rides the iteration's one
+host fetch with the residual norm.
 
 CG/PCG run the CLASSIC communication mode only (two reductions per
 iteration); CA and PIPELINED raise.  α and β stay 0-d device tensors
@@ -31,7 +36,7 @@ import scipy.linalg
 import torch
 
 from ..device import numpy_dtype
-from ..errors import NotImplementedError_
+from ..errors import BREAKDOWN_KRYLOV, NotImplementedError_
 from ..ops import blas
 from ..ops.spmv import spmv
 from .base import Solver, SolverFactory, register_solver
@@ -107,7 +112,7 @@ class CGSolver(Solver):
         return x, _CGState(r=r, p=z + beta * st.p, rz=rz_new)
 
     def residual_norm_estimate(self, b, x, st: _CGState):
-        return blas.norm(st.r, self.norm_type)
+        return self.norm(st.r)
 
 
 @dataclasses.dataclass
@@ -227,7 +232,8 @@ class _GMRESBase(Solver):
         return st.x_base, st
 
     def residual_norm_estimate(self, b, x, st):
-        if self.norm_type == "L2":
+        if self.norm_type == "L2" and (self.use_scalar_norm or
+                                       self.Ad.block_dim == 1):
             return st.quasi_res
         return None
 
@@ -256,3 +262,90 @@ class PCGSolver(_PrecondMixin, CGSolver):
 class FGMRESSolver(_PrecondMixin, _GMRESBase):
     """Flexible GMRES: stores the preconditioned vectors Z so the
     preconditioner (an AMG cycle) may change every iteration."""
+
+
+@dataclasses.dataclass
+class _BiCGStabState:
+    r: torch.Tensor
+    r_star: torch.Tensor
+    p: torch.Tensor
+    v: torch.Tensor
+    rho: torch.Tensor
+    alpha: torch.Tensor
+    omega: torch.Tensor
+    brk: torch.Tensor      # int32 breakdown code (errors.BREAKDOWN_*)
+
+
+def _safe(d: torch.Tensor) -> torch.Tensor:
+    return torch.where(d == 0, torch.ones_like(d), d)
+
+
+def _wide(v: torch.Tensor) -> torch.Tensor:
+    return v.double() if v.dtype == torch.float32 else v
+
+
+def _wdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x·y for BiCGStab's scalars.  An f32 pair is summed in f64 and
+    rounded once: the card and the CPU order their partial sums
+    differently, and BiCGStab's iteration count in f32 follows the
+    rounding of ρ, α and ω, so this keeps the two devices' counts
+    together (the products of two f32 values are exact in f64)."""
+    return blas.dot(_wide(x), _wide(y)).to(x.dtype)
+
+
+class _BiCGStabBase(Solver):
+    """BiCGStab skeleton; ``_M`` hooks (right) preconditioning."""
+
+    def _M(self, r):
+        return r
+
+    def solve_init(self, b, x):
+        r = b - spmv(self.Ad, x)
+        one = torch.ones((), dtype=r.dtype, device=r.device)
+        return _BiCGStabState(
+            r=r, r_star=r, p=torch.zeros_like(r), v=torch.zeros_like(r),
+            rho=one, alpha=one, omega=one,
+            brk=torch.zeros((), dtype=torch.int32, device=r.device))
+
+    def solve_iteration(self, b, x, st: _BiCGStabState, iter_idx: int):
+        rho_new = _wdot(st.r_star, st.r)
+        # the serious breakdown r ⊥ r*: provisional (the monitor drops it
+        # when the residual is dead, i.e. ordinary convergence)
+        brk = torch.where((st.brk == 0) & (rho_new == 0),
+                          torch.full_like(st.brk, BREAKDOWN_KRYLOV),
+                          st.brk)
+        beta = (rho_new / _safe(st.rho)) * (st.alpha / _safe(st.omega))
+        p = st.r + beta * (st.p - st.omega * st.v)
+        p_hat = self._M(p)
+        v = spmv(self.Ad, p_hat)
+        alpha = rho_new / _safe(_wdot(st.r_star, v))
+        s = st.r - alpha * v
+        s_hat = self._M(s)
+        t = spmv(self.Ad, s_hat)
+        tt = _wdot(t, t)
+        omega = torch.where(tt != 0, _wdot(t, s) / _safe(tt),
+                            torch.zeros_like(tt))
+        x = x + alpha * p_hat + omega * s_hat
+        r = s - omega * t
+        return x, _BiCGStabState(r=r, r_star=st.r_star, p=p, v=v,
+                                 rho=rho_new, alpha=alpha, omega=omega,
+                                 brk=brk)
+
+    def residual_norm_estimate(self, b, x, st: _BiCGStabState):
+        return self.norm(_wide(st.r)).to(st.r.dtype)
+
+
+@register_solver("BICGSTAB")
+class BiCGStabSolver(_BiCGStabBase):
+    """Reference ``bicgstab_solver.cu``."""
+
+
+@register_solver("PBICGSTAB")
+class PBiCGStabSolver(_PrecondMixin, _BiCGStabBase):
+    """Right-preconditioned BiCGStab (reference ``pbicgstab_solver.cu``)."""
+
+    def solver_setup(self):
+        self._setup_preconditioner(True)
+
+    def _M(self, r):
+        return self._apply_M(r)

@@ -45,9 +45,35 @@ exits non-zero (no phase is caught):
     same on the CPU: equal per-level rows and iteration counts, final x
     within ``SMALL_X_RTOL``;
 12. where a classical setup and a warm classical solve spend their time
-    (``torch.profiler``).
+    (``torch.profiler``);
+13. the config-4 path: BASELINE config 4 (PBICGSTAB + MULTICOLOR_DILU)
+    on the SPE10-grid 4×4 block system (60 × 220 × 85 cells, 5 % inactive,
+    f32 pack, f64 refinement) driven through the public API with every
+    count set to 0 just before and read just after: iterations, the true
+    relative residual in f64, setup / first / warm solve, colors, peak
+    memory, dispatch (every SpMV ``ell/binned-block``, kernel B5; no
+    decline), launches by kernel and type pair, the device's busy share
+    of a warm solve (``torch.profiler``);
+14. the same solve with ``AMGX_BLOCK_NATIVE=0``: the scalar-expansion
+    planes, every SpMV ``ell/binned`` (kernel B4), iterations within
+    ``EXPANSION_COUNT_SLACK`` of phase 13's;
+15. B4 and B5 against their plain versions on the card in every type
+    pair, each row to its own relative limit: the path's own packs, b = 2,
+    3 and 5 packs of the gauntlet builders, ``scattered_block_operator``,
+    a pack with empty tiles and a scalar CSR pack with a row wider than
+    2048;
+16. B5 and B4 times at full width (CUDA events, median of 30): kernel,
+    plain version, one cuSPARSE SpMV of the same matrix, the bound over
+    the padded planes and over the stored entries;
+17. the bench's 16³ config-4 case (``kron(poisson7pt, I₄)``, block-DIA,
+    B1 as 16 component dispatches) on the card against the CPU (equal
+    iterations, x within ``SMALL_X_RTOL``), and B1 against its plain
+    version on each of that pack's 16 component planes as the path
+    passes them, in (f32, f32) and (f64, f64);
+18. the 30 × 110 × 43 masked system on the card against the CPU (equal
+    iterations, x within ``SMALL_X_RTOL``).
 
-Then one JSON line of the paths' kernels and, last, the contract line
+Then one JSON line of the three paths' kernels and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.
@@ -59,6 +85,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 #: H100 SXM datasheet: HBM3 bandwidth and vector (non-tensor) peaks
 PEAK_BYTES_PER_S = 3.35e12
@@ -88,6 +116,22 @@ CFG_CLA = (
     "amg:max_levels=16, amg:smoother(sm)=JACOBI_L1, "
     "sm:max_iters=1, amg:presweeps=2, amg:postsweeps=2, "
     "amg:min_coarse_rows=32, amg:coarse_solver=DENSE_LU_SOLVER")
+#: BASELINE config 4 (bench.py:1586-1590): PBICGSTAB + MULTICOLOR_DILU
+CFG4 = (
+    "config_version=2, solver(out)=PBICGSTAB, out:max_iters=200, "
+    "out:monitor_residual=1, out:tolerance=1e-8, "
+    "out:convergence=RELATIVE_INI, "
+    "out:preconditioner(pre)=MULTICOLOR_DILU, pre:max_iters=1")
+#: the mid-size masked grid of the card-against-CPU check (the JAX
+#: package takes 26 iterations on it on the CPU)
+MID_GRID = (30, 110, 43)
+#: config 4 on the block-native planes against the scalar expansion:
+#: each scalar row sums its products in another order (per scalar entry,
+#: not per 4×4 block), so the f32 SpMVs differ in the last bits and
+#: BiCGStab's f32 recurrences may move the count by one
+EXPANSION_COUNT_SLACK = 1
+#: per-row limits of the binned kernels against their plain versions
+BINNED_TOL = {"f32": 1e-5, "bf16": 1e-5, "f64": 1e-12}
 SEED = 20261016
 #: the 24³ classical solve on the card against the CPU: final x within
 #: this relative 2-norm (the CPU parity tests hold the port to the JAX
@@ -127,30 +171,59 @@ def check_kernel(dev, gen, name, vals64, offsets, pairs, errs):
     """Kernel vs plain version for every (vals, x) pair on ``vals64``,
     per row to a relative 1e-5 (f32 x) or 1e-12 (f64 x)."""
     import torch
-    from amgx_tpu_torch.ops import dia_spmv as dmod
     n = vals64.shape[1]
-    absmax = vals64.abs().max().item()
     for vdt, xdt in pairs:
-        vals = vals64.to(vdt).contiguous()
         x = torch.randn(n, dtype=torch.float64, device=dev,
                         generator=gen).to(xdt)
-        before = dmod.launch_count()
-        y = dmod.dia_spmv(vals, x, offsets)
-        torch.cuda.synchronize(dev)
-        assert dmod.launch_count() == before + 1, "launch not counted"
-        ref = dmod.dia_spmv_reference(vals, x, offsets)
-        assert y.dtype == ref.dtype == xdt and y.shape == (n,)
-        scale = dmod.dia_spmv_reference(vals.double().abs(),
-                                        x.double().abs(), offsets)
-        diff, rel = row_errors(y, ref, scale)
-        tol = 1e-12 if xdt == torch.float64 else 1e-5
-        assert torch.isfinite(y).all().item(), (name, vdt, xdt)
-        assert rel < tol, (name, short(vdt), short(xdt), diff, rel)
-        record(errs, f"{short(vdt)}.{short(xdt)}", diff, rel)
-        emit("kernel_check", case=name, n=n, nd=len(offsets),
-             max_offset=max(abs(o) for o in offsets), vals_absmax=absmax,
-             vals=short(vdt), x=short(xdt), max_abs_err=diff,
-             max_row_rel_err=rel, tol=tol)
+        check_dia_once(name, vals64.to(vdt).contiguous(), x, offsets, errs)
+
+
+def check_dia_once(name, vals, x, offsets, errs, **extra):
+    """One B1 launch on ``vals``/``x`` as given (storage offsets
+    included) against the plain version, per row to a relative 1e-5
+    (f32 x) or 1e-12 (f64 x)."""
+    import torch
+    from amgx_tpu_torch.ops import dia_spmv as dmod
+    n, vdt, xdt = vals.shape[1], vals.dtype, x.dtype
+    before = dmod.launch_count()
+    y = dmod.dia_spmv(vals, x, offsets)
+    torch.cuda.synchronize(x.device)
+    assert dmod.launch_count() == before + 1, "launch not counted"
+    ref = dmod.dia_spmv_reference(vals, x, offsets)
+    assert y.dtype == ref.dtype == xdt and y.shape == (n,)
+    scale = dmod.dia_spmv_reference(vals.double().abs(),
+                                    x.double().abs(), offsets)
+    diff, rel = row_errors(y, ref, scale)
+    tol = 1e-12 if xdt == torch.float64 else 1e-5
+    assert torch.isfinite(y).all().item(), (name, vdt, xdt)
+    assert rel < tol, (name, short(vdt), short(xdt), diff, rel)
+    record(errs, f"{short(vdt)}.{short(xdt)}", diff, rel)
+    emit("kernel_check", case=name, n=n, nd=len(offsets),
+         max_offset=max(abs(o) for o in offsets),
+         vals_absmax=vals.abs().max().item(), vals=short(vdt),
+         x=short(xdt), max_abs_err=diff, max_row_rel_err=rel, tol=tol,
+         **extra)
+
+
+def check_block_dia(dev, gen, name, P, errs):
+    """B1 on every b² component plane of a block-DIA pack, passed as
+    ``_bdia_spmv`` passes them: the plane ``vals[:, :, a, c]`` (a
+    contiguous slice at its own storage offset) against row c of the
+    (b, n) transposed x."""
+    import torch
+    b, n = P.block_dim, P.n_rows
+    nd = len(P.dia_offsets)
+    x = torch.randn(n * b, dtype=torch.float64, device=dev,
+                    generator=gen).to(P.dtype)
+    xt = x.reshape(n, b).T.contiguous()
+    for a in range(b):
+        for c in range(b):
+            plane = P.vals[:, :, a, c]
+            assert plane.is_contiguous() and \
+                plane.storage_offset() == (a * b + c) * nd * n, (a, c)
+            check_dia_once(name, plane, xt[c], P.dia_offsets, errs,
+                           component=[a, c],
+                           storage_offset=plane.storage_offset())
 
 
 def time_ms(fn, dev, reps=30, warm=5):
@@ -285,6 +358,381 @@ def profile_window(fn):
             top)
 
 
+def reset_counts() -> None:
+    """Every launch and dispatch count to 0."""
+    from amgx_tpu_torch.ops import binned_spmv as bmod
+    from amgx_tpu_torch.ops import dia_spmv as dmod
+    from amgx_tpu_torch.ops import ell_spmv as emod
+    from amgx_tpu_torch.ops import spmv as smod
+    dmod.reset_launches()
+    emod.reset_launches()
+    bmod.reset_launches()
+    smod.reset_dispatch()
+
+
+def read_counts() -> dict:
+    from amgx_tpu_torch.ops import binned_spmv as bmod
+    from amgx_tpu_torch.ops import dia_spmv as dmod
+    from amgx_tpu_torch.ops import ell_spmv as emod
+    from amgx_tpu_torch.ops import spmv as smod
+    return dict(dispatch={k: v for k, v in smod.DISPATCH.items() if v},
+                declines={k: smod.DISPATCH[k] for k in smod.DECLINES},
+                B1=dict(dmod.LAUNCHES), B3=dict(emod.LAUNCHES),
+                B4=dict(bmod.LAUNCHES["B4"]), B5=dict(bmod.LAUNCHES["B5"]))
+
+
+def binned_bound(entries, b, n, n_cols, vdt, xdt):
+    """(bound_ms, bound_by) of one binned SpMV over ``entries`` lanes (or
+    stored blocks): a code and b² values read once per entry, x read
+    once, y written once, vs 2·b²·entries operations at the peak rate."""
+    nbytes = entries * (4 + b * b * vdt.itemsize) \
+        + (n_cols + n) * b * xdt.itemsize
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 2 * b * b * entries / PEAK_FLOPS[short(xdt)]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_binned(dev, gen, name, Ad, vdt, errs):
+    """B4/B5 vs the plain version on one pack, its planes cast to ``vdt``
+    (x in f64 for f64 planes, else f32), every row to its own relative
+    limit: the row's error over its Σ_j |a_ij·x_j|."""
+    import torch
+    from amgx_tpu_torch.ops import binned_spmv as bmod
+    b = bmod.bn_block_dim(Ad.bn_dims)
+    M = Ad.astype(vdt)
+    xdt = torch.float64 if vdt == torch.float64 else torch.float32
+    m = int(Ad.bn_dims[8]) * b
+    x = torch.randn(m, dtype=torch.float64, device=dev,
+                    generator=gen).to(xdt)
+    kern = "B4" if b == 1 else "B5"
+    before = bmod.launch_count(kern)
+    y = bmod.binned_spmv(M, x)
+    torch.cuda.synchronize(dev)
+    assert bmod.launch_count(kern) == before + 1, "launch not counted"
+    ref = bmod.binned_spmv_reference(M.bn_codes, M.bn_vals, M.bn_meta,
+                                     M.bn_pos, M.bn_dims, x)
+    assert y.dtype == ref.dtype == xdt and y.shape == ref.shape
+    assert torch.isfinite(y).all().item(), (name, vdt)
+    scale = bmod.binned_spmv_reference(
+        M.bn_codes, M.bn_vals.double().abs(), M.bn_meta, M.bn_pos,
+        M.bn_dims, x.double().abs())
+    diff, rel = row_errors(y, ref, scale)
+    tol = BINNED_TOL[short(vdt)]
+    assert rel < tol, (name, short(vdt), diff, rel)
+    key = f"{kern}.{short(vdt)}.{short(xdt)}"
+    record(errs, key, diff, rel)
+    emit("binned_check", case=name, kernel=kern, b=b, rows=int(
+        Ad.bn_dims[7]), lanes=int(Ad.bn_codes.numel()),
+         chunks_on_zero_block=zero_block_chunks(Ad),
+         vals=short(vdt), x=short(xdt), max_abs_err=diff,
+         max_row_rel_err=rel, tol=tol)
+
+
+def zero_block_chunks(Ad) -> int:
+    """Chunks of the pack that read an all-zero plane block: the dummy
+    chunks of tiles with no entry (a real chunk holds a nonzero)."""
+    C = int(Ad.bn_dims[0])
+    nblk = Ad.bn_codes.numel() // 1024
+    zero = (Ad.bn_vals.reshape(-1, nblk, 1024) == 0).all(-1).all(0)
+    return int(zero[Ad.bn_meta[C:2 * C].long()].sum().item())
+
+
+def bsr_of_pack(bsr_host, dt, dev):
+    """The same operator for the library yardstick: a torch BSR
+    (cuSPARSE bsrmv) of the host BSR."""
+    import torch
+    return torch.sparse_bsr_tensor(
+        torch.from_numpy(bsr_host.indptr.astype(np.int64)).to(dev),
+        torch.from_numpy(bsr_host.indices.astype(np.int64)).to(dev),
+        torch.from_numpy(bsr_host.data).to(dev, dt),
+        size=bsr_host.shape)
+
+
+def csr_of_host(csr_host, dt, dev):
+    import torch
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(csr_host.indptr.astype(np.int64)).to(dev),
+        torch.from_numpy(csr_host.indices.astype(np.int64)).to(dev),
+        torch.from_numpy(csr_host.data).to(dev, dt), size=csr_host.shape)
+
+
+def library_of(bsr_host, csr_host, dt, dev):
+    """The library yardstick of a block SpMV: ``("cusparse-bsr", BSR
+    tensor)`` when this PyTorch multiplies a CUDA BSR tensor by a vector,
+    else ``("cusparse-csr", CSR tensor of the scalar expansion)``."""
+    import torch
+    lib = bsr_of_pack(bsr_host, dt, dev)
+    x = torch.ones(bsr_host.shape[1], dtype=dt, device=dev)
+    try:
+        y = lib @ x
+        torch.cuda.synchronize(dev)
+    except (RuntimeError, NotImplementedError) as e:
+        emit("library_choice", bsr_refused=str(e)[:200])
+        return "cusparse-csr", csr_of_host(csr_host, dt, dev)
+    assert y.shape == (bsr_host.shape[0],)
+    return "cusparse-bsr", lib
+
+
+def time_binned(dev, gen, label, Ad, lib, nnz_stored, dt, smi):
+    """Kernel, plain version and library times of one binned pack in
+    ``dt``, with the bound over the padded lanes and over the stored
+    entries (the latter is the bound of the work)."""
+    import torch
+    from amgx_tpu_torch.ops import binned_spmv as bmod
+    b = bmod.bn_block_dim(Ad.bn_dims)
+    M = Ad.astype(dt)
+    n, m = int(Ad.bn_dims[7]) * b, int(Ad.bn_dims[8]) * b
+    x = torch.randn(m, dtype=dt, device=dev, generator=gen)
+    ms = time_ms(lambda: bmod.binned_spmv(M, x), dev)
+    plain_ms = time_ms(lambda: bmod.binned_spmv_reference(
+        M.bn_codes, M.bn_vals, M.bn_meta, M.bn_pos, M.bn_dims, x), dev)
+    library, lib = lib
+    library_ms = time_ms(lambda: lib @ x, dev)
+    L = int(Ad.bn_codes.numel())
+    pad_ms, _ = binned_bound(L, b, n // b, m // b, dt, dt)
+    bound_ms, bound_by = binned_bound(nnz_stored, b, n // b, m // b, dt,
+                                      dt)
+    out = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
+    emit("binned_timing", pack=label, b=b, lanes=L, stored=nnz_stored,
+         type=short(dt), card=smi, library=library, padded_bound_ms=pad_ms,
+         padded_gbs=(L * (4 + b * b * dt.itemsize) + 2 * n * dt.itemsize)
+         / (ms * 1e-3) / 1e9, **out)
+    return out
+
+
+def config4_solve(amgx, A_host, dev, block_native, smi, label,
+                  profile=False):
+    """One config-4 solve through the public API with every count set to
+    0 just before and read just after: (result, counts, facts)."""
+    import torch
+    b = torch.ones(A_host.shape[0], dtype=torch.float64, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    m = amgx.Matrix(A_host, block_dim=4, device="cuda")
+    m.device_dtype = np.float32
+    # the JAX package's knob for the scalar-expansion planes, read when
+    # setup packs the matrix
+    os.environ["AMGX_BLOCK_NATIVE"] = "1" if block_native else "0"
+    slv = amgx.create_solver(CFG4)
+    slv.setup(m)
+    del os.environ["AMGX_BLOCK_NATIVE"]
+    setup_s = time.perf_counter() - t0
+    res = slv.solve(b)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    res2 = slv.solve(b)
+    assert res.status == amgx.SolveStatus.SUCCESS, res.status
+    assert res2.iterations == res.iterations
+    x = res.x
+    assert x.dtype == torch.float64 and x.shape == (A_host.shape[0],)
+    assert x.device == dev and torch.isfinite(x).all().item()
+    xh = x.cpu().numpy()
+    relres = float(np.linalg.norm(1.0 - A_host @ xh)
+                   / np.sqrt(A_host.shape[0]))
+    assert relres <= 1e-8, relres
+    Ad = m.device()
+    from amgx_tpu_torch.core.matrix import pack_kind
+    facts = dict(pack=pack_kind(Ad), iterations=res.iterations,
+                 relres_f64=relres, setup_s=setup_s,
+                 solve_s=res.solve_time, solve_warm_s=res2.solve_time,
+                 colors=slv.preconditioner.num_colors,
+                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                 block_rows=m.n_block_rows, stored_blocks=A_host.nnz // 16,
+                 lanes=int(Ad.bn_codes.numel()))
+    if profile:
+        wall, dev_s, kern, top = profile_window(lambda: slv.solve(b))
+        facts.update(profiled_wall_s=wall, device_busy_s=dev_s,
+                     device_kernels=kern, device_time_measured=kern > 0,
+                     busy_share_of_unprofiled=dev_s / res2.solve_time,
+                     top=top)
+    emit(label, **facts, counts=counts, card=smi)
+    return slv, m, res, counts, facts
+
+
+def card_vs_cpu(amgx, A_host, name):
+    """Config 4 on the card and on the CPU (plain versions), with the f32
+    pack (+ f64 refinement) and with an f64 pack: equal iteration
+    counts, each solve's true relres within the tolerance, and x within
+    SMALL_X_RTOL.  Returns the card's counts of the f32 solve."""
+    import torch
+    rhs = np.ones(A_host.shape[0])
+    out = {}
+    for pdt in (np.float32, np.float64):
+        for where in ("cuda", "cpu"):
+            m = amgx.Matrix(A_host, block_dim=4, device=where)
+            m.device_dtype = pdt
+            s_ = amgx.create_solver(CFG4)
+            s_.setup(m)
+            if where == "cuda":
+                reset_counts()
+            rr = s_.solve(rhs)
+            if where == "cuda":
+                torch.cuda.synchronize()
+                counts = read_counts() if pdt == np.float32 else counts
+            assert rr.status == amgx.SolveStatus.SUCCESS, (name, where)
+            x = rr.x.cpu().double().numpy()
+            relres = float(np.linalg.norm(rhs - A_host @ x)
+                           / np.linalg.norm(rhs))
+            assert relres <= 1e-8, (name, where, relres)
+            out[pdt, where] = (rr.iterations, rr.x.cpu().double(), relres)
+        (ig, xg, rg), (ic, xc, rc) = out[pdt, "cuda"], out[pdt, "cpu"]
+        x_diff = ((xg - xc).norm() / xc.norm()).item()
+        emit("config4_card_vs_cpu", case=name, pack=np.dtype(pdt).name,
+             block_rows=A_host.shape[0] // 4, iterations_card=ig,
+             iterations_cpu=ic, relres_card=rg, relres_cpu=rc,
+             x_rel_diff_card_vs_cpu=x_diff, limit=SMALL_X_RTOL)
+        assert ig == ic, (name, np.dtype(pdt).name, ig, ic)
+        assert x_diff < SMALL_X_RTOL, (name, np.dtype(pdt).name, x_diff)
+    emit("config4_card_counts", case=name, dispatch=counts["dispatch"],
+         B1=counts["B1"], B5=counts["B5"])
+    return counts
+
+
+def config4_phases(amgx, dev, smi, gen, b1_errs) -> dict:
+    """Phases 13-18: the config-4 path and kernels B4/B5 (B1's checks on
+    the block-DIA planes go into ``b1_errs``)."""
+    import scipy.sparse as sp
+    import torch
+    from amgx_tpu_torch.core.matrix import pack_device
+    from amgx_tpu_torch.io import (poisson7pt, scattered_block_operator,
+                                   spe10_block_system)
+    from amgx_tpu_torch.io.gauntlet import elasticity3, jump2, species5
+
+    # ---- 13. the full-width config-4 solve (block-native, B5)
+    t0 = time.perf_counter()
+    A = spe10_block_system()
+    build_s = time.perf_counter() - t0
+    emit("config4_system", grid=[60, 220, 85], cells=A.shape[0] // 4,
+         unknowns=A.shape[0], stored_blocks=A.nnz // 16,
+         host_build_s=build_s)
+    slv, m, res, counts, facts = config4_solve(
+        amgx, A, dev, True, smi, "config4_path", profile=True)
+    assert facts["pack"] == "ell/binned-block", facts["pack"]
+    assert counts["dispatch"].get("ell/binned-block", 0) > 0, counts
+    assert not any(counts["declines"].values()), counts
+    assert all(counts["B5"][k] > 0 for k in ("f32.f32", "f64.f64")), counts
+    Ad5 = m.device()
+    del slv, res
+
+    # ---- 14. the same solve on the scalar-expansion planes (B4)
+    slv4, m4, res4, counts4, facts4 = config4_solve(
+        amgx, A, dev, False, smi, "config4_expansion_path")
+    assert facts4["pack"] == "ell/binned", facts4["pack"]
+    assert counts4["dispatch"].get("ell/binned", 0) > 0, counts4
+    assert not any(counts4["declines"].values()), counts4
+    assert all(counts4["B4"][k] > 0 for k in ("f32.f32", "f64.f64"))
+    emit("config4_native_vs_expansion", iterations_native=facts[
+        "iterations"], iterations_expansion=facts4["iterations"],
+         difference=facts4["iterations"] - facts["iterations"],
+         slack=EXPANSION_COUNT_SLACK)
+    assert abs(facts4["iterations"] - facts["iterations"]) \
+        <= EXPANSION_COUNT_SLACK, (facts["iterations"],
+                                   facts4["iterations"])
+    Ad4 = m4.device()
+    del slv4, res4
+
+    # ---- 15. B4 and B5 against their plain versions, every type pair
+    errs = {}
+    for vdt in (torch.float32, torch.bfloat16, torch.float64):
+        check_binned(dev, gen, "config4_block_native", Ad5, vdt, errs)
+    for vdt in (torch.float32, torch.float64):
+        check_binned(dev, gen, "config4_expansion", Ad4, vdt, errs)
+    extra = [("elasticity3_b3", elasticity3(20)[0], 3),
+             ("jump2_b2", jump2(48)[0], 2), ("species5_b5",
+                                            species5(32)[0], 5),
+             ("scattered_block_operator", scattered_block_operator(
+                 12288, 4), 4)]
+    rng = np.random.default_rng(SEED)
+    base = sp.random(3000, 3000, density=0.004, random_state=SEED,
+                     format="lil")
+    base[:300] = 0                       # rows 0..299 empty: the first
+    base = sp.csr_matrix(base)           # two tiles hold no entry
+    data = rng.standard_normal((base.nnz, 3, 3))
+    extra.append(("empty_tiles", sp.bsr_matrix(
+        (data, base.indices, base.indptr), shape=(9000, 9000)), 3))
+    wide = sp.random(20000, 20000, density=0.002, random_state=SEED,
+                     format="lil")
+    wide[17] = rng.standard_normal(20000) * (rng.random(20000) < 0.15)
+    wide = sp.csr_matrix(wide)
+    assert np.diff(wide.indptr).max() > 2048
+    for name, M, b in extra:
+        P = pack_device(M, b, np.float64, dia_max_diags=0, device=dev)
+        assert P.bn_codes is not None, name
+        pairs = (torch.float32, torch.bfloat16, torch.float64)
+        for vdt in pairs:
+            check_binned(dev, gen, name, P, vdt, errs)
+    P = amgx.Matrix(wide, device="cuda").device(np.float64)
+    from amgx_tpu_torch.core.matrix import pack_kind
+    assert pack_kind(P) == "csr/binned", pack_kind(P)
+    for vdt in (torch.float32, torch.float64):
+        check_binned(dev, gen, "scalar_csr_wide_row", P, vdt, errs)
+    del P
+
+    # ---- 16. times at full width
+    timing = {}
+    bsr = sp.bsr_matrix(A, blocksize=(4, 4))
+    scsr = sp.csr_matrix(A)
+    for dt in (torch.float32, torch.float64):
+        lib = library_of(bsr, scsr, dt, dev)
+        timing[f"B5.{short(dt)}"] = time_binned(
+            dev, gen, "config4_block_native", Ad5, lib, A.nnz // 16, dt,
+            smi)
+        del lib
+        lib = ("cusparse-csr", csr_of_host(scsr, dt, dev))
+        timing[f"B4.{short(dt)}"] = time_binned(
+            dev, gen, "config4_expansion", Ad4, lib, scsr.nnz, dt, smi)
+        del lib
+        torch.cuda.empty_cache()
+    del Ad5, Ad4, m, m4, bsr, scsr
+    torch.cuda.empty_cache()
+
+    # ---- 17. the bench's 16³ case: block-DIA, B1 as 16 components
+    A16 = sp.kron(poisson7pt(16, 16, 16), sp.identity(4)).tocsr()
+    c16 = card_vs_cpu(amgx, A16, "bench_16^3_block_dia")
+    assert c16["dispatch"].get("dia/block-kernel", 0) > 0, c16
+    # B1 on the card's own 16³ pack, every component plane, in the two
+    # pairs the path runs: (f32, f32) in BiCGStab, (f64, f64) in the
+    # refinement's residuals (the f32 pack widened, strides kept)
+    m16 = amgx.Matrix(A16, block_dim=4, device="cuda")
+    m16.device_dtype = np.float32
+    P16 = m16.device()
+    assert P16.fmt == "dia" and P16.block_dim == 4, P16.fmt
+    bdia_errs = {}
+    for P in (P16, P16.astype(torch.float64)):
+        check_block_dia(dev, gen, "bench_16^3_block_dia", P, bdia_errs)
+    for key, e in bdia_errs.items():
+        record(b1_errs, key, e["abs"], e["rel"])
+    del m16, P16
+
+    # ---- 18. the 30 × 110 × 43 masked system
+    cmid = card_vs_cpu(amgx, spe10_block_system(*MID_GRID),
+                       "masked_30x110x43")
+    assert cmid["dispatch"].get("ell/binned-block", 0) > 0, cmid
+
+    kernels = []
+    for kern, src_line, cnt in (("B5", 497, counts["B5"]),
+                                ("B4", 384, counts4["B4"])):
+        for dt in ("f32", "f64"):
+            key = f"{kern}.{dt}.{dt}"
+            t = timing[f"{kern}.{dt}"]
+            kernels.append(dict(
+                name=f"binned_spmv_{kern}<{dt},{dt}"
+                + (",b=4>" if kern == "B5" else ",b=1>"),
+                route="cuda", source="amgx_tpu_torch/csrc/binned_spmv.cu",
+                replaces=f"amgx_tpu/ops/pallas_csr.py:{src_line}",
+                launches=cnt[f"{dt}.{dt}"],
+                launches_by_path=dict(config4_native=counts[kern][
+                    f"{dt}.{dt}"], config4_expansion=counts4[kern][
+                    f"{dt}.{dt}"]),
+                max_abs_err=errs[key]["abs"],
+                max_row_rel_err=errs[key]["rel"], **t))
+    return dict(kernels=kernels, b1_launches=c16["B1"],
+                b1_block_dia_errs=bdia_errs)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -320,11 +768,13 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    # ---- 2. build both kernels, one nvcc each, started together
+    # ---- 2. build the three kernel sources, one nvcc each, started
+    # together
     t0 = time.perf_counter()
-    native.build_all(["dia_spmv", "ell_spmv"])
+    sources = ("dia_spmv", "ell_spmv", "binned_spmv")
+    native.build_all(sources)
     build_s = time.perf_counter() - t0
-    for name in ("dia_spmv", "ell_spmv"):
+    for name in sources:
         log = native.BUILD_LOG.get(name, {}).get("log", "")
         emit("build", source=f"amgx_tpu_torch/csrc/{name}.cu",
              seconds=build_s, ptxas=[ln.strip() for ln in log.splitlines()
@@ -630,7 +1080,13 @@ def main() -> int:
          busy_share_of_unprofiled=dev_s / cres2.solve_time, top=top,
          card=smi)
 
-    # ---- the kernels of the two paths
+    del cslv, cres, cres2, cx, Ac, Ahost, ch, cd, packs, big
+    torch.cuda.empty_cache()
+
+    # ---- 13.-18. the config-4 path
+    c4 = config4_phases(amgx, dev, smi, gen, errs)
+
+    # ---- the kernels of the three paths
     kernels = []
     for key in ("f32.f32", "f64.f64"):
         v, xx = key.split(".")
@@ -638,10 +1094,13 @@ def main() -> int:
             name=f"dia_spmv<{v},{xx}>", route="cuda",
             source="amgx_tpu_torch/csrc/dia_spmv.cu",
             replaces="amgx_tpu/ops/pallas_spmv.py:101",
-            launches=launches[key] + c_launches["dia_spmv"][key],
+            launches=launches[key] + c_launches["dia_spmv"][key]
+            + c4["b1_launches"][key],
             launches_by_path=dict(headline=launches[key],
-                                  classical=c_launches["dia_spmv"][key]),
+                                  classical=c_launches["dia_spmv"][key],
+                                  config4_16=c4["b1_launches"][key]),
             max_abs_err=errs[key]["abs"], max_row_rel_err=errs[key]["rel"],
+            block_dia_16=c4["b1_block_dia_errs"][key],
             ms=timing[key]["ms"], plain_ms=timing[key]["plain_ms"],
             bound_ms=timing[key]["bound_ms"],
             bound_by=timing[key]["bound_by"],
@@ -660,6 +1119,7 @@ def main() -> int:
         bound_ms=ell_timing[key]["bound_ms"],
         bound_by=ell_timing[key]["bound_by"],
         library_ms=ell_timing[key]["library_ms"]))
+    kernels.extend(c4["kernels"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -97,3 +97,74 @@ def test_classical_solve_on_card_matches_cpu(card):
     assert d["dia/kernel"] > 0 and d["dia/slices"] == 0
     xg, xc = out["cuda"][2], out["cpu"][2]
     assert ((xg - xc).norm() / xc.norm()).item() < 1e-6
+
+
+def _binned_pack(card, b, seed, empty_rows=0):
+    """A scattered b×b (or scalar) binned pack on the card, in f64."""
+    import scipy.sparse as sp
+    from amgx_tpu_torch.core.matrix import pack_device
+    rng = np.random.default_rng(seed)
+    base = sp.random(3000, 3000, density=0.004, random_state=seed,
+                     format="lil")
+    base[:empty_rows] = 0
+    base = sp.csr_matrix(base + sp.diags(np.r_[np.zeros(empty_rows),
+                                               np.ones(3000 - empty_rows)]))
+    if b == 1:
+        return pack_device(base, 1, np.float64, ell_max_width=0,
+                           dia_max_diags=0, device=card)
+    data = rng.standard_normal((base.nnz, b, b))
+    bsr = sp.bsr_matrix((data, base.indices, base.indptr),
+                        shape=(3000 * b, 3000 * b))
+    return pack_device(bsr, b, np.float64, dia_max_diags=0, device=card)
+
+
+@pytest.mark.parametrize("b,vdt", [
+    (b, vdt) for b in (1, 2, 3, 4, 5)
+    for vdt in (torch.float32, torch.bfloat16, torch.float64)
+    if b > 1 or vdt != torch.bfloat16])        # B4: f32 and f64 planes
+def test_binned_kernel_matches_plain(card, b, vdt):
+    from amgx_tpu_torch.ops import binned_spmv as bmod
+    Ad = _binned_pack(card, b, seed=b, empty_rows=300 if b == 3 else 0)
+    assert Ad.bn_codes is not None
+    M = Ad.astype(vdt)
+    xdt = torch.float64 if vdt == torch.float64 else torch.float32
+    g = torch.Generator(device=card).manual_seed(b)
+    x = torch.randn(3000 * b, dtype=torch.float64, device=card,
+                    generator=g).to(xdt)
+    kern = "B4" if b == 1 else "B5"
+    before = bmod.launch_count(kern)
+    y = bmod.binned_spmv(M, x)
+    torch.cuda.synchronize(card)
+    assert bmod.launch_count(kern) == before + 1
+    ref = bmod.binned_spmv_reference(M.bn_codes, M.bn_vals, M.bn_meta,
+                                     M.bn_pos, M.bn_dims, x)
+    tol = 1e-12 if xdt == torch.float64 else 1e-5
+    assert _rel(y, ref) < tol
+
+
+@pytest.mark.parametrize("pdt", [np.float32, np.float64])
+def test_config4_solve_on_card_matches_cpu(card, pdt):
+    """The card and the CPU take the same iterations, with the f32 pack
+    (+ f64 refinement) and with an f64 pack, and agree on x."""
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.io import spe10_block_system
+    from amgx_tpu_torch.ops.spmv import DISPATCH, reset_dispatch
+    cfg = ("config_version=2, solver(out)=PBICGSTAB, out:max_iters=200, "
+           "out:monitor_residual=1, out:tolerance=1e-8, "
+           "out:convergence=RELATIVE_INI, "
+           "out:preconditioner(pre)=MULTICOLOR_DILU, pre:max_iters=1")
+    A = spe10_block_system(20, 20, 20)
+    out = {}
+    for where in ("cuda", "cpu"):
+        m = amgx.Matrix(A, block_dim=4, device=where)
+        m.device_dtype = pdt
+        s = amgx.create_solver(cfg)
+        s.setup(m)
+        reset_dispatch()
+        r = s.solve(np.ones(A.shape[0]))
+        out[where] = (r.iterations, dict(DISPATCH), r.x.cpu())
+    assert out["cuda"][0] == out["cpu"][0], (out["cuda"][0],
+                                              out["cpu"][0])
+    assert out["cuda"][1]["ell/binned-block"] > 0
+    xg, xc = out["cuda"][2], out["cpu"][2]
+    assert ((xg - xc).norm() / xc.norm()).item() < 1e-6
