@@ -4,13 +4,15 @@
 
 The recursion runs eagerly over the level list.  The K-cycle's α and β
 stay 0-d device tensors (guarded divisions via ``torch.where``), so a
-cycle queues its work on the device without a single host sync.
+cycle queues its work on the device without a single host sync; its f32
+inner products are summed in f64 and rounded once
+(:func:`~..ops.ordered.wdot`), so the card and the CPU take the same steps.
 """
 from __future__ import annotations
 
 import torch
 
-from ..ops.blas import dot
+from ..ops.ordered import wdot
 from ..ops.spmv import spmv
 
 
@@ -89,11 +91,11 @@ def build_cycle(hierarchy, cycle_type: str = None):
                 p = z
             else:
                 # flexible (Notay) beta
-                beta = _guarded_div(dot(r, z) - dot(r_prev, z),
-                                    dot(r_prev, z_prev))
+                beta = _guarded_div(wdot(r, z) - wdot(r_prev, z),
+                                    wdot(r_prev, z_prev))
                 p = z + beta * p
             q = spmv(Ad, p)
-            alpha = _guarded_div(dot(r, z), dot(p, q))
+            alpha = _guarded_div(wdot(r, z), wdot(p, q))
             x = x + alpha * p
             r_prev, z_prev = r, z
             r = r - alpha * q

@@ -1,6 +1,7 @@
-"""AMG hierarchy: the setup loop (port of the structured/GEO and the
-serial classical parts of ``amgx_tpu/amg/hierarchy.py``; reference
-``AMG_Setup::setup``, ``amg.cu:177-450``).
+"""AMG hierarchy: the setup loop (port of the structured/GEO, the serial
+scalar aggregation and the serial classical parts of
+``amgx_tpu/amg/hierarchy.py``; reference ``AMG_Setup::setup``,
+``amg.cu:177-450``).
 
 * GEO aggregation on a stencil: every coarsening decision is planned
   from the fine offsets and grid dims
@@ -18,8 +19,14 @@ serial classical parts of ``amgx_tpu/amg/hierarchy.py``; reference
   Galerkin triple product.  ``AMGX_NO_DEVICE_PIPELINE=1`` sends the
   whole setup down the host loop.
 
-Aggregation operators the GEO plan does not cover need the aggregation
-host loop, a later slice of the port.
+* Aggregation beyond the GEO plan (an operator of more than 48
+  diagonals, or the SIZE_2/4/8, MULTI_PAIRWISE, PARALLEL_GREEDY and
+  DUMMY selectors): the host loop runs the selector on the host CSR
+  (:mod:`.aggregation.selectors`, bit-equal to the JAX package's), the
+  Galerkin product Sᵀ·A·S on the host (:mod:`.aggregation.galerkin`),
+  and an :class:`~.level.AggregationLevel` per level.  GEO without a
+  DIA plan and without attached coordinates becomes SIZE_2, as
+  upstream.
 """
 from __future__ import annotations
 
@@ -38,7 +45,8 @@ from ..device import host_scalar
 from ..errors import NotImplementedError_
 from ..solvers.base import SolverFactory
 from .dia_device import derive_hierarchy_device, plan_dia_hierarchy
-from .level import AMGLevel, ClassicalLevel, PairwiseLevel, StructuredLevel
+from .level import (AggregationLevel, AMGLevel, ClassicalLevel,
+                    PairwiseLevel, StructuredLevel)
 from .structured import (decompose_offsets, infer_grid_dims,
                          stencil_values_consistent)
 
@@ -441,14 +449,45 @@ class AMGHierarchy:
                                _child_matrix(cur, R_host), cf_map)
         return level, _child_matrix(cur, Ac_host)
 
+    def _coarsen_aggregation(self, cur: Matrix, idx: int):
+        """One aggregation step of the host loop (``_coarsen_once``
+        upstream, scalar, single device): selector on the host CSR, the
+        host Galerkin product, an :class:`AggregationLevel`."""
+        from .aggregation.galerkin import galerkin_coarse_scalar
+        from .aggregation.selectors import create_selector
+        if cur.block_dim != 1:
+            raise NotImplementedError_(
+                "aggregation AMG on block systems is a later slice of the "
+                "port")
+        name = self.selector
+        if name in ("GEO", "PAIRWISE"):
+            if self._dia_plan_inputs(cur) is not None:
+                # the JAX package coarsens such a level pairwise on the
+                # host, past the device plan's diagonal budget
+                raise NotImplementedError_(
+                    f"a DIA level of {cur.n_block_rows} rows past the GEO "
+                    "plan needs the host pairwise step, a later slice of "
+                    "the port")
+            # irregular and no coordinates attached (the port attaches
+            # none): the matching selector, as upstream
+            name = "SIZE_2"
+        Asc = cur.scalar_csr()
+        agg = create_selector(name, self.cfg, self.scope).select(Asc)
+        nc = int(agg.max()) + 1 if len(agg) else 0
+        if nc == 0:
+            return None, None
+        Ac_host = galerkin_coarse_scalar(Asc, agg).astype(Asc.dtype)
+        return (AggregationLevel(cur, idx, agg, nc),
+                _child_matrix(cur, Ac_host))
+
     def _coarsen_once(self, cur: Matrix, idx: int):
         """One host-loop coarsening step: ``(level, coarse matrix)``, or
         ``(None, None)`` when the coarse grid degenerates."""
+        if self.algorithm == "AGGREGATION":
+            return self._coarsen_aggregation(cur, idx)
         if self.algorithm != "CLASSICAL":
             raise NotImplementedError_(
-                f"coarsening below {cur.n_block_rows} rows needs the host "
-                f"coarsening loop (algorithm={self.algorithm}, "
-                f"selector={self.selector}), a later slice of the port")
+                f"algorithm={self.algorithm} is a later slice of the port")
         from .classical.interpolators import create_interpolator
         from .classical.selectors import create_cf_selector
         from .classical.strength import create_strength
@@ -507,3 +546,26 @@ class AMGHierarchy:
         sizes = [lvl.level_stats() for lvl in self.levels]
         sizes.append((self.coarsest.n_block_rows, self.coarsest.nnz))
         return sizes
+
+    def grid_stats(self) -> str:
+        """The grid-stats table of the reference README sample output
+        (``grid_stats`` upstream)."""
+        rows = []
+        tot_rows = tot_nnz = 0
+        all_levels = self.level_sizes()
+        for i, (n, nnz) in enumerate(all_levels):
+            sprs = nnz / max(n * n, 1)
+            rows.append(f"         {i}(D)  {n:12d}  {nnz:12d} "
+                        f" {sprs:9.3g}\n")
+            tot_rows += n
+            tot_nnz += nnz
+        op_cmpl = tot_nnz / max(all_levels[0][1], 1)
+        grid_cmpl = tot_rows / max(all_levels[0][0], 1)
+        return ("        Number of Levels: "
+                f"{self.num_levels()}\n"
+                "            LVL         ROWS           NNZ    SPRSTY\n"
+                "         ------------------------------------------\n"
+                + "".join(rows) +
+                "         ------------------------------------------\n"
+                f"         Grid Complexity: {grid_cmpl:.5g}\n"
+                f"         Operator Complexity: {op_cmpl:.5g}\n")

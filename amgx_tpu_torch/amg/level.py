@@ -1,13 +1,13 @@
-"""AMG levels (port of ``AMGLevel``, ``PairwiseLevel``,
-``StructuredLevel`` and ``ClassicalLevel`` of ``amgx_tpu/amg/level.py``;
-reference ``base/include/amg_level.h:73-238``).
+"""AMG levels (port of ``AMGLevel``, ``AggregationLevel`` (scalar),
+``PairwiseLevel``, ``StructuredLevel`` and ``ClassicalLevel`` of
+``amgx_tpu/amg/level.py``; reference ``base/include/amg_level.h:73-238``).
 
-The pairwise and structured levels carry implicit piecewise-constant
-transfers: restriction sums the fine values of each aggregate,
-prolongation copies each coarse value back to its aggregate — exact
-reshapes/strided sums and ``repeat_interleave`` copies, no matrix
-product, so no TF32 rounding on the card.  Classical levels carry
-explicit P and R packs.
+The aggregation, pairwise and structured levels carry implicit
+piecewise-constant transfers: restriction sums the fine values of each
+aggregate, prolongation copies each coarse value back to its aggregate —
+ordered elementwise adds, reshapes/strided sums and gathers, no matrix
+product and no atomic scatter, so every sum runs in one order on every
+device.  Classical levels carry explicit P and R packs.
 """
 from __future__ import annotations
 
@@ -42,6 +42,55 @@ class AMGLevel:
         their LOGICAL rows (pad rows are not rows of the operator)."""
         return (getattr(self.A, "logical_rows", None) or self.Ad.n_rows,
                 self.A.nnz)
+
+
+def member_table(aggregates: np.ndarray, n_coarse: int) -> np.ndarray:
+    """The (max aggregate size, n_coarse) int64 table of every
+    aggregate's fine rows in increasing order, padded with the index n
+    (a zero appended to the restricted vector)."""
+    n = len(aggregates)
+    order = np.argsort(aggregates, kind="stable")
+    counts = np.bincount(aggregates, minlength=n_coarse)
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    a_sorted = aggregates[order]
+    pos = np.arange(n) - start[a_sorted]
+    table = np.full((max(int(counts.max(initial=0)), 1), n_coarse), n,
+                    dtype=np.int64)
+    table[pos, a_sorted] = order
+    return table
+
+
+class AggregationLevel(AMGLevel):
+    """Implicit piecewise-constant transfer over ``aggregates`` (scalar
+    systems; reference ``aggregation_amg_level.cu:115-196``).
+
+    Restriction adds each aggregate's fine values in increasing fine
+    index, one elementwise add per member slot over the table of
+    :func:`member_table` built at setup — the JAX package's segment sum
+    in the same order, without the card's atomic scatter-add, whose
+    order changes from run to run.  Prolongation is a gather."""
+
+    kind = "aggregation"
+
+    def __init__(self, A: Matrix, level_index: int, aggregates: np.ndarray,
+                 n_coarse: int):
+        super().__init__(A, level_index)
+        agg = np.asarray(aggregates, dtype=np.int64)
+        self.n_coarse = int(n_coarse)
+        dev = A.placement
+        self.aggregates = torch.from_numpy(agg).to(dev)
+        self.members = torch.from_numpy(member_table(agg, self.n_coarse)) \
+            .to(dev)
+
+    def restrict_residual(self, r):
+        rp = torch.cat([r, r.new_zeros(1)])
+        out = rp[self.members[0]]
+        for k in range(1, self.members.shape[0]):
+            out = out + rp[self.members[k]]
+        return out
+
+    def prolongate_and_correct(self, x, e):
+        return x + e[self.aggregates]
 
 
 class PairwiseLevel(AMGLevel):

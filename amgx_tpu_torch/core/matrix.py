@@ -14,7 +14,13 @@ of ``amgx_tpu/core/matrix.py``).
     diagonal;
   - ``fmt == "ell"``: ``cols`` (n, K) int32 and ``vals`` (n, K[, b, b]),
     padded with value 0 (host packs pad with column 0); rectangular
-    allowed;
+    allowed.  A square scalar ELL of at most 256 entries a row whose
+    every 8192-row tile holds at most 32 distinct column differences
+    carries the tile-DIA shift planes (``sh_*``,
+    :mod:`..ops.shift_spmv`, kernel B2) in place of ``cols``/``vals``
+    (a *lean* pack, as the JAX package uploads its coarse levels):
+    :meth:`DeviceMatrix.ell_cols_view` and
+    :meth:`DeviceMatrix.ell_vals_view` serve them from the planes;
   - ``fmt == "csr"``: ``cols``/``vals``/``row_ids`` flat over the stored
     (block) entries — the pack of a scalar matrix with a row wider than
     the ELL budget (2048), or of a block matrix past it.
@@ -23,18 +29,18 @@ of ``amgx_tpu/core/matrix.py``).
   carry the binned sliced-ELL planes (``bn_*``, :mod:`..ops.binned_spmv`)
   when the plan fits the padding budget: block-native planes by default,
   the scalar expansion's with ``block_native=False`` or
-  ``AMGX_BLOCK_NATIVE=0``.  Unlike the JAX package, which attaches them
-  only on a TPU or under its interpreter, the port attaches them on every
-  device and in f64 too: the card runs kernels B4/B5 on them, the CPU
-  their plain version.
+  ``AMGX_BLOCK_NATIVE=0``.  Unlike the JAX package, which attaches the
+  binned and shift planes only on a TPU or under its interpreter (and
+  the shift planes only in f32), the port attaches them on every device
+  and in f64 too: the card runs kernels B2/B4/B5 on them, the CPU their
+  plain versions.
 * :class:`ComposedDIA` — fmt ``dia3``: a coarse operator applied as the
   Galerkin composition R·(A·(P·x)) of three DIA packs.
 
 A square scalar matrix with at most 48 distinct diagonals packs as DIA,
 a square block matrix with at most 48 distinct block diagonals as
-block-DIA.  The TPU window, shift and dense attachments of the JAX
-package are not carried over: on the card the ELL kernel gathers x
-directly.
+block-DIA.  The TPU window and dense attachments of the JAX package are
+not carried over: on the card the ELL kernel gathers x directly.
 """
 from __future__ import annotations
 
@@ -48,12 +54,14 @@ import torch
 
 from ..device import numpy_dtype, resolve_device, torch_dtype
 from ..errors import BadParametersError
-from ..ops import binned_spmv
+from ..ops import binned_spmv, shift_spmv
 
 #: the DIA diagonal budget (``pack_device(dia_max_diags=48)`` upstream)
 DIA_MAX_DIAGS = 48
 #: the ELL width budget (``Matrix.device(ell_max_width=2048)`` upstream)
 ELL_MAX_WIDTH = 2048
+#: widest ELL pack the shift planes are tried on (``k <= 256`` upstream)
+SHIFT_MAX_WIDTH = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +88,13 @@ class DeviceMatrix:
     #: (:func:`~amgx_tpu_torch.ops.binned_spmv.kernel_aux`)
     bn_tile_ptr: Optional[torch.Tensor] = None
     bn_row_of_pos: Optional[torch.Tensor] = None
+    #: tile-DIA shift planes (ops/shift_spmv.py) and static dims
+    sh_vals: Optional[torch.Tensor] = None
+    sh_meta: Optional[torch.Tensor] = None
+    sh_dims: tuple = ()
+    #: (n_tiles, Dpad) class differences, derived once at upload for the
+    #: card's kernel (:func:`~amgx_tpu_torch.ops.shift_spmv.class_diffs`)
+    sh_diffs: Optional[torch.Tensor] = None
 
     @property
     def n(self) -> int:
@@ -99,7 +114,31 @@ class DeviceMatrix:
         return dataclasses.replace(
             self, vals=None if self.vals is None else self.vals.to(dt),
             diag=self.diag.to(dt),
-            bn_vals=None if self.bn_vals is None else self.bn_vals.to(dt))
+            bn_vals=None if self.bn_vals is None else self.bn_vals.to(dt),
+            sh_vals=None if self.sh_vals is None else self.sh_vals.to(dt))
+
+    def ell_vals_view(self) -> torch.Tensor:
+        """Row-major (n, K) ELL values: ``vals``, or on a shift pack the
+        class planes transposed (Dpad wide: class slots act as ELL
+        slots, unused slots carry zeros)."""
+        if self.vals is not None:
+            return self.vals
+        T, n_tiles, Dpad = (int(v) for v in self.sh_dims[:3])
+        v = self.sh_vals.reshape(n_tiles, Dpad, T)
+        return v.transpose(1, 2).reshape(-1, Dpad)[:self.n_rows]
+
+    def ell_cols_view(self) -> torch.Tensor:
+        """Row-major (n, K) int32 ELL columns: ``cols``, or on a shift
+        pack each row plus its tile's class differences, clipped
+        to ``[0, n_cols)`` (the clipped slots carry zero values)."""
+        if self.cols is not None:
+            return self.cols
+        T, n_tiles, Dpad = (int(v) for v in self.sh_dims[:3])
+        rows = torch.arange(n_tiles * T, dtype=torch.int64,
+                            device=self.sh_diffs.device)
+        d = self.sh_diffs.long().repeat_interleave(T, dim=0)
+        cols = torch.clamp(rows[:, None] + d, 0, self.n_cols - 1)
+        return cols[:self.n_rows].to(torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,8 +276,10 @@ def dia_device_matrix(offsets, dvals: torch.Tensor,
 def pack_kind(Ad) -> str:
     """Human-readable pack/kernel selection of a device matrix, under the
     JAX package's labels (``core/matrix.py::pack_kind`` upstream).  A
-    scalar ELL pack is ``ell/window``: the port serves every one with
-    kernel B3 (the JAX package's ``ell/window`` kernel)."""
+    scalar ELL pack with shift planes is ``ell/shift`` (kernel B2); any
+    other scalar ELL pack is ``ell/window``: the port serves every one
+    with kernel B3 (the JAX package's ``ell/window`` kernel, which it
+    also labels ``ell/gather`` where its TPU window did not fit)."""
     fmt = getattr(Ad, "fmt", "?")
     binned = getattr(Ad, "bn_codes", None) is not None
     suffix = "-block" if binned and \
@@ -246,6 +287,8 @@ def pack_kind(Ad) -> str:
     if fmt == "dia" and getattr(Ad, "block_dim", 1) > 1:
         return "dia/block"
     if fmt == "ell":
+        if getattr(Ad, "sh_vals", None) is not None:
+            return "ell/shift"
         if binned:
             return "ell/binned" + suffix
         return "ell/window" if Ad.block_dim == 1 else "ell/gather"
@@ -338,20 +381,41 @@ def _try_binned_block(bsr: sp.bsr_matrix, dtype, arrays, meta) -> bool:
         or _try_binned(bsr, 1, dtype, arrays, meta, False)
 
 
+def _try_shift(arrays, meta) -> None:
+    """Replace a scalar ELL pack of at most ``SHIFT_MAX_WIDTH`` entries a
+    row by the tile-DIA shift planes (:func:`~..ops.shift_spmv.
+    shift_pack`) when the pack takes them (square, at most 32 classes a
+    tile, within the plane budget) — the shift branch of
+    ``pack_host_arrays`` upstream, on every device and in f32 or f64.
+    The planes carry the columns and the values: the ELL ``cols`` and
+    ``vals`` go (the JAX package's lean pack)."""
+    vals = arrays["vals"]
+    if not np.issubdtype(vals.dtype, np.floating) or \
+            meta["ell_width"] > SHIFT_MAX_WIDTH:
+        return
+    sh = shift_spmv.shift_pack(arrays["cols"], vals, n_cols=meta["n_cols"])
+    if sh is None:
+        return
+    arrays.update(sh_vals=sh["sh_vals"], sh_meta=sh["sh_meta"])
+    meta.update(sh_dims=sh["_meta"])
+    del arrays["cols"], arrays["vals"]
+
+
 def pack_host_arrays(host, block_dim: int, dtype,
                      ell_max_width: int = ELL_MAX_WIDTH,
                      dia_max_diags: int = DIA_MAX_DIAGS,
                      block_native: Optional[bool] = None):
     """The device pack computed on the host: ``(arrays, meta)`` with no
-    transfer (``pack_host_arrays`` upstream, without the TPU window,
-    shift and dense attachments).
+    transfer (``pack_host_arrays`` upstream, without the TPU window and
+    dense attachments).
 
     Scalar: DIA when square with at most ``dia_max_diags`` diagonals, ELL
-    up to ``ell_max_width`` entries a row, else CSR with the binned
-    planes.  Block (b > 1): block-DIA first (square, block-native on, at
-    most ``dia_max_diags`` block diagonals), then a block ELL (or CSR) pack
-    with the block-native binned planes, or the scalar expansion's with
-    ``block_native=False`` / ``AMGX_BLOCK_NATIVE=0``."""
+    up to ``ell_max_width`` entries a row (the shift planes where they
+    fit, :func:`_try_shift`), else CSR with the binned planes.  Block (b > 1): block-DIA first
+    (square, block-native on, at most ``dia_max_diags`` block diagonals),
+    then a block ELL (or CSR) pack with the block-native binned planes,
+    or the scalar expansion's with ``block_native=False`` /
+    ``AMGX_BLOCK_NATIVE=0``."""
     b = int(block_dim)
     if b == 1 and host.shape[0] == host.shape[1]:
         csr = sp.csr_matrix(host)
@@ -411,9 +475,12 @@ def pack_host_arrays(host, block_dim: int, dtype,
         meta.update(fmt="csr", ell_width=0)
     if b == 1:
         if meta["fmt"] == "csr":
-            # the scalar ELL pack is kernel B3's; only a row past the
-            # ELL budget takes the binned planes (kernel B4)
+            # the scalar ELL pack is kernel B2's (shift planes) or B3's;
+            # only a row past the ELL budget takes the binned planes
+            # (kernel B4)
             _try_binned(csr, 1, dtype, arrays, meta, False)
+        else:
+            _try_shift(arrays, meta)
     elif _block_native_on(block_native):
         _try_binned_block(bsr, dtype, arrays, meta)
     else:
@@ -424,8 +491,8 @@ def pack_host_arrays(host, block_dim: int, dtype,
 
 def assemble_device_matrix(arrays, meta, device) -> DeviceMatrix:
     """Upload host ``(arrays, meta)`` (:func:`pack_host_arrays`) onto
-    ``device`` as a :class:`DeviceMatrix`; the binned kernels' auxiliary
-    arrays are derived there."""
+    ``device`` as a :class:`DeviceMatrix`; the binned and shift kernels'
+    auxiliary arrays are derived there."""
     dev = resolve_device(device)
 
     def up(key):
@@ -457,6 +524,11 @@ def assemble_device_matrix(arrays, meta, device) -> DeviceMatrix:
                      bn_meta=bn_meta, bn_pos=bn_pos,
                      bn_dims=tuple(meta["bn_dims"]), bn_tile_ptr=tile_ptr,
                      bn_row_of_pos=row_of_pos)
+    if "sh_dims" in meta:
+        sh_meta = up("sh_meta")
+        dims = tuple(int(v) for v in meta["sh_dims"])
+        extra.update(sh_vals=up("sh_vals"), sh_meta=sh_meta, sh_dims=dims,
+                     sh_diffs=shift_spmv.class_diffs(sh_meta, dims))
     return DeviceMatrix(
         vals=up("vals"), diag=up("diag"), n_rows=int(meta["n_rows"]),
         n_cols=int(meta["n_cols"]), fmt=meta["fmt"], cols=up("cols"),

@@ -11,7 +11,8 @@ import numpy as np
 import torch
 
 from .amg.hierarchy import AMGHierarchy
-from .amg.level import ClassicalLevel, PairwiseLevel, StructuredLevel
+from .amg.level import (AggregationLevel, ClassicalLevel, PairwiseLevel,
+                        StructuredLevel)
 from .config import AMGConfig
 from .core.matrix import (ComposedDIA, DeviceMatrix, Matrix,
                           assemble_device_matrix, dia_device_matrix,
@@ -134,7 +135,7 @@ def classical_hierarchy_from_numpy(cfg: AMGConfig, scope: str, levels,
 
 #: array fields of a pack (``pack_host_arrays`` names)
 _PACK_ARRAYS = ("vals", "diag", "cols", "row_ids", "bn_codes", "bn_vals",
-                "bn_meta", "bn_pos")
+                "bn_meta", "bn_pos", "sh_vals", "sh_meta")
 
 
 def dilu_from_numpy(cfg: AMGConfig, scope: str, Ad: DeviceMatrix,
@@ -167,12 +168,14 @@ def device_matrix_from_fields(other, dtype=None,
     """The port's pack of another package's device matrix: any object
     with the JAX package's ``DeviceMatrix`` fields (``fmt``, ``n_rows``,
     ``n_cols``, ``block_dim``, ``ell_width``, ``dia_offsets``,
-    ``bn_dims`` and the arrays ``vals``, ``diag``, ``cols``, ``row_ids``,
-    ``bn_codes``, ``bn_vals``, ``bn_meta``, ``bn_pos``), each array read
-    through ``np.asarray`` — scalar or block DIA, ELL or CSR, with or
-    without binned planes.  Value arrays are cast to ``dtype`` when it is
-    given; a scalar pack carrying the JAX package's window or shift
-    attachments keeps only its ``cols`` and ``vals``."""
+    ``bn_dims``, ``sh_dims`` and the arrays ``vals``, ``diag``, ``cols``,
+    ``row_ids``, ``bn_codes``, ``bn_vals``, ``bn_meta``, ``bn_pos``,
+    ``sh_vals``, ``sh_meta``), each array read through ``np.asarray`` —
+    scalar or block DIA, ELL or CSR, with or without binned or shift
+    planes (a lean shift pack, without ``cols``/``vals``, included).
+    Value arrays are cast to ``dtype`` when it is given; a scalar pack
+    carrying the JAX package's window attachments keeps only its
+    ``cols`` and ``vals``."""
     arrays = {}
     for k in _PACK_ARRAYS:
         a = getattr(other, k, None)
@@ -186,6 +189,32 @@ def device_matrix_from_fields(other, dtype=None,
                 n_cols=int(other.n_cols), block_dim=int(other.block_dim),
                 ell_width=int(other.ell_width),
                 offsets=tuple(other.dia_offsets))
-    if getattr(other, "bn_dims", ()):
-        meta["bn_dims"] = tuple(int(v) for v in other.bn_dims)
+    for dims in ("bn_dims", "sh_dims"):
+        if getattr(other, dims, ()):
+            meta[dims] = tuple(int(v) for v in getattr(other, dims))
     return assemble_device_matrix(arrays, meta, device)
+
+
+def aggregation_hierarchy_from_packs(cfg: AMGConfig, scope: str, levels,
+                                     coarsest, dtype=None,
+                                     device="cuda") -> AMGHierarchy:
+    """A scalar aggregation :class:`AMGHierarchy` (smoothers and coarse
+    solver set up per ``cfg``/``scope``) from another package's setup
+    instead of a setup pass.
+
+    ``levels`` lists, fine to coarse, dicts with ``A`` (an object with
+    the JAX package's ``DeviceMatrix`` fields, read by
+    :func:`device_matrix_from_fields`: DIA, ELL, shift or CSR packs),
+    ``aggregates`` (the fine rows' aggregate ids) and ``n_coarse``;
+    ``coarsest`` is the coarsest operator's fields object.  Values are
+    cast to ``dtype`` when it is given."""
+    dev = resolve_device(device)
+    h = AMGHierarchy(cfg, scope)
+    for idx, lv in enumerate(levels):
+        A = Matrix.from_device_pack(device_matrix_from_fields(
+            lv["A"], dtype, dev))
+        h.levels.append(AggregationLevel(
+            A, idx, np.asarray(lv["aggregates"]), int(lv["n_coarse"])))
+    h._setup_smoothers_and_coarse(Matrix.from_device_pack(
+        device_matrix_from_fields(coarsest, dtype, dev)))
+    return h

@@ -10,9 +10,12 @@ package's labels:
   version (CPU tensors only);
 * ``dia/block-kernel`` — a block-DIA apply as b² component dispatches of
   B1 (CUDA tensors), ``dia/block-slices`` its plain version (CPU);
-* ``ell/window`` — the hand-written ELL kernel B3 (every scalar ELL apply
-  on a CUDA tensor), ``ell/gather`` its plain gather version (CPU
-  tensors only);
+* ``ell/shift`` — a scalar ELL pack with tile-DIA shift planes: the
+  hand-written kernel B2 on a CUDA tensor, its plain version on a CPU
+  tensor;
+* ``ell/window`` — the hand-written ELL kernel B3 (every other scalar
+  ELL apply on a CUDA tensor), ``ell/gather`` its plain gather version
+  (CPU tensors only);
 * ``ell/binned``, ``ell/binned-block``, ``csr/binned``,
   ``csr/binned-block`` — the binned kernels B4 (scalar and
   scalar-expansion planes) and B5 (block-native planes) on a CUDA tensor,
@@ -32,10 +35,11 @@ from .binned_spmv import (binned_abs_rowsum, binned_entries_view,
                           binned_spmv, binned_supported, bn_block_dim)
 from .dia_spmv import dia_spmv
 from .ell_spmv import ell_spmv
+from .shift_spmv import shift_spmv, shift_supported
 
 DISPATCH = {k: 0 for k in (
     "dia/kernel", "dia/slices", "dia/block-kernel", "dia/block-slices",
-    "ell/window", "ell/gather", "ell/binned", "ell/binned-block",
+    "ell/shift", "ell/window", "ell/gather", "ell/binned", "ell/binned-block",
     "csr/binned", "csr/binned-block", "ell/block-gather", "csr/segsum",
     "csr/segsum-lean", "csr/block-segsum")}
 #: the labels of the JAX package's declines (plain paths a kernel pack
@@ -73,6 +77,9 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
         DISPATCH["dia/kernel" if x.is_cuda else "dia/slices"] += 1
         return dia_spmv(A.vals, x, A.dia_offsets)
     b = A.block_dim
+    if A.fmt == "ell" and shift_supported(A):
+        DISPATCH["ell/shift"] += 1
+        return shift_spmv(A, x)
     if binned_supported(A):
         native = bn_block_dim(A.bn_dims) > 1
         DISPATCH[f"{A.fmt}/binned" + ("-block" if native else "")] += 1
@@ -164,7 +171,7 @@ def abs_rowsum(A) -> torch.Tensor:
         return A.l1row
     if A.fmt == "csr" and A.vals is None:
         return binned_abs_rowsum(A)
-    v = A.vals.abs()
+    v = (A.ell_vals_view() if A.fmt == "ell" else A.vals).abs()
     if A.fmt == "dia":
         if A.block_dim > 1:
             # (nd, n, b, b): per scalar row (i, a), over every diagonal's

@@ -25,3 +25,6 @@ class AMGSolver(Solver):
 
     def solve_iteration(self, b, x, state, iter_idx):
         return self._cycle(b, x), state
+
+    def grid_stats(self) -> str:
+        return self.hierarchy.grid_stats()

@@ -37,6 +37,7 @@ from ..errors import (BREAKDOWN_DIVERGENCE, BREAKDOWN_KRYLOV,
                       NotImplementedError_, SolveStatus, breakdown_kind)
 from ..ops import blas
 from ..ops.binned_spmv import bn_block_dim
+from ..ops.shift_spmv import shift_planes_like
 from ..ops.spmv import spmv
 
 
@@ -390,11 +391,15 @@ class Solver:
         solve after a setup and kept until the next.  Values exactly
         representable in the pack dtype widen on the device.  Otherwise
         a binned pack takes planes packed from the host values in
-        ``wide`` (the lanes depend on the pattern alone), and the other
+        ``wide`` (its lanes depend on the pattern alone), a shift pack
+        the host values placed on its own class slots
+        (:func:`~..ops.shift_spmv.shift_planes_like`, which raises if a
+        value the narrow pack dropped as 0 has no slot), and the other
         packs take their ``vals`` rebuilt on the host in ``wide``
-        (:meth:`_host_pack_vals64`).  A binned pack keeps only its
-        planes: the wide SpMV runs B4/B5 on them and never reads the
-        gather-form arrays.  No host copy outlives the upload."""
+        (:meth:`_host_pack_vals64`).  A binned or shift
+        pack keeps only its planes: the wide SpMV runs B4/B5 or B2 on
+        them and never reads the gather-form arrays.  No host copy
+        outlives the upload."""
         cached = self.__dict__.get("_wide")
         if cached is not None and cached[0] == wide:
             return cached[1]
@@ -402,17 +407,27 @@ class Solver:
         Ad = self.Ad
         pdt = numpy_dtype(Ad.dtype)
         binned = Ad.bn_codes is not None
-        if binned:
+        shift = Ad.sh_vals is not None
+        if binned or shift:
             Ad = dataclasses.replace(Ad, vals=None, cols=None,
                                      row_ids=None)
         if pdt == np.float32 and getattr(self.A, "_vals_f32_exact", False):
             exact = True
         else:
-            host = np.asarray(self.A.host.data) if binned \
-                else self._host_pack_vals64()
+            if shift:
+                cols, host, _ = ell_host_arrays(self.A.host, np.float64)
+            else:
+                host = np.asarray(self.A.host.data) if binned \
+                    else self._host_pack_vals64()
             exact = _representable(host, pdt)
         if exact:
             Ad64 = Ad.astype(wdt)
+        elif shift:
+            planes = shift_planes_like(cols, host, Ad.sh_dims,
+                                       Ad.sh_diffs.cpu().numpy())
+            Ad64 = dataclasses.replace(
+                dataclasses.replace(Ad, sh_vals=None).astype(wdt),
+                sh_vals=torch.from_numpy(planes).to(Ad.device))
         elif binned:
             native = bn_block_dim(Ad.bn_dims) > 1
             arrays, dims = binned_planes(self.A.host, Ad.block_dim, wide,

@@ -15,7 +15,10 @@ iteration is the convergence check on ‖r‖.
 
 FGMRES orthogonalises by two-pass classical Gram–Schmidt (CGS2, the
 CLASSIC reduction layout): two matrix-vector products against the live basis
-rows per Arnoldi step.  The restart position ``j = iter % m`` is a host
+rows per Arnoldi step, an f32 basis summed in f64 and rounded once, and the
+projections subtracted as a left-to-right combination of the rows
+(``ordered.wgram_dots``, ``ordered.lincomb``), so the card and the CPU
+take the same f32 steps.  The restart position ``j = iter % m`` is a host
 int, so the basis slices are exact and no masks are needed.
 
 Each FGMRES iteration fetches ONE small array from the device: the new
@@ -37,7 +40,7 @@ import torch
 
 from ..device import numpy_dtype
 from ..errors import BREAKDOWN_KRYLOV, NotImplementedError_
-from ..ops import blas
+from ..ops import blas, ordered
 from ..ops.spmv import spmv
 from .base import Solver, SolverFactory, register_solver
 
@@ -144,7 +147,7 @@ class _GMRESBase(Solver):
     def solve_init(self, b, x):
         m, n = self.restart, b.shape[0]
         r = b - spmv(self.Ad, x)
-        beta = blas.nrm2(r)
+        beta = ordered.wnrm2(r)
         V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
         V[0] = _normalized(r, beta)
         Z = torch.zeros((m, n), dtype=b.dtype, device=b.device)
@@ -162,7 +165,7 @@ class _GMRESBase(Solver):
                                           st.g[:j + 1], lower=False)
         y = torch.from_numpy(np.ascontiguousarray(y, st.g.dtype)).to(
             st.Z.device)
-        return st.x_base + torch.mv(st.Z[:j + 1].T, y)
+        return st.x_base + ordered.lincomb(st.Z[:j + 1], y)
 
     def solve_iteration(self, b, x, st: _GMRESState, iter_idx: int):
         m = self.restart
@@ -170,7 +173,7 @@ class _GMRESBase(Solver):
         if j == 0 and iter_idx > 0:
             # restart: the true residual seeds a fresh basis
             r = b - spmv(self.Ad, x)
-            st.beta = blas.nrm2(r)
+            st.beta = ordered.wnrm2(r)
             st.V[0] = _normalized(r, st.beta)
             st.x_base = x
             st.g[:] = 0
@@ -181,11 +184,11 @@ class _GMRESBase(Solver):
         z_j = self._apply_M(st.V[j])
         w = spmv(self.Ad, z_j)
         Vj = st.V[:j + 1]
-        h1 = blas.gram_dots(Vj, w)
-        w = w - torch.mv(Vj.T, h1)
-        h2 = blas.gram_dots(Vj, w)
-        w = w - torch.mv(Vj.T, h2)
-        h_next = blas.nrm2(w)
+        h1 = ordered.wgram_dots(Vj, w)
+        w = w - ordered.lincomb(Vj, h1)
+        h2 = ordered.wgram_dots(Vj, w)
+        w = w - ordered.lincomb(Vj, h2)
+        h_next = ordered.wnrm2(w)
         st.V[j + 1] = _normalized(w, h_next)
         st.Z[j] = z_j
 
@@ -280,17 +283,10 @@ def _safe(d: torch.Tensor) -> torch.Tensor:
     return torch.where(d == 0, torch.ones_like(d), d)
 
 
-def _wide(v: torch.Tensor) -> torch.Tensor:
-    return v.double() if v.dtype == torch.float32 else v
-
-
-def _wdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """x·y for BiCGStab's scalars.  An f32 pair is summed in f64 and
-    rounded once: the card and the CPU order their partial sums
-    differently, and BiCGStab's iteration count in f32 follows the
-    rounding of ρ, α and ω, so this keeps the two devices' counts
-    together (the products of two f32 values are exact in f64)."""
-    return blas.dot(_wide(x), _wide(y)).to(x.dtype)
+#: x·y for BiCGStab's scalars: ρ, α and ω steer its f32 count, so an
+#: f32 pair is summed in f64 and rounded once
+#: (:func:`~..ops.ordered.wdot`)
+_wdot = ordered.wdot
 
 
 class _BiCGStabBase(Solver):
@@ -332,7 +328,7 @@ class _BiCGStabBase(Solver):
                                  brk=brk)
 
     def residual_norm_estimate(self, b, x, st: _BiCGStabState):
-        return self.norm(_wide(st.r)).to(st.r.dtype)
+        return self.norm(ordered.widen(st.r)).to(st.r.dtype)
 
 
 @register_solver("BICGSTAB")

@@ -37,7 +37,9 @@ exits non-zero (no phase is caught):
    the embedded 25-diagonal P₀ and R₀, which are also the three ``dia3``
    streams of level 1, and a DIA coarsest); B3 in both its pairs on
    every ELL operator, P and R, on random ELLs (K = 4, 27, 256,
-   n_cols ≠ n) and on a level of fewer than 128 rows.  Every check holds
+   n_cols ≠ n), on a level of fewer than 128 rows and, over dense rows,
+   on the dense coarse inverses of this hierarchy and of the headline's.
+   Every check holds
    each row to a relative limit, the row's error over its Σ_j |a_ij·x_j|;
 10. B3 times on the largest ELL operator of the hierarchy (by bytes):
     kernel, plain version, cuSPARSE CSR and the bound;
@@ -71,9 +73,35 @@ exits non-zero (no phase is caught):
     version on each of that pack's 16 component planes as the path
     passes them, in (f32, f32) and (f64, f64);
 18. the 30 × 110 × 43 masked system on the card against the CPU (equal
-    iterations, x within ``SMALL_X_RTOL``).
+    iterations, x within ``SMALL_X_RTOL``);
+19. the fourth path, aggregation AMG on an uploaded operator: the DFG
+    cylinder pressure Poisson at ny = 512 (1,394,214 rows, 153
+    diagonals, a host CSR uploaded through ``Matrix``) under the
+    headline config (GEO falls back to SIZE_2), f32 pack, f64
+    refinement, with every count set to 0 just before the first solve
+    and read just after: setup, first and warm solve, iterations, the
+    true relres in f64 on the host, per-level rows and pack kinds,
+    dispatch (every fine-level SpMV ``ell/shift``, kernel B2; the coarse
+    ELL levels on B3; no decline), peak memory, and the device time and
+    busy share of a warm solve (``torch.profiler``).  The hierarchy is
+    cut at ``DFG_LEVELS`` levels (the depth cut): the CG K-cycle visits
+    level i 2^i times per application, so the config's 14 levels would
+    make 8,192 coarse solves per FGMRES iteration;
+20. B2 against its plain version on the card, every row to its own
+    limit, in (f32, f32) and (f64, f64): that fine pack, the cases of
+    tests/test_pallas_shift.py packed without DIA, and the 9-diagonal
+    40,000-row matrix of tests/test_tpu.py; B3 against its plain version
+    in both pairs on every coarse level's A of that hierarchy and, over
+    dense rows, on its dense coarse inverse;
+21. B2 times on the fine pack (CUDA events, median of 30): kernel,
+    plain version, one cuSPARSE CSR SpMV, the bound over the stored
+    entries and over the class planes;
+22. the same stack at ny = 320 (544,649 rows, 67 shift tiles) on the
+    card against the CPU, f32 pack and f64 pack: equal iterations.  The
+    CPU solves run in two child processes (one per pack dtype) started
+    after phase 21, so no timed phase runs beside them.
 
-Then one JSON line of the three paths' kernels and, last, the contract line
+Then one JSON line of the four paths' kernels and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.
@@ -137,10 +165,31 @@ SEED = 20261016
 #: this relative 2-norm (the CPU parity tests hold the port to the JAX
 #: package at the same limit)
 SMALL_X_RTOL = 1e-6
+#: the fourth path: the headline stack on the DFG cylinder operator,
+#: its hierarchy cut at DFG_LEVELS levels.  The CG K-cycle (cycle_iters
+#: 2) visits level i 2^i times per application, each visit a few dozen
+#: kernel launches: at ny = 512 the config's own 14 levels would make
+#: 2^13 = 8,192 coarse solves per application; 10 levels make 256, on a
+#: 1,498-row dense coarse operator
+DFG_LEVELS = 10
+DFG_CFG = HEADLINE_CFG.replace("amg:max_levels=20",
+                               f"amg:max_levels={DFG_LEVELS}")
+DFG_NY, DFG_SMALL_NY = 512, 320
+#: FGMRES iterations of the profiled window of a warm DFG solve
+DFG_WINDOW_ITERS = 2
+#: per-row limits of B2 against its plain version (it is bit-equal by
+#: construction; the limits are those of the other kernels)
+SHIFT_TOL = {"f32": 1e-5, "f64": 1e-12}
+
+
+#: the script's start, for the elapsed seconds on every phase line
+T0 = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": round(time.perf_counter() - T0, 1)}),
+          flush=True)
 
 
 def short(dt) -> str:
@@ -279,11 +328,11 @@ def bound(nd, n, vdt, xdt):
 
 def check_ell(dev, gen, name, cols, vals64, n_cols, errs):
     """B3 vs its plain version in both type pairs on one ELL pack (values
-    given in f64, cast to each pair's type), per row to a relative 1e-5
-    (f32) or 1e-12 (f64)."""
+    given in f64, cast to each pair's type; ``cols=None`` for dense
+    rows), per row to a relative 1e-5 (f32) or 1e-12 (f64)."""
     import torch
     from amgx_tpu_torch.ops import ell_spmv as emod
-    n, K = cols.shape
+    n, K = vals64.shape
     absmax = vals64.abs().max().item()
     for dt in (torch.float32, torch.float64):
         vals = vals64.to(dt).contiguous()
@@ -303,8 +352,16 @@ def check_ell(dev, gen, name, cols, vals64, n_cols, errs):
         assert rel < tol, (name, short(dt), diff, rel)
         record(errs, f"{short(dt)}.{short(dt)}", diff, rel)
         emit("ell_check", case=name, n=n, K=K, n_cols=n_cols,
-             vals_absmax=absmax, type=short(dt), max_abs_err=diff,
+             dense_rows=cols is None, vals_absmax=absmax, type=short(dt),
+             bit_equal=bool(torch.equal(y, ref)), max_abs_err=diff,
              max_row_rel_err=rel, tol=tol)
+
+
+def check_coarse_inverse(dev, gen, name, h, errs):
+    """B3 over dense rows vs its plain version on the dense coarse
+    inverse of hierarchy ``h``, as the coarse solve passes it."""
+    inv = h.coarse_solver.inverse
+    check_ell(dev, gen, name, None, inv.double(), inv.shape[1], errs)
 
 
 def csr_of_ell(cols, vals, n_cols):
@@ -363,10 +420,12 @@ def reset_counts() -> None:
     from amgx_tpu_torch.ops import binned_spmv as bmod
     from amgx_tpu_torch.ops import dia_spmv as dmod
     from amgx_tpu_torch.ops import ell_spmv as emod
+    from amgx_tpu_torch.ops import shift_spmv as shmod
     from amgx_tpu_torch.ops import spmv as smod
     dmod.reset_launches()
     emod.reset_launches()
     bmod.reset_launches()
+    shmod.reset_launches()
     smod.reset_dispatch()
 
 
@@ -374,11 +433,13 @@ def read_counts() -> dict:
     from amgx_tpu_torch.ops import binned_spmv as bmod
     from amgx_tpu_torch.ops import dia_spmv as dmod
     from amgx_tpu_torch.ops import ell_spmv as emod
+    from amgx_tpu_torch.ops import shift_spmv as shmod
     from amgx_tpu_torch.ops import spmv as smod
     return dict(dispatch={k: v for k, v in smod.DISPATCH.items() if v},
                 declines={k: smod.DISPATCH[k] for k in smod.DECLINES},
-                B1=dict(dmod.LAUNCHES), B3=dict(emod.LAUNCHES),
-                B4=dict(bmod.LAUNCHES["B4"]), B5=dict(bmod.LAUNCHES["B5"]))
+                B1=dict(dmod.LAUNCHES), B2=dict(shmod.LAUNCHES),
+                B3=dict(emod.LAUNCHES), B4=dict(bmod.LAUNCHES["B4"]),
+                B5=dict(bmod.LAUNCHES["B5"]))
 
 
 def binned_bound(entries, b, n, n_cols, vdt, xdt):
@@ -733,23 +794,329 @@ def config4_phases(amgx, dev, smi, gen, b1_errs) -> dict:
                 b1_block_dia_errs=bdia_errs)
 
 
+def check_shift(dev, gen, name, Ad, errs):
+    """B2 vs its plain version on one shift pack in (f32, f32) and (f64,
+    f64), every row to its own relative limit (its error over the row's
+    Σ_j |a_ij·x_j|); also records whether the two are bit-equal."""
+    import torch
+    from amgx_tpu_torch.ops import shift_spmv as shmod
+    for dt in (torch.float32, torch.float64):
+        M = Ad.astype(dt)
+        x = torch.randn(M.n_cols, dtype=torch.float64, device=dev,
+                        generator=gen).to(dt)
+        before = shmod.launch_count()
+        y = shmod.shift_spmv(M, x)
+        torch.cuda.synchronize(dev)
+        assert shmod.launch_count() == before + 1, "launch not counted"
+        ref = shmod.shift_spmv_reference(M.sh_vals, M.sh_diffs, M.sh_dims,
+                                         x, M.n_rows)
+        assert y.dtype == ref.dtype == dt and y.shape == (M.n_rows,)
+        assert torch.isfinite(y).all().item(), (name, dt)
+        scale = shmod.shift_spmv_reference(
+            M.sh_vals.double().abs(), M.sh_diffs, M.sh_dims,
+            x.double().abs(), M.n_rows)
+        diff, rel = row_errors(y, ref, scale)
+        tol = SHIFT_TOL[short(dt)]
+        assert rel < tol, (name, short(dt), diff, rel)
+        record(errs, f"{short(dt)}.{short(dt)}", diff, rel)
+        emit("shift_check", case=name, n=M.n_rows,
+             tiles=int(M.sh_dims[1]), dpad=int(M.sh_dims[2]),
+             type=short(dt), bit_equal=bool(torch.equal(y, ref)),
+             max_abs_err=diff, max_row_rel_err=rel, tol=tol)
+
+
+def shift_bounds(Ad, nnz, dt):
+    """(bound_ms, bound_by, planes_bound_ms) of one B2 SpMV: the bytes of
+    the stored values, x and y (what the product needs), and of the
+    class planes, diff table, x and y (what the pack holds), each against
+    2·nnz operations at the peak rate."""
+    T, n_tiles, Dpad = (int(v) for v in Ad.sh_dims[:3])
+    n = Ad.n_rows
+    xy = 2 * n * dt.itemsize
+    t_ops = 2 * nnz / PEAK_FLOPS[short(dt)]
+    t_nnz = (nnz * dt.itemsize + xy) / PEAK_BYTES_PER_S
+    t_planes = (n_tiles * Dpad * (T * dt.itemsize + 4) + xy) \
+        / PEAK_BYTES_PER_S
+    return (max(t_nnz, t_ops) * 1e3,
+            "bytes" if t_nnz >= t_ops else "operations",
+            max(t_planes, t_ops) * 1e3)
+
+
+def dfg_solve(amgx, A, where, pdt):
+    """One DFG solve of ``b = 1`` under ``DFG_CFG`` on ``where`` with a
+    ``pdt`` pack: (iterations, x on the host, true relres in f64)."""
+    m = amgx.Matrix(A, device=where)
+    m.device_dtype = pdt
+    slv = amgx.create_solver(DFG_CFG)
+    slv.setup(m)
+    res = slv.solve(np.ones(A.shape[0]))
+    assert res.status == amgx.SolveStatus.SUCCESS, (where, pdt)
+    x = res.x.cpu().double().numpy()
+    relres = float(np.linalg.norm(1.0 - A @ x) / np.sqrt(A.shape[0]))
+    assert relres <= 1e-8, (where, pdt, relres)
+    return res.iterations, x, relres
+
+
+#: phase 22's pack dtypes, one CPU child each
+DFG_CPU_DTYPES = ("float32", "float64")
+
+
+class CpuReference:
+    """Phase 22's CPU solves: one child process per pack dtype
+    (``python3 chip_smoke.py --cpu-reference DIR DTYPE``, no card), both
+    started together once every timed phase is done.  ``result()`` waits
+    for them and returns per pack dtype (iterations, x, true relres,
+    seconds); ``stop()`` ends any that still runs."""
+
+    def __init__(self):
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.dir = os.path.join(here, "amgx_tpu_torch", "_build",
+                                f"dfg_cpu_{os.getpid()}")
+        self.procs = {}
+
+    def start(self) -> None:
+        os.makedirs(self.dir, exist_ok=True)
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        for name in DFG_CPU_DTYPES:
+            self.procs[name] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--cpu-reference", self.dir, name],
+                cwd=os.path.dirname(self.dir), env=env)
+
+    def result(self) -> dict:
+        out = {}
+        for name, proc in self.procs.items():
+            rc = proc.wait()
+            assert rc == 0, f"CPU reference ({name}) exited {rc}"
+            with open(os.path.join(self.dir, f"{name}.json")) as f:
+                m = json.load(f)
+            x = np.load(os.path.join(self.dir, f"x_{name}.npy"))
+            out[name] = (m["iterations"], x, m["relres"], m["seconds"])
+        return out
+
+    def stop(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        import shutil
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def cpu_reference(out_dir: str, name: str) -> int:
+    """A child of :class:`CpuReference`: the ny = 320 DFG solve on the
+    CPU (plain versions) with a ``name`` pack, x saved as .npy."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.io import dfg_cylinder_pressure
+    assert not torch.cuda.is_available()
+    # the cores, shared by the children; one left to the card process
+    torch.set_num_threads(max(1, ((os.cpu_count() or 2) - 1)
+                              // len(DFG_CPU_DTYPES)))
+    A3 = dfg_cylinder_pressure(DFG_SMALL_NY)
+    t0 = time.perf_counter()
+    it, x, relres = dfg_solve(amgx, A3, "cpu", np.dtype(name).type)
+    np.save(os.path.join(out_dir, f"x_{name}.npy"), x)
+    with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+        json.dump(dict(iterations=it, relres=relres,
+                       seconds=time.perf_counter() - t0), f)
+    return 0
+
+
+def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs) -> dict:
+    """Phases 19-22: the DFG cylinder path (aggregation AMG on an
+    uploaded operator) and kernel B2; ``cpu_ref`` is the
+    :class:`CpuReference` it starts at phase 22, ``ell_errs`` B3's
+    errors, which its checks here join."""
+    import scipy.sparse as sp
+    import torch
+    from amgx_tpu_torch.core.matrix import pack_device, pack_kind
+    from amgx_tpu_torch.io import (dfg_cylinder_pressure, poisson5pt,
+                                   poisson7pt)
+    from amgx_tpu_torch.ops import shift_spmv as shmod
+
+    # ---- 19. the slice's solve at ny = 512
+    t0 = time.perf_counter()
+    A = dfg_cylinder_pressure(DFG_NY)
+    build_s = time.perf_counter() - t0
+    n = A.shape[0]
+    emit("dfg_system", ny=DFG_NY, rows=n, nnz=A.nnz, host_build_s=build_s,
+         levels_cut_at=DFG_LEVELS)
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    m = amgx.Matrix(A, device="cuda")
+    m.device_dtype = np.float32
+    slv = amgx.create_solver(DFG_CFG)
+    slv.setup(m)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    reset_counts()
+    res = slv.solve(b)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    assert res.status == amgx.SolveStatus.SUCCESS, res.status
+    Ad = m.device()
+    assert pack_kind(Ad) == "ell/shift", pack_kind(Ad)
+    h = slv.preconditioner.hierarchy
+    kinds = [pack_kind(lv.Ad) for lv in h.levels]
+    assert kinds[0] == "ell/shift" and kinds[1:] and \
+        set(kinds[1:]) == {"ell/window"}, kinds
+    d = counts["dispatch"]
+    # every shift apply is a fine-level apply (the only shift pack) and
+    # ran on B2; the coarse ELL levels ran on B3; nothing declined
+    assert d.get("ell/shift", 0) == sum(counts["B2"].values()) > 0, counts
+    assert all(counts["B2"][k] > 0 for k in ("f32.f32", "f64.f64")), counts
+    assert d.get("ell/window", 0) > 0 and counts["B3"]["f32.f32"] > 0
+    assert not any(counts["declines"].values()), counts
+    assert not any(d.get(k, 0) for k in ("ell/gather", "dia/slices",
+                                         "dia/kernel")), counts
+    x = res.x
+    assert x.dtype == torch.float64 and x.shape == (n,) and x.is_cuda
+    assert torch.isfinite(x).all().item()
+    xh = x.cpu().numpy()
+    relres = float(np.linalg.norm(1.0 - A @ xh) / np.sqrt(n))
+    assert relres <= 1e-8, relres
+    reset_counts()
+    res2 = slv.solve(b)
+    torch.cuda.synchronize(dev)
+    warm = read_counts()
+    assert res2.iterations == res.iterations
+    assert warm["dispatch"].get("ell/shift", 0) == \
+        sum(warm["B2"].values()) > 0, warm
+    assert not any(warm["declines"].values()), warm
+    # the device's busy share over a steady window of the warm solve
+    # (DFG_WINDOW_ITERS FGMRES iterations: the profiler's own processing
+    # of a whole solve's 1.5 M kernels would outlast the solve many times)
+    full_iters, slv.max_iters = slv.max_iters, DFG_WINDOW_ITERS
+    t0 = time.perf_counter()
+    slv.solve(b)
+    torch.cuda.synchronize(dev)
+    window_s = time.perf_counter() - t0
+    wall, dev_s, kern, top = profile_window(lambda: slv.solve(b))
+    slv.max_iters = full_iters
+    emit("dfg_path", ny=DFG_NY, rows=n, iterations=res.iterations,
+         relres_f64=relres, setup_s=setup_s, solve_s=res.solve_time,
+         solve_warm_s=res2.solve_time,
+         levels=[dict(rows=lv.level_stats()[0], pack=k_)
+                 for lv, k_ in zip(h.levels, kinds)]
+         + [dict(rows=h.coarsest.n_block_rows, pack="dense-lu")],
+         shift_dims=list(Ad.sh_dims),
+         grid_stats=h.grid_stats().splitlines()[-2:],
+         peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+         counts=counts, warm_dispatch=warm["dispatch"],
+         window_iterations=DFG_WINDOW_ITERS, window_s=window_s,
+         profiled_wall_s=wall, device_busy_s=dev_s, device_kernels=kern,
+         device_time_measured=kern > 0,
+         busy_share_of_unprofiled=dev_s / window_s, top=top, card=smi)
+
+    # ---- 20. B2 vs plain: the fine pack, the Pallas test cases, the
+    # 9-diagonal matrix of tests/test_tpu.py
+    errs = {}
+    check_shift(dev, gen, f"dfg_{DFG_NY}_fine", Ad, errs)
+    # B3 at the shapes this path gives it: every coarse level's A (the
+    # fine level is the shift pack) and the dense coarse inverse
+    for i, lv in enumerate(h.levels[1:], 1):
+        check_ell(dev, gen, f"dfg_{DFG_NY}.level{i}.A",
+                  lv.Ad.ell_cols_view(), lv.Ad.ell_vals_view().double(),
+                  lv.Ad.n_cols, ell_errs)
+    check_coarse_inverse(dev, gen, f"dfg_{DFG_NY}.coarse_inverse", h,
+                         ell_errs)
+    rng = np.random.default_rng(SEED)
+
+    def randomized(M):
+        M = sp.csr_matrix(M)
+        M.data = rng.standard_normal(M.nnz)
+        return M
+
+    n4 = 4000
+    wrap = sp.diags([2.0] * n4).tolil()
+    for i in range(n4):
+        wrap[i, (i + 1) % n4] = -1.0
+        wrap[i, (i - 1) % n4] = -1.0
+    n9 = 40000
+    r9 = np.random.default_rng(11)
+    diag9 = sp.diags(r9.standard_normal((9, n9)),
+                     [-160, -41, -7, -1, 0, 1, 7, 41, 160],
+                     shape=(n9, n9)).tocsr()
+    cases = [("poisson7_12x12x6", randomized(poisson7pt(12, 12, 6))),
+             ("poisson7_24^3", randomized(poisson7pt(24, 24, 24))),
+             ("poisson5_90x70", randomized(poisson5pt(90, 70))),
+             ("periodic_4000", sp.csr_matrix(wrap)),
+             ("ragged_tail_37x11", randomized(poisson5pt(37, 11))),
+             ("nine_diagonals_40000", diag9)]
+    for name, M in cases:
+        P = pack_device(M, 1, np.float64, dia_max_diags=0, device=dev)
+        assert pack_kind(P) == "ell/shift", (name, pack_kind(P))
+        check_shift(dev, gen, name, P, errs)
+
+    # ---- 21. B2 times on the fine pack
+    timing = {}
+    for dt in (torch.float32, torch.float64):
+        M = Ad.astype(dt)
+        xv = torch.randn(n, dtype=dt, device=dev, generator=gen)
+        lib = csr_of_host(A, dt, dev)
+        ms = time_ms(lambda: shmod.shift_spmv(M, xv), dev)
+        plain_ms = time_ms(lambda: shmod.shift_spmv_reference(
+            M.sh_vals, M.sh_diffs, M.sh_dims, xv, n), dev)
+        library_ms = time_ms(lambda: lib @ xv, dev)
+        bound_ms, bound_by, planes_ms = shift_bounds(M, A.nnz, dt)
+        timing[short(dt)] = dict(ms=ms, plain_ms=plain_ms,
+                                 library_ms=library_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by)
+        emit("shift_timing", ny=DFG_NY, rows=n, nnz=A.nnz,
+             slots=int(M.sh_vals.numel()), type=short(dt), card=smi,
+             library="cusparse-csr", planes_bound_ms=planes_ms,
+             **timing[short(dt)])
+        del lib
+    del slv, res, res2, x, m, Ad, h
+    torch.cuda.empty_cache()
+
+    # ---- 22. card against CPU at ny = 320 (the CPU half in two child
+    # processes from here on: no timed phase is left to run beside them)
+    cpu_ref.start()
+    A3 = dfg_cylinder_pressure(DFG_SMALL_NY)
+    card = {}
+    for name in DFG_CPU_DTYPES:
+        t0 = time.perf_counter()
+        card[name] = dfg_solve(amgx, A3, "cuda", np.dtype(name).type)
+        card[name] += (time.perf_counter() - t0,)
+    cpu = cpu_ref.result()
+    for name in DFG_CPU_DTYPES:
+        ig, xg, rg, card_s = card[name]
+        ic, xc, rc, cpu_s = cpu[name]
+        x_diff = float(np.linalg.norm(xg - xc) / np.linalg.norm(xc))
+        emit("dfg_card_vs_cpu", ny=DFG_SMALL_NY, rows=A3.shape[0],
+             pack=name, iterations_card=ig,
+             iterations_cpu=ic, relres_card=rg, relres_cpu=rc,
+             x_rel_diff_card_vs_cpu=x_diff,
+             x_bit_equal=bool(np.array_equal(xg, xc)),
+             card_setup_and_solve_s=card_s, cpu_setup_and_solve_s=cpu_s)
+        assert ig == ic, (name, ig, ic)
+        assert x_diff < SMALL_X_RTOL, (name, x_diff)
+
+    kernels = []
+    for dt in ("f32", "f64"):
+        key = f"{dt}.{dt}"
+        kernels.append(dict(
+            name=f"shift_spmv<{dt},{dt}>", route="cuda",
+            source="amgx_tpu_torch/csrc/shift_spmv.cu",
+            replaces="amgx_tpu/ops/pallas_shift.py:187",
+            launches=counts["B2"][key],
+            launches_by_path=dict(dfg=counts["B2"][key]),
+            max_abs_err=errs[key]["abs"],
+            max_row_rel_err=errs[key]["rel"], **timing[dt]))
+    return dict(kernels=kernels, b3_launches=counts["B3"])
+
+
 def main() -> int:
-    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import amgx_tpu_torch as amgx
-    from amgx_tpu_torch import native
-    from amgx_tpu_torch.amg.dia_device import (derive_hierarchy_device,
-                                               plan_dia_hierarchy)
-    from amgx_tpu_torch.io import poisson7pt_device
-    from amgx_tpu_torch import device as dvmod
-    from amgx_tpu_torch.io import poisson7pt
-    from amgx_tpu_torch.ops import dia_spmv as dmod
-    from amgx_tpu_torch.ops import ell_spmv as emod
-    from amgx_tpu_torch.ops import spmv as smod
 
     # float32 products and convolutions in full precision (the port runs
     # none of cuDNN's TF32 convolutions, and says so here)
@@ -768,10 +1135,31 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    # ---- 2. build the three kernel sources, one nvcc each, started
+    # the CPU half of phase 22 (started there; stopped here on any exit)
+    cpu_ref = CpuReference()
+    try:
+        return run_phases(amgx, dev, smi, kind, cpu_ref)
+    finally:
+        cpu_ref.stop()
+
+
+def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
+    import numpy as np
+    import torch
+    from amgx_tpu_torch import native
+    from amgx_tpu_torch.amg.dia_device import (derive_hierarchy_device,
+                                               plan_dia_hierarchy)
+    from amgx_tpu_torch.io import poisson7pt_device
+    from amgx_tpu_torch import device as dvmod
+    from amgx_tpu_torch.io import poisson7pt
+    from amgx_tpu_torch.ops import dia_spmv as dmod
+    from amgx_tpu_torch.ops import ell_spmv as emod
+    from amgx_tpu_torch.ops import spmv as smod
+
+    # ---- 2. build the four kernel sources, one nvcc each, started
     # together
     t0 = time.perf_counter()
-    sources = ("dia_spmv", "ell_spmv", "binned_spmv")
+    sources = ("dia_spmv", "ell_spmv", "binned_spmv", "shift_spmv")
     native.build_all(sources)
     build_s = time.perf_counter() - t0
     for name in sources:
@@ -832,6 +1220,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 5. the main path: 128³ headline solve
+    ell_errs = {}
     dmod.reset_launches()
     emod.reset_launches()
     smod.reset_dispatch()
@@ -846,7 +1235,10 @@ def main() -> int:
     torch.cuda.synchronize(dev)
     launches = dict(dmod.LAUNCHES)
     dispatch = dict(smod.DISPATCH)
-    assert emod.launch_count() == 0     # no ELL operator on this path
+    # no ELL operator on this path: B3 serves only the dense coarse
+    # solve (one ordered product with the coarse inverse)
+    assert dispatch["ell/window"] == 0 and dispatch["ell/shift"] == 0
+    head_b3 = dict(emod.LAUNCHES)
     # a second, warm solve for the steady-state time (not counted)
     res2 = slv.solve(b)
     assert res.status == amgx.SolveStatus.SUCCESS, res.status
@@ -863,6 +1255,7 @@ def main() -> int:
               / torch.linalg.vector_norm(b)).item()
     assert relres <= 1e-8, relres
     h = slv.preconditioner.hierarchy
+    check_coarse_inverse(dev, gen, "headline.coarse_inverse", h, ell_errs)
     emit("main_path", n=n, iterations=res.iterations, relres=relres,
          setup_s=setup_s, solve_s=res.solve_time,
          solve_warm_s=res2.solve_time,
@@ -983,8 +1376,9 @@ def main() -> int:
                      M.dia_offsets, ((torch.float32, torch.float32),
                                      (torch.float64, torch.float64)), errs)
 
-    # ---- 9b. B3 vs plain on every ELL pack of that hierarchy, both pairs
-    ell_errs = {}
+    # ---- 9b. B3 vs plain on every ELL pack of that hierarchy and its
+    # dense coarse inverse, both pairs
+    check_coarse_inverse(dev, gen, "classical.coarse_inverse", ch, ell_errs)
     packs = []
     for i, lv in enumerate(ch.levels):
         for role, M in (("A", lv.Ad), ("P", lv.P), ("R", lv.R)):
@@ -1086,6 +1480,9 @@ def main() -> int:
     # ---- 13.-18. the config-4 path
     c4 = config4_phases(amgx, dev, smi, gen, errs)
 
+    # ---- 19.-22. the DFG cylinder path (aggregation AMG, B2)
+    dfg = dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs)
+
     # ---- the kernels of the three paths
     kernels = []
     for key in ("f32.f32", "f64.f64"):
@@ -1110,9 +1507,11 @@ def main() -> int:
         name="ell_spmv<f32,f32>", route="cuda",
         source="amgx_tpu_torch/csrc/ell_spmv.cu",
         replaces="amgx_tpu/ops/pallas_ell.py:209",
-        launches=c_launches["ell_spmv"][key],
-        launches_by_path=dict(headline=0,
-                              classical=c_launches["ell_spmv"][key]),
+        launches=head_b3[key] + c_launches["ell_spmv"][key]
+        + dfg["b3_launches"][key],
+        launches_by_path=dict(headline=head_b3[key],
+                              classical=c_launches["ell_spmv"][key],
+                              dfg=dfg["b3_launches"][key]),
         max_abs_err=ell_errs[key]["abs"],
         max_row_rel_err=ell_errs[key]["rel"], ms=ell_timing[key]["ms"],
         plain_ms=ell_timing[key]["plain_ms"],
@@ -1120,6 +1519,7 @@ def main() -> int:
         bound_by=ell_timing[key]["bound_by"],
         library_ms=ell_timing[key]["library_ms"]))
     kernels.extend(c4["kernels"])
+    kernels.extend(dfg["kernels"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1128,4 +1528,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--cpu-reference":
+        sys.exit(cpu_reference(sys.argv[2], sys.argv[3]))
     sys.exit(main())

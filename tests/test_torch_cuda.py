@@ -65,6 +65,24 @@ def test_ell_kernel_matches_plain(card, dt, K, n, n_cols):
     assert _rel(y, emod.ell_spmv_reference(cols, vals, x)) < tol
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [7, 64, 1498])
+def test_dense_rows_kernel_matches_plain(card, dt, n):
+    """B3 over dense rows (the dense coarse solve's inverse): bit-equal
+    to its plain version, one counted launch."""
+    from amgx_tpu_torch.ops import ell_spmv as emod
+    g = torch.Generator(device=card).manual_seed(n)
+    M = torch.randn((n, n), dtype=torch.float64, device=card,
+                    generator=g).to(dt)
+    x = torch.randn(n, dtype=torch.float64, device=card,
+                    generator=g).to(dt)
+    before = emod.launch_count()
+    y = emod.dense_matvec(M, x)
+    torch.cuda.synchronize(card)
+    assert emod.launch_count() == before + 1
+    assert torch.equal(y, emod.ell_spmv_reference(None, M, x))
+
+
 def test_classical_solve_on_card_matches_cpu(card):
     import amgx_tpu_torch as amgx
     from amgx_tpu_torch.io import poisson7pt
@@ -166,5 +184,59 @@ def test_config4_solve_on_card_matches_cpu(card, pdt):
     assert out["cuda"][0] == out["cpu"][0], (out["cuda"][0],
                                               out["cpu"][0])
     assert out["cuda"][1]["ell/binned-block"] > 0
+    xg, xc = out["cuda"][2], out["cpu"][2]
+    assert ((xg - xc).norm() / xc.norm()).item() < 1e-6
+
+
+@pytest.fixture(scope="module")
+def dfg320():
+    from amgx_tpu_torch.io import dfg_cylinder_pressure
+    return dfg_cylinder_pressure(320)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_shift_kernel_matches_plain(card, dfg320, dt):
+    """B2 on the DFG operator's shift pack at ny = 320 (67 tiles of Dpad
+    16): bit for bit its plain version, in both type pairs."""
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.ops import shift_spmv as smod
+    m = amgx.Matrix(dfg320, device=card)
+    Ad = m.device(np.float64).astype(dt)
+    assert amgx.pack_kind(Ad) == "ell/shift"
+    assert Ad.sh_dims[:3] == (8192, 67, 16)
+    g = torch.Generator(device=card).manual_seed(320)
+    x = torch.randn(dfg320.shape[0], dtype=torch.float64, device=card,
+                    generator=g).to(dt)
+    before = smod.launch_count()
+    y = smod.shift_spmv(Ad, x)
+    torch.cuda.synchronize(card)
+    assert smod.launch_count() == before + 1
+    ref = smod.shift_spmv_reference(Ad.sh_vals, Ad.sh_diffs, Ad.sh_dims, x,
+                                    Ad.n_rows)
+    assert torch.equal(y, ref)
+
+
+def test_dfg320_solve_on_card_matches_cpu(card, dfg320):
+    """The slice's stack (the headline config, GEO → SIZE_2, hierarchy cut
+    at 10 levels as in ``chip_smoke.py``) with the f32 pack + f64
+    refinement at ny = 320: the card and the CPU take the same
+    iterations, every fine-level SpMV on the card through B2."""
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.ops.spmv import DISPATCH, reset_dispatch
+    from chip_smoke import DFG_CFG
+    out = {}
+    for where in ("cuda", "cpu"):
+        m = amgx.Matrix(dfg320, device=where)
+        m.device_dtype = np.float32
+        s = amgx.create_solver(DFG_CFG)
+        s.setup(m)
+        reset_dispatch()
+        r = s.solve(np.ones(dfg320.shape[0]))
+        out[where] = (r.iterations, dict(DISPATCH), r.x.cpu())
+    assert out["cuda"][0] == out["cpu"][0], (out["cuda"][0],
+                                              out["cpu"][0])
+    d = out["cuda"][1]
+    assert d["ell/shift"] > 0 and d["ell/window"] > 0
+    assert d["ell/gather"] == 0 and d["dia/slices"] == 0
     xg, xc = out["cuda"][2], out["cpu"][2]
     assert ((xg - xc).norm() / xc.norm()).item() < 1e-6

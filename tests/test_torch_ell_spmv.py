@@ -163,6 +163,31 @@ def test_out_of_range_columns_read_zero():
     assert ell_spmv(cols, vals, x).tolist() == [1 + 4, 2 + 3]
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 7, 40, 1498])
+def test_dense_rows_match_an_arange_column_table(dt, n):
+    """``cols=None`` (dense rows, :func:`dense_matvec`) gives the same
+    bits as the ELL pack of the same matrix with column table k ↦ k, and
+    in f64 the dense product to 1e-13."""
+    from amgx_tpu_torch.ops.ell_spmv import dense_matvec
+    rng = np.random.default_rng(n)
+    M = torch.from_numpy(rng.standard_normal((n, n))).to(dt)
+    x = torch.from_numpy(rng.standard_normal(n)).to(dt)
+    cols = torch.arange(n, dtype=torch.int32).expand(n, n).contiguous()
+    got = dense_matvec(M, x)
+    assert got.dtype == dt and got.shape == (n,)
+    assert torch.equal(got, ell_spmv_reference(cols, M, x))
+    if dt == torch.float64:
+        assert _rel(got.numpy(), M.numpy() @ x.numpy()) < F64_REL
+
+
+def test_dense_rows_need_a_square_width():
+    with pytest.raises(BadParametersError):
+        ell_spmv(None, torch.ones((4, 3)), torch.ones(4))
+    with pytest.raises(BadParametersError):
+        ell_spmv(None, torch.ones(4), torch.ones(4))
+
+
 def test_width_budget_raises():
     """Past the ELL width budget (a row of more than 2048 entries) the
     scalar ELL pack of kernel B3 is refused and the matrix packs as CSR.

@@ -16,7 +16,8 @@ from amgx_tpu_torch.io import poisson7pt, poisson7pt_device
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "amgx_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_headline_ab.py"]
+    [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_headline_ab.py",
+     ROOT / "scripts" / "torch_dfg_depth.py"]
 
 
 def test_import_leaves_jax_out_of_sys_modules():
