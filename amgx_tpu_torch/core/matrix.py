@@ -14,7 +14,10 @@ of ``amgx_tpu/core/matrix.py``).
     diagonal;
   - ``fmt == "ell"``: ``cols`` (n, K) int32 and ``vals`` (n, K[, b, b]),
     padded with value 0 (host packs pad with column 0); rectangular
-    allowed.  A square scalar ELL of at most 256 entries a row whose
+    allowed.  A scalar ELL pack carries ``row_len`` (n,) int32, one past
+    each row's last nonzero slot (:func:`~..ops.ell_spmv.ell_row_len`,
+    computed on its device at assembly), where kernel B3 stops the row.
+    A square scalar ELL of at most 256 entries a row whose
     every 8192-row tile holds at most 32 distinct column differences
     carries the tile-DIA shift planes (``sh_*``,
     :mod:`..ops.shift_spmv`, kernel B2) in place of ``cols``/``vals``
@@ -54,7 +57,7 @@ import torch
 
 from ..device import numpy_dtype, resolve_device, torch_dtype
 from ..errors import BadParametersError
-from ..ops import binned_spmv, shift_spmv
+from ..ops import binned_spmv, ell_spmv, shift_spmv
 
 #: the DIA diagonal budget (``pack_device(dia_max_diags=48)`` upstream)
 DIA_MAX_DIAGS = 48
@@ -78,6 +81,8 @@ class DeviceMatrix:
     ell_width: int = 0
     block_dim: int = 1
     row_ids: Optional[torch.Tensor] = None   # csr: (nnz,) int32
+    #: scalar ell: (n,) int32, one past each row's last nonzero slot
+    row_len: Optional[torch.Tensor] = None
     #: binned sliced-ELL planes (ops/binned_spmv.py) and static dims
     bn_codes: Optional[torch.Tensor] = None
     bn_vals: Optional[torch.Tensor] = None
@@ -88,6 +93,9 @@ class DeviceMatrix:
     #: (:func:`~amgx_tpu_torch.ops.binned_spmv.kernel_aux`)
     bn_tile_ptr: Optional[torch.Tensor] = None
     bn_row_of_pos: Optional[torch.Tensor] = None
+    #: block-native packs: kernel B5's compact pack, derived from the
+    #: planes at upload (:func:`~amgx_tpu_torch.ops.binned_spmv.compact_pack`)
+    bn_compact: Optional[binned_spmv.CompactPack] = None
     #: tile-DIA shift planes (ops/shift_spmv.py) and static dims
     sh_vals: Optional[torch.Tensor] = None
     sh_meta: Optional[torch.Tensor] = None
@@ -115,6 +123,8 @@ class DeviceMatrix:
             self, vals=None if self.vals is None else self.vals.to(dt),
             diag=self.diag.to(dt),
             bn_vals=None if self.bn_vals is None else self.bn_vals.to(dt),
+            bn_compact=None if self.bn_compact is None
+            else self.bn_compact.astype(dt),
             sh_vals=None if self.sh_vals is None else self.sh_vals.to(dt))
 
     def ell_vals_view(self) -> torch.Tensor:
@@ -208,9 +218,12 @@ def ell_host_arrays(host: sp.spmatrix, dtype):
 
 def ell_device_matrix(cols: torch.Tensor, vals: torch.Tensor,
                       diag: torch.Tensor, n_cols: int) -> DeviceMatrix:
+    """The scalar ELL DeviceMatrix around device arrays, with its
+    ``row_len``."""
     return DeviceMatrix(vals=vals, diag=diag, n_rows=int(vals.shape[0]),
                         n_cols=int(n_cols), fmt="ell", cols=cols,
-                        ell_width=int(vals.shape[1]))
+                        ell_width=int(vals.shape[1]),
+                        row_len=ell_spmv.ell_row_len(vals))
 
 
 def dia_arrays(csr: sp.csr_matrix, max_diags: Optional[int] = None):
@@ -524,13 +537,21 @@ def assemble_device_matrix(arrays, meta, device) -> DeviceMatrix:
                      bn_meta=bn_meta, bn_pos=bn_pos,
                      bn_dims=tuple(meta["bn_dims"]), bn_tile_ptr=tile_ptr,
                      bn_row_of_pos=row_of_pos)
+        if binned_spmv.bn_block_dim(meta["bn_dims"]) > 1:
+            extra.update(bn_compact=binned_spmv.compact_pack(
+                extra["bn_codes"], extra["bn_vals"], bn_meta,
+                meta["bn_dims"]))
     if "sh_dims" in meta:
         sh_meta = up("sh_meta")
         dims = tuple(int(v) for v in meta["sh_dims"])
         extra.update(sh_vals=up("sh_vals"), sh_meta=sh_meta, sh_dims=dims,
                      sh_diffs=shift_spmv.class_diffs(sh_meta, dims))
+    vals = up("vals")
+    if meta["fmt"] == "ell" and int(meta["block_dim"]) == 1 and \
+            vals is not None:
+        extra.update(row_len=ell_spmv.ell_row_len(vals))
     return DeviceMatrix(
-        vals=up("vals"), diag=up("diag"), n_rows=int(meta["n_rows"]),
+        vals=vals, diag=up("diag"), n_rows=int(meta["n_rows"]),
         n_cols=int(meta["n_cols"]), fmt=meta["fmt"], cols=up("cols"),
         ell_width=int(meta["ell_width"]),
         block_dim=int(meta["block_dim"]), row_ids=up("row_ids"), **extra)

@@ -17,32 +17,47 @@
 //
 // with p the padded position tile * 128 + t and row(p) its original row.
 //
-// Bound on this card: memory.  One SpMV must read the planes (codes once,
-// b*b value planes) and x once and write y once:
-//   bytes = L * (4 + b*b*sizeof(V)) + (n_cols + n) * b * sizeof(X)
-// against 2 * b*b * L flops (1 - 2 flop/byte): far under the ridge point.
-// Over the stored blocks alone (the bound a sparse product must pay
-// whatever its layout) the bytes are nnz_blocks * (4 + b*b*sizeof(V));
-// the ratio of the two is the pack's padding factor.
+// Bound on this card: memory.  One SpMV must read each stored (block)
+// entry's code and b*b values once, x once, and write y once:
+//   bytes = nnz_blocks * (4 + b*b*sizeof(V)) + (n_cols + n) * b * sizeof(X)
+// against 2 * b*b * nnz_blocks flops (1 - 2 flop/byte): far under the
+// ridge point.  Every padding lane a kernel streams is on top of that.
 //
-// Design: the TPU kernels' one-hot MXU picks, bf16x3 splits, (SB*128)-
-// column x segments and VMEM staging exist because a TPU has no gather;
-// Hopper has one.  One CTA of 128 threads serves one 128-row output
-// tile, one thread one row.  The chunk list is tile-sorted, so a tile's
-// chunks are one contiguous range, tile_ptr[tile] .. tile_ptr[tile+1]
-// (derived once at upload).  Thread t reads codes/vals at lane =
-// block * 1024 + slot * 128 + t: consecutive threads read consecutive
-// lanes, so every plane load coalesces.  It gathers x[code*b + c]
-// (x is small enough to stay in the 50 MB L2 at the sizes the solve
-// runs), accumulates the b outputs in registers in x's type (bf16 value
-// planes widen to f32), and writes its row through the inverse of the
-// bin permutation, row_of_pos (or p itself when the permutation is the
-// identity): no atomics, so the summation order is fixed and the result
-// does not depend on scheduling; with no fused multiply-add it equals the
-// plain version's bit for bit.  The slot loop is unrolled, so a
-// thread has its 8 lanes' loads in flight together.  The kernel
-// launches on the caller's stream, allocates nothing, and the launcher
-// returns cudaGetLastError().
+// B4 (b = 1): one CTA of 128 threads serves one 128-row output tile, one
+// thread one row.  The chunk list is tile-sorted, so a tile's chunks are
+// one contiguous range, tile_ptr[tile] .. tile_ptr[tile+1] (derived once
+// at upload).  Thread t reads codes/vals at lane = block * 1024 + slot *
+// 128 + t: consecutive threads read consecutive lanes, so every plane
+// load coalesces.  The TPU kernels' one-hot MXU picks, bf16x3 splits and
+// VMEM staging exist because a TPU has no gather; Hopper has one.
+//
+// B5 (b >= 2) reads no lane of the planes.  The planes' (tile, 1024-
+// column segment) groups pad every row to the group's widest row in
+// steps of 8 slots: 4.38x the stored blocks on the SPE10 block stencil,
+// whose rows hold one or two blocks per segment.  Hopper gathers x
+// directly and needs no segments, so B5 reads a compact pack derived at
+// upload (ops/binned_spmv.py::compact_pack): padded positions in the bin
+// order cut into slices of S = 32 / b rows, each slice padded only to its
+// own longest row.  One warp serves one slice, b threads a block row:
+// thread (r, a) makes output component a of row r.  For one slot k the
+// warp's S codes are one 4*S-byte span and its S*b*b values one
+// contiguous span (thread (r, a) reads the b values of block row a of
+// its block: one 16-byte load for b = 4 in f32), so every load
+// coalesces; x is gathered (x stays in the 50 MB L2 at the sizes the
+// solve runs).  A code with its sign bit set opens a new chunk: the
+// thread sums a chunk's products into a partial and adds the partial to
+// the row at the chunk's end, in the planes' (chunk, slot) order, so the
+// result equals B5 of the planes and its plain version bit for bit (the
+// dropped lanes' products are exact zeros for finite x, added to a row
+// sum that is never -0).  A code of -1 is slice padding (it trails the
+// row's entries).
+//
+// Both accumulate in x's type (bf16 value planes widen to f32), round
+// each product and sum on their own (no fused multiply-add), write each
+// row through the inverse of the bin permutation, row_of_pos (or p itself
+// when the permutation is the identity), with no atomics; they launch on
+// the caller's stream, allocate nothing, and the launchers return
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,9 +66,11 @@
 
 namespace {
 
-constexpr int kTile = 128;   // rows per tile = threads per CTA
+constexpr int kTile = 128;   // rows per tile = threads per CTA (B4)
 constexpr int kSlots = 8;    // slot columns per chunk
 constexpr int kChunk = kSlots * kTile;
+constexpr int kWarp = 32;
+constexpr int kCompactWarps = 4;  // compact slices (warps) per CTA (B5)
 
 // type codes shared with the Python wrapper (ops/binned_spmv.py)
 enum TypeCode { kF32 = 0, kF64 = 1, kBF16 = 2 };
@@ -70,7 +87,7 @@ __device__ __forceinline__ float widen<float, __nv_bfloat16>(
 }
 
 // Products and sums rounded one at a time (no fused multiply-add): the
-// kernel then reproduces its plain version bit for bit, whose torch
+// kernels then reproduce their plain versions bit for bit, whose torch
 // multiply and add round separately.
 __device__ __forceinline__ float mul(float a, float b) {
   return __fmul_rn(a, b);
@@ -85,85 +102,196 @@ __device__ __forceinline__ double add(double a, double b) {
   return __dadd_rn(a, b);
 }
 
-template <typename V, typename X, int B>
+// ---------------------------------------------------------------- B4
+
+template <typename T>
 __global__ void __launch_bounds__(kTile)
     binned_spmv_kernel(const int32_t* __restrict__ codes,
-                       const V* __restrict__ vals, int64_t L,
+                       const T* __restrict__ vals,
                        const int32_t* __restrict__ chunk_blk,
                        const int32_t* __restrict__ tile_ptr,
                        const int32_t* __restrict__ row_of_pos,
-                       int64_t n_rows, const X* __restrict__ x,
-                       X* __restrict__ y) {
+                       int64_t n_rows, const T* __restrict__ x,
+                       T* __restrict__ y) {
   const int tile = blockIdx.x;
   const int t = threadIdx.x;
   const int64_t p = static_cast<int64_t>(tile) * kTile + t;
   const int64_t row =
       row_of_pos != nullptr ? row_of_pos[p] : (p < n_rows ? p : -1);
   if (row < 0) return;  // padding row: nothing to write, no sync follows
-  X acc[B];
-#pragma unroll
-  for (int a = 0; a < B; ++a) acc[a] = X(0);
+  T acc = T(0);
   const int c_end = tile_ptr[tile + 1];
   for (int c = tile_ptr[tile]; c < c_end; ++c) {
     const int64_t base = static_cast<int64_t>(chunk_blk[c]) * kChunk + t;
-    X part[B];
+    T part;
 #pragma unroll
     for (int k = 0; k < kSlots; ++k) {
       const int64_t lane = base + k * kTile;
-      const int64_t col = __ldg(codes + lane);
-      X xv[B];
-#pragma unroll
-      for (int cc = 0; cc < B; ++cc) xv[cc] = __ldg(x + col * B + cc);
-#pragma unroll
-      for (int a = 0; a < B; ++a) {
-        X pa = mul(widen<X>(__ldg(vals + (a * B) * L + lane)), xv[0]);
-#pragma unroll
-        for (int cc = 1; cc < B; ++cc)
-          pa = add(pa, mul(widen<X>(__ldg(vals + (a * B + cc) * L + lane)),
-                           xv[cc]));
-        part[a] = k == 0 ? pa : add(part[a], pa);
-      }
+      const T pk = mul(__ldg(vals + lane), __ldg(x + __ldg(codes + lane)));
+      part = k == 0 ? pk : add(part, pk);
     }
-#pragma unroll
-    for (int a = 0; a < B; ++a) acc[a] = add(acc[a], part[a]);
+    acc = add(acc, part);
   }
-#pragma unroll
-  for (int a = 0; a < B; ++a) y[row * B + a] = acc[a];
+  y[row] = acc;
 }
 
-template <typename V, typename X, int B>
-int launch_b(const void* codes, const void* vals, int64_t L,
-             const void* chunk_blk, const void* tile_ptr,
-             const void* row_of_pos, int64_t n_rows, int64_t n_tiles,
-             const void* x, void* y, cudaStream_t stream) {
-  binned_spmv_kernel<V, X, B><<<static_cast<unsigned int>(n_tiles), kTile,
-                                0, stream>>>(
-      static_cast<const int32_t*>(codes), static_cast<const V*>(vals), L,
+template <typename T>
+int launch_b4(const void* codes, const void* vals, const void* chunk_blk,
+              const void* tile_ptr, const void* row_of_pos, int64_t n_rows,
+              int64_t n_tiles, const void* x, void* y, cudaStream_t stream) {
+  binned_spmv_kernel<T><<<static_cast<unsigned int>(n_tiles), kTile, 0,
+                          stream>>>(
+      static_cast<const int32_t*>(codes), static_cast<const T*>(vals),
       static_cast<const int32_t*>(chunk_blk),
       static_cast<const int32_t*>(tile_ptr),
       static_cast<const int32_t*>(row_of_pos), n_rows,
+      static_cast<const T*>(x), static_cast<T*>(y));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------- B5
+
+// The B values of one block row, p 16-byte aligned for B = 4 in f32 and
+// B = 2 or 4 in f64, 8-byte aligned for B = 2 in f32 and B = 4 in bf16:
+// one (or two) vector loads where the width allows, else B scalar loads.
+template <typename V, int B>
+struct RowLoad {
+  static __device__ __forceinline__ void run(const V* __restrict__ p,
+                                             V (&v)[B]) {
+#pragma unroll
+    for (int c = 0; c < B; ++c) v[c] = __ldg(p + c);
+  }
+};
+
+template <>
+struct RowLoad<float, 4> {
+  static __device__ __forceinline__ void run(const float* __restrict__ p,
+                                             float (&v)[4]) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  }
+};
+
+template <>
+struct RowLoad<float, 2> {
+  static __device__ __forceinline__ void run(const float* __restrict__ p,
+                                             float (&v)[2]) {
+    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = q.x; v[1] = q.y;
+  }
+};
+
+template <>
+struct RowLoad<double, 2> {
+  static __device__ __forceinline__ void run(const double* __restrict__ p,
+                                             double (&v)[2]) {
+    const double2 q = __ldg(reinterpret_cast<const double2*>(p));
+    v[0] = q.x; v[1] = q.y;
+  }
+};
+
+template <>
+struct RowLoad<double, 4> {
+  static __device__ __forceinline__ void run(const double* __restrict__ p,
+                                             double (&v)[4]) {
+    const double2 q0 = __ldg(reinterpret_cast<const double2*>(p));
+    const double2 q1 = __ldg(reinterpret_cast<const double2*>(p) + 1);
+    v[0] = q0.x; v[1] = q0.y; v[2] = q1.x; v[3] = q1.y;
+  }
+};
+
+template <>
+struct RowLoad<__nv_bfloat16, 4> {
+  static __device__ __forceinline__ void run(
+      const __nv_bfloat16* __restrict__ p, __nv_bfloat16 (&v)[4]) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
+    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
+    v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+  }
+};
+
+template <typename V, typename X, int B>
+__global__ void __launch_bounds__(kCompactWarps * kWarp)
+    binned_compact_kernel(const int32_t* __restrict__ codes,
+                          const V* __restrict__ vals,
+                          const int32_t* __restrict__ slice_ptr,
+                          const int32_t* __restrict__ row_of_pos,
+                          int64_t n_rows, int64_t n_pos, int64_t n_slices,
+                          const X* __restrict__ x, X* __restrict__ y) {
+  constexpr int S = kWarp / B;
+  const int64_t slice =
+      static_cast<int64_t>(blockIdx.x) * kCompactWarps + threadIdx.x / kWarp;
+  const int l = threadIdx.x % kWarp;
+  const int r = l / B;
+  const int a = l % B;
+  if (slice >= n_slices || r >= S) return;
+  const int64_t p = slice * S + r;
+  if (p >= n_pos) return;
+  const int64_t row =
+      row_of_pos != nullptr ? row_of_pos[p] : (p < n_rows ? p : -1);
+  if (row < 0) return;  // padding position: no entry, nothing to write
+  const int64_t k_end = slice_ptr[slice + 1];
+  X acc = X(0);
+  X part = X(0);
+  bool open = false;
+#pragma unroll 4
+  for (int64_t k = slice_ptr[slice]; k < k_end; ++k) {
+    const int64_t e = k * S + r;
+    const int32_t raw = __ldg(codes + e);
+    if (raw != -1) {
+      const int64_t col = raw & 0x7fffffff;
+      V v[B];
+      RowLoad<V, B>::run(vals + e * (B * B) + a * B, v);
+      X pa = mul(widen<X>(v[0]), __ldg(x + col * B));
+#pragma unroll
+      for (int c = 1; c < B; ++c)
+        pa = add(pa, mul(widen<X>(v[c]), __ldg(x + col * B + c)));
+      if (raw < 0) {
+        if (open) acc = add(acc, part);
+        part = pa;
+        open = true;
+      } else {
+        part = add(part, pa);
+      }
+    }
+  }
+  if (open) acc = add(acc, part);
+  y[row * B + a] = acc;
+}
+
+template <typename V, typename X, int B>
+int launch_b5(const void* codes, const void* vals, const void* slice_ptr,
+              const void* row_of_pos, int64_t n_rows, int64_t n_pos,
+              int64_t n_slices, const void* x, void* y, cudaStream_t stream) {
+  const int64_t blocks = (n_slices + kCompactWarps - 1) / kCompactWarps;
+  binned_compact_kernel<V, X, B><<<static_cast<unsigned int>(blocks),
+                                   kCompactWarps * kWarp, 0, stream>>>(
+      static_cast<const int32_t*>(codes), static_cast<const V*>(vals),
+      static_cast<const int32_t*>(slice_ptr),
+      static_cast<const int32_t*>(row_of_pos), n_rows, n_pos, n_slices,
       static_cast<const X*>(x), static_cast<X*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename V, typename X>
-int launch(int b, const void* codes, const void* vals, int64_t L,
-           const void* chunk_blk, const void* tile_ptr,
-           const void* row_of_pos, int64_t n_rows, int64_t n_tiles,
-           const void* x, void* y, cudaStream_t s) {
+int launch_compact(int b, const void* codes, const void* vals,
+                   const void* slice_ptr, const void* row_of_pos,
+                   int64_t n_rows, int64_t n_pos, int64_t n_slices,
+                   const void* x, void* y, cudaStream_t s) {
   switch (b) {
     case 2:
-      return launch_b<V, X, 2>(codes, vals, L, chunk_blk, tile_ptr,
-                               row_of_pos, n_rows, n_tiles, x, y, s);
+      return launch_b5<V, X, 2>(codes, vals, slice_ptr, row_of_pos, n_rows,
+                                n_pos, n_slices, x, y, s);
     case 3:
-      return launch_b<V, X, 3>(codes, vals, L, chunk_blk, tile_ptr,
-                               row_of_pos, n_rows, n_tiles, x, y, s);
+      return launch_b5<V, X, 3>(codes, vals, slice_ptr, row_of_pos, n_rows,
+                                n_pos, n_slices, x, y, s);
     case 4:
-      return launch_b<V, X, 4>(codes, vals, L, chunk_blk, tile_ptr,
-                               row_of_pos, n_rows, n_tiles, x, y, s);
+      return launch_b5<V, X, 4>(codes, vals, slice_ptr, row_of_pos, n_rows,
+                                n_pos, n_slices, x, y, s);
     case 5:
-      return launch_b<V, X, 5>(codes, vals, L, chunk_blk, tile_ptr,
-                               row_of_pos, n_rows, n_tiles, x, y, s);
+      return launch_b5<V, X, 5>(codes, vals, slice_ptr, row_of_pos, n_rows,
+                                n_pos, n_slices, x, y, s);
     default:
       return -1;
   }
@@ -171,44 +299,58 @@ int launch(int b, const void* codes, const void* vals, int64_t L,
 
 }  // namespace
 
-// Plain C interface, loaded through ctypes.  b = 1 runs B4 in (f32, f32)
-// and (f64, f64); b in 2..5 runs B5 in (f32, f32), (bf16, f32) and
-// (f64, f64).  chunk_blk is the plane block of every chunk (bn_meta[C:2C]),
-// tile_ptr the tile's chunk range (n_tiles + 1 entries), row_of_pos the
-// original row of every padded position (-1 for padding) or null for an
-// identity permutation.  Returns 0 on success, a cudaError_t code when the
-// launch was refused, or -1 for arguments the kernel does not take.
-extern "C" int amgx_binned_spmv(int vals_type, int x_type, int b,
+// Plain C interfaces, loaded through ctypes.  Each returns 0 on success, a
+// cudaError_t code when the launch was refused, or -1 for arguments the
+// kernel does not take.
+//
+// B4: scalar planes, in (f32, f32) and (f64, f64).  chunk_blk is the plane
+// block of every chunk (bn_meta[C:2C]), tile_ptr the tile's chunk range
+// (n_tiles + 1 entries), row_of_pos the original row of every padded
+// position (-1 for padding) or null for an identity permutation.
+extern "C" int amgx_binned_spmv(int vals_type, int x_type,
                                 const void* codes, const void* vals,
-                                int64_t L, const void* chunk_blk,
-                                const void* tile_ptr,
+                                const void* chunk_blk, const void* tile_ptr,
                                 const void* row_of_pos, int64_t n_rows,
                                 int64_t n_tiles, const void* x, void* y,
                                 void* stream) {
-  if (L < 0 || n_rows < 0 || n_tiles < 0 || n_tiles >= (1LL << 31))
-    return -1;
+  if (n_rows < 0 || n_tiles < 0 || n_tiles >= (1LL << 31)) return -1;
   if (n_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b == 1) {
-    if (vals_type == kF32 && x_type == kF32)
-      return launch_b<float, float, 1>(codes, vals, L, chunk_blk, tile_ptr,
-                                       row_of_pos, n_rows, n_tiles, x, y,
-                                       s);
-    if (vals_type == kF64 && x_type == kF64)
-      return launch_b<double, double, 1>(codes, vals, L, chunk_blk,
-                                         tile_ptr, row_of_pos, n_rows,
-                                         n_tiles, x, y, s);
-    return -1;
-  }
   if (vals_type == kF32 && x_type == kF32)
-    return launch<float, float>(b, codes, vals, L, chunk_blk, tile_ptr,
-                                row_of_pos, n_rows, n_tiles, x, y, s);
-  if (vals_type == kBF16 && x_type == kF32)
-    return launch<__nv_bfloat16, float>(b, codes, vals, L, chunk_blk,
-                                        tile_ptr, row_of_pos, n_rows,
-                                        n_tiles, x, y, s);
+    return launch_b4<float>(codes, vals, chunk_blk, tile_ptr, row_of_pos,
+                            n_rows, n_tiles, x, y, s);
   if (vals_type == kF64 && x_type == kF64)
-    return launch<double, double>(b, codes, vals, L, chunk_blk, tile_ptr,
-                                  row_of_pos, n_rows, n_tiles, x, y, s);
+    return launch_b4<double>(codes, vals, chunk_blk, tile_ptr, row_of_pos,
+                             n_rows, n_tiles, x, y, s);
+  return -1;
+}
+
+// B5: b in 2..5, in (f32, f32), (bf16, f32) and (f64, f64), over the
+// compact pack (codes, vals, slice_ptr of n_slices + 1 entries); n_pos is
+// the count of padded positions (n_tiles * 128), row_of_pos as for B4.
+extern "C" int amgx_binned_compact_spmv(int vals_type, int x_type, int b,
+                                        const void* codes, const void* vals,
+                                        const void* slice_ptr,
+                                        const void* row_of_pos,
+                                        int64_t n_rows, int64_t n_pos,
+                                        int64_t n_slices, const void* x,
+                                        void* y, void* stream) {
+  if (b < 2 || b > 5 || n_rows < 0 || n_pos < 0 || n_slices < 0 ||
+      (n_slices + kCompactWarps - 1) / kCompactWarps >= (1LL << 31))
+    return -1;
+  if (n_slices == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vals_type == kF32 && x_type == kF32)
+    return launch_compact<float, float>(b, codes, vals, slice_ptr,
+                                        row_of_pos, n_rows, n_pos, n_slices,
+                                        x, y, s);
+  if (vals_type == kBF16 && x_type == kF32)
+    return launch_compact<__nv_bfloat16, float>(b, codes, vals, slice_ptr,
+                                                row_of_pos, n_rows, n_pos,
+                                                n_slices, x, y, s);
+  if (vals_type == kF64 && x_type == kF64)
+    return launch_compact<double, double>(b, codes, vals, slice_ptr,
+                                          row_of_pos, n_rows, n_pos,
+                                          n_slices, x, y, s);
   return -1;
 }

@@ -6,14 +6,18 @@
 // [0, n_cols) skipped (device-born packs pad with self-columns or column
 // 0 and value 0; host packs pad with column 0 and value 0).  A null cols
 // pointer means dense rows: column k of every row is k (K == n_cols), so
-// a dense matrix-vector product reads no column table.
+// a dense matrix-vector product reads no column table.  row_len (or
+// null) holds, per row, one past its last slot with a nonzero value:
+// every slot at or past it holds 0.
 //
-// Bound on this card: memory.  One SpMV must read cols and vals once,
-// x once and write y once:
-//   bytes = n * K * (4 + sizeof(T)) + (n_cols + n) * sizeof(T)
-// against 2 * n * K flops: below 0.25 flop/byte, far under the card's
+// Bound on this card: memory.  One SpMV must read each stored entry's
+// column and value once, x once and write y once:
+//   bytes = nnz * (4 + sizeof(T)) + (n_cols + n) * sizeof(T)
+// against 2 * nnz flops: below 0.25 flop/byte, far under the card's
 // ridge point.  The gather of x is data-dependent; for the banded
-// coarse operators of a classical hierarchy L2 serves most of it.
+// coarse operators of a classical hierarchy L2 serves most of it.  A
+// pack padded to K slots a row holds n * K entries; the padding is the
+// part of the stream the product does not need.
 //
 // Design: the TPU kernel's column windows, window codes and lane
 // one-hot MXU picks exist because a TPU has no gather; Hopper has one,
@@ -22,7 +26,12 @@
 // >= K, at most 32) serves one row: lane l sums k = l, l + L, ..., so a
 // warp reads 32/L consecutive rows' entries as one contiguous span, then
 // the group reduces with __shfl_down_sync (lane l adds lane l + off for
-// off = L/2, ..., 1).  It accumulates in x's type, rounding each product
+// off = L/2, ..., 1).  With row_len, every lane of row r stops at
+// row_len[r] instead of K: a row holding 71 entries of a 256-slot pack
+// reads 71 slots' columns and values (rounded up to whole 32-byte
+// sectors), not 256.  The terms skipped are exact zeros (for finite x)
+// that would be added to a lane sum which starts at +0 and so is never
+// -0: dropping them changes no bit.  It accumulates in x's type, rounding each product
 // and each sum on its own (no fused multiply-add), so its plain version
 // reproduces it bit for bit in the same order; it launches on the
 // caller's stream, allocates nothing, and the launcher returns
@@ -55,6 +64,7 @@ __device__ __forceinline__ double add(double a, double b) {
 template <typename T, int L>
 __global__ void __launch_bounds__(kThreads)
     ell_spmv_kernel(const int32_t* __restrict__ cols,
+                    const int32_t* __restrict__ row_len,
                     const T* __restrict__ vals, const T* __restrict__ x,
                     T* __restrict__ y, int64_t n, int64_t K,
                     int64_t n_cols) {
@@ -69,7 +79,12 @@ __global__ void __launch_bounds__(kThreads)
         acc = add(acc, mul(v[k], __ldg(x + k)));
     } else {
       const int32_t* c = cols + row * K;
-      for (int64_t k = lane; k < K; k += L) {
+      int64_t end = K;
+      if (row_len != nullptr) {
+        const int64_t r = __ldg(row_len + row);
+        end = r < K ? r : K;
+      }
+      for (int64_t k = lane; k < end; k += L) {
         const int64_t j = c[k];
         if (j >= 0 && j < n_cols) acc = add(acc, mul(v[k], __ldg(x + j)));
       }
@@ -84,45 +99,50 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int L>
-int launch_l(const int32_t* cols, const void* vals, const void* x, void* y,
-             int64_t n, int64_t K, int64_t n_cols, cudaStream_t stream) {
+int launch_l(const int32_t* cols, const int32_t* row_len, const void* vals,
+             const void* x, void* y, int64_t n, int64_t K, int64_t n_cols,
+             cudaStream_t stream) {
   const int64_t blocks = (n * L + kThreads - 1) / kThreads;
   ell_spmv_kernel<T, L><<<static_cast<unsigned int>(blocks), kThreads, 0,
-                          stream>>>(cols, static_cast<const T*>(vals),
+                          stream>>>(cols, row_len,
+                                    static_cast<const T*>(vals),
                                     static_cast<const T*>(x),
                                     static_cast<T*>(y), n, K, n_cols);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const int32_t* cols, const void* vals, const void* x, void* y,
-           int64_t n, int64_t K, int64_t n_cols, cudaStream_t s) {
-  if (K <= 1) return launch_l<T, 1>(cols, vals, x, y, n, K, n_cols, s);
-  if (K <= 2) return launch_l<T, 2>(cols, vals, x, y, n, K, n_cols, s);
-  if (K <= 4) return launch_l<T, 4>(cols, vals, x, y, n, K, n_cols, s);
-  if (K <= 8) return launch_l<T, 8>(cols, vals, x, y, n, K, n_cols, s);
-  if (K <= 16) return launch_l<T, 16>(cols, vals, x, y, n, K, n_cols, s);
-  return launch_l<T, 32>(cols, vals, x, y, n, K, n_cols, s);
+int launch(const int32_t* cols, const int32_t* rl, const void* vals,
+           const void* x, void* y, int64_t n, int64_t K, int64_t n_cols,
+           cudaStream_t s) {
+  if (K <= 1) return launch_l<T, 1>(cols, rl, vals, x, y, n, K, n_cols, s);
+  if (K <= 2) return launch_l<T, 2>(cols, rl, vals, x, y, n, K, n_cols, s);
+  if (K <= 4) return launch_l<T, 4>(cols, rl, vals, x, y, n, K, n_cols, s);
+  if (K <= 8) return launch_l<T, 8>(cols, rl, vals, x, y, n, K, n_cols, s);
+  if (K <= 16)
+    return launch_l<T, 16>(cols, rl, vals, x, y, n, K, n_cols, s);
+  return launch_l<T, 32>(cols, rl, vals, x, y, n, K, n_cols, s);
 }
 
 }  // namespace
 
 // Plain C interface, loaded through ctypes.  Returns 0 on success, a
 // cudaError_t code when the launch was refused, or -1 for arguments the
-// kernel does not take (negative sizes, dense rows with K != n_cols, an
-// unsupported type pair).
+// kernel does not take (negative sizes, dense rows with K != n_cols or
+// with row_len, an unsupported type pair).
 extern "C" int amgx_ell_spmv(int vals_type, int x_type, const void* cols,
-                             const void* vals, const void* x, void* y,
-                             int64_t n, int64_t K, int64_t n_cols,
-                             void* stream) {
+                             const void* row_len, const void* vals,
+                             const void* x, void* y, int64_t n, int64_t K,
+                             int64_t n_cols, void* stream) {
   if (n < 0 || K < 0 || n_cols < 0) return -1;
-  if (cols == nullptr && K != n_cols) return -1;
+  if (cols == nullptr && (K != n_cols || row_len != nullptr)) return -1;
   if (n == 0) return 0;
   const int32_t* c = static_cast<const int32_t*>(cols);
+  const int32_t* rl = static_cast<const int32_t*>(row_len);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vals_type == kF32 && x_type == kF32)
-    return launch<float>(c, vals, x, y, n, K, n_cols, s);
+    return launch<float>(c, rl, vals, x, y, n, K, n_cols, s);
   if (vals_type == kF64 && x_type == kF64)
-    return launch<double>(c, vals, x, y, n, K, n_cols, s);
+    return launch<double>(c, rl, vals, x, y, n, K, n_cols, s);
   return -1;
 }

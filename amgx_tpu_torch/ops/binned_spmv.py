@@ -25,26 +25,34 @@ copy of the JAX package's and gives bit-equal arrays:
 * ``bn_pos`` (n,) int32 maps an original row to its padded position
   (absent when the bin permutation is the identity).
 
-The card does not need the segments (it gathers x directly), so each
-kernel walks its tile's chunks (one contiguous range of the tile-sorted
-chunk list, :func:`kernel_aux`) and writes each row through the inverse
-of ``bn_pos``.
+The card does not need the segments (it gathers x directly).  B4 walks
+its tile's chunks (one contiguous range of the tile-sorted chunk list,
+:func:`kernel_aux`) and writes each row through the inverse of
+``bn_pos``.  B5 reads no lane of the planes: a block-native pack carries
+a compact pack (:class:`CompactPack`, :func:`compact_pack`) derived from
+them on its device at upload, which holds each row's real blocks only,
+in slices of ``32 // b`` rows padded to the slice's longest row.
 
 Contract of both kernels: ``y = A·x`` for the pack, summed per chunk over
-its 8 slots in slot order and over the tile's chunks in chunk order.  B4
-takes (vals, x) pairs (f32, f32) and (f64, f64); B5 (b ∈ {2, 3, 4, 5})
-takes (f32, f32), (bf16, f32) and (f64, f64), accumulating in x's type.
-:func:`binned_spmv` runs the plain version only for CPU tensors; a CUDA
+its 8 slots in slot order and over the tile's chunks in chunk order.  B5
+keeps that order over the real entries alone, which gives the same bits
+for finite x (:func:`compact_pack`).  B4 takes (vals, x) pairs (f32,
+f32) and (f64, f64); B5 (b ∈ {2, 3, 4, 5}) takes (f32, f32), (bf16, f32)
+and (f64, f64), accumulating in x's type.  :func:`binned_spmv` runs the
+plain version (:func:`binned_spmv_reference` for B4,
+:func:`binned_compact_reference` for B5) only for CPU tensors; a CUDA
 tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..device import host_scalar
 from ..errors import BadParametersError, DeviceError
 
 #: rows per tile
@@ -78,6 +86,7 @@ LAUNCHES: Dict[str, Dict[str, int]] = {
 }
 
 _fn = None
+_compact_fn = None
 
 
 def launch_count(kernel: Optional[str] = None) -> int:
@@ -287,6 +296,89 @@ def kernel_aux(bn_meta: torch.Tensor, bn_pos: Optional[torch.Tensor],
     return tile_ptr.to(torch.int32), row_of_pos
 
 
+@dataclasses.dataclass(frozen=True)
+class CompactPack:
+    """B5's pack: a block-native pack's real blocks, row by row.
+
+    Padded positions p (the bin permutation's order, tile·128 + row) are
+    cut into slices of ``S = 32 // b``; slice s holds ``slice_ptr[s + 1]
+    − slice_ptr[s]`` slots, its longest row's count.  Entry (slot k of
+    slice s, row r) sits at ``e = (slice_ptr[s] + k)·S + r``: ``codes[e]``
+    is the block column, with the sign bit set on the first kept entry
+    of a chunk, or −1 for padding (a row's padding trails its entries);
+    ``vals[e]`` its b×b block, row-major.  ``dims`` = (S, n_slices,
+    slots, widest slice, b)."""
+
+    codes: torch.Tensor       # (slots·S,) int32
+    vals: torch.Tensor        # (slots·S, b, b)
+    slice_ptr: torch.Tensor   # (n_slices + 1,) int32
+    dims: tuple
+
+    def astype(self, dtype) -> "CompactPack":
+        return dataclasses.replace(self, vals=self.vals.to(dtype))
+
+
+#: threads of a warp: B5 serves one compact slice per warp, b threads a
+#: block row
+_WARP = 32
+#: the first-entry-of-a-chunk flag on a compact code
+_FIRST = -(1 << 31)
+
+
+def compact_pack(bn_codes: torch.Tensor, bn_vals: torch.Tensor,
+                 bn_meta: torch.Tensor, dims) -> CompactPack:
+    """The compact pack of a block-native binned pack, derived on the
+    pack's device from its planes.
+
+    It keeps every lane whose block has a nonzero value, in the order B5
+    of the planes sums it: per padded row, chunk by chunk in the tile's
+    chunk order, slot by slot; the first kept lane of each (chunk, row)
+    is flagged, so the kernel can still sum a chunk into a partial and
+    add the partial to the row at the chunk's end.  The dropped lanes'
+    products are exact zeros (for finite x), and adding one changes
+    neither a nonzero partial nor the row sum, which starts at +0 and is
+    never −0: the compact sum has the planes' bits."""
+    b = bn_block_dim(dims)
+    C, n_tiles, T, w = int(dims[0]), int(dims[1]), int(dims[3]), \
+        int(dims[5])
+    S = _WARP // b
+    Wp = w * T
+    dev = bn_codes.device
+    c_tile = bn_meta[:C].long()
+    c_blk = bn_meta[C:2 * C].long()
+    j = torch.arange(Wp, dtype=torch.int64, device=dev)
+    lane = (c_blk[:, None] * Wp + j).reshape(C, w, T)
+    keep = (bn_vals.reshape(b * b, -1) != 0).any(dim=0)[lane]
+    first = keep & (keep.cumsum(dim=1) == 1)
+    pos = c_tile[:, None, None] * T + j[:T]
+    sel = keep.reshape(-1).nonzero().squeeze(1)
+    p = pos.expand(C, w, T).reshape(-1)[sel]
+    p, order = torch.sort(p, stable=True)
+    sel = sel[order]
+    lane_e = lane.reshape(-1)[sel]
+    first_e = first.reshape(-1)[sel]
+    n_pos = n_tiles * T
+    n_slices = -(-n_pos // S)
+    counts = torch.zeros(n_slices * S, dtype=torch.int64, device=dev)
+    counts[:n_pos] = torch.bincount(p, minlength=n_pos)
+    rank = torch.arange(len(p), dtype=torch.int64, device=dev) \
+        - (torch.cumsum(counts, 0) - counts)[p]
+    width = counts.reshape(n_slices, S).amax(dim=1)
+    slice_ptr = torch.zeros(n_slices + 1, dtype=torch.int64, device=dev)
+    slice_ptr[1:] = torch.cumsum(width, 0)
+    slots = int(host_scalar(slice_ptr[-1]))
+    widest = int(host_scalar(width.max())) if n_slices else 0
+    dst = (slice_ptr[p // S] + rank) * S + p % S
+    codes = torch.full((slots * S,), -1, dtype=torch.int32, device=dev)
+    codes[dst] = (bn_codes.reshape(-1)[lane_e].long()
+                  + first_e.long() * _FIRST).to(torch.int32)
+    vals = torch.zeros((slots * S, b, b), dtype=bn_vals.dtype, device=dev)
+    vals[dst] = bn_vals.reshape(b * b, -1)[:, lane_e].T.reshape(-1, b, b)
+    return CompactPack(codes=codes, vals=vals,
+                       slice_ptr=slice_ptr.to(torch.int32),
+                       dims=(S, n_slices, slots, widest, b))
+
+
 # --------------------------------------------------------------------------
 # plain versions
 # --------------------------------------------------------------------------
@@ -304,8 +396,18 @@ def _chunk_sums(P: torch.Tensor, bn_meta: torch.Tensor, dims
     for s in range(1, w):
         acc = acc + Pb[:, :, s]                       # (k, blocks, T)
     per_chunk = acc[:, bn_meta[C:2 * C].long()]       # (k, C, T)
+    # the chunks are tile-sorted: add the j-th chunk of every tile at
+    # step j, so each tile sums its chunks in chunk order on any device
+    # (a scatter-add on the card adds them in no fixed order)
+    c_tile = bn_meta[:C].long()
+    counts = torch.bincount(c_tile, minlength=n_tiles)
+    rank = torch.arange(C, dtype=torch.int64, device=P.device) \
+        - (torch.cumsum(counts, 0) - counts)[c_tile]
     y = torch.zeros((k, n_tiles, T), dtype=P.dtype, device=P.device)
-    y.index_add_(1, bn_meta[:C].long(), per_chunk)
+    for j in range(int(counts.max()) if C else 0):
+        sel = (rank == j).nonzero().squeeze(1)
+        tiles = c_tile[sel]
+        y[:, tiles] = y[:, tiles] + per_chunk[:, sel]
     return y.reshape(k, n_tiles * T)
 
 
@@ -344,6 +446,55 @@ def binned_spmv_reference(bn_codes, bn_vals, bn_meta, bn_pos, dims,
     return yt.reshape(-1).to(x.dtype)
 
 
+def binned_compact_reference(cp: CompactPack, bn_pos, dims,
+                             x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of B5 over the compact pack: slot by slot,
+    each row's block product (output component a summed over c in
+    order) added to the row's chunk partial, the partial added to the
+    row at the next flagged entry and at the end, then the bin
+    permutation undone.  Bit-equal to :func:`binned_spmv_reference` on
+    the planes the pack came from, for finite x."""
+    S, n_slices, _slots, widest, b = cp.dims
+    n, ident = int(dims[7]), bool(dims[6])
+    n_pos = int(dims[1]) * int(dims[3])
+    acc_dt = _acc_dtype(cp.vals, x)
+    X = x.to(acc_dt).reshape(-1, b)
+    dev = x.device
+    acc = torch.zeros((n_slices * S, b), dtype=acc_dt, device=dev)
+    part = torch.zeros_like(acc)
+    live = torch.zeros(n_slices * S, dtype=torch.bool, device=dev)
+    ptr = cp.slice_ptr.to(dev).long()
+    width = ptr[1:] - ptr[:-1]
+    r = torch.arange(S, dtype=torch.int64, device=dev)
+    for k in range(widest):
+        sl = (width > k).nonzero().squeeze(1)
+        e = ((ptr[sl] + k)[:, None] * S + r).reshape(-1)
+        p = (sl[:, None] * S + r).reshape(-1)
+        raw = cp.codes[e]
+        valid = raw != -1
+        first = valid & (raw < 0)
+        col = torch.where(valid, (raw & 0x7FFFFFFF).long(), 0)
+        Xg = X[col]
+        V = cp.vals[e].to(acc_dt)
+        prods = []
+        for a in range(b):
+            pa = V[:, a, 0] * Xg[:, 0]
+            for c in range(1, b):
+                pa = pa + V[:, a, c] * Xg[:, c]
+            prods.append(pa)
+        P = torch.stack(prods, dim=1)
+        acc_p, part_p = acc[p], part[p]
+        acc[p] = torch.where((first & live[p])[:, None], acc_p + part_p,
+                             acc_p)
+        part[p] = torch.where(first[:, None], P,
+                              torch.where(valid[:, None], part_p + P,
+                                          part_p))
+        live[p] = live[p] | valid
+    acc = torch.where(live[:, None], acc + part, acc)[:n_pos]
+    y = acc[:n] if ident else acc[bn_pos.long()]
+    return y.reshape(-1).to(x.dtype)
+
+
 # --------------------------------------------------------------------------
 # the kernels
 # --------------------------------------------------------------------------
@@ -353,14 +504,28 @@ def _kernel():
     if _fn is None:
         from .. import native
         fn = native.load("binned_spmv").amgx_binned_spmv
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _compact_kernel():
+    global _compact_fn
+    if _compact_fn is None:
+        from .. import native
+        fn = native.load("binned_spmv").amgx_binned_compact_spmv
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _compact_fn = fn
+    return _compact_fn
 
 
 def _check(Ad, x: torch.Tensor):
@@ -379,6 +544,12 @@ def _check(Ad, x: torch.Tensor):
     if Ad.bn_vals.device != x.device:
         raise BadParametersError(
             f"binned_spmv: pack on {Ad.bn_vals.device}, x on {x.device}")
+    cp = Ad.bn_compact
+    if b > 1 and (cp is None or cp.vals.dtype != Ad.bn_vals.dtype
+                  or cp.vals.device != x.device):
+        raise BadParametersError(
+            "binned_spmv: a block-native pack needs its compact pack "
+            "(compact_pack) in the planes' dtype and device")
 
 
 def binned_spmv(Ad, x: torch.Tensor) -> torch.Tensor:
@@ -386,29 +557,58 @@ def binned_spmv(Ad, x: torch.Tensor) -> torch.Tensor:
     scalar-expansion packs run B4, block-native packs B5; ``x`` is the
     flat scalar vector.  CUDA tensors launch the kernel (or raise: a
     missing ``nvcc``, a failed build or a refused launch is an error,
-    never a fallback); CPU tensors take :func:`binned_spmv_reference`."""
+    never a fallback); CPU tensors take the plain version
+    (:func:`binned_spmv_reference` for B4, :func:`binned_compact_reference`
+    for B5)."""
     _check(Ad, x)
+    b = bn_block_dim(Ad.bn_dims)
     if not x.is_cuda:
+        if b > 1:
+            return binned_compact_reference(Ad.bn_compact, Ad.bn_pos,
+                                            Ad.bn_dims, x)
         return binned_spmv_reference(Ad.bn_codes, Ad.bn_vals, Ad.bn_meta,
                                      Ad.bn_pos, Ad.bn_dims, x)
     x = x.contiguous()
-    b = bn_block_dim(Ad.bn_dims)
+    if b > 1:
+        return _compact_spmv(Ad, x)
     n, n_tiles = int(Ad.bn_dims[7]), int(Ad.bn_dims[1])
     C = int(Ad.bn_dims[0])
     tile_ptr, row_of_pos = Ad.bn_tile_ptr, Ad.bn_row_of_pos
-    out = torch.empty(n * b, dtype=x.dtype, device=x.device)
-    L = Ad.bn_codes.numel()
+    out = torch.empty(n, dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _kernel()(
-        _TYPE_CODE[Ad.bn_vals.dtype], _TYPE_CODE[x.dtype], b,
-        Ad.bn_codes.data_ptr(), Ad.bn_vals.data_ptr(), L,
+        _TYPE_CODE[Ad.bn_vals.dtype], _TYPE_CODE[x.dtype],
+        Ad.bn_codes.data_ptr(), Ad.bn_vals.data_ptr(),
         Ad.bn_meta.data_ptr() + 4 * C, tile_ptr.data_ptr(),
         None if row_of_pos is None else row_of_pos.data_ptr(),
         n, n_tiles, x.data_ptr(), out.data_ptr(), stream)
     if rc != 0:
         raise DeviceError(f"binned_spmv kernel launch failed (code {rc})")
-    LAUNCHES["B4" if b == 1 else "B5"][
-        f"{_SHORT[Ad.bn_vals.dtype]}.{_SHORT[x.dtype]}"] += 1
+    LAUNCHES["B4"][f"{_SHORT[Ad.bn_vals.dtype]}.{_SHORT[x.dtype]}"] += 1
+    return out
+
+
+def _compact_spmv(Ad, x: torch.Tensor) -> torch.Tensor:
+    """B5: one warp per compact slice (``csrc/binned_spmv.cu``)."""
+    cp = Ad.bn_compact
+    S, n_slices, _slots, _widest, b = cp.dims
+    n = int(Ad.bn_dims[7])
+    n_pos = int(Ad.bn_dims[1]) * int(Ad.bn_dims[3])
+    if not (cp.vals.is_contiguous() and cp.vals.data_ptr() % 16 == 0):
+        raise BadParametersError("binned_spmv: the compact values must be "
+                                 "contiguous and 16-byte aligned")
+    out = torch.empty(n * b, dtype=x.dtype, device=x.device)
+    row_of_pos = Ad.bn_row_of_pos
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _compact_kernel()(
+        _TYPE_CODE[cp.vals.dtype], _TYPE_CODE[x.dtype], b,
+        cp.codes.data_ptr(), cp.vals.data_ptr(), cp.slice_ptr.data_ptr(),
+        None if row_of_pos is None else row_of_pos.data_ptr(),
+        n, n_pos, n_slices, x.data_ptr(), out.data_ptr(), stream)
+    if rc != 0:
+        raise DeviceError(f"binned_spmv (B5) kernel launch failed "
+                          f"(code {rc})")
+    LAUNCHES["B5"][f"{_SHORT[cp.vals.dtype]}.{_SHORT[x.dtype]}"] += 1
     return out
 
 

@@ -15,6 +15,14 @@ Each product and sum is rounded on its own, so the card and the CPU give
 the same bits.  Type pairs (vals, x): (f32, f32) and (f64, f64); any
 other pair raises.
 
+``row_len`` (optional, (n,) int32, :func:`ell_row_len`) is one past the
+last slot of each row whose value is nonzero: the kernel stops every
+lane of a row there instead of at K.  The terms it skips are exact zeros
+(for finite x) added to a lane sum that is never −0 (it starts at +0,
+and +0 + −0 is +0), so the result keeps its bits; the plain version
+ignores ``row_len``.  Every scalar ELL pack carries one
+(``DeviceMatrix.row_len``); dense rows (``cols=None``) take none.
+
 :func:`ell_spmv` runs the plain version only for CPU tensors; a CUDA
 tensor launches the kernel or raises.
 """
@@ -57,15 +65,15 @@ def _kernel():
         fn = native.load("ell_spmv").amgx_ell_spmv
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
 def _check(cols: Optional[torch.Tensor], vals: torch.Tensor,
-           x: torch.Tensor):
+           x: torch.Tensor, row_len: Optional[torch.Tensor] = None):
     if cols is None:
         if vals.dim() != 2 or x.dim() != 1 or vals.shape[1] != x.shape[0]:
             raise BadParametersError(
@@ -92,6 +100,25 @@ def _check(cols: Optional[torch.Tensor], vals: torch.Tensor,
             and (cols is None or cols.is_contiguous())):
         raise BadParametersError(
             "ell_spmv: cols, vals and x must be contiguous")
+    if row_len is not None and (
+            cols is None or row_len.shape != (vals.shape[0],)
+            or row_len.dtype != torch.int32 or row_len.device != x.device
+            or not row_len.is_contiguous()):
+        raise BadParametersError(
+            "ell_spmv: row_len must be a contiguous (n,) int32 tensor "
+            "beside a column table")
+
+
+def ell_row_len(vals: torch.Tensor) -> torch.Tensor:
+    """One past the last slot of each row of an (n, K) ELL value table
+    whose value is nonzero (0 for a row of zeros), as int32 on ``vals``'
+    device: every slot at or past it holds 0.  Computed once when a pack
+    is assembled."""
+    n, K = vals.shape
+    if K == 0:
+        return torch.zeros(n, dtype=torch.int32, device=vals.device)
+    k = torch.arange(1, K + 1, dtype=torch.int32, device=vals.device)
+    return torch.where(vals != 0, k, 0).amax(dim=1).to(torch.int32)
 
 
 def lanes(K: int) -> int:
@@ -134,14 +161,15 @@ def ell_spmv_reference(cols: Optional[torch.Tensor], vals: torch.Tensor,
 
 
 def ell_spmv(cols: Optional[torch.Tensor], vals: torch.Tensor,
-             x: torch.Tensor) -> torch.Tensor:
+             x: torch.Tensor,
+             row_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = A·x for the ELL operator (``cols``, ``vals``; ``cols=None``
-    for dense rows).
+    for dense rows), each row's lanes stopped at ``row_len`` when given.
 
     CUDA tensors launch the kernel (or raise: a missing ``nvcc``, a
     failed build or a refused launch is an error, never a fallback);
     CPU tensors take :func:`ell_spmv_reference`."""
-    _check(cols, vals, x)
+    _check(cols, vals, x, row_len)
     if not x.is_cuda:
         return ell_spmv_reference(cols, vals, x)
     n, K = vals.shape
@@ -149,6 +177,7 @@ def ell_spmv(cols: Optional[torch.Tensor], vals: torch.Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _kernel()(_TYPE_CODE[vals.dtype], _TYPE_CODE[x.dtype],
                    None if cols is None else cols.data_ptr(),
+                   None if row_len is None else row_len.data_ptr(),
                    vals.data_ptr(), x.data_ptr(),
                    out.data_ptr(), n, K, x.shape[0], stream)
     if rc != 0:

@@ -87,7 +87,7 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
     if A.fmt == "ell":
         if b == 1:
             DISPATCH["ell/window" if x.is_cuda else "ell/gather"] += 1
-            return ell_spmv(A.cols, A.vals, x)
+            return ell_spmv(A.cols, A.vals, x, A.row_len)
         DISPATCH["ell/block-gather"] += 1
         return _block_gather_spmv(A, x)
     if b == 1:

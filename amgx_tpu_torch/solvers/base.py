@@ -36,7 +36,8 @@ from ..errors import (BREAKDOWN_DIVERGENCE, BREAKDOWN_KRYLOV,
                       BadParametersError, FailureInfo, FailureKind,
                       NotImplementedError_, SolveStatus, breakdown_kind)
 from ..ops import blas
-from ..ops.binned_spmv import bn_block_dim
+from ..ops.binned_spmv import bn_block_dim, compact_pack
+from ..ops.ell_spmv import ell_row_len
 from ..ops.shift_spmv import shift_planes_like
 from ..ops.spmv import spmv
 
@@ -410,7 +411,7 @@ class Solver:
         shift = Ad.sh_vals is not None
         if binned or shift:
             Ad = dataclasses.replace(Ad, vals=None, cols=None,
-                                     row_ids=None)
+                                     row_ids=None, row_len=None)
         if pdt == np.float32 and getattr(self.A, "_vals_f32_exact", False):
             exact = True
         else:
@@ -433,9 +434,13 @@ class Solver:
             arrays, dims = binned_planes(self.A.host, Ad.block_dim, wide,
                                          native)
             assert tuple(dims) == tuple(Ad.bn_dims)
+            bn_vals = torch.from_numpy(arrays["bn_vals"]).to(Ad.device)
             Ad64 = dataclasses.replace(
-                dataclasses.replace(Ad, bn_vals=None).astype(wdt),
-                bn_vals=torch.from_numpy(arrays["bn_vals"]).to(Ad.device))
+                dataclasses.replace(Ad, bn_vals=None,
+                                    bn_compact=None).astype(wdt),
+                bn_vals=bn_vals, bn_compact=compact_pack(
+                    Ad.bn_codes, bn_vals, Ad.bn_meta, Ad.bn_dims)
+                if native else None)
         else:
             # the narrow pack's strides: block-DIA keeps each component
             # plane contiguous
@@ -444,7 +449,8 @@ class Solver:
                 device=Ad.device).copy_(torch.from_numpy(host))
             Ad64 = dataclasses.replace(
                 dataclasses.replace(Ad, vals=None).astype(wdt),
-                vals=vals64)
+                vals=vals64, row_len=None if Ad.row_len is None
+                else ell_row_len(vals64))
         self._wide = (wide, Ad64)
         return Ad64
 

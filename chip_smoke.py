@@ -19,35 +19,43 @@ exits non-zero (no phase is caught):
    the bound (bytes over 3.35 TB/s vs operations over the peak rate);
 5. the main path: the 128³ headline solve (FGMRES + GEO-aggregation AMG,
    f32 pack, f64 refinement) driven through the public API with every
-   launch count set to 0 just before and read just after; the true
-   relative residual is recomputed in f64 through the kernel, and a 16³
-   solve on the card is held against the same solve on the CPU;
+   launch count set to 0 just before and read just after; each AMG
+   application is a replay of one CUDA graph, captured at the first
+   (:func:`graph_check`: capture seconds, graph nodes, the launches a
+   replay credits, equal to an eager application's, and a replay
+   bit-equal to an eager application); the true relative residual is
+   recomputed in f64 through the kernel, and a 16³ solve on the card is
+   held against the same solve on the CPU (equal counts, x bit-equal);
 6. setup parity: every derived coarse level on the card vs the same
    derivation on CPU tensors;
 7. where a warm solve's time goes: device time by kernel from
    ``torch.profiler``, and the device's busy share of the unprofiled
-   solve's wall time;
+   solve's wall time (with the graph);
 8. the classical path: the 128³ ``CFG_CLA`` solve (PCG + classical AMG,
    PMIS/D2, JACOBI_L1, host CSR uploaded with an f32 pack, f64
    refinement) with every count set to 0 just before and read just
    after; per-level formats and rows, dispatch counts, launches by
-   kernel and type pair, host syncs of the setup;
+   kernel and type pair, host syncs of the setup, the AMG graph
+   (:func:`graph_check`);
 9. the kernels against their plain versions on that hierarchy's own
    packs: B1 in (f32, f32) and (f64, f64) on every DIA pack (the fine A,
    the embedded 25-diagonal P₀ and R₀, which are also the three ``dia3``
    streams of level 1, and a DIA coarsest); B3 in both its pairs on
-   every ELL operator, P and R, on random ELLs (K = 4, 27, 256,
-   n_cols ≠ n), on a level of fewer than 128 rows and, over dense rows,
-   on the dense coarse inverses of this hierarchy and of the headline's.
-   Every check holds
-   each row to a relative limit, the row's error over its Σ_j |a_ij·x_j|;
+   every ELL operator, P and R (each with its ``row_len``), on random
+   ELLs (K = 4, 27, 256, n_cols ≠ n) full and cut short at random row
+   lengths, on a level of fewer than 128 rows and, over dense rows, on
+   the dense coarse inverses of this hierarchy and of the headline's.
+   Every check holds each row to a relative limit, the row's error over
+   its Σ_j |a_ij·x_j|, and B3 to its plain version bit for bit;
 10. B3 times on the largest ELL operator of the hierarchy (by bytes):
-    kernel, plain version, cuSPARSE CSR and the bound;
+    kernel (with ``row_len``, and without it for comparison), plain
+    version, cuSPARSE CSR, the bound over the nonzeros and over the
+    padded pack;
 11. the classical stack at 24³ (θ = 0.2401) on the card against the
     same on the CPU: equal per-level rows and iteration counts, final x
     within ``SMALL_X_RTOL``;
 12. where a classical setup and a warm classical solve spend their time
-    (``torch.profiler``);
+    (``torch.profiler``; the solve with the graph);
 13. the config-4 path: BASELINE config 4 (PBICGSTAB + MULTICOLOR_DILU)
     on the SPE10-grid 4×4 block system (60 × 220 × 85 cells, 5 % inactive,
     f32 pack, f64 refinement) driven through the public API with every
@@ -59,14 +67,16 @@ exits non-zero (no phase is caught):
 14. the same solve with ``AMGX_BLOCK_NATIVE=0``: the scalar-expansion
     planes, every SpMV ``ell/binned`` (kernel B4), iterations within
     ``EXPANSION_COUNT_SLACK`` of phase 13's;
-15. B4 and B5 against their plain versions on the card in every type
-    pair, each row to its own relative limit: the path's own packs, b = 2,
-    3 and 5 packs of the gauntlet builders, ``scattered_block_operator``,
-    a pack with empty tiles and a scalar CSR pack with a row wider than
-    2048;
+15. B4 and B5 against the planes' plain version on the card in every
+    type pair, each row to its own relative limit, B5 (over its compact
+    pack) also bit for bit, and against its own plain version: the
+    path's own packs, b = 2, 3 and 5 packs of the gauntlet builders,
+    ``scattered_block_operator``, a pack with empty tiles and a scalar
+    CSR pack with a row wider than 2048;
 16. B5 and B4 times at full width (CUDA events, median of 30): kernel,
     plain version, one cuSPARSE SpMV of the same matrix, the bound over
-    the padded planes and over the stored entries;
+    the stored entries, over the padded planes and (B5) over its compact
+    pack;
 17. the bench's 16³ config-4 case (``kron(poisson7pt, I₄)``, block-DIA,
     B1 as 16 component dispatches) on the card against the CPU (equal
     iterations, x within ``SMALL_X_RTOL``), and B1 against its plain
@@ -79,27 +89,34 @@ exits non-zero (no phase is caught):
     diagonals, a host CSR uploaded through ``Matrix``) under the
     headline config (GEO falls back to SIZE_2), f32 pack, f64
     refinement, with every count set to 0 just before the first solve
-    and read just after: setup, first and warm solve, iterations, the
-    true relres in f64 on the host, per-level rows and pack kinds,
-    dispatch (every fine-level SpMV ``ell/shift``, kernel B2; the coarse
-    ELL levels on B3; no decline), peak memory, and the device time and
-    busy share of a warm solve (``torch.profiler``).  The hierarchy is
-    cut at ``DFG_LEVELS`` levels (the depth cut): the CG K-cycle visits
-    level i 2^i times per application, so the config's 14 levels would
-    make 8,192 coarse solves per FGMRES iteration;
+    and read just after: setup, first and warm solve (equal counts),
+    iterations, the true relres in f64 on the host, per-level rows and
+    pack kinds, dispatch (every fine-level SpMV ``ell/shift``, kernel
+    B2; the coarse ELL levels on B3; no decline), peak memory, the AMG
+    graph (:func:`graph_check`), and the device time and busy share of a
+    warm solve (``torch.profiler``).  The hierarchy is cut at
+    ``DFG_LEVELS`` levels; phase 22 runs the config's own depth;
 20. B2 against its plain version on the card, every row to its own
     limit, in (f32, f32) and (f64, f64): that fine pack, the cases of
     tests/test_pallas_shift.py packed without DIA, and the 9-diagonal
     40,000-row matrix of tests/test_tpu.py; B3 against its plain version
     in both pairs on every coarse level's A of that hierarchy and, over
-    dense rows, on its dense coarse inverse;
+    dense rows, on its dense coarse inverse, bit for bit;
 21. B2 times on the fine pack (CUDA events, median of 30): kernel,
     plain version, one cuSPARSE CSR SpMV, the bound over the stored
     entries and over the class planes;
-22. the same stack at ny = 320 (544,649 rows, 67 shift tiles) on the
-    card against the CPU, f32 pack and f64 pack: equal iterations.  The
-    CPU solves run in two child processes (one per pack dtype) started
-    after phase 21, so no timed phase runs beside them.
+22. the DFG operator at ny = 512 under the headline config at its own
+    depth (``amg:max_levels=20``, 15 levels down to a 28-row coarse
+    solve): setup, the first solve (which captures the graph) and a
+    warm one (equal counts), iterations, the true relres in f64, the AMG
+    graph (:func:`graph_check`), B3 bit for bit on the ELL levels from
+    phase 19's dense coarsest level down;
+23. the same stack as phase 19 at ny = 320 (544,649 rows, 67 shift
+    tiles) on the card against the CPU, f32 pack and f64 pack: equal
+    iterations, x bit-equal with the f32 pack.  The CPU solves run in
+    two child processes (one per pack dtype) started at phase 22, after
+    the last kernel timing, so phase 22 (whose replays keep the device
+    busy) runs beside them and no kernel timing does.
 
 Then one JSON line of the four paths' kernels and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -166,11 +183,12 @@ SEED = 20261016
 #: package at the same limit)
 SMALL_X_RTOL = 1e-6
 #: the fourth path: the headline stack on the DFG cylinder operator,
-#: its hierarchy cut at DFG_LEVELS levels.  The CG K-cycle (cycle_iters
-#: 2) visits level i 2^i times per application, each visit a few dozen
-#: kernel launches: at ny = 512 the config's own 14 levels would make
-#: 2^13 = 8,192 coarse solves per application; 10 levels make 256, on a
-#: 1,498-row dense coarse operator
+#: its hierarchy cut at DFG_LEVELS levels (phase 22 runs the config's own
+#: depth).  The CG K-cycle (cycle_iters 2) visits level i 2^i times per
+#: application, each visit a few dozen kernels, replayed from one CUDA
+#: graph: at ny = 512 the config's own 14 levels make 2^13 = 8,192
+#: coarse solves per application; 10 levels make 256, on a 1,498-row
+#: dense coarse operator
 DFG_LEVELS = 10
 DFG_CFG = HEADLINE_CFG.replace("amg:max_levels=20",
                                f"amg:max_levels={DFG_LEVELS}")
@@ -326,10 +344,11 @@ def bound(nd, n, vdt, xdt):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_ell(dev, gen, name, cols, vals64, n_cols, errs):
+def check_ell(dev, gen, name, cols, vals64, n_cols, errs, row_len=None):
     """B3 vs its plain version in both type pairs on one ELL pack (values
     given in f64, cast to each pair's type; ``cols=None`` for dense
-    rows), per row to a relative 1e-5 (f32) or 1e-12 (f64)."""
+    rows; ``row_len`` as the path passes it), per row to a relative 1e-5
+    (f32) or 1e-12 (f64), and bit for bit."""
     import torch
     from amgx_tpu_torch.ops import ell_spmv as emod
     n, K = vals64.shape
@@ -339,7 +358,7 @@ def check_ell(dev, gen, name, cols, vals64, n_cols, errs):
         x = torch.randn(n_cols, dtype=torch.float64, device=dev,
                         generator=gen).to(dt)
         before = emod.launch_count()
-        y = emod.ell_spmv(cols, vals, x)
+        y = emod.ell_spmv(cols, vals, x, row_len)
         torch.cuda.synchronize(dev)
         assert emod.launch_count() == before + 1, "launch not counted"
         ref = emod.ell_spmv_reference(cols, vals, x)
@@ -350,11 +369,15 @@ def check_ell(dev, gen, name, cols, vals64, n_cols, errs):
         diff, rel = row_errors(y, ref, scale)
         tol = 1e-12 if dt == torch.float64 else 1e-5
         assert rel < tol, (name, short(dt), diff, rel)
+        assert torch.equal(y, ref), (name, short(dt), diff)
         record(errs, f"{short(dt)}.{short(dt)}", diff, rel)
         emit("ell_check", case=name, n=n, K=K, n_cols=n_cols,
              dense_rows=cols is None, vals_absmax=absmax, type=short(dt),
-             bit_equal=bool(torch.equal(y, ref)), max_abs_err=diff,
-             max_row_rel_err=rel, tol=tol)
+             row_len=None if row_len is None else dict(
+                 mean=row_len.double().mean().item(),
+                 max=int(row_len.max().item())),
+             bit_equal=True, max_abs_err=diff, max_row_rel_err=rel,
+             tol=tol)
 
 
 def check_coarse_inverse(dev, gen, name, h, errs):
@@ -442,6 +465,44 @@ def read_counts() -> dict:
                 B5=dict(bmod.LAUNCHES["B5"]))
 
 
+def graph_check(pre, dev, gen, eager=True) -> dict:
+    """The AMG preconditioner's CUDA graph after a solve: its capture
+    (warm-up, capture and instantiation seconds, nodes, pool bytes), the
+    launches and dispatches one replay credits and the time of a replay;
+    with ``eager``, the time of an eager application, whose counts must
+    equal the replay's and whose result must equal the replay's bit for
+    bit on the same vector."""
+    import torch
+    assert len(pre.graphs) == 1, list(pre.graphs)
+    (key, g), = pre.graphs.items()
+    r = torch.randn(key[0], dtype=torch.float64, device=dev,
+                    generator=gen).to(key[1])
+    torch.cuda.synchronize(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    z_graph = pre.apply(r)
+    torch.cuda.synchronize(dev)
+    replay_s = time.perf_counter() - t0
+    replay_counts = read_counts()
+    assert not any(replay_counts["declines"].values()), replay_counts
+    assert len(pre.graphs) == 1
+    facts = dict(key=[key[0], short(key[1]), key[2], key[3]], **g.stats,
+                 replay_s=replay_s, credited_per_replay=replay_counts)
+    if not eager:
+        return facts
+    reset_counts()
+    t0 = time.perf_counter()
+    z_eager = pre._apply_eager(r)
+    torch.cuda.synchronize(dev)
+    eager_s = time.perf_counter() - t0
+    eager_counts = read_counts()
+    assert replay_counts == eager_counts, (replay_counts, eager_counts)
+    bit_equal = bool(torch.equal(z_graph, z_eager))
+    assert bit_equal, "graph replay differs from the eager application"
+    return dict(facts, eager_apply_s=eager_s,
+                replay_bit_equal_to_eager=bit_equal)
+
+
 def binned_bound(entries, b, n, n_cols, vdt, xdt):
     """(bound_ms, bound_by) of one binned SpMV over ``entries`` lanes (or
     stored blocks): a code and b² values read once per entry, x read
@@ -455,9 +516,11 @@ def binned_bound(entries, b, n, n_cols, vdt, xdt):
 
 
 def check_binned(dev, gen, name, Ad, vdt, errs):
-    """B4/B5 vs the plain version on one pack, its planes cast to ``vdt``
-    (x in f64 for f64 planes, else f32), every row to its own relative
-    limit: the row's error over its Σ_j |a_ij·x_j|."""
+    """B4/B5 vs the plain version of the planes on one pack, cast to
+    ``vdt`` (x in f64 for f64 planes, else f32), every row to its own
+    relative limit: the row's error over its Σ_j |a_ij·x_j|.  B5 runs
+    over the compact pack and must equal the planes' plain version (and
+    its own) bit for bit."""
     import torch
     from amgx_tpu_torch.ops import binned_spmv as bmod
     b = bmod.bn_block_dim(Ad.bn_dims)
@@ -481,13 +544,23 @@ def check_binned(dev, gen, name, Ad, vdt, errs):
     diff, rel = row_errors(y, ref, scale)
     tol = BINNED_TOL[short(vdt)]
     assert rel < tol, (name, short(vdt), diff, rel)
+    bit_equal = bool(torch.equal(y, ref))
+    extra = {}
+    if b > 1:
+        assert bit_equal, (name, short(vdt), diff)
+        own = bmod.binned_compact_reference(M.bn_compact, M.bn_pos,
+                                            M.bn_dims, x)
+        assert torch.equal(y, own), (name, short(vdt))
+        extra = dict(compact_slots=int(M.bn_compact.codes.numel()),
+                     stored_blocks=int((M.bn_compact.codes != -1).sum()
+                                       .item()))
     key = f"{kern}.{short(vdt)}.{short(xdt)}"
     record(errs, key, diff, rel)
     emit("binned_check", case=name, kernel=kern, b=b, rows=int(
         Ad.bn_dims[7]), lanes=int(Ad.bn_codes.numel()),
          chunks_on_zero_block=zero_block_chunks(Ad),
-         vals=short(vdt), x=short(xdt), max_abs_err=diff,
-         max_row_rel_err=rel, tol=tol)
+         vals=short(vdt), x=short(xdt), bit_equal=bit_equal,
+         max_abs_err=diff, max_row_rel_err=rel, tol=tol, **extra)
 
 
 def zero_block_chunks(Ad) -> int:
@@ -537,8 +610,8 @@ def library_of(bsr_host, csr_host, dt, dev):
 
 def time_binned(dev, gen, label, Ad, lib, nnz_stored, dt, smi):
     """Kernel, plain version and library times of one binned pack in
-    ``dt``, with the bound over the padded lanes and over the stored
-    entries (the latter is the bound of the work)."""
+    ``dt``, with the bound over the stored entries (the bound of the
+    work), over the padded planes and, for B5, over its compact pack."""
     import torch
     from amgx_tpu_torch.ops import binned_spmv as bmod
     b = bmod.bn_block_dim(Ad.bn_dims)
@@ -546,8 +619,12 @@ def time_binned(dev, gen, label, Ad, lib, nnz_stored, dt, smi):
     n, m = int(Ad.bn_dims[7]) * b, int(Ad.bn_dims[8]) * b
     x = torch.randn(m, dtype=dt, device=dev, generator=gen)
     ms = time_ms(lambda: bmod.binned_spmv(M, x), dev)
-    plain_ms = time_ms(lambda: bmod.binned_spmv_reference(
-        M.bn_codes, M.bn_vals, M.bn_meta, M.bn_pos, M.bn_dims, x), dev)
+    if b > 1:
+        plain_ms = time_ms(lambda: bmod.binned_compact_reference(
+            M.bn_compact, M.bn_pos, M.bn_dims, x), dev)
+    else:
+        plain_ms = time_ms(lambda: bmod.binned_spmv_reference(
+            M.bn_codes, M.bn_vals, M.bn_meta, M.bn_pos, M.bn_dims, x), dev)
     library, lib = lib
     library_ms = time_ms(lambda: lib @ x, dev)
     L = int(Ad.bn_codes.numel())
@@ -556,10 +633,16 @@ def time_binned(dev, gen, label, Ad, lib, nnz_stored, dt, smi):
                                       dt)
     out = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=bound_ms, bound_by=bound_by)
+    extra = {}
+    if b > 1:
+        slots = int(M.bn_compact.codes.numel())
+        extra = dict(compact_slots=slots, compact_bound_ms=binned_bound(
+            slots, b, n // b, m // b, dt, dt)[0])
     emit("binned_timing", pack=label, b=b, lanes=L, stored=nnz_stored,
          type=short(dt), card=smi, library=library, padded_bound_ms=pad_ms,
-         padded_gbs=(L * (4 + b * b * dt.itemsize) + 2 * n * dt.itemsize)
-         / (ms * 1e-3) / 1e9, **out)
+         stored_gbs=(nnz_stored * (4 + b * b * dt.itemsize)
+                     + 2 * n * dt.itemsize) / (ms * 1e-3) / 1e9,
+         **extra, **out)
     return out
 
 
@@ -857,14 +940,15 @@ def dfg_solve(amgx, A, where, pdt):
     return res.iterations, x, relres
 
 
-#: phase 22's pack dtypes, one CPU child each
+#: phase 23's pack dtypes, one CPU child each
 DFG_CPU_DTYPES = ("float32", "float64")
 
 
 class CpuReference:
-    """Phase 22's CPU solves: one child process per pack dtype
+    """Phase 23's CPU solves: one child process per pack dtype
     (``python3 chip_smoke.py --cpu-reference DIR DTYPE``, no card), both
-    started together once every timed phase is done.  ``result()`` waits
+    started together at phase 22, after the last kernel timing.
+    ``result()`` waits
     for them and returns per pack dtype (iterations, x, true relres,
     seconds); ``stop()`` ends any that still runs."""
 
@@ -925,9 +1009,9 @@ def cpu_reference(out_dir: str, name: str) -> int:
 
 
 def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs) -> dict:
-    """Phases 19-22: the DFG cylinder path (aggregation AMG on an
+    """Phases 19-23: the DFG cylinder path (aggregation AMG on an
     uploaded operator) and kernel B2; ``cpu_ref`` is the
-    :class:`CpuReference` it starts at phase 22, ``ell_errs`` B3's
+    :class:`CpuReference` it starts at phase 23, ``ell_errs`` B3's
     errors, which its checks here join."""
     import scipy.sparse as sp
     import torch
@@ -983,9 +1067,11 @@ def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs) -> dict:
     torch.cuda.synchronize(dev)
     warm = read_counts()
     assert res2.iterations == res.iterations
+    assert warm == counts, (warm, counts)
     assert warm["dispatch"].get("ell/shift", 0) == \
         sum(warm["B2"].values()) > 0, warm
     assert not any(warm["declines"].values()), warm
+    dfg_graph = graph_check(slv.preconditioner, dev, gen)
     # the device's busy share over a steady window of the warm solve
     # (DFG_WINDOW_ITERS FGMRES iterations: the profiler's own processing
     # of a whole solve's 1.5 M kernels would outlast the solve many times)
@@ -1006,6 +1092,7 @@ def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs) -> dict:
          grid_stats=h.grid_stats().splitlines()[-2:],
          peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
          counts=counts, warm_dispatch=warm["dispatch"],
+         amg_graph=dfg_graph,
          window_iterations=DFG_WINDOW_ITERS, window_s=window_s,
          profiled_wall_s=wall, device_busy_s=dev_s, device_kernels=kern,
          device_time_measured=kern > 0,
@@ -1020,7 +1107,7 @@ def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs) -> dict:
     for i, lv in enumerate(h.levels[1:], 1):
         check_ell(dev, gen, f"dfg_{DFG_NY}.level{i}.A",
                   lv.Ad.ell_cols_view(), lv.Ad.ell_vals_view().double(),
-                  lv.Ad.n_cols, ell_errs)
+                  lv.Ad.n_cols, ell_errs, row_len=lv.Ad.row_len)
     check_coarse_inverse(dev, gen, f"dfg_{DFG_NY}.coarse_inverse", h,
                          ell_errs)
     rng = np.random.default_rng(SEED)
@@ -1073,9 +1160,13 @@ def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs) -> dict:
     del slv, res, res2, x, m, Ad, h
     torch.cuda.empty_cache()
 
-    # ---- 22. card against CPU at ny = 320 (the CPU half in two child
-    # processes from here on: no timed phase is left to run beside them)
+    # ---- 22. the config's own depth, through the graph, beside the CPU
+    # half of phase 23 (two child processes from here on: no kernel
+    # timing is left to run beside them)
     cpu_ref.start()
+    full = dfg_full_depth(amgx, dev, smi, gen, A, ell_errs)
+
+    # ---- 23. card against CPU at ny = 320
     A3 = dfg_cylinder_pressure(DFG_SMALL_NY)
     card = {}
     for name in DFG_CPU_DTYPES:
@@ -1095,6 +1186,8 @@ def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs) -> dict:
              card_setup_and_solve_s=card_s, cpu_setup_and_solve_s=cpu_s)
         assert ig == ic, (name, ig, ic)
         assert x_diff < SMALL_X_RTOL, (name, x_diff)
+        if name == "float32":
+            assert np.array_equal(xg, xc), "ny = 320 f32: x not bit-equal"
 
     kernels = []
     for dt in ("f32", "f64"):
@@ -1107,7 +1200,65 @@ def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs) -> dict:
             launches_by_path=dict(dfg=counts["B2"][key]),
             max_abs_err=errs[key]["abs"],
             max_row_rel_err=errs[key]["rel"], **timing[dt]))
-    return dict(kernels=kernels, b3_launches=counts["B3"])
+    return dict(kernels=kernels, b3_launches=counts["B3"],
+                b3_launches_full_depth=full["B3"])
+
+
+def dfg_full_depth(amgx, dev, smi, gen, A, ell_errs) -> dict:
+    """Phase 22: the DFG operator under the headline config at its own
+    depth (``amg:max_levels=20``: SIZE_2 down to a 28-row dense coarse
+    solve), f32 pack, f64 refinement: setup, a first solve (which
+    captures the preconditioner's graph: one eager application, the
+    capture and the instantiation), a warm solve, iterations, the true
+    relres in f64 on the host, the graph's facts (:func:`graph_check`,
+    without an eager application: one takes some 30 s at this depth),
+    the launches of the first solve (returned; the warm solve's must
+    equal them); B3 against its plain version on the ELL levels from
+    phase 19's dense coarsest level down.  It runs beside phase 23's CPU
+    children."""
+    import torch
+    n = A.shape[0]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    m = amgx.Matrix(A, device="cuda")
+    m.device_dtype = np.float32
+    slv = amgx.create_solver(HEADLINE_CFG)
+    slv.setup(m)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    h = slv.preconditioner.hierarchy
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    reset_counts()
+    res = slv.solve(b)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    assert res.status == amgx.SolveStatus.SUCCESS, res.status
+    assert not any(counts["declines"].values()), counts
+    xh = res.x.cpu().numpy()
+    relres = float(np.linalg.norm(1.0 - A @ xh) / np.sqrt(n))
+    assert relres <= 1e-8, relres
+    reset_counts()
+    res2 = slv.solve(b)
+    torch.cuda.synchronize(dev)
+    assert res2.iterations == res.iterations
+    # the first solve's first application ran eagerly, the warm solve's
+    # all replay: equal counts
+    assert read_counts() == counts
+    graph = graph_check(slv.preconditioner, dev, gen, eager=False)
+    for i, lv in enumerate(h.levels[DFG_LEVELS - 1:], DFG_LEVELS - 1):
+        check_ell(dev, gen, f"dfg_{DFG_NY}_full.level{i}.A",
+                  lv.Ad.ell_cols_view(), lv.Ad.ell_vals_view().double(),
+                  lv.Ad.n_cols, ell_errs, row_len=lv.Ad.row_len)
+    emit("dfg_full_depth", ny=DFG_NY, rows=n, config="amg:max_levels=20",
+         levels=[lv.level_stats()[0] for lv in h.levels]
+         + [h.coarsest.n_block_rows],
+         iterations=res.iterations, relres_f64=relres, setup_s=setup_s,
+         solve_s=res.solve_time, solve_warm_s=res2.solve_time,
+         amg_graph=graph, counts=counts,
+         peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, card=smi)
+    del slv, m, h, res, res2
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -1135,7 +1286,7 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    # the CPU half of phase 22 (started there; stopped here on any exit)
+    # the CPU half of phase 23 (started there; stopped here on any exit)
     cpu_ref = CpuReference()
     try:
         return run_phases(amgx, dev, smi, kind, cpu_ref)
@@ -1241,6 +1392,7 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     head_b3 = dict(emod.LAUNCHES)
     # a second, warm solve for the steady-state time (not counted)
     res2 = slv.solve(b)
+    head_graph = graph_check(slv.preconditioner, dev, gen)
     assert res.status == amgx.SolveStatus.SUCCESS, res.status
     assert res2.iterations == res.iterations
     assert dispatch["dia/kernel"] > 0 and dispatch["dia/slices"] == 0, \
@@ -1262,7 +1414,8 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
          levels=[lv.Ad.n_rows for lv in h.levels]
          + [h.coarsest.n_block_rows],
          launches_per_solve=sum(launches.values()),
-         launches_by_type=launches, dispatch=dispatch, card=smi)
+         launches_by_type=launches, dispatch=dispatch,
+         amg_graph=head_graph, card=smi)
 
     # the same stack at 16³, on the card and on the CPU (plain versions)
     small = {}
@@ -1278,8 +1431,10 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     assert small["cuda"].iterations == small["cpu"].iterations \
         == SMALL_ITERS, (small["cuda"].iterations, small["cpu"].iterations)
     assert agree < 1e-6, agree
+    # the card's preconditioner ran as graph replays, the CPU's eagerly
+    assert torch.equal(xg, xc), "16³ headline: card x differs from CPU x"
     emit("small_reference", n=16 ** 3, iterations=SMALL_ITERS,
-         x_rel_diff_card_vs_cpu=agree)
+         x_rel_diff_card_vs_cpu=agree, x_bit_equal=True)
 
     # ---- 6. setup parity: derivation on the card vs on CPU tensors
     fine = A.device()
@@ -1326,6 +1481,7 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
                   "ell_spmv": dict(emod.LAUNCHES)}
     c_dispatch = dict(smod.DISPATCH)
     cres2 = cslv.solve(b)
+    cla_graph = graph_check(cslv.preconditioner, dev, gen)
     assert cres.status == amgx.SolveStatus.SUCCESS, cres.status
     assert cres2.iterations == cres.iterations
     assert c_dispatch["ell/window"] > 0 and c_dispatch["ell/gather"] == 0 \
@@ -1352,7 +1508,7 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
          levels=[dict(fmt=f, rows=r_, stored_rows=s_)
                  for f, r_, s_ in table],
          dispatch=c_dispatch, launches_per_solve=c_launches,
-         host_syncs_in_setup=setup_syncs,
+         amg_graph=cla_graph, host_syncs_in_setup=setup_syncs,
          peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, card=smi)
 
     # ---- 9. B1 vs plain on every DIA pack of that hierarchy (the fine
@@ -1389,7 +1545,7 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     assert packs
     for name, M in packs:
         check_ell(dev, gen, name, M.cols, M.vals.double(), M.n_cols,
-                  ell_errs)
+                  ell_errs, row_len=M.row_len)
     for K, n_r, n_c in ((4, 50000, 70001), (27, 30000, 20000),
                         (256, 4096, 9000)):
         cols = torch.randint(-2, n_c + 2, (n_r, K), dtype=torch.int32,
@@ -1397,12 +1553,20 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
         vals = torch.randn((n_r, K), dtype=torch.float64, device=dev,
                            generator=gen)
         check_ell(dev, gen, f"random_K{K}", cols, vals, n_c, ell_errs)
+        # the same rows cut short at random lengths (zeros inside
+        # too): B3 stops each row at its row_len
+        keep = torch.randint(0, K + 1, (n_r, 1), device=dev, generator=gen)
+        ragged = torch.where(torch.arange(K, device=dev) < keep, vals, 0)
+        ragged[::7, 0] = 0
+        check_ell(dev, gen, f"random_K{K}_ragged", cols, ragged, n_c,
+                  ell_errs, row_len=emod.ell_row_len(ragged))
     if not any(M.n_rows < 128 for _, M in packs):
         cols = torch.randint(0, 100, (100, 9), dtype=torch.int32,
                              device=dev, generator=gen)
         vals = torch.randn((100, 9), dtype=torch.float64, device=dev,
                            generator=gen)
-        check_ell(dev, gen, "small_level_100", cols, vals, 100, ell_errs)
+        check_ell(dev, gen, "small_level_100", cols, vals, 100, ell_errs,
+                  row_len=emod.ell_row_len(vals))
 
     # ---- 10. B3 times on the largest ELL operator of the hierarchy
     big_name, big = max(((nm, M) for nm, M in packs
@@ -1414,7 +1578,10 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
         vals = big.vals.to(dt).contiguous()
         x = torch.randn(big.n_cols, dtype=dt, device=dev, generator=gen)
         csr = csr_of_ell(big.cols, vals, big.n_cols)
-        ms = time_ms(lambda: emod.ell_spmv(big.cols, vals, x), dev)
+        ms = time_ms(lambda: emod.ell_spmv(big.cols, vals, x, big.row_len),
+                     dev)
+        # the same kernel without row_len: every row read to K
+        full_ms = time_ms(lambda: emod.ell_spmv(big.cols, vals, x), dev)
         plain_ms = time_ms(lambda: emod.ell_spmv_reference(big.cols, vals,
                                                            x), dev)
         library_ms = time_ms(lambda: csr @ x, dev)
@@ -1429,7 +1596,9 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
                                bound_by=bound_by)
         emit("ell_timing", operator=big_name, n=nb_, K=K_,
              n_cols=big.n_cols, type=short(dt), card=smi, nnz=nnz,
-             pack_bound_ms=pack_bound_ms, **ell_timing[key],
+             row_len_mean=big.row_len.double().mean().item(),
+             full_rows_ms=full_ms, pack_bound_ms=pack_bound_ms,
+             **ell_timing[key],
              pack_gbs=(nb_ * K_ * (4 + dt.itemsize)
                        + (big.n_cols + nb_) * dt.itemsize)
              / (ms * 1e-3) / 1e9)
@@ -1480,7 +1649,7 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     # ---- 13.-18. the config-4 path
     c4 = config4_phases(amgx, dev, smi, gen, errs)
 
-    # ---- 19.-22. the DFG cylinder path (aggregation AMG, B2)
+    # ---- 19.-23. the DFG cylinder path (aggregation AMG, B2)
     dfg = dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs)
 
     # ---- the kernels of the three paths
@@ -1508,10 +1677,11 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
         source="amgx_tpu_torch/csrc/ell_spmv.cu",
         replaces="amgx_tpu/ops/pallas_ell.py:209",
         launches=head_b3[key] + c_launches["ell_spmv"][key]
-        + dfg["b3_launches"][key],
-        launches_by_path=dict(headline=head_b3[key],
-                              classical=c_launches["ell_spmv"][key],
-                              dfg=dfg["b3_launches"][key]),
+        + dfg["b3_launches"][key] + dfg["b3_launches_full_depth"][key],
+        launches_by_path=dict(
+            headline=head_b3[key], classical=c_launches["ell_spmv"][key],
+            dfg=dfg["b3_launches"][key],
+            dfg_full_depth=dfg["b3_launches_full_depth"][key]),
         max_abs_err=ell_errs[key]["abs"],
         max_row_rel_err=ell_errs[key]["rel"], ms=ell_timing[key]["ms"],
         plain_ms=ell_timing[key]["plain_ms"],

@@ -240,3 +240,129 @@ def test_dfg320_solve_on_card_matches_cpu(card, dfg320):
     assert d["ell/gather"] == 0 and d["dia/slices"] == 0
     xg, xc = out["cuda"][2], out["cpu"][2]
     assert ((xg - xc).norm() / xc.norm()).item() < 1e-6
+
+
+@pytest.mark.parametrize("b,vdt", [
+    (b, vdt) for b in (2, 3, 4, 5)
+    for vdt in (torch.float32, torch.bfloat16, torch.float64)])
+def test_compact_b5_bit_equal_to_both_plain_versions(card, b, vdt):
+    """B5 over its compact pack: bit for bit its own plain version and
+    the plain version of the planes it was derived from."""
+    from amgx_tpu_torch.ops import binned_spmv as bmod
+    Ad = _binned_pack(card, b, seed=10 + b, empty_rows=300 if b == 3 else 0)
+    M = Ad.astype(vdt)
+    xdt = torch.float64 if vdt == torch.float64 else torch.float32
+    g = torch.Generator(device=card).manual_seed(b)
+    x = torch.randn(3000 * b, dtype=torch.float64, device=card,
+                    generator=g).to(xdt)
+    before = bmod.launch_count("B5")
+    y = bmod.binned_spmv(M, x)
+    torch.cuda.synchronize(card)
+    assert bmod.launch_count("B5") == before + 1
+    assert torch.equal(y, bmod.binned_compact_reference(
+        M.bn_compact, M.bn_pos, M.bn_dims, x))
+    assert torch.equal(y, bmod.binned_spmv_reference(
+        M.bn_codes, M.bn_vals, M.bn_meta, M.bn_pos, M.bn_dims, x))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K", [11, 33, 256])
+def test_ell_row_len_kernel_bit_equal(card, dt, K):
+    """B3 stopped at each row's row_len: bit for bit its plain version
+    (which reads every slot) and the kernel over all K slots."""
+    from amgx_tpu_torch.ops import ell_spmv as emod
+    g = torch.Generator(device=card).manual_seed(K)
+    n, n_cols = 20000, 30000
+    cols = torch.randint(0, n_cols, (n, K), dtype=torch.int32, device=card,
+                         generator=g)
+    vals = torch.randn((n, K), dtype=torch.float64, device=card,
+                       generator=g)
+    keep = torch.randint(0, K + 1, (n, 1), device=card, generator=g)
+    vals = torch.where(torch.arange(K, device=card) < keep, vals, 0).to(dt)
+    vals[::17, 0] = 0                   # zeros inside rows too
+    x = torch.randn(n_cols, dtype=torch.float64, device=card,
+                    generator=g).to(dt)
+    rl = emod.ell_row_len(vals)
+    before = emod.launch_count()
+    y = emod.ell_spmv(cols, vals, x, rl)
+    torch.cuda.synchronize(card)
+    assert emod.launch_count() == before + 1
+    assert torch.equal(y, emod.ell_spmv_reference(cols, vals, x))
+    assert torch.equal(y, emod.ell_spmv(cols, vals, x))
+
+
+def _graph_case(case, card):
+    """A solver set up on the card for one of the three AMG paths."""
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.io import (dfg_cylinder_pressure, poisson7pt,
+                                   poisson7pt_device)
+    from chip_smoke import CFG_CLA, DFG_CFG, HEADLINE_CFG
+    if case == "headline16":
+        A = poisson7pt_device(16, 16, 16, device_dtype=np.float32,
+                              device=card)
+        cfg = HEADLINE_CFG
+    else:
+        host = poisson7pt(24, 24, 24) if case == "classical24" else \
+            dfg_cylinder_pressure(64)
+        A = amgx.Matrix(host, device=card)
+        A.device_dtype = np.float32
+        cfg = CFG_CLA + ", amg:strength_threshold=0.2401" \
+            if case == "classical24" else DFG_CFG
+    slv = amgx.create_solver(cfg)
+    slv.setup(A)
+    return slv
+
+
+GRAPH_CASES = ["headline16", "classical24", "dfg64"]
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_graph_replay_equals_eager_application(card, case):
+    """One AMG application replayed from its CUDA graph is torch.equal to
+    an eager application on the same vector, and a replay returns a tensor
+    the next replay leaves alone."""
+    slv = _graph_case(case, card)
+    pre = slv.preconditioner
+    n = slv.Ad.n
+    g = torch.Generator(device=card).manual_seed(0)
+    r = torch.randn(n, dtype=torch.float64, device=card,
+                    generator=g).to(torch.float32)
+    first = pre.apply(r)
+    assert len(pre.graphs) == 1
+    z = pre.apply(r)
+    eager = pre._apply_eager(r)
+    torch.cuda.synchronize(card)
+    assert torch.equal(z, eager) and torch.equal(first, eager)
+    z2 = pre.apply(2 * r)
+    torch.cuda.synchronize(card)
+    assert torch.equal(z, eager) and not torch.equal(z2, z)
+    assert len(pre.graphs) == 1
+    pre.setup(pre.A)
+    assert pre.graphs == {}
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_graphed_solve_counts_equal_eager(card, case, monkeypatch):
+    """A warm solve through the graph counts the same launches and
+    dispatches as the same solve with eager applications, and gives the
+    same x bit for bit."""
+    from amgx_tpu_torch.utils import cuda_graph as cg
+    slv = _graph_case(case, card)
+    b = torch.ones(slv.Ad.n, dtype=torch.float64, device=card)
+    slv.solve(b)
+
+    def counted():
+        for c in cg.counters():
+            for k in c:
+                c[k] = 0
+        res = slv.solve(b)
+        torch.cuda.synchronize(card)
+        return res, cg.snapshot()
+
+    rg, cnt_g = counted()
+    monkeypatch.setattr(slv.preconditioner, "apply",
+                        slv.preconditioner._apply_eager)
+    re, cnt_e = counted()
+    assert rg.iterations == re.iterations
+    assert cnt_g == cnt_e
+    assert torch.equal(rg.x, re.x)
