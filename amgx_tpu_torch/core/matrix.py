@@ -91,10 +91,9 @@ class DeviceMatrix:
     bn_dims: tuple = ()
     #: derived once at upload for the card's kernels
     #: (:func:`~amgx_tpu_torch.ops.binned_spmv.kernel_aux`)
-    bn_tile_ptr: Optional[torch.Tensor] = None
     bn_row_of_pos: Optional[torch.Tensor] = None
-    #: block-native packs: kernel B5's compact pack, derived from the
-    #: planes at upload (:func:`~amgx_tpu_torch.ops.binned_spmv.compact_pack`)
+    #: kernels B4's and B5's compact pack, derived from the planes at
+    #: upload (:func:`~amgx_tpu_torch.ops.binned_spmv.compact_pack`)
     bn_compact: Optional[binned_spmv.CompactPack] = None
     #: tile-DIA shift planes (ops/shift_spmv.py) and static dims
     sh_vals: Optional[torch.Tensor] = None
@@ -531,16 +530,12 @@ def assemble_device_matrix(arrays, meta, device) -> DeviceMatrix:
     extra = {}
     if "bn_dims" in meta:
         bn_meta, bn_pos = up("bn_meta"), up("bn_pos")
-        tile_ptr, row_of_pos = binned_spmv.kernel_aux(bn_meta, bn_pos,
-                                                      meta["bn_dims"])
+        dims = tuple(meta["bn_dims"])
         extra = dict(bn_codes=up("bn_codes"), bn_vals=up("bn_vals"),
-                     bn_meta=bn_meta, bn_pos=bn_pos,
-                     bn_dims=tuple(meta["bn_dims"]), bn_tile_ptr=tile_ptr,
-                     bn_row_of_pos=row_of_pos)
-        if binned_spmv.bn_block_dim(meta["bn_dims"]) > 1:
-            extra.update(bn_compact=binned_spmv.compact_pack(
-                extra["bn_codes"], extra["bn_vals"], bn_meta,
-                meta["bn_dims"]))
+                     bn_meta=bn_meta, bn_pos=bn_pos, bn_dims=dims,
+                     bn_row_of_pos=binned_spmv.kernel_aux(bn_pos, dims))
+        extra.update(bn_compact=binned_spmv.compact_pack(
+            extra["bn_codes"], extra["bn_vals"], bn_meta, dims))
     if "sh_dims" in meta:
         sh_meta = up("sh_meta")
         dims = tuple(int(v) for v in meta["sh_dims"])

@@ -23,34 +23,40 @@
 // against 2 * b*b * nnz_blocks flops (1 - 2 flop/byte): far under the
 // ridge point.  Every padding lane a kernel streams is on top of that.
 //
-// B4 (b = 1): one CTA of 128 threads serves one 128-row output tile, one
-// thread one row.  The chunk list is tile-sorted, so a tile's chunks are
-// one contiguous range, tile_ptr[tile] .. tile_ptr[tile+1] (derived once
-// at upload).  Thread t reads codes/vals at lane = block * 1024 + slot *
-// 128 + t: consecutive threads read consecutive lanes, so every plane
-// load coalesces.  The TPU kernels' one-hot MXU picks, bf16x3 splits and
-// VMEM staging exist because a TPU has no gather; Hopper has one.
-//
-// B5 (b >= 2) reads no lane of the planes.  The planes' (tile, 1024-
+// Neither kernel reads a lane of the planes.  The planes' (tile, 1024-
 // column segment) groups pad every row to the group's widest row in
 // steps of 8 slots: 4.38x the stored blocks on the SPE10 block stencil,
-// whose rows hold one or two blocks per segment.  Hopper gathers x
-// directly and needs no segments, so B5 reads a compact pack derived at
-// upload (ops/binned_spmv.py::compact_pack): padded positions in the bin
-// order cut into slices of S = 32 / b rows, each slice padded only to its
-// own longest row.  One warp serves one slice, b threads a block row:
-// thread (r, a) makes output component a of row r.  For one slot k the
-// warp's S codes are one 4*S-byte span and its S*b*b values one
-// contiguous span (thread (r, a) reads the b values of block row a of
-// its block: one 16-byte load for b = 4 in f32), so every load
-// coalesces; x is gathered (x stays in the 50 MB L2 at the sizes the
-// solve runs).  A code with its sign bit set opens a new chunk: the
-// thread sums a chunk's products into a partial and adds the partial to
-// the row at the chunk's end, in the planes' (chunk, slot) order, so the
-// result equals B5 of the planes and its plain version bit for bit (the
-// dropped lanes' products are exact zeros for finite x, added to a row
-// sum that is never -0).  A code of -1 is slice padding (it trails the
-// row's entries).
+// whose rows hold one or two blocks per segment, and 1.74x the stored
+// entries on its scalar expansion.  Hopper gathers x directly and needs
+// no segments (the TPU kernels' one-hot MXU picks, bf16x3 splits and VMEM
+// staging exist because a TPU has no gather), so both kernels read a
+// compact pack derived at upload (ops/binned_spmv.py::compact_pack):
+// padded positions in the bin order cut into slices of S = 32 / b rows,
+// each slice padded only to its own longest row.  One warp serves one
+// slice.
+//
+// B4 (b = 1): one thread a row.  For one slot k the warp's 32 codes and
+// 32 values are one 128-byte span each (f32), so every load coalesces.
+// A row's entry takes three loads, of which the x gather waits on the
+// code, and a row holds some 27 entries on the config-4 expansion: one
+// slot at a time, each thread would keep one or two loads in flight and
+// wait a memory latency per slot.  So the thread loads the codes of
+// kBatch slots, then their values and x gathers, all before the first
+// add, and sums them in slot order afterwards.
+//
+// B5 (b >= 2): b threads a block row: thread (r, a) makes output
+// component a of row r.  For one slot k the warp's S codes are one
+// 4*S-byte span and its S*b*b values one contiguous span (thread (r, a)
+// reads the b values of block row a of its block: one 16-byte load for
+// b = 4 in f32), so every load coalesces.
+//
+// In both, x is gathered (x stays in the 50 MB L2 at the sizes the solve
+// runs), and a code with its sign bit set opens a new chunk: the thread
+// sums a chunk's products into a partial and adds the partial to the row
+// at the chunk's end, in the planes' (chunk, slot) order, so the result
+// equals the planes' plain version bit for bit (the dropped lanes'
+// products are exact zeros for finite x, added to a row sum that is never
+// -0).  A code of -1 is slice padding (it trails the row's entries).
 //
 // Both accumulate in x's type (bf16 value planes widen to f32), round
 // each product and sum on their own (no fused multiply-add), write each
@@ -66,11 +72,9 @@
 
 namespace {
 
-constexpr int kTile = 128;   // rows per tile = threads per CTA (B4)
-constexpr int kSlots = 8;    // slot columns per chunk
-constexpr int kChunk = kSlots * kTile;
 constexpr int kWarp = 32;
-constexpr int kCompactWarps = 4;  // compact slices (warps) per CTA (B5)
+constexpr int kCompactWarps = 4;  // compact slices (warps) per CTA
+constexpr int kBatch = 8;         // B4: slots loaded ahead of their adds
 
 // type codes shared with the Python wrapper (ops/binned_spmv.py)
 enum TypeCode { kF32 = 0, kF64 = 1, kBF16 = 2 };
@@ -100,53 +104,6 @@ __device__ __forceinline__ float add(float a, float b) {
 }
 __device__ __forceinline__ double add(double a, double b) {
   return __dadd_rn(a, b);
-}
-
-// ---------------------------------------------------------------- B4
-
-template <typename T>
-__global__ void __launch_bounds__(kTile)
-    binned_spmv_kernel(const int32_t* __restrict__ codes,
-                       const T* __restrict__ vals,
-                       const int32_t* __restrict__ chunk_blk,
-                       const int32_t* __restrict__ tile_ptr,
-                       const int32_t* __restrict__ row_of_pos,
-                       int64_t n_rows, const T* __restrict__ x,
-                       T* __restrict__ y) {
-  const int tile = blockIdx.x;
-  const int t = threadIdx.x;
-  const int64_t p = static_cast<int64_t>(tile) * kTile + t;
-  const int64_t row =
-      row_of_pos != nullptr ? row_of_pos[p] : (p < n_rows ? p : -1);
-  if (row < 0) return;  // padding row: nothing to write, no sync follows
-  T acc = T(0);
-  const int c_end = tile_ptr[tile + 1];
-  for (int c = tile_ptr[tile]; c < c_end; ++c) {
-    const int64_t base = static_cast<int64_t>(chunk_blk[c]) * kChunk + t;
-    T part;
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      const int64_t lane = base + k * kTile;
-      const T pk = mul(__ldg(vals + lane), __ldg(x + __ldg(codes + lane)));
-      part = k == 0 ? pk : add(part, pk);
-    }
-    acc = add(acc, part);
-  }
-  y[row] = acc;
-}
-
-template <typename T>
-int launch_b4(const void* codes, const void* vals, const void* chunk_blk,
-              const void* tile_ptr, const void* row_of_pos, int64_t n_rows,
-              int64_t n_tiles, const void* x, void* y, cudaStream_t stream) {
-  binned_spmv_kernel<T><<<static_cast<unsigned int>(n_tiles), kTile, 0,
-                          stream>>>(
-      static_cast<const int32_t*>(codes), static_cast<const T*>(vals),
-      static_cast<const int32_t*>(chunk_blk),
-      static_cast<const int32_t*>(tile_ptr),
-      static_cast<const int32_t*>(row_of_pos), n_rows,
-      static_cast<const T*>(x), static_cast<T*>(y));
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- B5
@@ -274,6 +231,77 @@ int launch_b5(const void* codes, const void* vals, const void* slice_ptr,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------- B4
+
+template <typename T>
+__global__ void __launch_bounds__(kCompactWarps * kWarp)
+    binned_compact_scalar_kernel(const int32_t* __restrict__ codes,
+                                 const T* __restrict__ vals,
+                                 const int32_t* __restrict__ slice_ptr,
+                                 const int32_t* __restrict__ row_of_pos,
+                                 int64_t n_rows, int64_t n_pos,
+                                 int64_t n_slices, const T* __restrict__ x,
+                                 T* __restrict__ y) {
+  const int64_t slice =
+      static_cast<int64_t>(blockIdx.x) * kCompactWarps + threadIdx.x / kWarp;
+  const int r = threadIdx.x % kWarp;
+  if (slice >= n_slices) return;
+  const int64_t p = slice * kWarp + r;
+  if (p >= n_pos) return;
+  const int64_t row =
+      row_of_pos != nullptr ? row_of_pos[p] : (p < n_rows ? p : -1);
+  if (row < 0) return;  // padding position: no entry, nothing to write
+  const int64_t k_end = slice_ptr[slice + 1];
+  T acc = T(0);
+  T part = T(0);
+  bool open = false;
+  for (int64_t k = slice_ptr[slice]; k < k_end; k += kBatch) {
+    int32_t raw[kBatch];
+    T v[kBatch];
+    T xv[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      raw[u] = k + u < k_end ? __ldg(codes + (k + u) * kWarp + r) : -1;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      v[u] = T(0);
+      xv[u] = T(0);
+      if (raw[u] != -1) {
+        v[u] = __ldg(vals + (k + u) * kWarp + r);
+        xv[u] = __ldg(x + (raw[u] & 0x7fffffff));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (raw[u] == -1) continue;
+      const T pk = mul(v[u], xv[u]);
+      if (raw[u] < 0) {
+        if (open) acc = add(acc, part);
+        part = pk;
+        open = true;
+      } else {
+        part = add(part, pk);
+      }
+    }
+  }
+  if (open) acc = add(acc, part);
+  y[row] = acc;
+}
+
+template <typename T>
+int launch_b4(const void* codes, const void* vals, const void* slice_ptr,
+              const void* row_of_pos, int64_t n_rows, int64_t n_pos,
+              int64_t n_slices, const void* x, void* y, cudaStream_t stream) {
+  const int64_t blocks = (n_slices + kCompactWarps - 1) / kCompactWarps;
+  binned_compact_scalar_kernel<T><<<static_cast<unsigned int>(blocks),
+                                    kCompactWarps * kWarp, 0, stream>>>(
+      static_cast<const int32_t*>(codes), static_cast<const T*>(vals),
+      static_cast<const int32_t*>(slice_ptr),
+      static_cast<const int32_t*>(row_of_pos), n_rows, n_pos, n_slices,
+      static_cast<const T*>(x), static_cast<T*>(y));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename V, typename X>
 int launch_compact(int b, const void* codes, const void* vals,
                    const void* slice_ptr, const void* row_of_pos,
@@ -299,35 +327,15 @@ int launch_compact(int b, const void* codes, const void* vals,
 
 }  // namespace
 
-// Plain C interfaces, loaded through ctypes.  Each returns 0 on success, a
+// Plain C interface, loaded through ctypes.  Returns 0 on success, a
 // cudaError_t code when the launch was refused, or -1 for arguments the
 // kernel does not take.
 //
-// B4: scalar planes, in (f32, f32) and (f64, f64).  chunk_blk is the plane
-// block of every chunk (bn_meta[C:2C]), tile_ptr the tile's chunk range
-// (n_tiles + 1 entries), row_of_pos the original row of every padded
+// b = 1 (B4) in (f32, f32) and (f64, f64); b in 2..5 (B5) in (f32, f32),
+// (bf16, f32) and (f64, f64); over the compact pack (codes, vals,
+// slice_ptr of n_slices + 1 entries).  n_pos is the count of padded
+// positions (n_tiles * 128), row_of_pos the original row of every padded
 // position (-1 for padding) or null for an identity permutation.
-extern "C" int amgx_binned_spmv(int vals_type, int x_type,
-                                const void* codes, const void* vals,
-                                const void* chunk_blk, const void* tile_ptr,
-                                const void* row_of_pos, int64_t n_rows,
-                                int64_t n_tiles, const void* x, void* y,
-                                void* stream) {
-  if (n_rows < 0 || n_tiles < 0 || n_tiles >= (1LL << 31)) return -1;
-  if (n_tiles == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vals_type == kF32 && x_type == kF32)
-    return launch_b4<float>(codes, vals, chunk_blk, tile_ptr, row_of_pos,
-                            n_rows, n_tiles, x, y, s);
-  if (vals_type == kF64 && x_type == kF64)
-    return launch_b4<double>(codes, vals, chunk_blk, tile_ptr, row_of_pos,
-                             n_rows, n_tiles, x, y, s);
-  return -1;
-}
-
-// B5: b in 2..5, in (f32, f32), (bf16, f32) and (f64, f64), over the
-// compact pack (codes, vals, slice_ptr of n_slices + 1 entries); n_pos is
-// the count of padded positions (n_tiles * 128), row_of_pos as for B4.
 extern "C" int amgx_binned_compact_spmv(int vals_type, int x_type, int b,
                                         const void* codes, const void* vals,
                                         const void* slice_ptr,
@@ -335,11 +343,20 @@ extern "C" int amgx_binned_compact_spmv(int vals_type, int x_type, int b,
                                         int64_t n_rows, int64_t n_pos,
                                         int64_t n_slices, const void* x,
                                         void* y, void* stream) {
-  if (b < 2 || b > 5 || n_rows < 0 || n_pos < 0 || n_slices < 0 ||
+  if (b < 1 || b > 5 || n_rows < 0 || n_pos < 0 || n_slices < 0 ||
       (n_slices + kCompactWarps - 1) / kCompactWarps >= (1LL << 31))
     return -1;
   if (n_slices == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (b == 1) {
+    if (vals_type == kF32 && x_type == kF32)
+      return launch_b4<float>(codes, vals, slice_ptr, row_of_pos, n_rows,
+                              n_pos, n_slices, x, y, s);
+    if (vals_type == kF64 && x_type == kF64)
+      return launch_b4<double>(codes, vals, slice_ptr, row_of_pos, n_rows,
+                               n_pos, n_slices, x, y, s);
+    return -1;
+  }
   if (vals_type == kF32 && x_type == kF32)
     return launch_compact<float, float>(b, codes, vals, slice_ptr,
                                         row_of_pos, n_rows, n_pos, n_slices,

@@ -25,21 +25,21 @@ copy of the JAX package's and gives bit-equal arrays:
 * ``bn_pos`` (n,) int32 maps an original row to its padded position
   (absent when the bin permutation is the identity).
 
-The card does not need the segments (it gathers x directly).  B4 walks
-its tile's chunks (one contiguous range of the tile-sorted chunk list,
-:func:`kernel_aux`) and writes each row through the inverse of
-``bn_pos``.  B5 reads no lane of the planes: a block-native pack carries
-a compact pack (:class:`CompactPack`, :func:`compact_pack`) derived from
-them on its device at upload, which holds each row's real blocks only,
-in slices of ``32 // b`` rows padded to the slice's longest row.
+The card does not need the segments (it gathers x directly), and
+neither kernel reads a lane of the planes: every binned pack carries a
+compact pack (:class:`CompactPack`, :func:`compact_pack`) derived from
+them on its device at upload, which holds each row's real entries
+(blocks) only, in slices of ``32 // b`` rows padded to the slice's
+longest row; the kernels write each row through the inverse of
+``bn_pos`` (:func:`kernel_aux`).
 
 Contract of both kernels: ``y = A·x`` for the pack, summed per chunk over
-its 8 slots in slot order and over the tile's chunks in chunk order.  B5
-keeps that order over the real entries alone, which gives the same bits
-for finite x (:func:`compact_pack`).  B4 takes (vals, x) pairs (f32,
+its 8 slots in slot order and over the tile's chunks in chunk order,
+kept over the real entries alone, which gives the planes' bits for
+finite x (:func:`compact_pack`).  B4 (b = 1) takes (vals, x) pairs (f32,
 f32) and (f64, f64); B5 (b ∈ {2, 3, 4, 5}) takes (f32, f32), (bf16, f32)
-and (f64, f64), accumulating in x's type.  :func:`binned_spmv` runs the
-plain version (:func:`binned_spmv_reference` for B4,
+and (f64, f64), accumulating in x's type.  :func:`binned_spmv` runs a
+plain version (:func:`binned_spmv_reference` over the planes for B4,
 :func:`binned_compact_reference` for B5) only for CPU tensors; a CUDA
 tensor launches the kernel or raises.
 """
@@ -86,7 +86,6 @@ LAUNCHES: Dict[str, Dict[str, int]] = {
 }
 
 _fn = None
-_compact_fn = None
 
 
 def launch_count(kernel: Optional[str] = None) -> int:
@@ -272,33 +271,26 @@ def binned_supported(Ad) -> bool:
     return dt == torch.bfloat16 and bn_block_dim(Ad.bn_dims) > 1
 
 
-def kernel_aux(bn_meta: torch.Tensor, bn_pos: Optional[torch.Tensor],
-               dims) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The two arrays the card's kernels read beside the pack, derived
-    once at upload on the pack's device: ``tile_ptr`` (n_tiles + 1,)
-    int32, the first chunk of every tile in the tile-sorted chunk list,
-    and ``row_of_pos`` (n_tiles·T,) int32, the original row of every
-    padded position (−1 for padding rows; None when the bin permutation
-    is the identity)."""
-    C, n_tiles, T = int(dims[0]), int(dims[1]), int(dims[3])
-    n = int(dims[7])
-    c_tile = bn_meta[:C].long()
-    counts = torch.bincount(c_tile, minlength=n_tiles)
-    tile_ptr = torch.zeros(n_tiles + 1, dtype=torch.int64,
-                           device=bn_meta.device)
-    tile_ptr[1:] = torch.cumsum(counts, 0)
-    row_of_pos = None
-    if bn_pos is not None:
-        row_of_pos = torch.full((n_tiles * T,), -1, dtype=torch.int32,
-                                device=bn_meta.device)
-        row_of_pos[bn_pos.long()] = torch.arange(n, dtype=torch.int32,
-                                                 device=bn_meta.device)
-    return tile_ptr.to(torch.int32), row_of_pos
+def kernel_aux(bn_pos: Optional[torch.Tensor], dims
+               ) -> Optional[torch.Tensor]:
+    """The array the card's kernels read beside the compact pack, derived
+    once at upload on the pack's device: ``row_of_pos`` (n_tiles·T,)
+    int32, the original row of every padded position (−1 for padding
+    rows), or None when the bin permutation is the identity."""
+    if bn_pos is None:
+        return None
+    n_tiles, T, n = int(dims[1]), int(dims[3]), int(dims[7])
+    row_of_pos = torch.full((n_tiles * T,), -1, dtype=torch.int32,
+                            device=bn_pos.device)
+    row_of_pos[bn_pos.long()] = torch.arange(n, dtype=torch.int32,
+                                             device=bn_pos.device)
+    return row_of_pos
 
 
 @dataclasses.dataclass(frozen=True)
 class CompactPack:
-    """B5's pack: a block-native pack's real blocks, row by row.
+    """The kernels' pack: a binned pack's real entries (b = 1, B4) or
+    blocks (b > 1, B5), row by row.
 
     Padded positions p (the bin permutation's order, tile·128 + row) are
     cut into slices of ``S = 32 // b``; slice s holds ``slice_ptr[s + 1]
@@ -318,8 +310,8 @@ class CompactPack:
         return dataclasses.replace(self, vals=self.vals.to(dtype))
 
 
-#: threads of a warp: B5 serves one compact slice per warp, b threads a
-#: block row
+#: threads of a warp: B4 and B5 serve one compact slice per warp, b
+#: threads a (block) row
 _WARP = 32
 #: the first-entry-of-a-chunk flag on a compact code
 _FIRST = -(1 << 31)
@@ -327,17 +319,17 @@ _FIRST = -(1 << 31)
 
 def compact_pack(bn_codes: torch.Tensor, bn_vals: torch.Tensor,
                  bn_meta: torch.Tensor, dims) -> CompactPack:
-    """The compact pack of a block-native binned pack, derived on the
-    pack's device from its planes.
+    """The compact pack of a binned pack (scalar, scalar-expansion or
+    block-native), derived on the pack's device from its planes.
 
-    It keeps every lane whose block has a nonzero value, in the order B5
-    of the planes sums it: per padded row, chunk by chunk in the tile's
-    chunk order, slot by slot; the first kept lane of each (chunk, row)
-    is flagged, so the kernel can still sum a chunk into a partial and
-    add the partial to the row at the chunk's end.  The dropped lanes'
-    products are exact zeros (for finite x), and adding one changes
-    neither a nonzero partial nor the row sum, which starts at +0 and is
-    never −0: the compact sum has the planes' bits."""
+    It keeps every lane whose entry (block) has a nonzero value, in the
+    order the planes' plain version sums it: per padded row, chunk by
+    chunk in the tile's chunk order, slot by slot; the first kept lane
+    of each (chunk, row) is flagged, so the kernel can still sum a chunk
+    into a partial and add the partial to the row at the chunk's end.
+    The dropped lanes' products are exact zeros (for finite x), and
+    adding one changes neither a nonzero partial nor the row sum, which
+    starts at +0 and is never −0: the compact sum has the planes' bits."""
     b = bn_block_dim(dims)
     C, n_tiles, T, w = int(dims[0]), int(dims[1]), int(dims[3]), \
         int(dims[5])
@@ -503,20 +495,6 @@ def _kernel():
     global _fn
     if _fn is None:
         from .. import native
-        fn = native.load("binned_spmv").amgx_binned_spmv
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
-def _compact_kernel():
-    global _compact_fn
-    if _compact_fn is None:
-        from .. import native
         fn = native.load("binned_spmv").amgx_binned_compact_spmv
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -524,8 +502,8 @@ def _compact_kernel():
                        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _compact_fn = fn
-    return _compact_fn
+        _fn = fn
+    return _fn
 
 
 def _check(Ad, x: torch.Tensor):
@@ -545,21 +523,21 @@ def _check(Ad, x: torch.Tensor):
         raise BadParametersError(
             f"binned_spmv: pack on {Ad.bn_vals.device}, x on {x.device}")
     cp = Ad.bn_compact
-    if b > 1 and (cp is None or cp.vals.dtype != Ad.bn_vals.dtype
-                  or cp.vals.device != x.device):
+    if cp is None or cp.vals.dtype != Ad.bn_vals.dtype \
+            or cp.vals.device != x.device:
         raise BadParametersError(
-            "binned_spmv: a block-native pack needs its compact pack "
+            "binned_spmv: a binned pack needs its compact pack "
             "(compact_pack) in the planes' dtype and device")
 
 
 def binned_spmv(Ad, x: torch.Tensor) -> torch.Tensor:
     """y = A·x through a binned pack (``Ad.bn_*``).  Scalar and
-    scalar-expansion packs run B4, block-native packs B5; ``x`` is the
-    flat scalar vector.  CUDA tensors launch the kernel (or raise: a
-    missing ``nvcc``, a failed build or a refused launch is an error,
-    never a fallback); CPU tensors take the plain version
-    (:func:`binned_spmv_reference` for B4, :func:`binned_compact_reference`
-    for B5)."""
+    scalar-expansion packs run B4, block-native packs B5, both over the
+    pack's compact pack; ``x`` is the flat scalar vector.  CUDA tensors
+    launch the kernel (or raise: a missing ``nvcc``, a failed build or a
+    refused launch is an error, never a fallback); CPU tensors take the
+    plain version (:func:`binned_spmv_reference` over the planes for B4,
+    :func:`binned_compact_reference` for B5)."""
     _check(Ad, x)
     b = bn_block_dim(Ad.bn_dims)
     if not x.is_cuda:
@@ -569,27 +547,6 @@ def binned_spmv(Ad, x: torch.Tensor) -> torch.Tensor:
         return binned_spmv_reference(Ad.bn_codes, Ad.bn_vals, Ad.bn_meta,
                                      Ad.bn_pos, Ad.bn_dims, x)
     x = x.contiguous()
-    if b > 1:
-        return _compact_spmv(Ad, x)
-    n, n_tiles = int(Ad.bn_dims[7]), int(Ad.bn_dims[1])
-    C = int(Ad.bn_dims[0])
-    tile_ptr, row_of_pos = Ad.bn_tile_ptr, Ad.bn_row_of_pos
-    out = torch.empty(n, dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _kernel()(
-        _TYPE_CODE[Ad.bn_vals.dtype], _TYPE_CODE[x.dtype],
-        Ad.bn_codes.data_ptr(), Ad.bn_vals.data_ptr(),
-        Ad.bn_meta.data_ptr() + 4 * C, tile_ptr.data_ptr(),
-        None if row_of_pos is None else row_of_pos.data_ptr(),
-        n, n_tiles, x.data_ptr(), out.data_ptr(), stream)
-    if rc != 0:
-        raise DeviceError(f"binned_spmv kernel launch failed (code {rc})")
-    LAUNCHES["B4"][f"{_SHORT[Ad.bn_vals.dtype]}.{_SHORT[x.dtype]}"] += 1
-    return out
-
-
-def _compact_spmv(Ad, x: torch.Tensor) -> torch.Tensor:
-    """B5: one warp per compact slice (``csrc/binned_spmv.cu``)."""
     cp = Ad.bn_compact
     S, n_slices, _slots, _widest, b = cp.dims
     n = int(Ad.bn_dims[7])
@@ -600,15 +557,16 @@ def _compact_spmv(Ad, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty(n * b, dtype=x.dtype, device=x.device)
     row_of_pos = Ad.bn_row_of_pos
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _compact_kernel()(
+    rc = _kernel()(
         _TYPE_CODE[cp.vals.dtype], _TYPE_CODE[x.dtype], b,
         cp.codes.data_ptr(), cp.vals.data_ptr(), cp.slice_ptr.data_ptr(),
         None if row_of_pos is None else row_of_pos.data_ptr(),
         n, n_pos, n_slices, x.data_ptr(), out.data_ptr(), stream)
+    kern = "B4" if b == 1 else "B5"
     if rc != 0:
-        raise DeviceError(f"binned_spmv (B5) kernel launch failed "
+        raise DeviceError(f"binned_spmv ({kern}) kernel launch failed "
                           f"(code {rc})")
-    LAUNCHES["B5"][f"{_SHORT[cp.vals.dtype]}.{_SHORT[x.dtype]}"] += 1
+    LAUNCHES[kern][f"{_SHORT[cp.vals.dtype]}.{_SHORT[x.dtype]}"] += 1
     return out
 
 

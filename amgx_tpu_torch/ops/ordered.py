@@ -15,7 +15,9 @@ solve below them) take the forms of this module:
   time: :func:`lincomb`;
 * a dense matrix-vector product through kernel B3 over dense rows, which
   rounds each product and sum on its own in its plain version's order:
-  :func:`dense_matvec`.
+  :func:`dense_matvec`;
+* the guarded inverse of b×b blocks (block Jacobi's D⁻¹, DILU's E⁻¹) by
+  an elementwise Gauss–Jordan elimination: :func:`guarded_block_inv`.
 
 The kernels (B1–B5) keep the same rule in their own sources: each is
 bit-equal to its plain version.
@@ -28,7 +30,7 @@ from .blas import dot, gram_dots
 from .ell_spmv import dense_matvec
 
 __all__ = ["widen", "wdot", "wnrm2", "wgram_dots", "lincomb",
-           "dense_matvec"]
+           "dense_matvec", "guarded_block_inv"]
 
 
 def widen(v):
@@ -60,3 +62,43 @@ def lincomb(V, c):
     for k in range(1, V.shape[0]):
         acc = acc + c[k] * V[k]
     return acc
+
+
+def guarded_block_inv(E: torch.Tensor) -> torch.Tensor:
+    """The inverse of (m, b, b) blocks under the singular-block rule of
+    the JAX package (``amgx_tpu/solvers/jacobi.py::_invert_block_diag``,
+    ``amgx_tpu/solvers/dilu.py::_guarded_batch_inv``): each block
+    normalised by its largest entry and inverted by Gauss–Jordan
+    elimination with partial pivoting (the first largest pivot candidate
+    wins), as elementwise ops; blocks with zero scale or ``|det| < b·eps``
+    take E⁻¹ = I."""
+    m, bd = E.shape[0], E.shape[-1]
+    eps = float(torch.finfo(E.dtype).eps)
+    eye = torch.eye(bd, dtype=E.dtype, device=E.device)
+    scale = torch.amax(torch.abs(E), dim=(-2, -1))
+    nz = scale > 0
+    sc = torch.where(nz, scale, torch.ones_like(scale))[:, None, None]
+    M = torch.where(nz[:, None, None], E / sc, eye)
+    inv = eye.expand(m, bd, bd).clone()
+    det = torch.ones(m, dtype=E.dtype, device=E.device)
+    ar = torch.arange(m, device=E.device)
+    for c in range(bd):
+        piv = c + torch.argmax(torch.abs(M[:, c:, c]), dim=1)
+        swap = piv != c
+        det = torch.where(swap, -det, det)
+        for T in (M, inv):
+            top, other = T[:, c].clone(), T[ar, piv].clone()
+            T[ar, piv] = top
+            T[:, c] = other
+        p = M[:, c, c].clone()
+        det = det * p
+        safe = torch.where(p != 0, p, torch.ones_like(p))[:, None]
+        M[:, c] = M[:, c] / safe
+        inv[:, c] = inv[:, c] / safe
+        for r in range(bd):
+            if r != c:
+                f = M[:, r, c].clone()[:, None]
+                M[:, r] = M[:, r] - f * M[:, c]
+                inv[:, r] = inv[:, r] - f * inv[:, c]
+    bad = ~nz | (torch.abs(det) < bd * eps)
+    return torch.where(bad[:, None, None], eye, inv / sc)

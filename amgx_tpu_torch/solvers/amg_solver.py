@@ -8,14 +8,16 @@ replay: the first application after :meth:`~.base.Solver.setup` runs
 eagerly on a side stream and captures the same work
 (:class:`~..utils.cuda_graph.CudaGraphCall`), one graph per
 ``(n, dtype, n_iters, x0 is None)``; ``setup`` drops them.  CPU tensors
-run the cycle eagerly.
+run the cycle eagerly, and so does an AMG nested in a graphed AMG (its
+coarse solver or smoother) while the outer graph is warmed up or
+captured: its kernels become nodes of the outer graph.
 """
 from __future__ import annotations
 
 from ..amg.cycles import build_cycle
 from ..amg.hierarchy import AMGHierarchy
 from ..errors import BadConfigurationError
-from ..utils.cuda_graph import CudaGraphCall
+from ..utils.cuda_graph import CudaGraphCall, building
 from .base import Solver, register_solver
 
 
@@ -38,9 +40,9 @@ class AMGSolver(Solver):
     def apply(self, b, x0=None, n_iters=None):
         """One application as a preconditioner or smoother: on a CUDA
         tensor a replay of its graph (captured at the first call with
-        this key), which returns a fresh tensor; on a CPU tensor the
-        eager cycle."""
-        if not b.is_cuda:
+        this key), which returns a fresh tensor; on a CPU tensor, or
+        inside another graph's warm-up or capture, the eager cycle."""
+        if not b.is_cuda or building():
             return self._apply_eager(b, x0, n_iters)
         n = self.max_iters if n_iters is None else n_iters
         key = (b.shape[0], b.dtype, n, x0 is None)

@@ -439,8 +439,7 @@ class Solver:
                 dataclasses.replace(Ad, bn_vals=None,
                                     bn_compact=None).astype(wdt),
                 bn_vals=bn_vals, bn_compact=compact_pack(
-                    Ad.bn_codes, bn_vals, Ad.bn_meta, Ad.bn_dims)
-                if native else None)
+                    Ad.bn_codes, bn_vals, Ad.bn_meta, Ad.bn_dims))
         else:
             # the narrow pack's strides: block-DIA keeps each component
             # plane contiguous

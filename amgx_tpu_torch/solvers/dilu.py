@@ -41,6 +41,7 @@ import torch
 from ..coloring import color_matrix
 from ..device import torch_dtype
 from ..errors import BadConfigurationError
+from ..ops.ordered import guarded_block_inv
 from ..ops.spmv import spmv
 from .base import Solver, register_solver
 from .gs import build_color_slabs, build_color_slabs_block
@@ -189,7 +190,8 @@ def _block_dilu_factor_device(bsr: sp.bsr_matrix, colors: np.ndarray,
 
     Every sum is spelled out as elementwise ops in a fixed order — the
     b-term products of :func:`_bmm`, each row's entries in stored order,
-    the Gauss–Jordan inverse of :func:`_guarded_inv` — where the JAX
+    the Gauss–Jordan inverse of
+    :func:`~..ops.ordered.guarded_block_inv` — where the JAX
     package's batched einsum, scatter-add and inverse order (and on the
     card, atomically add) their sums as the device pleases: so the card
     reproduces the CPU bit for bit and itself from run to run.
@@ -236,7 +238,7 @@ def _block_dilu_factor_device(bsr: sp.bsr_matrix, colors: np.ndarray,
             for j in range(1, pad.shape[1]):
                 contrib = contrib + pad[:, j]
             Ec = Ec - contrib
-        Einv[rc_t] = _guarded_inv(Ec)
+        Einv[rc_t] = guarded_block_inv(Ec)
     Lb, Ub = _lower_upper(bsr, cols_, lower, upper)
     return Lb, Ub, Einv
 
@@ -249,44 +251,6 @@ def _bmm(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     for j in range(1, p.shape[2]):
         out = out + p[:, :, j]
     return out
-
-
-def _guarded_inv(E: torch.Tensor) -> torch.Tensor:
-    """The inverse of :func:`_guarded_batch_inv` on (m, b, b) tensors:
-    each block normalised by its largest entry and inverted by
-    Gauss–Jordan elimination with partial pivoting (the first largest
-    pivot candidate wins), as elementwise ops; blocks with zero scale or
-    ``|det| < b·eps`` take E⁻¹ = I."""
-    m, bd = E.shape[0], E.shape[-1]
-    eps = float(torch.finfo(E.dtype).eps)
-    eye = torch.eye(bd, dtype=E.dtype, device=E.device)
-    scale = torch.amax(torch.abs(E), dim=(-2, -1))
-    nz = scale > 0
-    sc = torch.where(nz, scale, torch.ones_like(scale))[:, None, None]
-    M = torch.where(nz[:, None, None], E / sc, eye)
-    inv = eye.expand(m, bd, bd).clone()
-    det = torch.ones(m, dtype=E.dtype, device=E.device)
-    ar = torch.arange(m, device=E.device)
-    for c in range(bd):
-        piv = c + torch.argmax(torch.abs(M[:, c:, c]), dim=1)
-        swap = piv != c
-        det = torch.where(swap, -det, det)
-        for T in (M, inv):
-            top, other = T[:, c].clone(), T[ar, piv].clone()
-            T[ar, piv] = top
-            T[:, c] = other
-        p = M[:, c, c].clone()
-        det = det * p
-        safe = torch.where(p != 0, p, torch.ones_like(p))[:, None]
-        M[:, c] = M[:, c] / safe
-        inv[:, c] = inv[:, c] / safe
-        for r in range(bd):
-            if r != c:
-                f = M[:, r, c].clone()[:, None]
-                M[:, r] = M[:, r] - f * M[:, c]
-                inv[:, r] = inv[:, r] - f * inv[:, c]
-    bad = ~nz | (torch.abs(det) < bd * eps)
-    return torch.where(bad[:, None, None], eye, inv / sc)
 
 
 def _slab_times(vals: torch.Tensor, yg: torch.Tensor) -> torch.Tensor:

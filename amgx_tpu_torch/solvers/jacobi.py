@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.ordered import guarded_block_inv
 from ..ops.spmv import abs_rowsum, spmv
 from .base import Solver, register_solver
 
@@ -37,20 +38,29 @@ def apply_dinv(dinv: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def setup_dinv(slv) -> torch.Tensor:
-    """The inverted diagonal of a smoother's operator: the one the
+    """The inverted (block) diagonal of a smoother's operator: the one the
     hierarchy derived on the device with the level when present, else
-    inverted from the pack's own diagonal."""
+    inverted on the device from the pack's own diagonal — elementwise for
+    a scalar pack, the (n, b, b) blocks under the guarded rule of
+    :func:`~..ops.ordered.guarded_block_inv` for a block pack (a bf16
+    pack inverts in f32 and stores the result narrow, as the JAX
+    package's ``_invert_block_diag`` does)."""
     Ad, A = slv.Ad, slv.A
     if A is not None:
         cached = getattr(A, "_dinv_dev", None)
         if cached is not None and cached[0] == Ad.dtype:
             return cached[1]
-    return invert_diag(Ad.diag)
+    d = Ad.diag
+    if d.dim() == 1:
+        return invert_diag(d)
+    work = d.float() if d.dtype == torch.bfloat16 else d
+    return guarded_block_inv(work).to(d.dtype)
 
 
 @register_solver("BLOCK_JACOBI")
 class BlockJacobiSolver(Solver):
-    """Damped Jacobi: x ← x + ω·D⁻¹·(b − A·x) (scalar blocks)."""
+    """Damped (block) Jacobi: x ← x + ω·D⁻¹·(b − A·x), D⁻¹ applied by
+    :func:`apply_dinv` (scalar or b×b blocks)."""
 
     is_smoother = True
 
@@ -59,13 +69,13 @@ class BlockJacobiSolver(Solver):
 
     def solve_iteration(self, b, x, state, iter_idx):
         r = b - spmv(self.Ad, x)
-        return x + self.relaxation_factor * (self.dinv * r), state
+        return x + self.relaxation_factor * apply_dinv(self.dinv, r), state
 
     def apply(self, b, x0=None, n_iters=None):
         n = self.max_iters if n_iters is None else n_iters
         if x0 is None:
             # fused zero-initial-guess first sweep
-            x = self.relaxation_factor * (self.dinv * b)
+            x = self.relaxation_factor * apply_dinv(self.dinv, b)
             start = 1
         else:
             x, start = x0, 0

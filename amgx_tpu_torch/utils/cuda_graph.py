@@ -16,6 +16,13 @@ arguments in a private memory pool, and replays it on later calls,
 returning a copy of the static output that the next replay will not
 overwrite.  There is no fallback: a capture or replay that fails raises.
 
+Nesting: while a :class:`CudaGraphCall` runs its warm-up or its capture
+(:func:`building`), a callable that would build a graph of its own (an
+AMG nested in the AMG, as coarse solver or smoother) runs eagerly
+instead: in the capture its kernels join the outer graph as nodes of
+their own, and in the warm-up no inner graph is captured that no replay
+would use.
+
 Counting under replay: a replay launches no wrapper, so the launch and
 dispatch counters (``ops/spmv.py::DISPATCH``, the ``LAUNCHES`` of the
 four kernel modules, ``device.HOST_SYNCS``) would stop moving.  The
@@ -33,6 +40,27 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from ..errors import DeviceError
+
+
+#: how many :class:`CudaGraphCall` warm-ups or captures are running
+_building = 0
+
+
+def building() -> bool:
+    """True while a :class:`CudaGraphCall` warm-up or capture runs, or
+    the current stream is capturing."""
+    return _building > 0 or (torch.cuda.is_available()
+                             and torch.cuda.is_current_stream_capturing())
+
+
+def _built(fn: Callable, *args):
+    """``fn(*args)`` with :func:`building` true throughout."""
+    global _building
+    _building += 1
+    try:
+        return fn(*args)
+    finally:
+        _building -= 1
 
 
 def counters() -> List[Dict[str, int]]:
@@ -112,7 +140,7 @@ class CudaGraphCall:
         side = torch.cuda.Stream(dev)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            first = fn(*self.static_in)
+            first = _built(fn, *self.static_in)
         cur.wait_stream(side)
         first.record_stream(cur)
         torch.cuda.synchronize(dev)
@@ -124,7 +152,7 @@ class CudaGraphCall:
 
         def capture():
             with torch.cuda.graph(self.graph):
-                return fn(*self.static_in)
+                return _built(fn, *self.static_in)
 
         self.static_out, self.delta = counted_capture(capture)
         t2 = time.perf_counter()

@@ -11,9 +11,9 @@ exits non-zero (no phase is caught):
 2. build the DIA (B1) and ELL (B3) SpMV kernels
    (``amgx_tpu_torch/csrc/{dia,ell}_spmv.cu``) with nvcc for sm_90a, one
    nvcc per source, started together;
-3. B1 against its plain PyTorch version on the card, in all four
-   (vals, x) type pairs, at the 128³ and 256³ 7-point operators, random
-   DIAs at n = 16384 and a 64-row coarse level;
+3. B1 against its plain PyTorch version on the card, bit for bit, in all
+   four (vals, x) type pairs, at the 128³ and 256³ 7-point operators,
+   random DIAs at n = 16384 and a 64-row coarse level;
 4. times with CUDA events (median of 30 after warm-up) at 128³, f32 and
    f64: kernel, plain version, one cuSPARSE CSR SpMV as a yardstick, and
    the bound (bytes over 3.35 TB/s vs operations over the peak rate);
@@ -26,6 +26,12 @@ exits non-zero (no phase is caught):
    bit-equal to an eager application); the true relative residual is
    recomputed in f64 through the kernel, and a 16³ solve on the card is
    held against the same solve on the CPU (equal counts, x bit-equal);
+5b. an AMG nested in the graphed AMG: the headline stack at 16³ cut at
+   two levels with an AMG as its coarse solver (``NESTED_CFG``), its
+   counts set to 0 just before the solve and read just after; the outer
+   graph (:func:`graph_check`) holds the inner cycle as plain nodes (no
+   inner graph is built), and the card takes the CPU's count with x
+   bit-equal;
 6. setup parity: every derived coarse level on the card vs the same
    derivation on CPU tensors;
 7. where a warm solve's time goes: device time by kernel from
@@ -46,7 +52,9 @@ exits non-zero (no phase is caught):
    lengths, on a level of fewer than 128 rows and, over dense rows, on
    the dense coarse inverses of this hierarchy and of the headline's.
    Every check holds each row to a relative limit, the row's error over
-   its Σ_j |a_ij·x_j|, and B3 to its plain version bit for bit;
+   its Σ_j |a_ij·x_j|, and B1 and B3 to their plain versions bit for
+   bit; B1 is timed on the three ``dia3`` streams (P₀, A, R₀) against
+   its bound and cuSPARSE CSR, with the launches a solve makes on each;
 10. B3 times on the largest ELL operator of the hierarchy (by bytes):
     kernel (with ``row_len``, and without it for comparison), plain
     version, cuSPARSE CSR, the bound over the nonzeros and over the
@@ -64,18 +72,23 @@ exits non-zero (no phase is caught):
     memory, dispatch (every SpMV ``ell/binned-block``, kernel B5; no
     decline), launches by kernel and type pair, the device's busy share
     of a warm solve (``torch.profiler``);
+13b. PBICGSTAB + BLOCK_JACOBI (``CFG_BJ``, the guarded block inverse)
+    on phase 13's uploaded system: iterations, the true relres in f64,
+    setup, first and warm solve, launches by kernel; then the same stack
+    on the ``MID_GRID`` system on the card against the CPU (equal
+    iterations, x within ``SMALL_X_RTOL``);
 14. the same solve with ``AMGX_BLOCK_NATIVE=0``: the scalar-expansion
     planes, every SpMV ``ell/binned`` (kernel B4), iterations within
     ``EXPANSION_COUNT_SLACK`` of phase 13's;
-15. B4 and B5 against the planes' plain version on the card in every
-    type pair, each row to its own relative limit, B5 (over its compact
-    pack) also bit for bit, and against its own plain version: the
+15. B4 and B5 (both over their compact pack) against the planes' plain
+    version on the card in every type pair, each row to its own relative
+    limit and bit for bit, and against the compact plain version: the
     path's own packs, b = 2, 3 and 5 packs of the gauntlet builders,
     ``scattered_block_operator``, a pack with empty tiles and a scalar
     CSR pack with a row wider than 2048;
 16. B5 and B4 times at full width (CUDA events, median of 30): kernel,
     plain version, one cuSPARSE SpMV of the same matrix, the bound over
-    the stored entries, over the padded planes and (B5) over its compact
+    the stored entries, over the padded planes and over the compact
     pack;
 17. the bench's 16³ config-4 case (``kron(poisson7pt, I₄)``, block-DIA,
     B1 as 16 component dispatches) on the card against the CPU (equal
@@ -167,6 +180,22 @@ CFG4 = (
     "out:monitor_residual=1, out:tolerance=1e-8, "
     "out:convergence=RELATIVE_INI, "
     "out:preconditioner(pre)=MULTICOLOR_DILU, pre:max_iters=1")
+#: PBICGSTAB preconditioned by one sweep of block Jacobi on the 4×4
+#: diagonal blocks (the config-4 system under BLOCK_JACOBI)
+CFG_BJ = CFG4.replace("out:max_iters=200", "out:max_iters=400") \
+    .replace("MULTICOLOR_DILU", "BLOCK_JACOBI")
+#: the headline stack cut at two levels with an AMG (two V-cycles) as
+#: its coarse solver: an AMG nested in the graphed AMG
+NESTED_CFG = HEADLINE_CFG.replace(
+    "amg:max_levels=20", "amg:max_levels=2").replace(
+    "amg:coarse_solver=DENSE_LU_SOLVER",
+    "amg:coarse_solver(inner)=AMG, inner:algorithm=AGGREGATION, "
+    "inner:selector=GEO, inner:max_iters=2, inner:cycle=V, "
+    "inner:smoother(ism)=BLOCK_JACOBI, ism:max_iters=1, "
+    "inner:min_coarse_rows=32, inner:coarse_solver=DENSE_LU_SOLVER")
+#: its iterations at 16³ with the f32 pack, in the JAX package on the CPU
+#: (tests/test_torch_nested_amg.py)
+NESTED_ITERS = 16
 #: the mid-size masked grid of the card-against-CPU check (the JAX
 #: package takes 26 iterations on it on the CPU)
 MID_GRID = (30, 110, 43)
@@ -247,8 +276,8 @@ def check_kernel(dev, gen, name, vals64, offsets, pairs, errs):
 
 def check_dia_once(name, vals, x, offsets, errs, **extra):
     """One B1 launch on ``vals``/``x`` as given (storage offsets
-    included) against the plain version, per row to a relative 1e-5
-    (f32 x) or 1e-12 (f64 x)."""
+    included) against the plain version: bit for bit, and per row to a
+    relative 1e-5 (f32 x) or 1e-12 (f64 x)."""
     import torch
     from amgx_tpu_torch.ops import dia_spmv as dmod
     n, vdt, xdt = vals.shape[1], vals.dtype, x.dtype
@@ -264,12 +293,13 @@ def check_dia_once(name, vals, x, offsets, errs, **extra):
     tol = 1e-12 if xdt == torch.float64 else 1e-5
     assert torch.isfinite(y).all().item(), (name, vdt, xdt)
     assert rel < tol, (name, short(vdt), short(xdt), diff, rel)
+    assert torch.equal(y, ref), (name, short(vdt), short(xdt), diff)
     record(errs, f"{short(vdt)}.{short(xdt)}", diff, rel)
-    emit("kernel_check", case=name, n=n, nd=len(offsets),
+    emit("kernel_check", case=name, n=n, n_cols=x.shape[0], nd=len(offsets),
          max_offset=max(abs(o) for o in offsets),
          vals_absmax=vals.abs().max().item(), vals=short(vdt),
-         x=short(xdt), max_abs_err=diff, max_row_rel_err=rel, tol=tol,
-         **extra)
+         x=short(xdt), bit_equal=True, max_abs_err=diff,
+         max_row_rel_err=rel, tol=tol, **extra)
 
 
 def check_block_dia(dev, gen, name, P, errs):
@@ -313,15 +343,16 @@ def time_ms(fn, dev, reps=30, warm=5):
     return times[len(times) // 2]
 
 
-def csr_of_dia(vals, offsets):
+def csr_of_dia(vals, offsets, n_cols=None):
     """The same operator as a torch sparse CSR (cuSPARSE yardstick)."""
     import torch
     nd, n = vals.shape
+    n_cols = n if n_cols is None else n_cols
     i = torch.arange(n, dtype=torch.int64, device=vals.device)
     rows, cols, data, keys = [], [], [], []
     for k, o in enumerate(offsets):
         j = i + o
-        keep = (j >= 0) & (j < n) & (vals[k] != 0)
+        keep = (j >= 0) & (j < n_cols) & (vals[k] != 0)
         rows.append(i[keep])
         cols.append(j[keep])
         data.append(vals[k][keep])
@@ -331,13 +362,15 @@ def csr_of_dia(vals, offsets):
     crow = torch.zeros(n + 1, dtype=torch.int64, device=vals.device)
     crow[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
     return torch.sparse_csr_tensor(crow, torch.cat(cols)[order],
-                                   torch.cat(data)[order], size=(n, n))
+                                   torch.cat(data)[order],
+                                   size=(n, n_cols))
 
 
-def bound(nd, n, vdt, xdt):
+def bound(nd, n, vdt, xdt, n_cols=None):
     """(bound_ms, bound_by) of one SpMV: bytes each input read once and
     the output written once, vs 2·nd·n operations at the peak rate."""
-    nbytes = nd * n * vdt.itemsize + 2 * n * xdt.itemsize
+    n_cols = n if n_cols is None else n_cols
+    nbytes = nd * n * vdt.itemsize + (n + n_cols) * xdt.itemsize
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = 2 * nd * n / PEAK_FLOPS[short(xdt)]
     return (max(t_bytes, t_ops) * 1e3,
@@ -518,9 +551,9 @@ def binned_bound(entries, b, n, n_cols, vdt, xdt):
 def check_binned(dev, gen, name, Ad, vdt, errs):
     """B4/B5 vs the plain version of the planes on one pack, cast to
     ``vdt`` (x in f64 for f64 planes, else f32), every row to its own
-    relative limit: the row's error over its Σ_j |a_ij·x_j|.  B5 runs
+    relative limit: the row's error over its Σ_j |a_ij·x_j|.  Both run
     over the compact pack and must equal the planes' plain version (and
-    its own) bit for bit."""
+    the compact one) bit for bit."""
     import torch
     from amgx_tpu_torch.ops import binned_spmv as bmod
     b = bmod.bn_block_dim(Ad.bn_dims)
@@ -545,15 +578,13 @@ def check_binned(dev, gen, name, Ad, vdt, errs):
     tol = BINNED_TOL[short(vdt)]
     assert rel < tol, (name, short(vdt), diff, rel)
     bit_equal = bool(torch.equal(y, ref))
-    extra = {}
-    if b > 1:
-        assert bit_equal, (name, short(vdt), diff)
-        own = bmod.binned_compact_reference(M.bn_compact, M.bn_pos,
-                                            M.bn_dims, x)
-        assert torch.equal(y, own), (name, short(vdt))
-        extra = dict(compact_slots=int(M.bn_compact.codes.numel()),
-                     stored_blocks=int((M.bn_compact.codes != -1).sum()
-                                       .item()))
+    assert bit_equal, (name, short(vdt), diff)
+    own = bmod.binned_compact_reference(M.bn_compact, M.bn_pos, M.bn_dims,
+                                        x)
+    assert torch.equal(y, own), (name, short(vdt))
+    extra = dict(compact_slots=int(M.bn_compact.codes.numel()),
+                 stored_entries=int((M.bn_compact.codes != -1).sum()
+                                    .item()))
     key = f"{kern}.{short(vdt)}.{short(xdt)}"
     record(errs, key, diff, rel)
     emit("binned_check", case=name, kernel=kern, b=b, rows=int(
@@ -608,10 +639,13 @@ def library_of(bsr_host, csr_host, dt, dev):
     return "cusparse-bsr", lib
 
 
-def time_binned(dev, gen, label, Ad, lib, nnz_stored, dt, smi):
+def time_binned(dev, gen, label, Ad, lib, nnz_stored, dt, smi,
+                stored=None):
     """Kernel, plain version and library times of one binned pack in
-    ``dt``, with the bound over the stored entries (the bound of the
-    work), over the padded planes and, for B5, over its compact pack."""
+    ``dt``, with the bound over the ``nnz_stored`` entries (blocks) the
+    product needs (the bound of the work), over the padded planes, over
+    the compact pack the kernel reads and, where the host matrix stores
+    explicit zeros, over its ``stored`` entries with them."""
     import torch
     from amgx_tpu_torch.ops import binned_spmv as bmod
     b = bmod.bn_block_dim(Ad.bn_dims)
@@ -631,18 +665,19 @@ def time_binned(dev, gen, label, Ad, lib, nnz_stored, dt, smi):
     pad_ms, _ = binned_bound(L, b, n // b, m // b, dt, dt)
     bound_ms, bound_by = binned_bound(nnz_stored, b, n // b, m // b, dt,
                                       dt)
+    slots = int(M.bn_compact.codes.numel())
     out = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=bound_ms, bound_by=bound_by)
-    extra = {}
-    if b > 1:
-        slots = int(M.bn_compact.codes.numel())
-        extra = dict(compact_slots=slots, compact_bound_ms=binned_bound(
-            slots, b, n // b, m // b, dt, dt)[0])
+               bound_ms=bound_ms, bound_by=bound_by, compact_slots=slots,
+               compact_bound_ms=binned_bound(slots, b, n // b, m // b, dt,
+                                             dt)[0],
+               padded_bound_ms=pad_ms)
+    if stored is not None:
+        out.update(stored_with_zeros=stored, stored_with_zeros_bound_ms=(
+            binned_bound(stored, b, n // b, m // b, dt, dt)[0]))
     emit("binned_timing", pack=label, b=b, lanes=L, stored=nnz_stored,
-         type=short(dt), card=smi, library=library, padded_bound_ms=pad_ms,
+         type=short(dt), card=smi, library=library,
          stored_gbs=(nnz_stored * (4 + b * b * dt.itemsize)
-                     + 2 * n * dt.itemsize) / (ms * 1e-3) / 1e9,
-         **extra, **out)
+                     + 2 * n * dt.itemsize) / (ms * 1e-3) / 1e9, **out)
     return out
 
 
@@ -735,6 +770,63 @@ def card_vs_cpu(amgx, A_host, name):
     return counts
 
 
+def block_jacobi_phase(amgx, A, m, dev, smi) -> dict:
+    """Phase 13b: PBICGSTAB + BLOCK_JACOBI (``CFG_BJ``: the guarded
+    inverse of each 4×4 diagonal block, one sweep) on phase 13's uploaded
+    config-4 system (its f32 pack, f64 refinement): setup, a first and a
+    warm solve with every count set to 0 just before the first and read
+    just after, iterations, the true relres in f64 on the host; then the
+    same stack on the ``MID_GRID`` system on the card and on the CPU:
+    equal iterations, x within ``SMALL_X_RTOL``."""
+    import torch
+    from amgx_tpu_torch.io import spe10_block_system
+    b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    slv = amgx.create_solver(CFG_BJ)
+    slv.setup(m)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    assert slv.preconditioner.dinv.shape[1:] == (4, 4)
+    reset_counts()
+    res = slv.solve(b)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    res2 = slv.solve(b)
+    assert res.status == amgx.SolveStatus.SUCCESS, res.status
+    assert res2.iterations == res.iterations
+    assert counts["dispatch"].get("ell/binned-block", 0) > 0, counts
+    assert not any(counts["declines"].values()), counts
+    assert all(counts["B5"][k] > 0 for k in ("f32.f32", "f64.f64")), counts
+    xh = res.x.cpu().numpy()
+    relres = float(np.linalg.norm(1.0 - A @ xh) / np.sqrt(A.shape[0]))
+    assert relres <= 1e-8, relres
+    emit("block_jacobi_path", iterations=res.iterations, relres_f64=relres,
+         setup_s=setup_s, solve_s=res.solve_time,
+         solve_warm_s=res2.solve_time, counts=counts,
+         peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, card=smi)
+    del slv, res, res2
+    Am = spe10_block_system(*MID_GRID)
+    rhs = np.ones(Am.shape[0])
+    out = {}
+    for where in ("cuda", "cpu"):
+        mm = amgx.Matrix(Am, block_dim=4, device=where)
+        mm.device_dtype = np.float32
+        s_ = amgx.create_solver(CFG_BJ)
+        s_.setup(mm)
+        rr = s_.solve(rhs)
+        assert rr.status == amgx.SolveStatus.SUCCESS, where
+        out[where] = (rr.iterations, rr.x.cpu().double())
+    (ig, xg), (ic, xc) = out["cuda"], out["cpu"]
+    x_diff = ((xg - xc).norm() / xc.norm()).item()
+    emit("block_jacobi_card_vs_cpu", grid=list(MID_GRID), pack="float32",
+         iterations_card=ig, iterations_cpu=ic,
+         x_rel_diff_card_vs_cpu=x_diff, limit=SMALL_X_RTOL)
+    assert ig == ic, (ig, ic)
+    assert x_diff < SMALL_X_RTOL, x_diff
+    return counts
+
+
 def config4_phases(amgx, dev, smi, gen, b1_errs) -> dict:
     """Phases 13-18: the config-4 path and kernels B4/B5 (B1's checks on
     the block-DIA planes go into ``b1_errs``)."""
@@ -760,6 +852,9 @@ def config4_phases(amgx, dev, smi, gen, b1_errs) -> dict:
     assert all(counts["B5"][k] > 0 for k in ("f32.f32", "f64.f64")), counts
     Ad5 = m.device()
     del slv, res
+
+    # ---- 13b. BLOCK_JACOBI on the same uploaded system
+    block_jacobi_phase(amgx, A, m, dev, smi)
 
     # ---- 14. the same solve on the scalar-expansion planes (B4)
     slv4, m4, res4, counts4, facts4 = config4_solve(
@@ -819,18 +914,25 @@ def config4_phases(amgx, dev, smi, gen, b1_errs) -> dict:
     timing = {}
     bsr = sp.bsr_matrix(A, blocksize=(4, 4))
     scsr = sp.csr_matrix(A)
+    # the expansion's product needs its nonzero entries only: 12 of each
+    # off-diagonal 4×4 block's 16 are explicit zeros (kron(L, I₄)), which
+    # the compact pack drops; the library yardstick gets the same CSR
+    # without them
+    snz = scsr.copy()
+    snz.eliminate_zeros()
     for dt in (torch.float32, torch.float64):
         lib = library_of(bsr, scsr, dt, dev)
         timing[f"B5.{short(dt)}"] = time_binned(
             dev, gen, "config4_block_native", Ad5, lib, A.nnz // 16, dt,
             smi)
         del lib
-        lib = ("cusparse-csr", csr_of_host(scsr, dt, dev))
+        lib = ("cusparse-csr", csr_of_host(snz, dt, dev))
         timing[f"B4.{short(dt)}"] = time_binned(
-            dev, gen, "config4_expansion", Ad4, lib, scsr.nnz, dt, smi)
+            dev, gen, "config4_expansion", Ad4, lib, snz.nnz, dt, smi,
+            stored=scsr.nnz)
         del lib
         torch.cuda.empty_cache()
-    del Ad5, Ad4, m, m4, bsr, scsr
+    del Ad5, Ad4, m, m4, bsr, scsr, snz
     torch.cuda.empty_cache()
 
     # ---- 17. the bench's 16³ case: block-DIA, B1 as 16 components
@@ -1261,6 +1363,114 @@ def dfg_full_depth(amgx, dev, smi, gen, A, ell_errs) -> dict:
     return counts
 
 
+def dia3_streams(slv, dev, gen, smi, b) -> dict:
+    """Phase 9c: B1 on the three DIA streams of the classical path's
+    ``dia3`` level (R₀·(A·(P₀·x)), 2,097,152 rows), in (f32, f32) as the
+    cycle runs them: kernel, plain version and one cuSPARSE CSR SpMV
+    (CUDA events, median of 30), the bound, and the launches a solve
+    makes on each pack: the launches on it in one eager application
+    times the applications of a solve (P₀ and R₀ also serve level 0 as
+    its P and R, A is level 0's operator)."""
+    import torch
+    from amgx_tpu_torch.ops import dia_spmv as dmod
+    from amgx_tpu_torch.ops import spmv as smod
+    pre = slv.preconditioner
+    lv = next(lv for lv in pre.hierarchy.levels if lv.Ad.fmt == "dia3")
+    streams = {"P0": lv.Ad.P, "A": lv.Ad.A, "R0": lv.Ad.R}
+    (key, _g), = pre.graphs.items()
+    per_app = {}
+    real = smod.dia_spmv
+
+    def spy(vals, x, offsets):
+        per_app[vals.data_ptr()] = per_app.get(vals.data_ptr(), 0) + 1
+        return real(vals, x, offsets)
+
+    r = torch.randn(key[0], dtype=torch.float64, device=dev,
+                    generator=gen).to(key[1])
+    smod.dia_spmv = spy
+    try:
+        pre._apply_eager(r)
+    finally:
+        smod.dia_spmv = real
+    apps = [0]
+
+    def counting(*args, **kw):
+        apps[0] += 1
+        return type(pre).apply(pre, *args, **kw)
+
+    pre.apply = counting
+    try:
+        slv.solve(b)
+    finally:
+        del pre.apply
+    out = {}
+    for name, M in streams.items():
+        vals = M.vals.to(torch.float32).contiguous()
+        x = torch.randn(M.n_cols, dtype=torch.float32, device=dev,
+                        generator=gen)
+        nd, n = vals.shape
+        csr = csr_of_dia(vals, M.dia_offsets, M.n_cols)
+        ms = time_ms(lambda: dmod.dia_spmv(vals, x, M.dia_offsets), dev)
+        plain_ms = time_ms(lambda: dmod.dia_spmv_reference(
+            vals, x, M.dia_offsets), dev)
+        library_ms = time_ms(lambda: csr @ x, dev)
+        bound_ms, bound_by = bound(nd, n, vals.dtype, x.dtype, M.n_cols)
+        out[name] = dict(n=n, n_cols=M.n_cols, nd=nd,
+                         nonzeros=int((vals != 0).sum().item()), ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         launches_per_solve=per_app.get(
+                             M.vals.data_ptr(), 0) * apps[0])
+        del csr
+    emit("dia3_stream_timing", type="f32.f32", card=smi,
+         applications_per_solve=apps[0], streams=out)
+    return out
+
+
+def nested_phase(amgx, dev, gen, smi) -> dict:
+    """Phase 5b: the headline stack at 16³ cut at two levels, whose coarse
+    solver is a second AMG (``NESTED_CFG``), f32 pack: a solve on the card
+    with every count set to 0 just before and read just after, the outer
+    graph (:func:`graph_check`: a replay bit-equal to an eager
+    application, equal credited counts), with no inner graph built
+    beside it by the solve, and the same solve on the CPU: equal
+    iterations, x bit-equal."""
+    import torch
+    from amgx_tpu_torch.io import poisson7pt_device
+    from amgx_tpu_torch.solvers.amg_solver import AMGSolver
+    out = {}
+    for where in ("cuda", "cpu"):
+        A = poisson7pt_device(16, 16, 16, device_dtype=np.float32,
+                              device=where)
+        slv = amgx.create_solver(NESTED_CFG)
+        slv.setup(A)
+        reset_counts()
+        res = slv.solve(np.ones(16 ** 3))
+        if where == "cuda":
+            torch.cuda.synchronize(dev)
+            counts = read_counts()
+        assert res.status == amgx.SolveStatus.SUCCESS, (where, res.status)
+        out[where] = (res.iterations, res.x.cpu(), slv)
+    it_g, xg, slv = out["cuda"]
+    it_c, xc, _ = out["cpu"]
+    assert counts["B1"]["f32.f32"] > 0 and counts["B3"]["f32.f32"] > 0
+    assert not any(counts["declines"].values()), counts
+    pre = slv.preconditioner
+    inner = pre.hierarchy.coarse_solver
+    assert isinstance(inner, AMGSolver) and inner.graphs == {}
+    graph = graph_check(pre, dev, gen)
+    assert it_g == it_c == NESTED_ITERS, (it_g, it_c)
+    assert torch.equal(xg, xc), "nested AMG: card x differs from CPU x"
+    emit("nested_amg", n=16 ** 3, levels=[lv.Ad.n_rows for lv in
+                                         pre.hierarchy.levels],
+         inner_levels=[lv.Ad.n_rows for lv in inner.hierarchy.levels]
+         + [inner.hierarchy.coarsest.n_block_rows],
+         iterations_card=it_g, iterations_cpu=it_c, x_bit_equal=True,
+         counts=counts, amg_graph=graph,
+         card=smi)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1436,6 +1646,9 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     emit("small_reference", n=16 ** 3, iterations=SMALL_ITERS,
          x_rel_diff_card_vs_cpu=agree, x_bit_equal=True)
 
+    # ---- 5b. an AMG nested in the graphed AMG (its coarse solver)
+    nested = nested_phase(amgx, dev, gen, smi)
+
     # ---- 6. setup parity: derivation on the card vs on CPU tensors
     fine = A.device()
     steps, _ = plan_dia_hierarchy(fine.dia_offsets, n, A.grid_dims, 20, 32,
@@ -1531,6 +1744,9 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
         check_kernel(dev, gen, "=".join(names), M.vals.double(),
                      M.dia_offsets, ((torch.float32, torch.float32),
                                      (torch.float64, torch.float64)), errs)
+
+    # ---- 9c. B1 times on the dia3 level's three streams
+    dia3_timing = dia3_streams(cslv, dev, gen, smi, b)
 
     # ---- 9b. B3 vs plain on every ELL pack of that hierarchy and its
     # dense coarse inverse, both pairs
@@ -1661,12 +1877,14 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
             source="amgx_tpu_torch/csrc/dia_spmv.cu",
             replaces="amgx_tpu/ops/pallas_spmv.py:101",
             launches=launches[key] + c_launches["dia_spmv"][key]
-            + c4["b1_launches"][key],
+            + c4["b1_launches"][key] + nested["B1"][key],
             launches_by_path=dict(headline=launches[key],
                                   classical=c_launches["dia_spmv"][key],
-                                  config4_16=c4["b1_launches"][key]),
+                                  config4_16=c4["b1_launches"][key],
+                                  nested_amg_16=nested["B1"][key]),
             max_abs_err=errs[key]["abs"], max_row_rel_err=errs[key]["rel"],
             block_dia_16=c4["b1_block_dia_errs"][key],
+            dia3_streams_f32=dia3_timing if key == "f32.f32" else None,
             ms=timing[key]["ms"], plain_ms=timing[key]["plain_ms"],
             bound_ms=timing[key]["bound_ms"],
             bound_by=timing[key]["bound_by"],
@@ -1677,9 +1895,11 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
         source="amgx_tpu_torch/csrc/ell_spmv.cu",
         replaces="amgx_tpu/ops/pallas_ell.py:209",
         launches=head_b3[key] + c_launches["ell_spmv"][key]
-        + dfg["b3_launches"][key] + dfg["b3_launches_full_depth"][key],
+        + dfg["b3_launches"][key] + dfg["b3_launches_full_depth"][key]
+        + nested["B3"][key],
         launches_by_path=dict(
             headline=head_b3[key], classical=c_launches["ell_spmv"][key],
+            nested_amg_16=nested["B3"][key],
             dfg=dfg["b3_launches"][key],
             dfg_full_depth=dfg["b3_launches_full_depth"][key]),
         max_abs_err=ell_errs[key]["abs"],

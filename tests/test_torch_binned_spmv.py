@@ -272,16 +272,27 @@ def test_port_pack_dispatch_and_labels():
 
 
 def test_tile_ptr_and_row_of_pos():
+    """The kernels' view of a scalar pack's tiles: each 32-row slice of
+    its compact pack lies inside one 128-row tile (slice s of tile t
+    starts at padded position 32·s), holds its rows' entries and no more
+    slots than its longest row, and ``row_of_pos`` inverts ``bn_pos``."""
     A = _mixed_degree()
     Ad = pack_device(A, 1, np.float64, ell_max_width=0, dia_max_diags=0,
                      device="cpu")
     assert pack_kind(Ad) == "csr/binned" and Ad.bn_pos is not None
-    C, n_tiles = Ad.bn_dims[0], Ad.bn_dims[1]
-    tp = Ad.bn_tile_ptr.numpy()
-    c_tile = Ad.bn_meta[:C].numpy()
-    assert tp[0] == 0 and tp[-1] == C and len(tp) == n_tiles + 1
-    for t in range(n_tiles):
-        assert (c_tile[tp[t]:tp[t + 1]] == t).all() and tp[t + 1] > tp[t]
+    n_tiles, T = Ad.bn_dims[1], Ad.bn_dims[3]
+    cp = Ad.bn_compact
+    S, n_slices = cp.dims[:2]
+    assert S == 32 and n_slices * S == n_tiles * T
+    codes = cp.codes.numpy()
+    ptr = cp.slice_ptr.numpy()
+    deg = np.zeros(n_tiles * T, dtype=np.int64)
+    deg[Ad.bn_pos.numpy()] = np.diff(A.indptr)
+    for s_ in range(n_slices):
+        blk = codes[ptr[s_] * S:ptr[s_ + 1] * S].reshape(-1, S)
+        got = (blk != -1).sum(axis=0)
+        np.testing.assert_array_equal(got, deg[s_ * S:(s_ + 1) * S])
+        assert ptr[s_ + 1] - ptr[s_] == got.max(initial=0)
     rop = Ad.bn_row_of_pos.numpy()
     pos = Ad.bn_pos.numpy()
     np.testing.assert_array_equal(rop[pos], np.arange(A.shape[0]))

@@ -1,9 +1,10 @@
-"""Kernel B5's compact pack (``ops/binned_spmv.py::compact_pack``) and its
-plain version (``binned_compact_reference``): derived from the
-block-native planes, it keeps every stored block and no lane of the
-planes' segment padding, and its plain version is bit for bit the plain
-version of the planes (``binned_spmv_reference``) for b = 2…5 in every
-type pair B5 takes.  No JAX here: the planes' plain version is held to
+"""Kernels B4's and B5's compact pack (``ops/binned_spmv.py::compact_pack``)
+and its plain version (``binned_compact_reference``): derived from the
+planes, it keeps every stored entry (block) and no lane of the planes'
+segment padding, and its plain version is bit for bit the plain version
+of the planes (``binned_spmv_reference``) for b = 2…5 in every type pair
+B5 takes and for b = 1 (scalar and scalar-expansion packs) in both of
+B4's.  No JAX here: the planes' plain version is held to
 the JAX package in tests/test_torch_binned_spmv.py."""
 import numpy as np
 import pytest
@@ -178,3 +179,61 @@ def test_wide_pack_derives_its_own_compact_pack():
     assert torch.equal(bmod.binned_spmv(W, x), ref)
     assert ref[0].item() == pytest.approx((A @ np.ones(A.shape[1]))[0],
                                           rel=1e-15, abs=0)
+
+
+def _scalar_empty_tiles():
+    """Rows 0..299 empty (the first two tiles hold no entry)."""
+    base = sp.random(3000, 3000, density=0.004, random_state=6,
+                     format="lil")
+    base[:300] = 0
+    return sp.csr_matrix(base)
+
+
+def _scalar_wide_row():
+    """A scalar CSR pack: row 17 holds some 3,000 entries, past the ELL
+    budget (2048)."""
+    rng = np.random.default_rng(7)
+    n, nnz = 20000, 800000
+    rows = np.r_[rng.integers(0, n, nnz), np.full(3000, 17)]
+    cols = np.r_[rng.integers(0, n, nnz), rng.choice(n, 3000, replace=False)]
+    A = sp.csr_matrix((rng.standard_normal(nnz + 3000), (rows, cols)),
+                      shape=(n, n))
+    A.sum_duplicates()
+    assert np.diff(A.indptr).max() > 2048
+    return A
+
+
+SCALAR_CASES = {
+    "masked20_expansion": lambda: pack_device(
+        spe10_block_system(20, 20, 20), 4, np.float64, dia_max_diags=0,
+        device="cpu", block_native=False),
+    "empty_tiles_b1": lambda: pack_device(
+        _scalar_empty_tiles(), 1, np.float64, ell_max_width=0,
+        dia_max_diags=0, device="cpu"),
+    "csr_wide_row": lambda: pack_device(
+        _scalar_wide_row(), 1, np.float64, device="cpu"),
+}
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64],
+                         ids=["f32.f32", "f64.f64"])
+@pytest.mark.parametrize("name", sorted(SCALAR_CASES))
+def test_scalar_compact_plain_bit_equal_to_planes(name, dt):
+    """B4's compact pack (b = 1, slices of 32 rows): its plain version is
+    the planes' bit for bit, it holds every nonzero entry once and
+    trailing slice padding only, and fewer slots than the planes have
+    lanes."""
+    Ad = SCALAR_CASES[name]()
+    assert pack_kind(Ad) in ("ell/binned", "csr/binned"), pack_kind(Ad)
+    cp = Ad.bn_compact
+    assert cp.dims[0] == 32 and cp.dims[4] == 1
+    assert cp.codes.numel() < Ad.bn_codes.numel()
+    assert int((cp.codes != -1).sum()) == int((Ad.bn_vals != 0).sum())
+    M = Ad.astype(dt)
+    x = _x(int(Ad.bn_dims[8]), dt, seed=len(name))
+    ref = bmod.binned_spmv_reference(M.bn_codes, M.bn_vals, M.bn_meta,
+                                     M.bn_pos, M.bn_dims, x)
+    got = bmod.binned_compact_reference(M.bn_compact, M.bn_pos, M.bn_dims,
+                                        x)
+    assert got.dtype == ref.dtype == dt
+    assert torch.equal(got, ref)

@@ -366,3 +366,152 @@ def test_graphed_solve_counts_equal_eager(card, case, monkeypatch):
     assert rg.iterations == re.iterations
     assert cnt_g == cnt_e
     assert torch.equal(rg.x, re.x)
+
+
+@pytest.mark.parametrize("vdt,xdt", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.float32),
+    (torch.float32, torch.float64), (torch.float64, torch.float64)])
+@pytest.mark.parametrize("n,n_cols,nd,shift", [
+    (262144, 262144, 7, 0), (200003, 200003, 25, 0), (300000, 250000, 9, 0),
+    (100000, 180000, 25, 0), (131072, 131072, 7, 1), (5000, 5000, 48, 0)])
+def test_dia_kernel_bit_equal_interior_and_edge(card, vdt, xdt, n, n_cols,
+                                                nd, shift):
+    """B1's interior (branch-free) and edge CTAs: bit for bit its plain
+    version at nd = 7 and 25 (compiled with nd known) and at other nd,
+    with n_cols ≠ n, n not divisible by 4, and values at a storage
+    offset that rules out the vector loads (``shift``)."""
+    from amgx_tpu_torch.ops import dia_spmv as dmod
+    g = torch.Generator(device=card).manual_seed(n + nd)
+    span = min(n, n_cols) // 4
+    offsets = sorted(torch.randperm(2 * span, generator=g, device=card)
+                     [:nd].sub(span).tolist())
+    if nd == 7:
+        offsets = [-4096, -64, -1, 0, 1, 64, 4096]
+    buf = torch.randn(nd * n + shift, dtype=torch.float64, device=card,
+                      generator=g).to(vdt)
+    vals = buf[shift:].view(nd, n)
+    x = torch.randn(n_cols, dtype=torch.float64, device=card,
+                    generator=g).to(xdt)
+    before = dmod.launch_count()
+    y = dmod.dia_spmv(vals, x, offsets)
+    torch.cuda.synchronize(card)
+    assert dmod.launch_count() == before + 1
+    assert torch.equal(y, dmod.dia_spmv_reference(vals, x, offsets))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["expansion", "empty_tiles", "wide_row"])
+def test_compact_b4_bit_equal_to_both_plain_versions(card, dt, case):
+    """B4 over the compact pack (b = 1): bit for bit the plain version of
+    the planes and the compact plain version, on the 20³ masked SPE10
+    expansion, a pack with empty tiles and a scalar CSR pack with a row
+    wider than 2048."""
+    import scipy.sparse as sp
+    from amgx_tpu_torch.core.matrix import pack_device, pack_kind
+    from amgx_tpu_torch.io import spe10_block_system
+    from amgx_tpu_torch.ops import binned_spmv as bmod
+    if case == "expansion":
+        Ad = pack_device(spe10_block_system(20, 20, 20), 4, np.float64,
+                         dia_max_diags=0, device=card, block_native=False)
+    elif case == "empty_tiles":
+        Ad = _binned_pack(card, 1, seed=21, empty_rows=300)
+    else:
+        rng = np.random.default_rng(7)
+        n, nnz = 20000, 800000
+        rows = np.r_[rng.integers(0, n, nnz), np.full(3000, 17)]
+        cols = np.r_[rng.integers(0, n, nnz),
+                     rng.choice(n, 3000, replace=False)]
+        A = sp.csr_matrix((rng.standard_normal(nnz + 3000), (rows, cols)),
+                          shape=(n, n))
+        A.sum_duplicates()
+        Ad = pack_device(A, 1, np.float64, device=card)
+    assert pack_kind(Ad) in ("ell/binned", "csr/binned")
+    M = Ad.astype(dt)
+    g = torch.Generator(device=card).manual_seed(1)
+    x = torch.randn(int(Ad.bn_dims[8]), dtype=torch.float64, device=card,
+                    generator=g).to(dt)
+    before = bmod.launch_count("B4")
+    y = bmod.binned_spmv(M, x)
+    torch.cuda.synchronize(card)
+    assert bmod.launch_count("B4") == before + 1
+    assert torch.equal(y, bmod.binned_spmv_reference(
+        M.bn_codes, M.bn_vals, M.bn_meta, M.bn_pos, M.bn_dims, x))
+    assert torch.equal(y, bmod.binned_compact_reference(
+        M.bn_compact, M.bn_pos, M.bn_dims, x))
+
+
+@pytest.mark.parametrize("pdt", [np.float32, np.float64])
+def test_block_jacobi_solve_on_card_matches_cpu(card, pdt):
+    """BLOCK_JACOBI on 4×4 blocks (the guarded block inverse, applied as
+    ordered b×b products): the card and the CPU take the same iterations
+    on the 20³ masked SPE10 system, x within 1e-6."""
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.io import spe10_block_system
+    from chip_smoke import CFG_BJ
+    A = spe10_block_system(20, 20, 20)
+    out = {}
+    for where in ("cuda", "cpu"):
+        m = amgx.Matrix(A, block_dim=4, device=where)
+        m.device_dtype = pdt
+        s = amgx.create_solver(CFG_BJ)
+        s.setup(m)
+        assert s.preconditioner.dinv.shape[1:] == (4, 4)
+        r = s.solve(np.ones(A.shape[0]))
+        assert r.status == amgx.SolveStatus.SUCCESS
+        out[where] = (r.iterations, r.x.cpu())
+    assert out["cuda"][0] == out["cpu"][0], (out["cuda"][0], out["cpu"][0])
+    xg, xc = out["cuda"][1], out["cpu"][1]
+    assert ((xg - xc).norm() / xc.norm()).item() < 1e-6
+
+
+def _nested(where):
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.io import poisson7pt_device
+    from chip_smoke import NESTED_CFG
+    A = poisson7pt_device(16, 16, 16, device_dtype=np.float32, device=where)
+    slv = amgx.create_solver(NESTED_CFG)
+    slv.setup(A)
+    return slv
+
+
+def test_nested_amg_replay_equals_eager_and_counts(card):
+    """An AMG as the coarse solver of the graphed AMG: the outer graph
+    holds the inner cycle's kernels (no inner graph is built with it), a
+    replay is bit-equal to an eager application and credits its
+    launches."""
+    from amgx_tpu_torch.solvers.amg_solver import AMGSolver
+    from amgx_tpu_torch.utils import cuda_graph as cg
+    slv = _nested(card)
+    pre = slv.preconditioner
+    inner = pre.hierarchy.coarse_solver
+    assert isinstance(inner, AMGSolver)
+    g = torch.Generator(device=card).manual_seed(0)
+    r = torch.randn(slv.Ad.n, dtype=torch.float64, device=card,
+                    generator=g).to(torch.float32)
+    first = pre.apply(r)
+    assert len(pre.graphs) == 1 and inner.graphs == {}
+    for c in cg.counters():
+        for k in c:
+            c[k] = 0
+    z = pre.apply(r)
+    torch.cuda.synchronize(card)
+    replay = cg.snapshot()
+    for c in cg.counters():
+        for k in c:
+            c[k] = 0
+    eager = pre._apply_eager(r)
+    torch.cuda.synchronize(card)
+    assert cg.snapshot() == replay
+    assert torch.equal(z, eager) and torch.equal(first, eager)
+
+
+def test_nested_amg_solve_on_card_matches_cpu(card):
+    """The nested-AMG headline at 16³ with the f32 pack: the card (outer
+    graph replays) takes the CPU's iterations with x bit-equal."""
+    out = {}
+    for where in ("cuda", "cpu"):
+        r = _nested(where).solve(np.ones(16 ** 3))
+        out[where] = (r.iterations, r.x.cpu())
+    assert out["cuda"][0] == out["cpu"][0] == 16, (out["cuda"][0],
+                                                   out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])

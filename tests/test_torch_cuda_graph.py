@@ -100,3 +100,25 @@ def test_setup_drops_the_graphs(amg):
     amg.graphs[(1, torch.float32, 1, True)] = object()
     amg.setup(amg.A)
     assert amg.graphs == {}
+
+
+def test_building_only_inside_a_graph_warm_up_or_capture():
+    """``building()`` holds while a warm-up or capture runs (nested ones
+    too) and is restored when it raises: a nested AMG reads it to run
+    eagerly into the outer graph."""
+    assert not cg.building()
+    seen = []
+
+    def inner():
+        seen.append(cg.building())
+        return cg._built(lambda: seen.append(cg.building()))
+
+    cg._built(inner)
+    assert seen == [True, True] and not cg.building()
+
+    def fails():
+        raise DeviceError("capture refused")
+
+    with pytest.raises(DeviceError):
+        cg._built(fails)
+    assert not cg.building()

@@ -134,3 +134,75 @@ def test_missing_nvcc_raises_instead_of_falling_back(monkeypatch, tmp_path):
     monkeypatch.setattr(dmod, "_fn", None)
     with pytest.raises(DeviceError):
         dmod._kernel()
+
+
+#: B1's geometry (csrc/dia_spmv.cu): 256 threads a CTA, each making four
+#: rows for 2- and 4-byte values and two for f64 values or nd = 25
+_THREADS = 256
+
+
+def _rows_per_thread(vdt, nd):
+    return 2 if vdt.itemsize == 8 or nd == 25 else 4
+
+
+def _cta_split(n, n_cols, offsets, rows_per_thread):
+    """The row ranges of B1's CTAs, each with the kernel's interior test:
+    every row i of the CTA (a full one) has 0 ≤ i + off_k < n_cols."""
+    rows = _THREADS * rows_per_thread
+    lo, hi = min(offsets), max(offsets)
+    return [(s, min(s + rows, n),
+             s + rows <= n and s + lo >= 0 and s + rows - 1 + hi < n_cols)
+            for s in range(0, n, rows)]
+
+
+def _split_spmv(vals, x, offsets):
+    """B1's two paths in plain PyTorch: an interior CTA's rows add every
+    term with no column test, an edge CTA's rows skip the out-of-range
+    terms; both from +0, diagonal by diagonal, in x's dtype."""
+    n, n_cols = vals.shape[1], x.shape[0]
+    y = torch.empty(n, dtype=x.dtype)
+    for s, e, interior in _cta_split(n, n_cols, offsets,
+                                     _rows_per_thread(vals.dtype,
+                                                      len(offsets))):
+        acc = torch.zeros(e - s, dtype=x.dtype)
+        i = torch.arange(s, e)
+        for k, o in enumerate(offsets):
+            v = vals[k, s:e].to(x.dtype)
+            if interior:
+                acc = acc + v * x[s + o:e + o]
+            else:
+                j = i + o
+                ok = (j >= 0) & (j < n_cols)
+                term = v * x[j.clamp(0, n_cols - 1)]
+                acc = torch.where(ok, acc + term, acc)
+        y[s:e] = acc
+    return y
+
+
+@pytest.mark.parametrize("vdt,xdt", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.float32),
+    (torch.float32, torch.float64), (torch.float64, torch.float64)])
+@pytest.mark.parametrize("n,n_cols,nd", [
+    (5000, 5000, 7), (4099, 4099, 25), (6001, 4500, 9), (3000, 7000, 25),
+    (1024, 1024, 3), (777, 777, 48)])
+def test_interior_edge_split_bit_equal_to_reference(vdt, xdt, n, n_cols,
+                                                    nd):
+    """The rows B1 takes on its branch-free interior path and on its
+    per-term edge path, written out in plain PyTorch, are bit-equal to
+    the plain version on random offsets: n_cols ≠ n both ways, n not
+    divisible by 4, the nd = 7 and 25 the paths compile and others; some
+    CTAs are interior and some edge wherever n allows both."""
+    rng = np.random.default_rng(n + nd)
+    span = min(n, n_cols) // 3
+    offsets = sorted(rng.choice(np.arange(-span, span), nd,
+                                replace=False).tolist())
+    vals = torch.from_numpy(rng.standard_normal((nd, n))).to(vdt)
+    x = torch.from_numpy(rng.standard_normal(n_cols)).to(xdt)
+    rows = _rows_per_thread(vdt, nd)
+    split = _cta_split(n, n_cols, offsets, rows)
+    if n >= 4 * _THREADS * rows:
+        assert any(c[2] for c in split) and not all(c[2] for c in split)
+    got = _split_spmv(vals, x, offsets)
+    want = dia_spmv_reference(vals, x, offsets)
+    assert torch.equal(got, want)
+    assert torch.equal(got, dia_spmv(vals, x, offsets))
