@@ -102,6 +102,9 @@ class DeviceMatrix:
     #: (n_tiles, Dpad) class differences, derived once at upload for the
     #: card's kernel (:func:`~amgx_tpu_torch.ops.shift_spmv.class_diffs`)
     sh_diffs: Optional[torch.Tensor] = None
+    #: kernel B2's slice-masked compact pack, derived from the planes at
+    #: upload (:func:`~amgx_tpu_torch.ops.shift_spmv.shift_compact`)
+    sh_compact: Optional[shift_spmv.ShiftCompact] = None
 
     @property
     def n(self) -> int:
@@ -124,7 +127,9 @@ class DeviceMatrix:
             bn_vals=None if self.bn_vals is None else self.bn_vals.to(dt),
             bn_compact=None if self.bn_compact is None
             else self.bn_compact.astype(dt),
-            sh_vals=None if self.sh_vals is None else self.sh_vals.to(dt))
+            sh_vals=None if self.sh_vals is None else self.sh_vals.to(dt),
+            sh_compact=None if self.sh_compact is None
+            else self.sh_compact.astype(dt))
 
     def ell_vals_view(self) -> torch.Tensor:
         """Row-major (n, K) ELL values: ``vals``, or on a shift pack the
@@ -539,8 +544,10 @@ def assemble_device_matrix(arrays, meta, device) -> DeviceMatrix:
     if "sh_dims" in meta:
         sh_meta = up("sh_meta")
         dims = tuple(int(v) for v in meta["sh_dims"])
-        extra.update(sh_vals=up("sh_vals"), sh_meta=sh_meta, sh_dims=dims,
-                     sh_diffs=shift_spmv.class_diffs(sh_meta, dims))
+        sh_vals = up("sh_vals")
+        extra.update(sh_vals=sh_vals, sh_meta=sh_meta, sh_dims=dims,
+                     sh_diffs=shift_spmv.class_diffs(sh_meta, dims),
+                     sh_compact=shift_spmv.shift_compact(sh_vals, dims))
     vals = up("vals")
     if meta["fmt"] == "ell" and int(meta["block_dim"]) == 1 and \
             vals is not None:

@@ -28,23 +28,43 @@ Contract: ``y[r] = Σ_j vals[t, j, r mod T] · x[r + d[t, j]]`` over the
 tile's slots in slot order, a slot contributing 0 where ``r + d`` lies
 outside ``[0, n_cols)`` (the JAX package reads zero padding there),
 each product and sum rounded on its own.  (vals, x) type pairs (f32,
-f32) and (f64, f64).  :func:`shift_spmv` runs the plain version only for
-CPU tensors; a CUDA tensor launches the kernel or raises.
+f32) and (f64, f64).
+
+The kernel reads no plane.  It reads the *slice-masked compact pack*
+(:class:`ShiftCompact`, :func:`shift_compact`), derived from the planes
+on their device at upload: each tile is cut into slices of S = 32 rows
+(T is a multiple of 128, so no slice straddles a tile); ``mask[s]`` has
+bit j set when a row of slice s holds a nonzero value in slot j;
+``ptr[s]`` counts the set bits of the slices before s; and the slice's
+32 values of its k-th set bit, in ascending slot order, sit at
+``vals[(ptr[s] + k)·32 + lane]``.  Its plain version
+(:func:`shift_compact_reference`) walks the set bits in slot order and
+is bit for bit :func:`shift_spmv_reference` for finite x: every dropped
+slot's products are exact zeros (±0, or the +0 of the column mask), and
+adding one changes no row sum, which starts at +0 and is never −0 (a
+sum of two nonzeros that cancel rounds to +0).  With an x holding an
+inf or a NaN the two may differ (0·inf is NaN on a dropped slot only).
+:func:`shift_spmv` runs that plain version for CPU tensors; a CUDA
+tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from ..device import host_scalar
 from ..errors import BadParametersError, DeviceError
 
 #: max distinct diffs per tile (``_MAX_CLASSES`` upstream)
 _MAX_CLASSES = 32
 #: default rows per tile (``_TILE`` upstream)
 _TILE = 8192
+#: rows of a compact slice: one warp of the kernel
+_SLICE = 32
 
 #: kernel type codes (``TypeCode`` in csrc/shift_spmv.cu)
 _TYPE_CODE = {torch.float32: 0, torch.float64: 1}
@@ -182,7 +202,7 @@ def shift_supported(Ad) -> bool:
     """Dispatch gate: the shift planes are present on a scalar pack.
     Unlike the JAX gate (f32 on a TPU or under its interpreter) this
     holds on every device and in f64 too: the CPU runs the plain version
-    of the same planes, and :func:`shift_spmv` refuses a type pair the
+    of the same compact pack, and :func:`shift_spmv` refuses a type pair the
     kernel does not take."""
     return getattr(Ad, "sh_vals", None) is not None and Ad.block_dim == 1
 
@@ -217,6 +237,92 @@ def shift_spmv_reference(sh_vals: torch.Tensor, sh_diffs: torch.Tensor,
     return acc.reshape(-1)[:n_rows]
 
 
+@dataclasses.dataclass(frozen=True)
+class ShiftCompact:
+    """Kernel B2's pack: the class values of each 32-row slice for the
+    slots the slice uses.
+
+    Slice s covers rows ``s·32 … s·32 + 31`` (tile ``s // (T/32)``);
+    ``mask[s]`` (int32, read as a 32-bit unsigned word) has bit j set
+    when one of those rows holds a nonzero value in slot j of its tile;
+    ``ptr[s]`` is the exclusive prefix sum of the popcounts (int32:
+    :func:`shift_compact` refuses a pack of 2³¹ slots or more, and the
+    kernel forms ``(ptr[s] + k)·32`` in 64 bits); the k-th set bit's
+    values, in ascending slot order, are ``vals[(ptr[s] + k)·32 +
+    lane]``.  ``dims`` = (S, n_slices, slots, widest popcount)."""
+
+    mask: torch.Tensor   # (n_slices,) int32
+    ptr: torch.Tensor    # (n_slices + 1,) int32
+    vals: torch.Tensor   # (slots·32,)
+    dims: tuple
+
+    def astype(self, dtype) -> "ShiftCompact":
+        """The same slots in ``dtype``: the mask stays, so a value that
+        underflows to 0 leaves a slot of zero products (a mask may hold
+        more slots than the values use, never fewer)."""
+        return dataclasses.replace(self, vals=self.vals.to(dtype))
+
+
+def shift_compact(sh_vals: torch.Tensor, dims) -> ShiftCompact:
+    """The compact pack of shift planes ``sh_vals`` (``dims`` =
+    ``sh_dims``), derived on their device by a few tensor operations
+    (no loop over tiles)."""
+    T, n_tiles, Dpad = (int(v) for v in dims[:3])
+    S = _SLICE
+    n_slices = n_tiles * T // S
+    dev = sh_vals.device
+    per_slot = sh_vals.reshape(n_tiles, Dpad, T // S, S) \
+        .permute(0, 2, 1, 3).reshape(n_slices, Dpad, S)
+    bits = (per_slot != 0).any(dim=2)                     # (n_slices, Dpad)
+    word = (bits.long() << torch.arange(Dpad, dtype=torch.int64,
+                                        device=dev)).sum(dim=1)
+    # bit 31 is int32's sign bit: store the word's two's complement
+    mask = torch.where(word >= 1 << 31, word - (1 << 32), word) \
+        .to(torch.int32)
+    pop = bits.sum(dim=1)
+    ptr = torch.zeros(n_slices + 1, dtype=torch.int64, device=dev)
+    ptr[1:] = torch.cumsum(pop, 0)
+    slots = int(host_scalar(ptr[-1]))
+    if slots >= 1 << 31:
+        raise BadParametersError(
+            f"shift_compact: {slots} slots overflow the int32 slice "
+            f"pointer")
+    widest = int(host_scalar(pop.max())) if n_slices else 0
+    vals = per_slot[bits].reshape(-1)      # row-major: slot order a slice
+    return ShiftCompact(mask=mask, ptr=ptr.to(torch.int32), vals=vals,
+                        dims=(S, n_slices, slots, widest))
+
+
+def shift_compact_reference(cp: ShiftCompact, sh_diffs: torch.Tensor,
+                            dims, x: torch.Tensor, n_rows: int
+                            ) -> torch.Tensor:
+    """Plain PyTorch version of B2 over the compact pack: each slice
+    walks its set bits in slot order, gathering x at ``r + d`` (columns
+    outside ``[0, len(x))`` contribute 0), multiplying and adding, each
+    operation rounded on its own."""
+    T, Dpad = int(dims[0]), int(dims[2])
+    S, n_slices, _slots, widest = cp.dims
+    dev = x.device
+    word = cp.mask.long() & 0xFFFFFFFF
+    bits = ((word[:, None] >> torch.arange(Dpad, dtype=torch.int64,
+                                           device=dev)) & 1).bool()
+    s_of, j_of = bits.nonzero(as_tuple=True)    # the pack's slot order
+    k_of = torch.arange(len(s_of), dtype=torch.int64, device=dev) \
+        - cp.ptr.long()[s_of]
+    d = sh_diffs.long()[s_of // (T // S), j_of]
+    lanes = torch.arange(S, dtype=torch.int64, device=dev)
+    c = s_of[:, None] * S + lanes + d[:, None]
+    ok = (c >= 0) & (c < x.shape[0])
+    prod = torch.where(ok, cp.vals.reshape(-1, S) * x[torch.where(ok, c, 0)],
+                       0)
+    per_k = torch.zeros((n_slices, widest, S), dtype=x.dtype, device=dev)
+    per_k[s_of, k_of] = prod
+    acc = torch.zeros((n_slices, S), dtype=x.dtype, device=dev)
+    for k in range(widest):
+        acc = acc + per_k[:, k]
+    return acc.reshape(-1)[:n_rows]
+
+
 def _kernel():
     global _fn
     if _fn is None:
@@ -224,18 +330,27 @@ def _kernel():
         fn = native.load("shift_spmv").amgx_shift_spmv
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
 def _check(Ad, x: torch.Tensor):
-    if (Ad.sh_vals.dtype, x.dtype) not in SUPPORTED:
+    """The arrays the kernel (and its plain version) read: the compact
+    pack, the diff table and x, on one device, contiguous, their shapes
+    and types matching ``sh_dims``."""
+    cp = Ad.sh_compact
+    if cp is None:
+        raise BadParametersError("shift_spmv: the pack carries no compact "
+                                 "pack (shift_compact)")
+    if (cp.vals.dtype, x.dtype) not in SUPPORTED or \
+            Ad.sh_vals.dtype != cp.vals.dtype:
         raise BadParametersError(
-            f"shift_spmv: unsupported (vals, x) dtypes "
-            f"({Ad.sh_vals.dtype}, {x.dtype})")
+            f"shift_spmv: unsupported (vals, x) dtypes ({cp.vals.dtype}, "
+            f"{x.dtype}) or planes in {Ad.sh_vals.dtype}")
     if x.dim() != 1 or x.shape[0] != Ad.n_cols:
         raise BadParametersError(
             f"shift_spmv: x must be ({Ad.n_cols},), got {tuple(x.shape)}")
@@ -245,31 +360,42 @@ def _check(Ad, x: torch.Tensor):
             Ad.sh_diffs.dtype != torch.int32:
         raise BadParametersError("shift_spmv: planes and diff table do "
                                  "not match sh_dims")
-    if not (Ad.sh_vals.device == Ad.sh_diffs.device == x.device):
+    S, n_slices, slots = (int(v) for v in cp.dims[:3])
+    if S != _SLICE or n_slices * S != n_tiles * T or \
+            tuple(cp.mask.shape) != (n_slices,) or \
+            tuple(cp.ptr.shape) != (n_slices + 1,) or \
+            cp.mask.dtype != torch.int32 or cp.ptr.dtype != torch.int32 or \
+            tuple(cp.vals.shape) != (slots * S,):
+        raise BadParametersError("shift_spmv: compact pack does not match "
+                                 "sh_dims")
+    arrays = (cp.mask, cp.ptr, cp.vals, Ad.sh_diffs)
+    if any(a.device != x.device for a in arrays):
         raise BadParametersError(
-            f"shift_spmv: pack on {Ad.sh_vals.device}, x on {x.device}")
-    if not (Ad.sh_vals.is_contiguous() and Ad.sh_diffs.is_contiguous()):
-        raise BadParametersError("shift_spmv: planes must be contiguous")
+            f"shift_spmv: pack on {cp.vals.device}, x on {x.device}")
+    if not all(a.is_contiguous() for a in arrays):
+        raise BadParametersError("shift_spmv: the compact pack and the "
+                                 "diff table must be contiguous")
 
 
 def shift_spmv(Ad, x: torch.Tensor) -> torch.Tensor:
-    """y = A·x through a shift pack (``Ad.sh_*``).  CUDA tensors launch
-    the kernel (or raise: a missing ``nvcc``, a failed build or a refused
-    launch is an error, never a fallback); CPU tensors take
-    :func:`shift_spmv_reference`."""
+    """y = A·x through a shift pack's compact pack (``Ad.sh_compact``).
+    CUDA tensors launch the kernel (or raise: a missing ``nvcc``, a
+    failed build or a refused launch is an error, never a fallback); CPU
+    tensors take :func:`shift_compact_reference`."""
     _check(Ad, x)
+    cp = Ad.sh_compact
     if not x.is_cuda:
-        return shift_spmv_reference(Ad.sh_vals, Ad.sh_diffs, Ad.sh_dims, x,
-                                    Ad.n_rows)
+        return shift_compact_reference(cp, Ad.sh_diffs, Ad.sh_dims, x,
+                                       Ad.n_rows)
     x = x.contiguous()
     T, n_tiles, Dpad = (int(v) for v in Ad.sh_dims[:3])
     out = torch.empty(Ad.n_rows, dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _kernel()(_TYPE_CODE[Ad.sh_vals.dtype], _TYPE_CODE[x.dtype],
-                   Ad.sh_vals.data_ptr(), Ad.sh_diffs.data_ptr(),
-                   x.data_ptr(), out.data_ptr(), Ad.n_rows, x.shape[0],
-                   T, n_tiles, Dpad, stream)
+    rc = _kernel()(_TYPE_CODE[cp.vals.dtype], _TYPE_CODE[x.dtype],
+                   cp.vals.data_ptr(), cp.mask.data_ptr(), cp.ptr.data_ptr(),
+                   Ad.sh_diffs.data_ptr(), x.data_ptr(), out.data_ptr(),
+                   Ad.n_rows, x.shape[0], T, n_tiles, Dpad, stream)
     if rc != 0:
         raise DeviceError(f"shift_spmv kernel launch failed (code {rc})")
-    LAUNCHES[f"{_SHORT[Ad.sh_vals.dtype]}.{_SHORT[x.dtype]}"] += 1
+    LAUNCHES[f"{_SHORT[cp.vals.dtype]}.{_SHORT[x.dtype]}"] += 1
     return out

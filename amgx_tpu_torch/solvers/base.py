@@ -38,7 +38,7 @@ from ..errors import (BREAKDOWN_DIVERGENCE, BREAKDOWN_KRYLOV,
 from ..ops import blas
 from ..ops.binned_spmv import bn_block_dim, compact_pack
 from ..ops.ell_spmv import ell_row_len
-from ..ops.shift_spmv import shift_planes_like
+from ..ops.shift_spmv import shift_compact, shift_planes_like
 from ..ops.spmv import spmv
 
 
@@ -395,7 +395,8 @@ class Solver:
         ``wide`` (its lanes depend on the pattern alone), a shift pack
         the host values placed on its own class slots
         (:func:`~..ops.shift_spmv.shift_planes_like`, which raises if a
-        value the narrow pack dropped as 0 has no slot), and the other
+        value the narrow pack dropped as 0 has no slot) and the compact
+        pack of those planes, and the other
         packs take their ``vals`` rebuilt on the host in ``wide``
         (:meth:`_host_pack_vals64`).  A binned or shift
         pack keeps only its planes: the wide SpMV runs B4/B5 or B2 on
@@ -424,11 +425,14 @@ class Solver:
         if exact:
             Ad64 = Ad.astype(wdt)
         elif shift:
-            planes = shift_planes_like(cols, host, Ad.sh_dims,
-                                       Ad.sh_diffs.cpu().numpy())
+            planes = torch.from_numpy(shift_planes_like(
+                cols, host, Ad.sh_dims, Ad.sh_diffs.cpu().numpy())).to(
+                    Ad.device)
             Ad64 = dataclasses.replace(
-                dataclasses.replace(Ad, sh_vals=None).astype(wdt),
-                sh_vals=torch.from_numpy(planes).to(Ad.device))
+                dataclasses.replace(Ad, sh_vals=None,
+                                    sh_compact=None).astype(wdt),
+                sh_vals=planes,
+                sh_compact=shift_compact(planes, Ad.sh_dims))
         elif binned:
             native = bn_block_dim(Ad.bn_dims) > 1
             arrays, dims = binned_planes(self.A.host, Ad.block_dim, wide,

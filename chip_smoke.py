@@ -109,15 +109,19 @@ exits non-zero (no phase is caught):
     graph (:func:`graph_check`), and the device time and busy share of a
     warm solve (``torch.profiler``).  The hierarchy is cut at
     ``DFG_LEVELS`` levels; phase 22 runs the config's own depth;
-20. B2 against its plain version on the card, every row to its own
-    limit, in (f32, f32) and (f64, f64): that fine pack, the cases of
-    tests/test_pallas_shift.py packed without DIA, and the 9-diagonal
-    40,000-row matrix of tests/test_tpu.py; B3 against its plain version
+20. B2 against its plain versions on the card, every row to its own
+    limit and bit for bit against the planes' and the compact pack's
+    plain version, in (f32, f32) and (f64, f64): that fine pack, the
+    refinement's wide pack of it, the ny = 320 fine pack, the cases of
+    tests/test_pallas_shift.py packed without DIA, the 9-diagonal
+    40,000-row matrix of tests/test_tpu.py and a tile of exactly 32
+    classes; B3 against its plain version
     in both pairs on every coarse level's A of that hierarchy and, over
     dense rows, on its dense coarse inverse, bit for bit;
 21. B2 times on the fine pack (CUDA events, median of 30): kernel,
-    plain version, one cuSPARSE CSR SpMV, the bound over the stored
-    entries and over the class planes;
+    its plain version (over the compact pack), one cuSPARSE CSR SpMV, the bounds over the
+    stored entries, the compact pack and the class planes, the compact
+    pack's resident bytes and the peak memory since phase 19;
 22. the DFG operator at ny = 512 under the headline config at its own
     depth (``amg:max_levels=20``, 15 levels down to a 28-row coarse
     solve): setup, the first solve (which captures the graph) and a
@@ -980,9 +984,12 @@ def config4_phases(amgx, dev, smi, gen, b1_errs) -> dict:
 
 
 def check_shift(dev, gen, name, Ad, errs):
-    """B2 vs its plain version on one shift pack in (f32, f32) and (f64,
-    f64), every row to its own relative limit (its error over the row's
-    Σ_j |a_ij·x_j|); also records whether the two are bit-equal."""
+    """B2 vs its plain versions on one shift pack in (f32, f32) and (f64,
+    f64): every row to its own relative limit (its error over the row's
+    Σ_j |a_ij·x_j|) against the planes' plain version, and bit for bit
+    against both that and the compact pack's plain version (the kernel
+    reads the compact pack; for finite x the two plain versions agree
+    to the bit)."""
     import torch
     from amgx_tpu_torch.ops import shift_spmv as shmod
     for dt in (torch.float32, torch.float64):
@@ -995,6 +1002,8 @@ def check_shift(dev, gen, name, Ad, errs):
         assert shmod.launch_count() == before + 1, "launch not counted"
         ref = shmod.shift_spmv_reference(M.sh_vals, M.sh_diffs, M.sh_dims,
                                          x, M.n_rows)
+        own = shmod.shift_compact_reference(M.sh_compact, M.sh_diffs,
+                                            M.sh_dims, x, M.n_rows)
         assert y.dtype == ref.dtype == dt and y.shape == (M.n_rows,)
         assert torch.isfinite(y).all().item(), (name, dt)
         scale = shmod.shift_spmv_reference(
@@ -1003,28 +1012,46 @@ def check_shift(dev, gen, name, Ad, errs):
         diff, rel = row_errors(y, ref, scale)
         tol = SHIFT_TOL[short(dt)]
         assert rel < tol, (name, short(dt), diff, rel)
+        eq_planes = bool(torch.equal(y, ref))
+        eq_compact = bool(torch.equal(y, own))
+        assert eq_planes and eq_compact, (name, short(dt), diff)
         record(errs, f"{short(dt)}.{short(dt)}", diff, rel)
+        S, n_slices, slots, widest = M.sh_compact.dims
         emit("shift_check", case=name, n=M.n_rows,
              tiles=int(M.sh_dims[1]), dpad=int(M.sh_dims[2]),
-             type=short(dt), bit_equal=bool(torch.equal(y, ref)),
+             slices=n_slices, compact_slots=slots, widest_slice=widest,
+             type=short(dt), bit_equal=eq_planes and eq_compact,
+             bit_equal_planes_plain=eq_planes,
+             bit_equal_compact_plain=eq_compact,
              max_abs_err=diff, max_row_rel_err=rel, tol=tol)
 
 
 def shift_bounds(Ad, nnz, dt):
-    """(bound_ms, bound_by, planes_bound_ms) of one B2 SpMV: the bytes of
-    the stored values, x and y (what the product needs), and of the
-    class planes, diff table, x and y (what the pack holds), each against
-    2·nnz operations at the peak rate."""
+    """Bounds of one B2 SpMV, each the larger of its bytes over the
+    card's memory rate and 2·nnz operations over the peak rate:
+    ``bound_ms`` over the stored values, x and y (what the product
+    needs); ``compact_bound_ms`` over the compact pack the kernel reads
+    (its slots, mask and pointer words, the diff table, x and y);
+    ``planes_bound_ms`` over the class planes (planes, diff table, x,
+    y), which the planes' plain version reads; and each layout's
+    bytes."""
     T, n_tiles, Dpad = (int(v) for v in Ad.sh_dims[:3])
+    S, n_slices, slots, _ = Ad.sh_compact.dims
     n = Ad.n_rows
     xy = 2 * n * dt.itemsize
     t_ops = 2 * nnz / PEAK_FLOPS[short(dt)]
-    t_nnz = (nnz * dt.itemsize + xy) / PEAK_BYTES_PER_S
-    t_planes = (n_tiles * Dpad * (T * dt.itemsize + 4) + xy) \
-        / PEAK_BYTES_PER_S
-    return (max(t_nnz, t_ops) * 1e3,
-            "bytes" if t_nnz >= t_ops else "operations",
-            max(t_planes, t_ops) * 1e3)
+    nnz_bytes = nnz * dt.itemsize + xy
+    compact_bytes = slots * S * dt.itemsize + 4 * (2 * n_slices + 1) \
+        + 4 * n_tiles * Dpad + xy
+    planes_bytes = n_tiles * Dpad * (T * dt.itemsize + 4) + xy
+    t_nnz = nnz_bytes / PEAK_BYTES_PER_S
+    return dict(
+        bound_ms=max(t_nnz, t_ops) * 1e3,
+        bound_by="bytes" if t_nnz >= t_ops else "operations",
+        compact_bound_ms=max(compact_bytes / PEAK_BYTES_PER_S, t_ops) * 1e3,
+        planes_bound_ms=max(planes_bytes / PEAK_BYTES_PER_S, t_ops) * 1e3,
+        nnz_bytes=nnz_bytes, compact_bytes=compact_bytes,
+        planes_bytes=planes_bytes)
 
 
 def dfg_solve(amgx, A, where, pdt):
@@ -1204,6 +1231,8 @@ def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs) -> dict:
     # 9-diagonal matrix of tests/test_tpu.py
     errs = {}
     check_shift(dev, gen, f"dfg_{DFG_NY}_fine", Ad, errs)
+    check_shift(dev, gen, f"dfg_{DFG_NY}_fine_wide",
+                slv._wide_pack(np.dtype(np.float64)), errs)
     # B3 at the shapes this path gives it: every coarse level's A (the
     # fine level is the shift pack) and the dense coarse inverse
     for i, lv in enumerate(h.levels[1:], 1):
@@ -1234,7 +1263,12 @@ def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs) -> dict:
              ("poisson5_90x70", randomized(poisson5pt(90, 70))),
              ("periodic_4000", sp.csr_matrix(wrap)),
              ("ragged_tail_37x11", randomized(poisson5pt(37, 11))),
-             ("nine_diagonals_40000", diag9)]
+             ("nine_diagonals_40000", diag9),
+             ("band_32_classes_2048", sp.diags(
+                 r9.standard_normal((32, 2048)), list(range(-16, 16)),
+                 shape=(2048, 2048)).tocsr()),
+             (f"dfg_{DFG_SMALL_NY}_fine",
+              dfg_cylinder_pressure(DFG_SMALL_NY))]
     for name, M in cases:
         P = pack_device(M, 1, np.float64, dia_max_diags=0, device=dev)
         assert pack_kind(P) == "ell/shift", (name, pack_kind(P))
@@ -1247,17 +1281,25 @@ def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs) -> dict:
         xv = torch.randn(n, dtype=dt, device=dev, generator=gen)
         lib = csr_of_host(A, dt, dev)
         ms = time_ms(lambda: shmod.shift_spmv(M, xv), dev)
-        plain_ms = time_ms(lambda: shmod.shift_spmv_reference(
-            M.sh_vals, M.sh_diffs, M.sh_dims, xv, n), dev)
+        plain_ms = time_ms(lambda: shmod.shift_compact_reference(
+            M.sh_compact, M.sh_diffs, M.sh_dims, xv, n), dev)
         library_ms = time_ms(lambda: lib @ xv, dev)
-        bound_ms, bound_by, planes_ms = shift_bounds(M, A.nnz, dt)
-        timing[short(dt)] = dict(ms=ms, plain_ms=plain_ms,
-                                 library_ms=library_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by)
+        bounds = shift_bounds(M, A.nnz, dt)
+        timing[short(dt)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            **{k: bounds[k] for k in ("bound_ms", "bound_by",
+                                      "compact_bound_ms")})
+        cp = M.sh_compact
         emit("shift_timing", ny=DFG_NY, rows=n, nnz=A.nnz,
-             slots=int(M.sh_vals.numel()), type=short(dt), card=smi,
-             library="cusparse-csr", planes_bound_ms=planes_ms,
-             **timing[short(dt)])
+             planes_slots=int(M.sh_vals.numel()),
+             compact_slots=int(cp.vals.numel()),
+             compact_resident_mb=sum(
+                 t.numel() * t.element_size()
+                 for t in (cp.vals, cp.mask, cp.ptr)) / 1e6,
+             type=short(dt), card=smi, library="cusparse-csr",
+             plain="shift_compact_reference",
+             peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+             **{**bounds, **timing[short(dt)]})
         del lib
     del slv, res, res2, x, m, Ad, h
     torch.cuda.empty_cache()

@@ -197,7 +197,8 @@ def dfg320():
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64])
 def test_shift_kernel_matches_plain(card, dfg320, dt):
     """B2 on the DFG operator's shift pack at ny = 320 (67 tiles of Dpad
-    16): bit for bit its plain version, in both type pairs."""
+    16): bit for bit both plain versions, the compact pack's and the
+    planes', in both type pairs."""
     import amgx_tpu_torch as amgx
     from amgx_tpu_torch.ops import shift_spmv as smod
     m = amgx.Matrix(dfg320, device=card)
@@ -214,6 +215,66 @@ def test_shift_kernel_matches_plain(card, dfg320, dt):
     ref = smod.shift_spmv_reference(Ad.sh_vals, Ad.sh_diffs, Ad.sh_dims, x,
                                     Ad.n_rows)
     assert torch.equal(y, ref)
+    assert torch.equal(y, smod.shift_compact_reference(
+        Ad.sh_compact, Ad.sh_diffs, Ad.sh_dims, x, Ad.n_rows))
+
+
+def _shift_edge_case(case):
+    """A scipy CSR for :func:`test_compact_b2_bit_equal_edge_cases`."""
+    import scipy.sparse as sp
+    from amgx_tpu_torch.io import poisson5pt
+    rng = np.random.default_rng(17)
+    if case == "band_32_classes":
+        n = 2048
+        return sp.csr_matrix(sp.diags(
+            [rng.standard_normal(n) for _ in range(32)], list(range(-16, 16)),
+            shape=(n, n)))
+    if case == "periodic":
+        n = 4000
+        r = np.arange(n)
+        return sp.csr_matrix((np.r_[np.full(n, 2.0), -np.ones(2 * n)],
+                              (np.r_[r, r, r],
+                               np.r_[r, (r + 1) % n, (r - 1) % n])),
+                             shape=(n, n))
+    A = sp.csr_matrix(poisson5pt(37, 11) if case == "ragged_tail"
+                      else poisson5pt(90, 70))
+    A.data = rng.standard_normal(A.nnz)
+    if case == "lone_tiny_slot":
+        # slice 1's only entry of difference +1 is 1e-50: 0 in f32
+        rows = np.repeat(np.arange(A.shape[0]), np.diff(A.indptr))
+        hit = (rows >= 32) & (rows < 64) & (A.indices == rows + 1)
+        A.data[hit] = 0.0
+        A.data[hit & (rows == 40)] = 1e-50
+    return A
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["band_32_classes", "periodic",
+                                  "ragged_tail", "lone_tiny_slot"])
+def test_compact_b2_bit_equal_edge_cases(card, dt, case):
+    """B2 over the compact pack on a tile of exactly 32 classes (mask
+    bit 31), a periodic wrap, a ragged tail (407 rows: not a multiple of
+    32) and an f64 pack whose one slot of a slice underflows in f32 (a
+    mask bit over zeros): bit for bit both plain versions."""
+    from amgx_tpu_torch.core.matrix import pack_device, pack_kind
+    from amgx_tpu_torch.ops import shift_spmv as smod
+    Ad = pack_device(_shift_edge_case(case), 1, np.float64,
+                     dia_max_diags=0, device=card)
+    assert pack_kind(Ad) == "ell/shift"
+    if case == "band_32_classes":
+        assert Ad.sh_dims[2] == 32 and (Ad.sh_compact.mask < 0).any()
+    M = Ad.astype(dt)
+    g = torch.Generator(device=card).manual_seed(2)
+    x = torch.randn(M.n_cols, dtype=torch.float64, device=card,
+                    generator=g).to(dt)
+    before = smod.launch_count()
+    y = smod.shift_spmv(M, x)
+    torch.cuda.synchronize(card)
+    assert smod.launch_count() == before + 1
+    assert torch.equal(y, smod.shift_spmv_reference(
+        M.sh_vals, M.sh_diffs, M.sh_dims, x, M.n_rows))
+    assert torch.equal(y, smod.shift_compact_reference(
+        M.sh_compact, M.sh_diffs, M.sh_dims, x, M.n_rows))
 
 
 def test_dfg320_solve_on_card_matches_cpu(card, dfg320):
