@@ -171,6 +171,10 @@ class ClassicalLevel(AMGLevel):
         self.n_coarse = (P.n_block_cols if isinstance(P, Matrix)
                          else P.n_cols)
         self.cf_map = cf_map
+        if cf_map is not None:
+            # the C/F split where the level's smoother reads it
+            # (CF_JACOBI, cf_jacobi_solver.cu)
+            A.cf_map = cf_map
 
     @property
     def P(self):

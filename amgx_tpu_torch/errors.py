@@ -52,16 +52,20 @@ class FailureKind(str, enum.Enum):
     STAGNATION = "stagnation"
     DIVERGENCE = "divergence"
     KRYLOV_BREAKDOWN = "krylov_breakdown"
+    #: CG's ``pAp < 0``: the operator (or preconditioner) is not SPD
+    INDEFINITE_OPERATOR = "indefinite_operator"
 
 
 #: breakdown codes carried by a solver's iteration state (0 = healthy;
 #: values as in ``amgx_tpu.errors``)
 BREAKDOWN_KRYLOV = 1
+BREAKDOWN_INDEFINITE = 2
 BREAKDOWN_NAN = 3
 BREAKDOWN_DIVERGENCE = 4
 
 _BREAKDOWN_KINDS = {
     BREAKDOWN_KRYLOV: FailureKind.KRYLOV_BREAKDOWN,
+    BREAKDOWN_INDEFINITE: FailureKind.INDEFINITE_OPERATOR,
     BREAKDOWN_NAN: FailureKind.NAN_POISON,
     BREAKDOWN_DIVERGENCE: FailureKind.DIVERGENCE,
 }

@@ -1,7 +1,16 @@
-"""BLAS-1 vector operations and norms (port of the CLASSIC-mode half of
-``amgx_tpu/ops/blas.py``; reference ``base/include/blas.h:40-104``,
-``base/src/norm.cu``).  Results of reductions stay 0-d device tensors:
-nothing here synchronises with the host.
+"""BLAS-1 vector operations, norms and the fused reductions (port of
+``amgx_tpu/ops/blas.py`` without its trace-time collective ledger;
+reference ``base/include/blas.h:40-104``, ``base/src/norm.cu``).
+Results of reductions stay device tensors: nothing here synchronises
+with the host.
+
+:func:`fused_reduce` stacks several term vectors into one (k, n) → (k,)
+sum, the single reduction of a communication-avoiding Krylov step
+(``krylov_comm`` CA/PIPELINED); :func:`norm_terms` and
+:func:`finish_norm` let the monitor norm ride it, and
+:func:`gram_dots_with_norm` folds ‖w‖² into a Gram–Schmidt pass.  The
+solvers call their widened forms (``ops/ordered.py``), which sum an f32
+operand in f64 and round once.
 """
 from __future__ import annotations
 
@@ -68,3 +77,49 @@ def gram_dots(V, w):
     """Gram–Schmidt projections ``conj(V) @ w`` onto the rows of V:
     one matrix-vector product."""
     return torch.mv(V.conj() if V.is_complex() else V, w)
+
+
+def fused_reduce(terms):
+    """The sums of several same-length term vectors (e.g. ``conj(r)*u``)
+    in one stacked (k, n) → (k,) reduction."""
+    return torch.sum(torch.stack(list(terms)), dim=-1)
+
+
+def norm_terms(v, norm_type: str = NORM_L2, block_dim: int = 1,
+               use_scalar_norm: bool = True):
+    """Elementwise accumulator vectors of :func:`norm` for
+    :func:`fused_reduce`: one term for a scalar norm, ``block_dim``
+    masked terms (component c's magnitudes, zero elsewhere) for a block
+    norm; None for LMAX, a max that cannot ride a sum."""
+    if norm_type == NORM_LMAX:
+        return None
+    base = torch.abs(v) ** 2 if norm_type == NORM_L2 else torch.abs(v)
+    if use_scalar_norm or block_dim == 1:
+        return [base]
+    comp = torch.arange(v.shape[0], device=v.device) % block_dim
+    zero = torch.zeros((), dtype=base.dtype, device=base.device)
+    return [torch.where(comp == c, base, zero) for c in range(block_dim)]
+
+
+def finish_norm(acc, norm_type: str, n_rows: int, block_dim: int = 1,
+                use_scalar_norm: bool = True):
+    """The value :func:`norm` returns, from the reduced
+    :func:`norm_terms` accumulators ``acc`` ((1,) or (block_dim,));
+    ``n_rows`` is the vector length."""
+    acc = acc.real
+    scalar = use_scalar_norm or block_dim == 1
+    r = acc[0] if scalar else acc
+    if norm_type == NORM_L2:
+        return torch.sqrt(r)
+    if norm_type == NORM_L1_SCALED:
+        return r / (n_rows if scalar else n_rows // block_dim)
+    return r
+
+
+def gram_dots_with_norm(V, w):
+    """``(conj(V) @ w, ‖w‖²)`` from one stacked matrix-vector product:
+    ``conj(w)`` rides as an extra row of V (the fused Arnoldi pass)."""
+    Vc = V.conj() if V.is_complex() else V
+    wc = w.conj() if w.is_complex() else w
+    out = torch.mv(torch.cat([Vc, wc[None, :]]), w)
+    return out[:-1], out[-1].real

@@ -10,7 +10,9 @@ solve below them) take the forms of this module:
   two f32 values are exact in f64, and the devices' different f64
   summation orders move the rounded f32 result only when the sum lies
   within a few f64 units in the last place of an f32 rounding boundary:
-  :func:`wdot`, :func:`wnrm2`, :func:`wgram_dots`;
+  :func:`wdot`, :func:`wnrm2`, :func:`wgram_dots` and the fused
+  Arnoldi pass :func:`wgram_dots_with_norm` (the CA and pipelined CG
+  steps widen their operands before ``blas.fused_reduce``);
 * a linear combination added left to right, one elementwise op at a
   time: :func:`lincomb`;
 * a dense matrix-vector product through kernel B3 over dense rows, which
@@ -26,11 +28,11 @@ from __future__ import annotations
 
 import torch
 
-from .blas import dot, gram_dots
+from .blas import dot, gram_dots, gram_dots_with_norm
 from .ell_spmv import dense_matvec
 
-__all__ = ["widen", "wdot", "wnrm2", "wgram_dots", "lincomb",
-           "dense_matvec", "guarded_block_inv"]
+__all__ = ["widen", "wdot", "wnrm2", "wgram_dots", "wgram_dots_with_norm",
+           "lincomb", "dense_matvec", "guarded_block_inv"]
 
 
 def widen(v):
@@ -53,6 +55,13 @@ def wgram_dots(V, w):
     """Gram–Schmidt projections ``V @ w`` onto the rows of V, an f32 basis
     summed in f64 and rounded once."""
     return gram_dots(widen(V), widen(w)).to(V.dtype)
+
+
+def wgram_dots_with_norm(V, w):
+    """:func:`~.blas.gram_dots_with_norm` of an f32 basis summed in f64
+    and rounded once."""
+    h, ww = gram_dots_with_norm(widen(V), widen(w))
+    return h.to(V.dtype), ww.to(w.real.dtype)
 
 
 def lincomb(V, c):

@@ -1,6 +1,7 @@
 from .base import (Solver, SolverFactory, SolveResult, check_convergence,
                    register_solver)
-from . import amg_solver, dense_lu, dilu, jacobi, krylov  # noqa: F401
+from . import (amg_solver, chebyshev, dense_lu, dilu, gs, idr,  # noqa: F401
+               ilu, jacobi, krylov)
 
 __all__ = ["Solver", "SolverFactory", "SolveResult", "check_convergence",
            "register_solver"]

@@ -159,6 +159,10 @@ class Solver:
         self.store_res_history = bool(g("store_res_history"))
         self.print_solve_stats = bool(g("print_solve_stats"))
         self.relaxation_factor = float(g("relaxation_factor"))
+        #: the reduction layout of CG/PCG and (F)GMRES: CLASSIC, CA or
+        #: PIPELINED (``solvers/krylov.py``)
+        self.krylov_comm = str(g("krylov_comm"))
+        self.ca_residual_replace = int(g("ca_residual_replace"))
         self.A: Optional[Matrix] = None
         self.Ad: Optional[DeviceMatrix] = None
         self.setup_time = 0.0

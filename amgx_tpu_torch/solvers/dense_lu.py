@@ -1,5 +1,7 @@
-"""Dense LU coarse solver (port of ``amgx_tpu/solvers/dense_lu.py``;
-reference ``core/src/solvers/dense_lu_solver.cu``).
+"""Dense LU coarse solver and the identity solver NOSOLVER (port of
+``amgx_tpu/solvers/dense_lu.py``; reference
+``core/src/solvers/dense_lu_solver.cu``,
+``base/src/solvers/dummy_solver.cu``).
 
 The coarsest level (a DIA or ELL pack) is densified once at setup and
 LU-factorised in f64 on the host (``scipy.linalg.lu_factor``; the JAX
@@ -74,3 +76,17 @@ class DenseLUSolver(Solver):
 
     def apply(self, b, x0=None, n_iters=None):
         return self._lu_apply(b)
+
+
+@register_solver("NOSOLVER")
+class DummySolver(Solver):
+    """The identity (reference ``dummy_solver.cu``): as a preconditioner
+    M = I, so an application returns the right-hand side."""
+
+    is_smoother = True
+
+    def solve_iteration(self, b, x, state, iter_idx):
+        return b, state
+
+    def apply(self, b, x0=None, n_iters=None):
+        return b

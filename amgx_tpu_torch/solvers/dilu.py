@@ -44,7 +44,8 @@ from ..errors import BadConfigurationError
 from ..ops.ordered import guarded_block_inv
 from ..ops.spmv import spmv
 from .base import Solver, register_solver
-from .gs import build_color_slabs, build_color_slabs_block
+from .gs import (build_color_slabs, build_color_slabs_block, host_bsr,
+                 slab_times)
 from .jacobi import apply_dinv
 
 
@@ -253,26 +254,6 @@ def _bmm(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _slab_times(vals: torch.Tensor, yg: torch.Tensor) -> torch.Tensor:
-    """A slab's rows times the gathered vector: Σ_k vals[:, k]·yg[:, k]
-    for a scalar (nc, K) slab, or Σ_k Σ_c vals[:, k, :, c]·yg[:, k, c]
-    for a block (nc, K, b, b) slab.  The products are added left to
-    right, one elementwise op at a time: a batched product or a reduction
-    orders its sums its own way on each device, and the card's f32
-    sweeps would then round otherwise than the CPU's."""
-    if vals.dim() == 2:
-        p = vals * yg
-        terms = [p[:, k] for k in range(p.shape[1])]
-    else:
-        p = vals * yg[:, :, None, :]
-        terms = [p[:, k, :, c] for k in range(p.shape[1])
-                 for c in range(p.shape[3])]
-    out = terms[0]
-    for t in terms[1:]:
-        out = out + t
-    return out
-
-
 @register_solver("MULTICOLOR_DILU")
 class MulticolorDILUSolver(Solver):
     is_smoother = True
@@ -295,8 +276,7 @@ class MulticolorDILUSolver(Solver):
                 build_color_slabs(L, colors, self.num_colors, dt, dev),
                 build_color_slabs(U, colors, self.num_colors, dt, dev))
             return
-        bsr = self.A.host if isinstance(self.A.host, sp.bsr_matrix) else \
-            sp.bsr_matrix(self.A.host, blocksize=(b, b))
+        bsr = host_bsr(self.A, b)
         if bsr.shape[0] // b >= _DILU_DEVICE_MIN_ROWS:
             Lb, Ub, Einv = _block_dilu_factor_device(bsr, colors, b, dev)
             Einv = Einv.to(dt)
@@ -327,21 +307,21 @@ class MulticolorDILUSolver(Solver):
         if not self.block:
             y = torch.zeros_like(r)
             for s in self.L_slabs:
-                t = _slab_times(s.vals, y[s.cols])
+                t = slab_times(s.vals, y[s.cols])
                 y[s.rows] = s.einv * (r[s.rows] - t)
             z = y.clone()
             for s in reversed(self.U_slabs):
-                t = _slab_times(s.vals, z[s.cols])
+                t = slab_times(s.vals, z[s.cols])
                 z[s.rows] = y[s.rows] - s.einv * t
             return z
         rb = r.reshape(-1, bd)
         y = torch.zeros_like(rb)
         for s in self.L_slabs:
-            t = _slab_times(s.vals, y[s.cols])
+            t = slab_times(s.vals, y[s.cols])
             y[s.rows] = apply_dinv(s.einv, rb[s.rows] - t).reshape(-1, bd)
         z = y.clone()
         for s in reversed(self.U_slabs):
-            t = _slab_times(s.vals, z[s.cols])
+            t = slab_times(s.vals, z[s.cols])
             z[s.rows] = y[s.rows] - apply_dinv(s.einv, t).reshape(-1, bd)
         return z.reshape(-1)
 

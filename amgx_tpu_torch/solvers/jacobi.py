@@ -1,6 +1,7 @@
-"""Jacobi smoothers (port of ``BlockJacobiSolver``, ``JacobiL1Solver`` and
-``setup_dinv`` of ``amgx_tpu/solvers/jacobi.py``; reference
-``core/src/solvers/block_jacobi_solver.cu``, ``jacobi_l1_solver.cu``).
+"""Jacobi smoothers (port of ``BlockJacobiSolver``, ``JacobiL1Solver``,
+``CFJacobiSolver`` and ``setup_dinv`` of ``amgx_tpu/solvers/jacobi.py``;
+reference ``core/src/solvers/block_jacobi_solver.cu``,
+``jacobi_l1_solver.cu``, ``cf_jacobi_solver.cu``).
 
 A sweep is ``x + ω·D⁻¹·(b − A·x)``: one SpMV plus elementwise work.  The
 zero-initial-guess first sweep collapses to ``ω·D⁻¹·b``, as the
@@ -8,6 +9,7 @@ reference's fused kernels do (``block_jacobi_solver.cu:1240-1530``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.ordered import guarded_block_inv
@@ -102,3 +104,34 @@ class JacobiL1Solver(Solver):
     def solve_iteration(self, b, x, state, iter_idx):
         r = b - spmv(self.Ad, x)
         return x + self.relaxation_factor * self.dinv * r, state
+
+
+@register_solver("CF_JACOBI")
+class CFJacobiSolver(Solver):
+    """C/F-split Jacobi for classical AMG (reference
+    ``cf_jacobi_solver.cu``): one sweep relaxes the C points, then the F
+    points (``cf_smoothing_mode`` 0 or 2; else F then C), each a masked
+    ``x + ω·D⁻¹·(b − A·x)``.  The split is the ``cf_map`` (1 = C) that a
+    classical level exposes on its matrix; without one no point is
+    marked C, as in the JAX package."""
+
+    is_smoother = True
+
+    def solver_setup(self):
+        self.dinv = setup_dinv(self)
+        self.cf_mode = int(self.cfg.get("cf_smoothing_mode", self.scope))
+        cf = getattr(self.A, "cf_map", None) if self.A is not None else None
+        if cf is None:
+            cf = np.zeros(self.Ad.n_rows, dtype=bool)
+        c = np.repeat(np.asarray(cf, dtype=bool), self.Ad.block_dim)
+        self.c_mask = torch.from_numpy(c).to(self.Ad.device)
+
+    def _masked_sweep(self, b, x, mask):
+        r = b - spmv(self.Ad, x)
+        dx = self.relaxation_factor * apply_dinv(self.dinv, r)
+        return x + torch.where(mask, dx, torch.zeros_like(dx))
+
+    def solve_iteration(self, b, x, state, iter_idx):
+        m1 = self.c_mask if self.cf_mode in (0, 2) else ~self.c_mask
+        x = self._masked_sweep(b, x, m1)
+        return self._masked_sweep(b, x, ~m1), state

@@ -135,6 +135,28 @@ exits non-zero (no phase is caught):
     the last kernel timing, so phase 22 (whose replays keep the device
     busy) runs beside them and no kernel timing does.
 
+24. the solver family on the classical 128³ stack (``CFG_CLA``, f32
+    pack, f64 refinement): the outer solver replaced by GMRES, PCGF,
+    PCG_PIPE and PCG_CA (these two on an f64 pack, ``FAMILY_PACK``,
+    their f32 runs printed beside), then PCG with the smoother
+    CF_JACOBI (the C/F split of the classical levels); each through the
+    public API with
+    every count set to 0 just before the first solve and read just
+    after: iterations, the true relres in f64, setup, first and warm
+    solve, launches by kernel, the AMG graph (:func:`graph_check`) and
+    the device's busy share of a warm solve;
+25. the headline 128³ with CHEBYSHEV_POLY as its smoother (the power
+    iteration at setup through B1, the graph replaying the smoother),
+    and CHEBYSHEV without a preconditioner at 128³ for ``CHEB_ITERS``
+    iterations, with the relres it reaches;
+26. config 4's full SPE10 system, uploaded once: IDR + MULTICOLOR_DILU
+    and PBICGSTAB + MULTICOLOR_GS (4×4 block slabs), both on B5;
+27. PBICGSTAB + MULTICOLOR_ILU(0) on the DFG operator at ``ILU_NY``;
+28. the card against the CPU for every solver name of this slice (and
+    PCG with ``krylov_comm`` CA and PIPELINED) on small systems: equal
+    iterations, x within ``SMALL_X_RTOL`` (whether x is bit-equal is
+    printed).
+
 Then one JSON line of the four paths' kernels and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -231,6 +253,42 @@ DFG_WINDOW_ITERS = 2
 #: per-row limits of B2 against its plain version (it is bit-equal by
 #: construction; the limits are those of the other kernels)
 SHIFT_TOL = {"f32": 1e-5, "f64": 1e-12}
+#: phases 24-25: the classical and headline 128³ systems, phase 26:
+#: config 4's full SPE10 grid
+FAMILY_SIDE = 128
+FAMILY_C4_GRID = (60, 220, 85)
+#: phase 24: the classical stack's outer solver replaced (the
+#: GMRES_AMG_D2 / PCGF_CLASSICAL_V_JACOBI shapes), then its smoother
+FAMILY_KRYLOV = ("GMRES", "PCGF", "PCG_PIPE", "PCG_CA")
+#: pack dtypes of phase 24 other than f32: in f32 the single-reduction
+#: recurrences of PCG_CA and PCG_PIPE lose A-conjugacy and the guard
+#: reports pAp < 0 (the JAX package's too: tests/torch_pipe_parity.py),
+#: so at full width they converge on an f64 pack; their f32 runs are
+#: printed beside (phase 28 compares the f32 runs on the card and the
+#: CPU at 24³)
+FAMILY_PACK = {"PCG_PIPE": np.float64, "PCG_CA": np.float64}
+#: phase 25: CHEBYSHEV without a preconditioner (the CHEB_SOLVER_NOPREC
+#: shape) for a fixed budget of iterations
+CHEB_NOPREC_CFG = (
+    "config_version=2, solver(out)=CHEBYSHEV, out:max_iters={it}, "
+    "out:monitor_residual=1, out:tolerance=1e-8, "
+    "out:convergence=RELATIVE_INI")
+CHEB_ITERS = 100
+#: phase 26: config 4's outer solver and preconditioner replaced
+IDR_DILU_CFG = CFG4.replace("solver(out)=PBICGSTAB", "solver(out)=IDR")
+MCGS_CFG = CFG4.replace("MULTICOLOR_DILU", "MULTICOLOR_GS")
+#: phase 27: PBICGSTAB + MULTICOLOR_ILU(0) on the DFG operator at
+#: ILU_NY (87,172 rows), cut from the path's ny = 512 because the ILU
+#: factorisation is a host loop over rows (solvers/ilu.py)
+ILU_NY = 128
+ILU_CFG = CFG4.replace("out:max_iters=200", "out:max_iters=2000") \
+    .replace("MULTICOLOR_DILU", "MULTICOLOR_ILU")
+#: phase 28: the card against the CPU for each name of this slice, on
+#: the classical stack at FAMILY_CLA_SIDE³ (θ = 0.2401), the headline at
+#: FAMILY_AGG_SIDE³ and config 4's system on FAMILY_BLOCK_GRID
+FAMILY_CLA_SIDE = 24
+FAMILY_AGG_SIDE = 16
+FAMILY_BLOCK_GRID = (16, 16, 16)
 
 
 #: the script's start, for the elapsed seconds on every phase line
@@ -1513,6 +1571,291 @@ def nested_phase(amgx, dev, gen, smi) -> dict:
     return counts
 
 
+def amg_of(slv):
+    """The AMG preconditioner of a solver, or None."""
+    from amgx_tpu_torch.solvers.amg_solver import AMGSolver
+    pre = getattr(slv, "preconditioner", None)
+    return pre if isinstance(pre, AMGSolver) else None
+
+
+def family_solve(amgx, dev, smi, gen, label, cfg, matrix, relres_of,
+                 converge=True, window=None, **extra) -> dict:
+    """One stack of the solver family on the card through the public
+    API: setup, then a first solve with every count set to 0 just before
+    and read just after, a warm solve (equal iterations), the true relres
+    in f64 (``relres_of(x)``, limit 1e-8 where ``converge``), the AMG
+    graph (:func:`graph_check`: a replay bit-equal to an eager
+    application) and the busy share of a profiled warm solve — of its
+    first ``window`` iterations only where given (a profiled solve of
+    hundreds of iterations takes a minute).  Emits the phase line and
+    returns its counts."""
+    import torch
+    t0 = time.perf_counter()
+    slv = amgx.create_solver(cfg)
+    slv.setup(matrix)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    b = torch.ones(matrix.shape[0], dtype=torch.float64, device=dev)
+    reset_counts()
+    res = slv.solve(b)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    res2 = slv.solve(b)
+    assert res2.iterations == res.iterations, (label, res.iterations,
+                                               res2.iterations)
+    assert not any(counts["declines"].values()), (label, counts)
+    x = res.x
+    assert x.dtype == torch.float64 and x.device == dev
+    assert torch.isfinite(x).all().item(), label
+    relres = relres_of(x)
+    if converge:
+        assert res.status == amgx.SolveStatus.SUCCESS, (label, res.status)
+        assert relres <= 1e-8, (label, relres)
+    pre = amg_of(slv)
+    graph = graph_check(pre, dev, gen) if pre is not None else None
+    busy_wall = res2.solve_time
+    if window is not None:
+        slv.max_iters = window
+        busy_wall = slv.solve(b).solve_time
+    wall, dev_s, kern, top = profile_window(lambda: slv.solve(b))
+    emit(label, iterations=res.iterations, relres_f64=relres,
+         converged=res.status == amgx.SolveStatus.SUCCESS,
+         failure=None if res.failure is None else
+         [res.failure.kind.value, res.failure.iteration],
+         setup_s=setup_s, solve_s=res.solve_time,
+         solve_warm_s=res2.solve_time, counts=counts, amg_graph=graph,
+         device_busy_s=dev_s, device_kernels=kern,
+         busy_share_of_unprofiled=dev_s / busy_wall, top=top[:4],
+         profiled_iterations=window or res.iterations, card=smi, **extra)
+    del slv, res, res2
+    torch.cuda.empty_cache()
+    return counts
+
+
+def host_relres(A_host):
+    """relres_of for a host operator: ‖b − A·x‖/‖b‖ for b = 1, in f64 on
+    the host."""
+    def f(x):
+        xh = x.cpu().numpy()
+        return float(np.linalg.norm(1.0 - A_host @ xh)
+                     / np.sqrt(A_host.shape[0]))
+    return f
+
+
+def pack_relres(m):
+    """relres_of for a device-generated operator: the residual through
+    its pack widened to f64 (kernel B1), on the card."""
+    import torch
+    from amgx_tpu_torch.ops.spmv import spmv
+
+    def f(x):
+        Ad64 = m.device().astype(torch.float64)
+        b = torch.ones_like(x)
+        return (torch.linalg.vector_norm(b - spmv(Ad64, x))
+                / torch.linalg.vector_norm(b)).item()
+    return f
+
+
+def merge_counts(total: dict, counts: dict) -> None:
+    """Add one run's launches by kernel and type pair into ``total``."""
+    for k in ("B1", "B2", "B3", "B4", "B5"):
+        for pair, n in counts[k].items():
+            total.setdefault(k, {}).setdefault(pair, 0)
+            total[k][pair] += n
+
+
+def small_card_vs_cpu(amgx, label, cfg, make, rhs_n, block_dim=1):
+    """One small stack on the card and on the CPU (plain versions): equal
+    iterations and x within SMALL_X_RTOL.  ``make(where)`` returns the
+    uploaded matrix on ``where``."""
+    out = {}
+    for where in ("cuda", "cpu"):
+        m = make(where)
+        s_ = amgx.create_solver(cfg)
+        s_.setup(m)
+        rr = s_.solve(np.ones(rhs_n))
+        out[where] = (rr.iterations, rr.x.cpu().double(), rr.status)
+    (ig, xg, sg), (ic, xc, sc) = out["cuda"], out["cpu"]
+    x_diff = ((xg - xc).norm() / xc.norm()).item()
+    facts = dict(case=label, iterations_card=ig, iterations_cpu=ic,
+                 status_card=int(sg), status_cpu=int(sc),
+                 x_rel_diff_card_vs_cpu=x_diff,
+                 x_bit_equal=bool(np.array_equal(xg.numpy(), xc.numpy())),
+                 limit=SMALL_X_RTOL)
+    emit("family_card_vs_cpu", **facts)
+    assert ig == ic, facts
+    assert x_diff < SMALL_X_RTOL, facts
+    return facts
+
+
+def family_phases(amgx, dev, smi, gen) -> dict:
+    """Phases 24-28: the solver names of this slice on the card.  Returns
+    the kernels' launches summed over the full-width stacks of each phase
+    (``{phase: {kernel: {pair: n}}}``)."""
+    import torch
+    from amgx_tpu_torch.io import (dfg_cylinder_pressure, poisson7pt,
+                                   poisson7pt_device, spe10_block_system)
+    launches = {}
+
+    # ---- 24. the Krylov family and CF_JACOBI on the classical 128³
+    t_phase = time.perf_counter()
+    side = FAMILY_SIDE
+    Ahost = poisson7pt(side, side, side)
+    total = launches.setdefault("classical_family", {})
+    stacks = [(f"family_classical_{name}",
+               CFG_CLA.replace("solver(out)=PCG", f"solver(out)={name}"),
+               FAMILY_PACK.get(name, np.float32))
+              for name in FAMILY_KRYLOV]
+    stacks.append(("family_classical_CF_JACOBI",
+                   CFG_CLA.replace("JACOBI_L1", "CF_JACOBI"), np.float32))
+    stacks += [(f"family_classical_{name}_f32",
+                CFG_CLA.replace("solver(out)=PCG", f"solver(out)={name}"),
+                np.float32) for name in FAMILY_PACK]
+    for label, cfg, pdt in stacks:
+        m = amgx.Matrix(Ahost, device="cuda")
+        m.device_dtype = pdt
+        counts = family_solve(amgx, dev, smi, gen, label, cfg, m,
+                              host_relres(Ahost),
+                              converge=not label.endswith("_f32"),
+                              n=side ** 3, pack=np.dtype(pdt).name)
+        merge_counts(total, counts)
+        assert sum(counts["B1"].values()) > 0 and \
+            sum(counts["B3"].values()) > 0, (label, counts)
+        del m
+    del Ahost
+    emit("family_classical_phase", elapsed_phase_s=time.perf_counter()
+         - t_phase)
+
+    # ---- 25. Chebyshev on the headline 128³
+    t_phase = time.perf_counter()
+    total = launches.setdefault("chebyshev", {})
+    A = poisson7pt_device(side, side, side, device_dtype=np.float32,
+                          device="cuda")
+    counts = family_solve(
+        amgx, dev, smi, gen, "family_headline_CHEBYSHEV_POLY",
+        HEADLINE_CFG.replace("BLOCK_JACOBI", "CHEBYSHEV_POLY"), A,
+        pack_relres(A), n=side ** 3)
+    merge_counts(total, counts)
+    assert counts["B1"]["f32.f32"] > 0, counts
+    counts = family_solve(
+        amgx, dev, smi, gen, "family_CHEBYSHEV_noprec",
+        CHEB_NOPREC_CFG.format(it=CHEB_ITERS), A, pack_relres(A),
+        converge=False, n=side ** 3, budget=CHEB_ITERS)
+    merge_counts(total, counts)
+    del A
+    emit("family_chebyshev_phase", elapsed_phase_s=time.perf_counter()
+         - t_phase)
+
+    # ---- 26. config 4's full SPE10 system, uploaded once
+    t_phase = time.perf_counter()
+    total = launches.setdefault("config4_family", {})
+    A4 = spe10_block_system(*FAMILY_C4_GRID)
+    m = amgx.Matrix(A4, block_dim=4, device="cuda")
+    m.device_dtype = np.float32
+    for label, cfg in (("family_config4_IDR_DILU", IDR_DILU_CFG),
+                       ("family_config4_PBICGSTAB_MCGS", MCGS_CFG)):
+        counts = family_solve(amgx, dev, smi, gen, label, cfg, m,
+                              host_relres(A4), n=A4.shape[0])
+        merge_counts(total, counts)
+        assert counts["dispatch"].get("ell/binned-block", 0) > 0, counts
+        assert counts["B5"]["f32.f32"] > 0, (label, counts)
+    del m, A4
+    torch.cuda.empty_cache()
+    emit("family_config4_phase", elapsed_phase_s=time.perf_counter()
+         - t_phase)
+
+    # ---- 27. MULTICOLOR_ILU on the DFG operator at ILU_NY (reduced)
+    t_phase = time.perf_counter()
+    total = launches.setdefault("dfg_ilu", {})
+    Ad = dfg_cylinder_pressure(ILU_NY)
+    m = amgx.Matrix(Ad, device="cuda")
+    m.device_dtype = np.float32
+    counts = family_solve(
+        amgx, dev, smi, gen, "family_dfg_PBICGSTAB_ILU0", ILU_CFG, m,
+        host_relres(Ad), window=50, ny=ILU_NY, rows=Ad.shape[0],
+        reduced="ny = 128, not 512: the ILU factorisation is the JAX "
+        "package's host loop over rows, minutes at 1.39 M rows")
+    merge_counts(total, counts)
+    del m
+    emit("family_ilu_phase", elapsed_phase_s=time.perf_counter() - t_phase)
+
+    # ---- 28. the card against the CPU, every name of this slice
+    family_small_checks(amgx)
+    return launches
+
+
+def family_small_checks(amgx) -> None:
+    """Phase 28: each solver name of this slice on a small system on the
+    card against the same stack on the CPU (:func:`small_card_vs_cpu`)."""
+    from amgx_tpu_torch.io import (dfg_cylinder_pressure, poisson7pt,
+                                   poisson7pt_device, spe10_block_system)
+    t_phase = time.perf_counter()
+    cla = FAMILY_CLA_SIDE
+    A_cla = poisson7pt(cla, cla, cla)
+
+    def host_matrix(A_host, b=1):
+        def make(where):
+            m_ = amgx.Matrix(A_host, block_dim=b, device=where)
+            m_.device_dtype = np.float32
+            return m_
+        return make
+
+    def gen_matrix(where):
+        return poisson7pt_device(FAMILY_AGG_SIDE, FAMILY_AGG_SIDE,
+                                 FAMILY_AGG_SIDE, device_dtype=np.float32,
+                                 device=where)
+
+    cla_cfg = CFG_CLA + ", amg:strength_threshold=0.2401"
+    checks = [(f"classical_{name}",
+               cla_cfg.replace("solver(out)=PCG", f"solver(out)={name}"))
+              for name in FAMILY_KRYLOV]
+    checks += [("classical_PCG_krylov_comm_CA",
+                cla_cfg + ", out:krylov_comm=CA"),
+               ("classical_PCG_krylov_comm_PIPELINED",
+                cla_cfg + ", out:krylov_comm=PIPELINED"),
+               ("classical_CF_JACOBI",
+                cla_cfg.replace("JACOBI_L1", "CF_JACOBI")),
+               # PCGF: CG whose inner products are ordered (the plain
+               # CG loop's f32 dots sum in each device's own order)
+               ("PCGF_NOSOLVER",
+                CFG_CLA.split(", out:preconditioner")[0].replace(
+                    "out:max_iters=100", "out:max_iters=200").replace(
+                    "solver(out)=PCG", "solver(out)=PCGF")
+                + ", out:preconditioner(p)=NOSOLVER")]
+    small = []
+    for label, cfg in checks:
+        small.append(small_card_vs_cpu(amgx, label, cfg,
+                                       host_matrix(A_cla), cla ** 3))
+    n_agg = FAMILY_AGG_SIDE ** 3
+    for sm in ("CHEBYSHEV_POLY", "POLYNOMIAL", "KPZ_POLYNOMIAL",
+               "CHEBYSHEV", "MULTICOLOR_GS", "GS", "FIXCOLOR_GS",
+               "KACZMARZ", "MULTICOLOR_ILU"):
+        small.append(small_card_vs_cpu(
+            amgx, f"headline_{sm}", HEADLINE_CFG.replace("BLOCK_JACOBI",
+                                                          sm),
+            gen_matrix, n_agg))
+    small.append(small_card_vs_cpu(
+        amgx, "CHEBYSHEV_noprec", CHEB_NOPREC_CFG.format(it=60),
+        gen_matrix, n_agg))
+    A_blk = spe10_block_system(*FAMILY_BLOCK_GRID)
+    for label, cfg in (
+            ("config4_IDR_DILU", IDR_DILU_CFG),
+            ("config4_IDRMSYNC_DILU", IDR_DILU_CFG.replace(
+                "solver(out)=IDR", "solver(out)=IDRMSYNC")),
+            ("config4_PBICGSTAB_MCGS", MCGS_CFG),
+            ("config4_PBICGSTAB_KACZMARZ", CFG4.replace(
+                "MULTICOLOR_DILU", "KACZMARZ"))):
+        small.append(small_card_vs_cpu(amgx, label, cfg,
+                                       host_matrix(A_blk, 4),
+                                       A_blk.shape[0]))
+    A_ilu = dfg_cylinder_pressure(32)
+    small.append(small_card_vs_cpu(amgx, "dfg32_PBICGSTAB_ILU0", ILU_CFG,
+                                   host_matrix(A_ilu), A_ilu.shape[0]))
+    emit("family_card_vs_cpu_phase", checks=len(small),
+         x_bit_equal=sum(f["x_bit_equal"] for f in small),
+         elapsed_phase_s=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1910,7 +2253,10 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     # ---- 19.-23. the DFG cylinder path (aggregation AMG, B2)
     dfg = dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs)
 
-    # ---- the kernels of the three paths
+    # ---- 24.-28. the solver names of this slice
+    fam = family_phases(amgx, dev, smi, gen)
+
+    # ---- the kernels of the paths
     kernels = []
     for key in ("f32.f32", "f64.f64"):
         v, xx = key.split(".")
@@ -1952,6 +2298,17 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
         library_ms=ell_timing[key]["library_ms"]))
     kernels.extend(c4["kernels"])
     kernels.extend(dfg["kernels"])
+    # the launches of phases 24-27's full-width stacks, by kernel
+    for entry in kernels:
+        kern = {"dia_spmv": "B1", "ell_spmv": "B3", "shift_spmv": "B2",
+                "binned_spmv_B5": "B5", "binned_spmv_B4": "B4"}[
+                    entry["name"].split("<")[0]]
+        pair = ".".join(entry["name"].split("<")[1].rstrip(">")
+                        .split(",")[:2])
+        for path, tot in fam.items():
+            n_ = tot.get(kern, {}).get(pair, 0)
+            entry["launches_by_path"][f"family_{path}"] = n_
+            entry["launches"] += n_
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

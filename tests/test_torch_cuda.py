@@ -576,3 +576,119 @@ def test_nested_amg_solve_on_card_matches_cpu(card):
     assert out["cuda"][0] == out["cpu"][0] == 16, (out["cuda"][0],
                                                    out["cpu"][0])
     assert torch.equal(out["cuda"][1], out["cpu"][1])
+
+
+def _family_checks():
+    """One small stack per solver name of the solver-family slice (the
+    shapes of chip_smoke phase 28, smaller): (cfg, make(where), n)."""
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.io import (dfg_cylinder_pressure, poisson7pt,
+                                   poisson7pt_device, spe10_block_system)
+    from chip_smoke import (CFG4, CFG_CLA, CHEB_NOPREC_CFG, HEADLINE_CFG,
+                            IDR_DILU_CFG, ILU_CFG, MCGS_CFG)
+
+    def host(A, b=1):
+        def make(where):
+            m = amgx.Matrix(A, block_dim=b, device=where)
+            m.device_dtype = np.float32
+            return m
+        return make, A.shape[0]
+
+    def gen(where):
+        return poisson7pt_device(12, 12, 12, device_dtype=np.float32,
+                                 device=where)
+
+    cla = CFG_CLA + ", amg:strength_threshold=0.2401"
+    out = {}
+    for name in ("GMRES", "PCGF", "PCG_CA", "PCG_PIPE"):
+        out[name] = (cla.replace("solver(out)=PCG", f"solver(out)={name}"),
+                     lambda: host(poisson7pt(16, 16, 16)))
+    for mode in ("CA", "PIPELINED"):
+        out[f"PCG-{mode}"] = (cla + f", out:krylov_comm={mode}",
+                              lambda: host(poisson7pt(16, 16, 16)))
+    out["CF_JACOBI"] = (cla.replace("JACOBI_L1", "CF_JACOBI"),
+                        lambda: host(poisson7pt(16, 16, 16)))
+    for sm in ("CHEBYSHEV_POLY", "POLYNOMIAL", "KPZ_POLYNOMIAL",
+               "CHEBYSHEV", "MULTICOLOR_GS", "GS", "FIXCOLOR_GS",
+               "KACZMARZ", "MULTICOLOR_ILU"):
+        out[sm] = (HEADLINE_CFG.replace("BLOCK_JACOBI", sm),
+                   lambda: (gen, 12 ** 3))
+    # PCGF: CG whose inner products are ordered on both devices
+    out["NOSOLVER"] = (
+        CFG_CLA.split(", out:preconditioner")[0].replace(
+            "solver(out)=PCG", "solver(out)=PCGF")
+        + ", out:preconditioner(p)=NOSOLVER",
+        lambda: host(poisson7pt(16, 16, 16)))
+    out["NOSOLVER-smoother"] = (HEADLINE_CFG.replace("BLOCK_JACOBI",
+                                                     "NOSOLVER"),
+                                lambda: (gen, 12 ** 3))
+    out["CHEBYSHEV-noprec"] = (CHEB_NOPREC_CFG.format(it=40),
+                               lambda: (gen, 12 ** 3))
+    blk = lambda: host(spe10_block_system(8, 8, 8), 4)
+    out["IDR"] = (IDR_DILU_CFG, blk)
+    out["IDRMSYNC"] = (IDR_DILU_CFG.replace("=IDR", "=IDRMSYNC"), blk)
+    out["MULTICOLOR_GS-block"] = (MCGS_CFG, blk)
+    out["KACZMARZ-block"] = (CFG4.replace("MULTICOLOR_DILU", "KACZMARZ"),
+                             blk)
+    out["MULTICOLOR_ILU-dfg"] = (ILU_CFG,
+                                 lambda: host(dfg_cylinder_pressure(16)))
+    return out
+
+
+FAMILY_CASES = ["CF_JACOBI", "CHEBYSHEV", "CHEBYSHEV-noprec",
+                "CHEBYSHEV_POLY", "FIXCOLOR_GS", "GMRES", "GS", "IDR",
+                "IDRMSYNC", "KACZMARZ", "KACZMARZ-block", "KPZ_POLYNOMIAL",
+                "MULTICOLOR_GS", "MULTICOLOR_GS-block", "MULTICOLOR_ILU",
+                "MULTICOLOR_ILU-dfg", "NOSOLVER", "PCG-CA", "PCG-PIPELINED",
+                "PCGF", "PCG_CA", "PCG_PIPE", "POLYNOMIAL"]
+
+
+@pytest.mark.parametrize("case", FAMILY_CASES)
+def test_family_solve_on_card_matches_cpu(card, case):
+    """Each solver name of the solver-family slice on the card against
+    the same stack on the CPU (f32 pack, f64 refinement): equal
+    iterations, x within chip_smoke.SMALL_X_RTOL."""
+    import amgx_tpu_torch as amgx
+    from chip_smoke import small_card_vs_cpu
+    cfg, mk = _family_checks()[case]
+    make, n = mk()
+    small_card_vs_cpu(amgx, case, cfg, make, n)
+
+
+FAMILY_GRAPH_SMOOTHERS = ["CHEBYSHEV", "CHEBYSHEV_POLY", "CF_JACOBI",
+                          "FIXCOLOR_GS", "GS", "KACZMARZ", "KPZ_POLYNOMIAL",
+                          "MULTICOLOR_GS", "MULTICOLOR_ILU", "NOSOLVER",
+                          "POLYNOMIAL"]
+
+
+@pytest.mark.parametrize("sm", FAMILY_GRAPH_SMOOTHERS)
+def test_family_smoother_graph_replay_equals_eager(card, sm):
+    """An AMG application with one of the slice's smoothers, replayed from
+    its CUDA graph, is torch.equal to an eager application, and credits
+    the eager application's launches."""
+    from amgx_tpu_torch.utils import cuda_graph as cg
+    cfg, mk = _family_checks()["NOSOLVER-smoother" if sm == "NOSOLVER"
+                               else sm]
+    make, n = mk()
+    import amgx_tpu_torch as amgx
+    slv = amgx.create_solver(cfg)
+    slv.setup(make(card))
+    pre = slv.preconditioner
+    g = torch.Generator(device=card).manual_seed(1)
+    r = torch.randn(n, dtype=torch.float64, device=card,
+                    generator=g).to(torch.float32)
+    first = pre.apply(r)
+    assert len(pre.graphs) == 1
+
+    def counted(fn):
+        for c in cg.counters():
+            for k in c:
+                c[k] = 0
+        z = fn(r)
+        torch.cuda.synchronize(card)
+        return z, cg.snapshot()
+
+    z, cnt_g = counted(pre.apply)
+    eager, cnt_e = counted(pre._apply_eager)
+    assert torch.equal(z, eager) and torch.equal(first, eager)
+    assert cnt_g == cnt_e

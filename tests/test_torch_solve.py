@@ -148,14 +148,14 @@ def test_interop_matrix_solves():
 
 
 @pytest.mark.parametrize("cfg", [
-    CFG + ", out:krylov_comm=CA",
+    CFG + ", out:matrix_reorder=RCM",
     CFG + ", telemetry=1",
     CFG + ", out:scaling=DIAGONAL_SYMMETRIC",
     CFG + ", amg:structure_reuse_levels=1",
     CFG.replace("amg:algorithm=AGGREGATION", "amg:algorithm=CLASSICAL"),
     CFG.replace("amg:algorithm=AGGREGATION, amg:selector=GEO",
                 "amg:algorithm=CLASSICAL, amg:selector=HMIS"),
-    CFG.replace("solver(out)=FGMRES", "solver(out)=GMRES"),
+    CFG + ", amg:error_scaling=2",
 ])
 def test_later_slice_features_raise(cfg):
     """Features of later slices raise instead of silently taking another
