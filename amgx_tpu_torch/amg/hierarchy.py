@@ -27,6 +27,19 @@ scalar aggregation and the serial classical parts of
   and an :class:`~.level.AggregationLevel` per level.  GEO without a
   DIA plan and without attached coordinates becomes SIZE_2, as
   upstream.
+
+Values-only resetup (``structure_reuse_levels`` ≠ 0; reference
+``amg.cu:260-290``): each level records its coarsening decision in
+``_structure`` — ``("structured", (dims,))``, ``("pairwise", (n,))``,
+``("aggregation", (aggregates, nc))`` or ``("classical", (P,))`` — and a
+later setup of the same hierarchy object keeps them and refreshes the
+values: the DIA plan re-derived on the device (``"dia_device"``), the
+classical Galerkin products refreshed on the device from schedules built
+at setup (:mod:`.classical.resetup_device`, ``"classical_device"``), or
+each level's Galerkin product replayed on the host (``"host_replay"``);
+``last_resetup`` names the path taken (``"fresh"`` for a full setup).
+A reuse-configured classical setup runs the host loop: the device
+pipeline builds levels no plan could refresh.
 """
 from __future__ import annotations
 
@@ -42,7 +55,8 @@ from ..config import AMGConfig
 from ..core.matrix import ComposedDIA, Matrix, dia_device_matrix
 from ..core.precision import compute_dtype
 from ..device import host_scalar
-from ..errors import NotImplementedError_
+from ..errors import BadConfigurationError, NotImplementedError_
+from ..ops.spgemm import pad_to_symbolic
 from ..solvers.base import SolverFactory
 from .dia_device import derive_hierarchy_device, plan_dia_hierarchy
 from .level import (AggregationLevel, AMGLevel, ClassicalLevel,
@@ -52,8 +66,7 @@ from .structured import (decompose_offsets, infer_grid_dims,
 
 #: knobs of the AMG scope whose non-default values select a feature of
 #: a later slice of the port
-_LATER_SLICE = (("structure_reuse_levels", 0), ("amg_host_levels_rows", -1),
-                ("error_scaling", 0))
+_LATER_SLICE = (("amg_host_levels_rows", -1), ("error_scaling", 0))
 
 
 #: THE PMIS tie-break seed of the device classical paths
@@ -84,6 +97,16 @@ def _drop_zero_diagonals(offs, vals: np.ndarray):
     return [offs[int(k)] for k in keep], vals[keep], keep
 
 
+def _no_dia_structure():
+    """The error of a structure-reuse refresh whose matrix no longer has
+    the recorded DIA structure (a block or rectangular matrix handed to
+    resetup)."""
+    return BadConfigurationError(
+        "resetup: recorded hierarchy structure is DIA-based but the "
+        "refreshed matrix has no diagonal decomposition — call setup() "
+        "for a structural rebuild")
+
+
 def _kept_rows(vals: torch.Tensor, keep) -> torch.Tensor:
     """The rows ``keep`` of a device DIA ``vals`` (all when None)."""
     if keep is None:
@@ -112,19 +135,50 @@ class AMGHierarchy:
         self.coarsest_sweeps = int(g("coarsest_sweeps"))
         self.cycle_iters = int(g("cycle_iters"))
         self.aggressive_levels = int(g("aggressive_levels"))
+        self.structure_reuse_levels = int(g("structure_reuse_levels"))
         self.levels: List[AMGLevel] = []
         self.coarsest: Optional[Matrix] = None
         self.coarse_solver = None
         self.coarse_solver_is_smoother = False
+        #: the coarsening decisions of the levels, for structure reuse
+        self._structure: Optional[list] = None
+        #: the device refresh schedules of a classical hierarchy
+        self._cla_plans: Optional[dict] = None
+        #: how the last setup built the levels: "fresh", "dia_device",
+        #: "classical_device" or "host_replay"
+        self.last_resetup: Optional[str] = None
 
     # ------------------------------------------------------------------ setup
     def setup(self, A: Matrix):
+        """A full setup; on a hierarchy already set up and configured with
+        ``structure_reuse_levels`` ≠ 0, a values-only refresh of the
+        recorded structure (``amg.cu:260-290``)."""
         t0 = time.perf_counter()
-        self.levels = []
-        cur = self._build_levels(A)
-        self._setup_smoothers_and_coarse(cur)
+        reuse = self._structure is not None and \
+            self.structure_reuse_levels != 0
+        try:
+            if reuse:
+                self._setup_reuse(A)
+            else:
+                self._setup_fresh(A)
+        except BaseException:
+            # a partial structure must never feed a later reuse pass
+            self._structure = None
+            self._cla_plans = None
+            self.levels = []
+            raise
         self.setup_time = time.perf_counter() - t0
         return self
+
+    def _setup_fresh(self, A: Matrix):
+        self.levels = []
+        self._structure = []
+        self._cla_plans = None
+        cur = self._build_levels(A)
+        self._setup_smoothers_and_coarse(cur)
+        if self.structure_reuse_levels != 0:
+            self._build_classical_plans(A, cur)
+        self.last_resetup = "fresh"
 
     def _build_levels(self, cur: Matrix) -> Matrix:
         """The coarsening loop from ``cur``; returns the coarsest matrix
@@ -139,7 +193,7 @@ class AMGHierarchy:
             if len(self.levels) + 1 >= self.max_levels or \
                     n <= self.min_coarse_rows:
                 break
-            level, Ac = self._coarsen_once(cur, len(self.levels))
+            level, Ac, struct = self._coarsen_once(cur, len(self.levels))
             if level is None:
                 break
             nc = Ac.n_block_rows
@@ -148,6 +202,7 @@ class AMGHierarchy:
             if nc >= self.coarsen_threshold * n or nc >= n or nc == 0:
                 break
             self.levels.append(level)
+            self._structure.append(struct)
             cur = Ac
         return cur
 
@@ -155,7 +210,7 @@ class AMGHierarchy:
         """(offsets, host vals or None, dims or None, keep) of a
         DIA-eligible matrix — the structured-vs-pairwise gate; None when
         ``cur`` has no DIA decomposition."""
-        if cur.n_block_rows < 2:
+        if cur.block_dim != 1 or cur.n_block_rows < 2:
             return None
         n = cur.n_block_rows
         hint = getattr(cur, "_dia_offsets_hint", None)
@@ -219,14 +274,225 @@ class AMGHierarchy:
             idx = len(self.levels)
             if st.kind == "structured":
                 level = StructuredLevel(cur, idx, st.dims, st.cdims)
+                struct = ("structured", (st.dims,))
             else:
                 level = PairwiseLevel(cur, idx, st.n)
+                struct = ("pairwise", (st.n,))
             Ac = Matrix.from_dia_device(st.c_offsets, vals_c, diag_c, dinv_c)
             if st.kind == "structured":
                 Ac.grid_dims = st.cdims
             self.levels.append(level)
+            self._structure.append(struct)
             cur = Ac
         return cur
+
+    # ------------------------------------------------- structure reuse
+    def _setup_reuse(self, A: Matrix):
+        """Keep the recorded coarsening structure and refresh the values
+        (``structure_reuse_levels`` levels reuse it; the rest of the
+        hierarchy is coarsened fresh from the last reused level,
+        ``amg.cu:260-290``)."""
+        cur = A
+        old = list(zip(self.levels, self._structure))
+        self.levels = []
+        self._structure = []
+        if self._reuse_classical_device(cur, old):
+            self.last_resetup = "classical_device"
+            return
+        consumed, cur = self._reuse_dia_device(cur, old)
+        replayed = False
+        for i, (level, struct) in enumerate(old):
+            if i < consumed:
+                continue
+            if 0 < self.structure_reuse_levels <= i:
+                break
+            kind, data = struct
+            if kind == "aggregation":
+                if cur.block_dim != 1:
+                    raise NotImplementedError_(
+                        "resetup of aggregation AMG on block systems is a "
+                        "later slice of the port (ROADMAP A5)")
+                from .aggregation.galerkin import galerkin_coarse_scalar
+                agg, nc = data
+                Asc = cur.scalar_csr()
+                Ac_host = galerkin_coarse_scalar(Asc, agg).astype(Asc.dtype)
+                lvl = AggregationLevel(cur, i, agg, nc)
+                nxt = _child_matrix(cur, Ac_host)
+            elif kind == "classical":
+                P_host, = data
+                R_host = sp.csr_matrix(P_host.T)
+                Asc = cur.scalar_csr()
+                # classical keeps the full symbolic pattern, so recorded
+                # device plans stay applicable
+                Ac_host = self._galerkin_classical(
+                    Asc, R_host, P_host,
+                    keep_pattern=self.algorithm == "CLASSICAL")
+                lvl = ClassicalLevel(cur, i, _child_matrix(cur, P_host),
+                                     _child_matrix(cur, R_host),
+                                     getattr(level, "cf_map", None))
+                nxt = _child_matrix(cur, Ac_host)
+            else:
+                self._dia_level_unreusable(cur, kind, data)
+            replayed = True
+            self.levels.append(lvl)
+            self._structure.append(struct)
+            cur = nxt
+        # the levels past the reused prefix are coarsened fresh
+        cur = self._build_levels(cur)
+        self._setup_smoothers_and_coarse(cur)
+        plans = self._cla_plans
+        if plans is not None and (
+                len(self._structure) != len(plans["levels"])
+                or any(s[0] != "classical" for s in self._structure)):
+            self._cla_plans = None
+        self.last_resetup = "host_replay" if replayed else \
+            "dia_device" if consumed else "fresh"
+
+    def _dia_level_unreusable(self, cur: Matrix, kind: str, data):
+        """A structured or pairwise level the device refresh did not
+        consume: the reason, raised."""
+        inputs = self._dia_plan_inputs(cur)
+        if inputs is None:
+            raise _no_dia_structure()
+        offs, vals, _, _ = inputs
+        if kind == "structured":
+            dims = tuple(data[0])
+            offs3 = decompose_offsets(offs, dims)
+            if offs3 is None or (vals is not None and
+                                 not stencil_values_consistent(offs3, vals,
+                                                               dims)):
+                # a value-only refresh can light up a diagonal that was
+                # all-zero at setup, which the recorded decode never saw
+                raise BadConfigurationError(
+                    "resetup: refreshed values no longer admit the "
+                    "recorded structured stencil (a diagonal that was "
+                    "all-zero at setup became coupled) — call setup() for "
+                    "a structural rebuild")
+        raise NotImplementedError_(
+            f"resetup of a {kind} level the device refresh cannot derive "
+            "needs the host structured/pairwise numeric step, a later "
+            "slice of the port (ROADMAP A6)")
+
+    def _reuse_dia_device(self, cur: Matrix, old) -> tuple:
+        """Refresh a reused structured/pairwise prefix on the device: the
+        plan is made again from the refreshed fine values, and the
+        longest prefix that matches the recorded structure is derived in
+        one pass (:func:`~.dia_device.derive_hierarchy_device`).  Returns
+        (levels consumed, coarsest matrix); (0, cur) leaves every level
+        to the per-level replay."""
+        prefix = []
+        for i, (_, struct) in enumerate(old):
+            if 0 < self.structure_reuse_levels <= i or \
+                    struct[0] not in ("structured", "pairwise"):
+                break
+            prefix.append(struct)
+        if not prefix or self.algorithm != "AGGREGATION" or \
+                self.selector not in ("GEO", "PAIRWISE"):
+            return 0, cur
+        inputs = self._dia_plan_inputs(cur)
+        if inputs is None:
+            return 0, cur
+        offs, _, dims, keep = inputs
+        steps, _ = plan_dia_hierarchy(
+            offs, cur.n_block_rows, dims, self.max_levels,
+            self.min_coarse_rows, self.coarsen_threshold)
+        matched = 0
+        for st, (kind, data) in zip(steps, prefix):
+            if st.kind != kind or \
+                    (kind == "structured" and st.dims != tuple(data[0])) \
+                    or (kind == "pairwise" and st.n != data[0]):
+                break
+            matched += 1
+        curd = cur.device()
+        if matched == 0 or curd.fmt != "dia":
+            return 0, cur
+        steps = steps[:matched]
+        outs = derive_hierarchy_device(steps, offs,
+                                       _kept_rows(curd.vals, keep))
+        return matched, self._append_dia_levels(cur, steps, outs)
+
+    def _build_classical_plans(self, A: Matrix, coarsest: Matrix):
+        """The device refresh schedules of a classical hierarchy
+        (:mod:`.classical.resetup_device`), built only when structure
+        reuse is configured, so a later resetup refreshes every Galerkin
+        product on the device (``csr_multiply.h:100-126``)."""
+        if not self.levels or \
+                not all(s[0] == "classical" for s in self._structure):
+            return
+        if 0 < self.structure_reuse_levels < len(self.levels):
+            # partial reuse coarsens a suffix fresh: no plan would serve
+            return
+        Ad = A.device()
+        if Ad.fmt != "dia" or Ad.block_dim != 1:
+            return
+        from .classical.resetup_device import (build_level_plan,
+                                               fine_dia_to_csr_map)
+        fine_csr = A.scalar_csr()
+        try:
+            fine_map = fine_dia_to_csr_map(fine_csr, Ad.dia_offsets)
+        except ValueError:
+            return
+        plans = []
+        cur_csr = fine_csr
+        for i, (_, (P_host,)) in enumerate(self._structure):
+            nxt = self.levels[i + 1].A if i + 1 < len(self.levels) \
+                else coarsest
+            Ac_csr = sp.csr_matrix(nxt.host)
+            plan = build_level_plan(cur_csr, P_host, Ac_csr,
+                                    template=nxt.device())
+            if plan is None:
+                return
+            plans.append(plan)
+            cur_csr = Ac_csr
+        # the DIA slots the recorded CSR pattern maps: a resetup value
+        # outside them takes the host replay (no schedule carries it)
+        mask = np.zeros(len(Ad.dia_offsets) * A.n_block_rows, dtype=bool)
+        mask[fine_map] = True
+        self._cla_plans = dict(levels=plans,
+                               fine_offsets=tuple(Ad.dia_offsets),
+                               fine_n=A.n_block_rows, fine_map=fine_map,
+                               fine_map_dev=None, fine_mask=mask)
+
+    def _reuse_classical_device(self, cur: Matrix, old) -> bool:
+        """Values-only refresh of a fully reused classical hierarchy on
+        the device: two ordered segment sums per level, no host Galerkin
+        product.  False sends the resetup down the host replay (partial
+        reuse, other offsets or size, a value outside the recorded
+        pattern, no plans)."""
+        plans = self._cla_plans
+        if not plans or len(plans["levels"]) != len(old):
+            return False
+        if 0 < self.structure_reuse_levels < len(old) or \
+                any(struct[0] != "classical" for _, struct in old):
+            return False
+        curd = cur.device()
+        if curd.fmt != "dia" or curd.block_dim != 1 or \
+                tuple(curd.dia_offsets) != plans["fine_offsets"] or \
+                cur.n_block_rows != plans["fine_n"]:
+            return False
+        arrs = cur.dia_cache()
+        if arrs is None or tuple(arrs[0]) != plans["fine_offsets"] or \
+                np.any(arrs[1].reshape(-1)[~plans["fine_mask"]]):
+            # a value lit up a slot the recorded pattern never mapped:
+            # the host replay recomputes the patterns
+            return False
+        from .classical.resetup_device import (assemble_refreshed_matrix,
+                                               refresh_level)
+        if plans["fine_map_dev"] is None or \
+                plans["fine_map_dev"].device != curd.vals.device:
+            plans["fine_map_dev"] = torch.from_numpy(
+                plans["fine_map"]).to(curd.vals.device)
+        vA = curd.vals.reshape(-1)[plans["fine_map_dev"]]
+        for i, (level, struct) in enumerate(old):
+            plan = plans["levels"][i]
+            vAc, fields = refresh_level(plan, vA)
+            nxt = assemble_refreshed_matrix(plan, vAc, fields)
+            self.levels.append(ClassicalLevel(cur, i, level._P, level._R,
+                                              level.cf_map))
+            self._structure.append(struct)
+            cur, vA = nxt, vAc
+        self._setup_smoothers_and_coarse(cur)
+        return True
 
     # ------------------------------------------ classical: device pipeline
     _PIPELINE_TAIL_ROWS = 4096
@@ -280,7 +546,9 @@ class AMGHierarchy:
         ``(offsets, dvals)`` inputs or None (host path)."""
         if os.environ.get("AMGX_NO_DEVICE_PIPELINE") == "1":
             return None
-        if self.aggressive_levels:
+        if self.structure_reuse_levels != 0 or self.aggressive_levels:
+            # a reuse-configured setup takes the host loop, whose levels
+            # the resetup plans can refresh
             return None
         if len(self.levels) + 1 >= self.max_levels or \
                 cur.n_block_rows <= max(self.min_coarse_rows,
@@ -334,6 +602,7 @@ class AMGHierarchy:
         R0 = dia_device_matrix(r_offs, torch.flip(res.R_rows, [0]),
                                res.P_rows[h0], n_cols=n)
         lvl0 = ClassicalLevel(cur, len(self.levels), P0, R0, None)
+        self._structure.append(("classical-device", ()))
         nnz1 = int(host_scalar(torch.count_nonzero(res.A_vals)))
         # the solve applies level 1 as the Galerkin composition
         # R·(A·(P·x)): three DIA streams instead of one low-fill embedded
@@ -383,6 +652,7 @@ class AMGHierarchy:
             Rd = device_ell_matrix(rc_src, out.R_vals, out.ncb2,
                                    p_rows_space, square_diag=False)
             lvl = ClassicalLevel(cur_m, len(self.levels), Pd, Rd, None)
+            self._structure.append(("classical-device", ()))
             Acd = device_ell_matrix(out.Ac_cols, out.Ac_vals, out.ncb2,
                                     out.ncb2)
             nxt = Matrix.from_device_pack(
@@ -398,6 +668,7 @@ class AMGHierarchy:
             # fine level): a host continuation would need the embedded
             # matrix — unwind and let the host loop redo the setup
             self.levels.pop()
+            self._structure.pop()
             return None
         # ---- tail: the small padded matrix goes to the host loop
         cur_m._host = self._compact_to_host(cols, vals)
@@ -440,14 +711,16 @@ class AMGHierarchy:
             p["max_elements"], _TIEBREAK_SEED)
         nc = int(cf_map.sum())
         if nc == 0 or nc >= cur.n_block_rows:
-            return None, None
+            return None, None, None
         Asc = cur.scalar_csr()
         P_host = P_host.astype(Asc.dtype)
         R_host = sp.csr_matrix(P_host.T)
-        Ac_host = self._galerkin_classical(Asc, R_host, P_host)
+        Ac_host = self._galerkin_classical(
+            Asc, R_host, P_host,
+            keep_pattern=self.structure_reuse_levels != 0)
         level = ClassicalLevel(cur, idx, _child_matrix(cur, P_host),
                                _child_matrix(cur, R_host), cf_map)
-        return level, _child_matrix(cur, Ac_host)
+        return level, _child_matrix(cur, Ac_host), ("classical", (P_host,))
 
     def _coarsen_aggregation(self, cur: Matrix, idx: int):
         """One aggregation step of the host loop (``_coarsen_once``
@@ -475,14 +748,15 @@ class AMGHierarchy:
         agg = create_selector(name, self.cfg, self.scope).select(Asc)
         nc = int(agg.max()) + 1 if len(agg) else 0
         if nc == 0:
-            return None, None
+            return None, None, None
         Ac_host = galerkin_coarse_scalar(Asc, agg).astype(Asc.dtype)
         return (AggregationLevel(cur, idx, agg, nc),
-                _child_matrix(cur, Ac_host))
+                _child_matrix(cur, Ac_host), ("aggregation", (agg, nc)))
 
     def _coarsen_once(self, cur: Matrix, idx: int):
-        """One host-loop coarsening step: ``(level, coarse matrix)``, or
-        ``(None, None)`` when the coarse grid degenerates."""
+        """One host-loop coarsening step: ``(level, coarse matrix, its
+        structure record)``, or ``(None, None, None)`` when the coarse
+        grid degenerates."""
         if self.algorithm == "AGGREGATION":
             return self._coarsen_aggregation(cur, idx)
         if self.algorithm != "CLASSICAL":
@@ -508,20 +782,28 @@ class AMGHierarchy:
             .select(S)
         nc = int(cf_map.sum())
         if nc == 0 or nc >= Asc.shape[0]:
-            return None, None
+            return None, None, None
         interp = create_interpolator(interp_name, self.cfg, self.scope)
         P_host = interp.compute(Asc, S, cf_map).astype(Asc.dtype)
         R_host = sp.csr_matrix(P_host.T)
-        Ac_host = self._galerkin_classical(Asc, R_host, P_host)
+        Ac_host = self._galerkin_classical(
+            Asc, R_host, P_host,
+            keep_pattern=self.structure_reuse_levels != 0)
         level = ClassicalLevel(cur, idx, _child_matrix(cur, P_host),
                                _child_matrix(cur, R_host), cf_map)
-        return level, _child_matrix(cur, Ac_host)
+        return level, _child_matrix(cur, Ac_host), ("classical", (P_host,))
 
     @staticmethod
-    def _galerkin_classical(Asc, R_host, P_host) -> sp.csr_matrix:
+    def _galerkin_classical(Asc, R_host, P_host,
+                            keep_pattern: bool = False) -> sp.csr_matrix:
         """Galerkin RAP of one host level: the scipy triple product (the
-        device setup engine of the JAX package is a later slice)."""
-        Ac = sp.csr_matrix(R_host @ Asc @ P_host).astype(Asc.dtype)
+        device setup engine of the JAX package is a later slice).
+        ``keep_pattern`` returns it on its full symbolic pattern (the
+        frozen structure a values-only resetup refreshes)."""
+        Ac = sp.csr_matrix(R_host @ Asc @ P_host)
+        if keep_pattern:
+            Ac = pad_to_symbolic(Ac, Asc, P_host)
+        Ac = Ac.astype(Asc.dtype)
         Ac.sum_duplicates()
         Ac.sort_indices()
         return Ac

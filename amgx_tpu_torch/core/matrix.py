@@ -619,10 +619,7 @@ class Matrix:
         self._dia = None
         self._dia_checked_max = 0
         self._dinv_dev = None
-        self._dia_thunk = None
-        for attr in ("_dia_offsets_hint", "_stencil_consistent",
-                     "_vals_f32_exact"):
-            self.__dict__.pop(attr, None)
+        self._drop_generator_state()
         dia = getattr(a, "_amgx_dia", None)
         if dia is not None and b == 1 and \
                 _dia_attach_matches(self._host, dia):
@@ -681,6 +678,41 @@ class Matrix:
             m.logical_rows = int(logical_rows)
         return m
 
+    def replace_coefficients(self, data) -> "Matrix":
+        """Keep the structure, replace the values
+        (``AMGX_matrix_replace_coefficients``, ``amgx_c.h:304-309``):
+        ``data`` in the host matrix's entry order (flat, or (nnzb, b, b)
+        for b×b blocks).  The host matrix is rebuilt around a fresh
+        array: ``Matrix(a)`` shares scipy's buffers with the caller's
+        matrix, which an in-place write would change (the upload
+        contract is copy semantics).  The device pack, the diagonal
+        decomposition and the inverted diagonal go with the old
+        values."""
+        data = np.asarray(data)
+        b = self.block_dim
+        host = self.host
+        new_data = (data.ravel() if b == 1 else
+                    data.reshape(-1, b, b)).astype(host.data.dtype)
+        self._host = type(host)((new_data, host.indices, host.indptr),
+                                shape=host.shape)
+        self._device = None
+        self._dia = None
+        self._dia_checked_max = 0
+        self._dinv_dev = None
+        self._drop_generator_state()
+        return self
+
+    def _drop_generator_state(self):
+        """New values void what a device generator declared
+        analytically: the lazy host diagonals (they would serve the old
+        operator), the offsets hint and the consistency and
+        f32-exactness claims; and a refreshed level's device CSR
+        values."""
+        self._dia_thunk = None
+        for attr in ("_dia_offsets_hint", "_stencil_consistent",
+                     "_vals_f32_exact", "_csr_pattern", "_csr_vals_dev"):
+            self.__dict__.pop(attr, None)
+
     def _download_dia(self):
         d = self._device
         self._dia = (list(d.dia_offsets), d.vals.cpu().numpy())
@@ -729,6 +761,14 @@ class Matrix:
     @property
     def host(self) -> sp.spmatrix:
         """The host matrix: scipy CSR, or BSR for a block matrix."""
+        if self._host is None and \
+                getattr(self, "_csr_pattern", None) is not None:
+            # a level refreshed on the device: its CSR values download
+            # into the recorded pattern
+            from ..device import to_host
+            indptr, indices, shape = self._csr_pattern
+            self._host = sp.csr_matrix(
+                (to_host(self._csr_vals_dev), indices, indptr), shape=shape)
         if self._host is None:
             from ..amg.pairwise import dia_to_scipy
             offs, vals = self.dia_cache()

@@ -8,6 +8,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from .amg.hierarchy import AMGHierarchy
@@ -46,8 +47,38 @@ def _dev_matrix(offsets, vals, diag=None, dinv=None, dtype=None,
         None if dinv is None else t(dinv))
 
 
+def structure_from_numpy(structure) -> list:
+    """The port's structure records (``AMGHierarchy._structure``) from
+    another package's: ``("structured", (dims,))``, ``("pairwise",
+    (n,))``, ``("aggregation", (aggregates, nc))`` or ``("classical",
+    (P,))``, the arrays read through numpy and P as a scipy CSR."""
+    out = []
+    for kind, data in structure:
+        if kind == "structured":
+            data = (tuple(int(d) for d in data[0]),)
+        elif kind == "pairwise":
+            data = (int(data[0]),)
+        elif kind == "aggregation":
+            data = (np.asarray(data[0], dtype=np.int64), int(data[1]))
+        elif kind == "classical":
+            data = (sp.csr_matrix(data[0]),)
+        else:
+            raise ValueError(f"unknown structure record {kind!r}")
+        out.append((kind, data))
+    return out
+
+
+def _with_structure(h: AMGHierarchy, structure) -> AMGHierarchy:
+    """``h`` carrying ``structure`` (None: none), so that a resetup of the
+    carried hierarchy keeps it (``structure_reuse_levels`` ≠ 0)."""
+    if structure is not None:
+        h._structure = structure_from_numpy(structure)
+    return h
+
+
 def hierarchy_from_numpy(cfg: AMGConfig, scope: str, levels, coarsest,
-                         dtype=None, device="cuda") -> AMGHierarchy:
+                         dtype=None, device="cuda",
+                         structure=None) -> AMGHierarchy:
     """An :class:`AMGHierarchy` (smoothers and coarse solver set up per
     ``cfg``/``scope``) from numpy arrays instead of a setup pass.
 
@@ -55,7 +86,9 @@ def hierarchy_from_numpy(cfg: AMGConfig, scope: str, levels, coarsest,
     (``"structured"`` with ``dims``/``cdims``, or ``"pairwise"`` with
     ``n``), ``offsets``, ``vals``, ``diag`` and ``dinv``; ``coarsest`` is a
     dict with ``offsets`` and ``vals``.  Arrays are cast to ``dtype`` when
-    it is given."""
+    it is given.  ``structure`` — the other package's recorded structure
+    (:func:`structure_from_numpy`) — lets a resetup of the hierarchy
+    keep it."""
     dev = resolve_device(device)
     h = AMGHierarchy(cfg, scope)
     for idx, lv in enumerate(levels):
@@ -69,7 +102,7 @@ def hierarchy_from_numpy(cfg: AMGConfig, scope: str, levels, coarsest,
         h.levels.append(level)
     h._setup_smoothers_and_coarse(_dev_matrix(
         coarsest["offsets"], coarsest["vals"], dtype=dtype, device=dev))
-    return h
+    return _with_structure(h, structure)
 
 
 def device_pack_from_numpy(spec: dict, dtype=None,
@@ -111,14 +144,17 @@ def device_pack_from_numpy(spec: dict, dtype=None,
 
 def classical_hierarchy_from_numpy(cfg: AMGConfig, scope: str, levels,
                                    coarsest: dict, dtype=None,
-                                   device="cuda") -> AMGHierarchy:
+                                   device="cuda",
+                                   structure=None) -> AMGHierarchy:
     """A classical :class:`AMGHierarchy` (smoothers and coarse solver set
     up per ``cfg``/``scope``) from numpy arrays instead of a setup pass.
 
     ``levels`` lists, fine to coarse, dicts with the pack specs ``A``,
     ``P`` and ``R`` (see :func:`device_pack_from_numpy`) and optionally
     ``logical_rows``; ``coarsest`` is the pack spec of the coarsest
-    operator."""
+    operator.  ``structure``: as for :func:`hierarchy_from_numpy` (a
+    resetup replays the Galerkin products of its frozen P on the
+    host)."""
     dev = resolve_device(device)
     h = AMGHierarchy(cfg, scope)
     for idx, lv in enumerate(levels):
@@ -130,7 +166,7 @@ def classical_hierarchy_from_numpy(cfg: AMGConfig, scope: str, levels,
             device_pack_from_numpy(lv["R"], dtype, dev)))
     h._setup_smoothers_and_coarse(Matrix.from_device_pack(
         device_pack_from_numpy(coarsest, dtype, dev)))
-    return h
+    return _with_structure(h, structure)
 
 
 #: array fields of a pack (``pack_host_arrays`` names)
@@ -196,8 +232,8 @@ def device_matrix_from_fields(other, dtype=None,
 
 
 def aggregation_hierarchy_from_packs(cfg: AMGConfig, scope: str, levels,
-                                     coarsest, dtype=None,
-                                     device="cuda") -> AMGHierarchy:
+                                     coarsest, dtype=None, device="cuda",
+                                     structure=None) -> AMGHierarchy:
     """A scalar aggregation :class:`AMGHierarchy` (smoothers and coarse
     solver set up per ``cfg``/``scope``) from another package's setup
     instead of a setup pass.
@@ -207,7 +243,8 @@ def aggregation_hierarchy_from_packs(cfg: AMGConfig, scope: str, levels,
     :func:`device_matrix_from_fields`: DIA, ELL, shift or CSR packs),
     ``aggregates`` (the fine rows' aggregate ids) and ``n_coarse``;
     ``coarsest`` is the coarsest operator's fields object.  Values are
-    cast to ``dtype`` when it is given."""
+    cast to ``dtype`` when it is given.  ``structure``: as for
+    :func:`hierarchy_from_numpy`."""
     dev = resolve_device(device)
     h = AMGHierarchy(cfg, scope)
     for idx, lv in enumerate(levels):
@@ -217,4 +254,4 @@ def aggregation_hierarchy_from_packs(cfg: AMGConfig, scope: str, levels,
             A, idx, np.asarray(lv["aggregates"]), int(lv["n_coarse"])))
     h._setup_smoothers_and_coarse(Matrix.from_device_pack(
         device_matrix_from_fields(coarsest, dtype, dev)))
-    return h
+    return _with_structure(h, structure)

@@ -21,11 +21,19 @@ order and the truncation tie-break depend on them.
 ELL conventions: dead entries carry value 0 (columns −1 or self-pads),
 columns ascend within a row, pad rows are unit-diagonal.  The host
 symbolic planner (``GalerkinPlan``/``SpGEMMPlan``) is a later slice.
+
+The host symbolic half that a values-only resetup needs is numpy, copied
+from the JAX package: :func:`spgemm_symbolic` (a product's triple
+schedule), :func:`galerkin_pattern`, :func:`fill_pattern` and
+:func:`pad_to_symbolic` (a Galerkin product kept on its full symbolic
+pattern, so a later refresh finds every slot).
 """
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
+import scipy.sparse as sp
 import torch
 
 #: element budget of one row chunk of an expanded product block; every
@@ -260,3 +268,89 @@ def dia_galerkin_fn(a_offs: Tuple[int, ...], p_offs: Tuple[int, ...],
         return Ac, realized, nc, kmax
 
     return run, D
+
+
+# ------------------------------------------------------ host symbolic
+def _range_concat(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """[starts[0]..+counts[0], starts[1]..+counts[1], ...] flattened."""
+    csum = np.concatenate([[0], np.cumsum(counts)])
+    return (np.arange(csum[-1], dtype=np.int64)
+            - np.repeat(csum[:-1], counts)
+            + np.repeat(starts.astype(np.int64), counts))
+
+
+def spgemm_symbolic(Aptr, Aind, Bptr, Bind, n_rows: int, n_cols_B: int,
+                    device="cpu"):
+    """Symbolic product C = A·B as a triple schedule: returns
+    ``(tA, tB, t_out, C_indptr, C_indices)`` with
+    ``C.data[t_out[q]] += A.data[tA[q]] * B.data[tB[q]]``.  The triples
+    come sorted by output slot, stably (each slot's terms in A's entry
+    order, B's row order within): one stable sort of the (row, column)
+    keys gives both the pattern and that order, on ``device`` (a card
+    sorts 10⁸ keys in a fraction of a second; a stable sort's result is
+    the same on every device)."""
+    rowlenB = np.diff(Bptr)
+    cnt = rowlenB[Aind]
+    tA = np.repeat(np.arange(len(Aind), dtype=np.int64), cnt)
+    tB = _range_concat(Bptr[Aind], cnt)
+    i_of = np.repeat(
+        np.repeat(np.arange(n_rows, dtype=np.int64), np.diff(Aptr)), cnt)
+    key = i_of * n_cols_B + Bind[tB].astype(np.int64)
+    del i_of
+    _, order = torch.sort(torch.from_numpy(key).to(device), stable=True)
+    order = order.cpu().numpy()
+    ks = key[order]
+    new = np.ones(len(ks), dtype=bool)
+    new[1:] = ks[1:] != ks[:-1]
+    t_out = np.cumsum(new) - 1
+    ukey = ks[new]
+    C_rows = ukey // n_cols_B
+    C_indices = (ukey % n_cols_B).astype(np.int32)
+    C_indptr = np.concatenate(
+        [[0], np.cumsum(np.bincount(C_rows, minlength=n_rows))]
+    ).astype(np.int64)
+    return tA[order], tB[order], t_out, C_indptr, C_indices
+
+
+def galerkin_pattern(A: sp.csr_matrix, P: sp.csr_matrix) -> sp.csr_matrix:
+    """Full symbolic pattern of Pᵀ·A·P (unit values): every structural
+    slot, those where the current values cancel exactly included."""
+    def ones(M):
+        M = sp.csr_matrix(M)
+        return sp.csr_matrix((np.ones(M.nnz), M.indices, M.indptr),
+                             shape=M.shape)
+
+    Pb = ones(P)
+    patt = sp.csr_matrix(Pb.T @ ones(A) @ Pb)
+    patt.sum_duplicates()
+    patt.sort_indices()
+    return patt
+
+
+def fill_pattern(patt: sp.csr_matrix, M: sp.csr_matrix) -> sp.csr_matrix:
+    """The values of ``M`` placed into the (superset) pattern ``patt``:
+    slots absent from ``M`` become explicit zeros (scipy's sparse "+"
+    prunes zeros, so a zero-pad add would lose exactly those slots)."""
+    M = sp.csr_matrix(M)
+    M.sum_duplicates()
+    M.sort_indices()
+    nc = patt.shape[1]
+    rows_p = np.repeat(np.arange(patt.shape[0], dtype=np.int64),
+                       np.diff(patt.indptr))
+    rows_m = np.repeat(np.arange(M.shape[0], dtype=np.int64),
+                       np.diff(M.indptr))
+    key_p = rows_p * nc + patt.indices
+    key_m = rows_m * nc + M.indices
+    pos = np.searchsorted(key_p, key_m)
+    data = np.zeros(patt.nnz, dtype=M.data.dtype)
+    data[pos] = M.data
+    return sp.csr_matrix((data, patt.indices.copy(),
+                          patt.indptr.copy()), shape=M.shape)
+
+
+def pad_to_symbolic(Ac: sp.csr_matrix, A: sp.csr_matrix,
+                    P: sp.csr_matrix) -> sp.csr_matrix:
+    """A numeric Galerkin product expanded to its full symbolic pattern
+    (a values-only refresh keeps the structure frozen, so the slots must
+    exist where the current values cancel)."""
+    return fill_pattern(galerkin_pattern(A, P), Ac)

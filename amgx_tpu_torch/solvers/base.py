@@ -169,7 +169,8 @@ class Solver:
 
     # ------------------------------------------------------------ lifecycle
     def setup(self, A: "Matrix | DeviceMatrix"):
-        """Setup (reference ``Solver::setup``, solver.cu:380-556)."""
+        """Setup (reference ``Solver::setup``, solver.cu:380-556): a full
+        rebuild, unless :meth:`resetup` called it."""
         t0 = time.perf_counter()
         if isinstance(A, Matrix):
             self.A = A
@@ -178,12 +179,27 @@ class Solver:
             self.A = None
             self.Ad = A
         self.solver_setup()
-        # new matrix values: a later refined solve rebuilds its operator
+        # new matrix values, also on a resetup (a new rounding residue):
+        # a later refined solve rebuilds its operator
         self.__dict__.pop("_wide", None)
         if self.Ad.device.type == "cuda":
             torch.cuda.synchronize(self.Ad.device)
         self.setup_time = time.perf_counter() - t0
         return self
+
+    def resetup(self, A: "Matrix | DeviceMatrix"):
+        """Numeric refresh after ``Matrix.replace_coefficients``: the same
+        structure, new values (``AMGX_solver_resetup``).  Nested
+        preconditioner instances, the AMG hierarchy's coarsening
+        structure (with ``structure_reuse_levels`` ≠ 0) and the AMG's
+        CUDA graphs (where every tensor they read keeps its shape, dtype
+        and device, :mod:`._bind`) survive; :meth:`setup` stays a full
+        rebuild."""
+        self._numeric_resetup = True
+        try:
+            return self.setup(A)
+        finally:
+            self._numeric_resetup = False
 
     def solver_setup(self):
         """Override: build device-side data (diag inverse, hierarchy, ...)."""

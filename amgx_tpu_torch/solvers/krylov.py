@@ -58,6 +58,13 @@ class _PrecondMixin:
     """Allocates the nested preconditioner from the config scope."""
 
     def _setup_preconditioner(self, use_precond: bool):
+        existing = getattr(self, "preconditioner", None)
+        if existing is not None and use_precond and \
+                getattr(self, "_numeric_resetup", False):
+            # a resetup keeps the preconditioner instance (its hierarchy
+            # structure and CUDA graphs); a plain setup allocates anew
+            existing.resetup(self.A if self.A is not None else self.Ad)
+            return
         self.preconditioner: Optional[Solver] = None
         if use_precond and self.cfg.has("preconditioner", self.scope):
             self.preconditioner = SolverFactory.allocate(

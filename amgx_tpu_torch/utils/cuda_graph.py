@@ -44,6 +44,9 @@ from ..errors import DeviceError
 
 #: how many :class:`CudaGraphCall` warm-ups or captures are running
 _building = 0
+#: graphs captured since the last reset (a kept graph is not captured
+#: again after a resetup)
+CAPTURES = {"count": 0}
 
 
 def building() -> bool:
@@ -155,6 +158,7 @@ class CudaGraphCall:
                 return _built(fn, *self.static_in)
 
         self.static_out, self.delta = counted_capture(capture)
+        CAPTURES["count"] += 1
         t2 = time.perf_counter()
         nodes = graph_nodes(self.graph)
         self.graph.instantiate()

@@ -155,7 +155,30 @@ exits non-zero (no phase is caught):
 28. the card against the CPU for every solver name of this slice (and
     PCG with ``krylov_comm`` CA and PIPELINED) on small systems: equal
     iterations, x within ``SMALL_X_RTOL`` (whether x is bit-equal is
-    printed).
+    printed);
+29. values-only resetup (``Matrix.replace_coefficients`` then
+    ``Solver.resetup`` then a solve, ``RESETUP_STEPS`` steps of the
+    drift A_k = D_k·A₀·D_k, D_k = diag(1 + 0.1·u·k)) on three paths at
+    full size, each with ``amg:structure_reuse_levels=-1`` and its
+    counts set to 0 just before its first solve and read just after its
+    last: the headline 128³ (host-built ``poisson7pt`` with its DIA
+    attach, f32 pack; the refresh re-derived on the card,
+    ``"dia_device"``; iterations and x bit-equal to a fresh setup and
+    solve of each A_k), the classical 128³ (``CFG_CLA``, θ = 0.2401, f64
+    pack — its level 1 held to the host Galerkin product with the frozen
+    P at ``RAP_RTOL``; the reuse gate sends the setup down the host
+    classical loop; ``"classical_device"``) and the DFG at ny = 512 cut
+    at ``DFG_LEVELS`` (``"host_replay"``).  Each step: resetup seconds
+    against the fresh setup's (the DFG's couplings drift instead:
+    :func:`coupling_drift_values`), the first solve after the resetup against
+    a warm one, iterations, the true relres (≤ 1e-8), graphs kept and
+    dropped, captures (none after step 0: the graphs are kept), peak
+    memory, and a replay bit-equal to an eager application on the
+    refreshed hierarchy (:func:`graph_check`).  Then at small size: the
+    card against the CPU before and after each of two resetups
+    (headline 16³ and config 4 at 12³, equal counts, x bit-equal in
+    f32), and a block matrix handed to a DIA hierarchy's resetup
+    raises.
 
 Then one JSON line of the four paths' kernels and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -289,6 +312,12 @@ ILU_CFG = CFG4.replace("out:max_iters=200", "out:max_iters=2000") \
 FAMILY_CLA_SIDE = 24
 FAMILY_AGG_SIDE = 16
 FAMILY_BLOCK_GRID = (16, 16, 16)
+#: phase 29: steps of the resetup loop (step 0 is the fresh setup)
+RESETUP_STEPS = 3
+#: phase 29: the classical level 1 refreshed on the card against the
+#: host Galerkin product with the frozen P, in f64 (the JAX package's
+#: bound, tests/test_classical_device.py:190-211)
+RAP_RTOL = 1e-10
 
 
 #: the script's start, for the elapsed seconds on every phase line
@@ -1856,6 +1885,248 @@ def family_small_checks(amgx) -> None:
          elapsed_phase_s=time.perf_counter() - t_phase)
 
 
+def drift_values(host, k: int, seed: int = SEED):
+    """The values of A_k = D_k·A·D_k, D_k = diag(1 + 0.1·u·k), u from
+    ``default_rng(seed)``, in the entry order of the host matrix
+    ``host`` (a CSR, or a BSR of b×b blocks): the loop of
+    examples/amgx_resetup_timestepping.py."""
+    u = np.random.default_rng(seed).uniform(size=host.shape[0])
+    d = 1.0 + 0.1 * u * k
+    b = host.blocksize[0] if hasattr(host, "blocksize") else 1
+    rows = np.repeat(np.arange(host.indptr.size - 1), np.diff(host.indptr))
+    if b == 1:
+        return host.data * d[rows] * d[host.indices]
+    db = d.reshape(-1, b)
+    return db[rows][:, :, None] * host.data * db[host.indices][:, None, :]
+
+
+def coupling_drift_values(host, k: int, seed: int = SEED):
+    """The values of a symmetric operator whose couplings drift:
+    a_ij ← a_ij·(1 + 0.1·k·(u_i + u_j)/2) off the diagonal, the diagonal
+    moved by the same change of its row's couplings (each row sum kept),
+    in the entry order of the host CSR ``host``.  A variable-coefficient
+    change of a diffusion operator: the constant vector keeps its
+    energy, which D·A·D does not (:func:`drift_values`)."""
+    u = np.random.default_rng(seed).uniform(size=host.shape[0])
+    rows = np.repeat(np.arange(host.shape[0]), np.diff(host.indptr))
+    off = rows != host.indices
+    w = 1.0 + 0.1 * k * (u[rows] + u[host.indices]) / 2
+    data = np.where(off, host.data * w, host.data)
+    moved = np.bincount(rows[off], weights=(data - host.data)[off],
+                        minlength=host.shape[0])
+    return np.where(off, data, data - moved[rows])
+
+
+def resetup_path(amgx, dev, smi, gen, label, cfg, A0, pdt, expect,
+                 check_step=None, fresh_of=None,
+                 drift=drift_values) -> dict:
+    """One path of phase 29: setup on ``A0`` (step 0), then
+    ``RESETUP_STEPS - 1`` steps of ``replace_coefficients`` (A_k of
+    ``drift``),
+    ``resetup`` (which must take the ``expect`` path and keep the
+    graphs) and a first and a warm solve; every count set to 0 just
+    before each first solve and summed, no capture after step 0.
+    ``check_step(slv, Ak, k)`` adds facts of its own to a step's line;
+    ``fresh_of(Ak)`` is a fresh setup and solve of the same A_k, its
+    iterations and x held bit-equal.  Returns the launches by kernel."""
+    import torch
+    from amgx_tpu_torch.utils import cuda_graph as cg
+    torch.cuda.reset_peak_memory_stats(dev)
+    m = amgx.Matrix(A0, device="cuda")
+    m.device_dtype = pdt
+    t0 = time.perf_counter()
+    slv = amgx.create_solver(cfg)
+    slv.setup(m)
+    torch.cuda.synchronize(dev)
+    fresh_setup_s = time.perf_counter() - t0
+    pre = amg_of(slv)
+    h = pre.hierarchy
+    assert h.last_resetup == "fresh", h.last_resetup
+    host0 = m.host.copy()
+    b = torch.ones(A0.shape[0], dtype=torch.float64, device=dev)
+    total = {}
+    for k in range(RESETUP_STEPS):
+        Ak = A0
+        resetup_s = None
+        if k:
+            Ak = host0.copy()
+            Ak.data = drift(host0, k)
+            t0 = time.perf_counter()
+            m.replace_coefficients(Ak.data)
+            slv.resetup(m)
+            torch.cuda.synchronize(dev)
+            resetup_s = time.perf_counter() - t0
+            assert h.last_resetup == expect, (label, h.last_resetup)
+            assert pre.rebind["graphs_dropped"] == 0, (label, pre.rebind)
+        caps = cg.CAPTURES["count"]
+        reset_counts()
+        res = slv.solve(b)
+        torch.cuda.synchronize(dev)
+        counts = read_counts()
+        merge_counts(total, counts)
+        captures = cg.CAPTURES["count"] - caps
+        assert captures == (0 if k else 1), (label, k, captures)
+        assert not any(counts["declines"].values()), (label, counts)
+        res2 = slv.solve(b)
+        assert res2.iterations == res.iterations
+        assert res.status == amgx.SolveStatus.SUCCESS, (label, k)
+        x = res.x
+        assert x.dtype == torch.float64 and torch.isfinite(x).all().item()
+        relres = host_relres(Ak)(x)
+        assert relres <= 1e-8, (label, k, relres)
+        extra = {}
+        if fresh_of is not None:
+            t0 = time.perf_counter()
+            f_res, f_setup_s = fresh_of(Ak)
+            extra.update(fresh_iterations=f_res.iterations,
+                         fresh_step_setup_s=f_setup_s,
+                         fresh_x_bit_equal=bool(torch.equal(f_res.x, x)))
+            assert f_res.iterations == res.iterations, (label, k)
+            assert extra["fresh_x_bit_equal"], (label, k)
+            del f_res
+        if check_step is not None and k:
+            extra.update(check_step(slv, Ak, k))
+        graph = graph_check(pre, dev, gen)
+        rb = pre.rebind["last"]
+        emit(label, step=k, path=h.last_resetup if k else "fresh",
+             resetup_s=resetup_s, fresh_setup_s=fresh_setup_s,
+             first_solve_s=res.solve_time, warm_solve_s=res2.solve_time,
+             iterations=res.iterations, relres_f64=relres,
+             graphs_kept=pre.rebind["graphs_kept"],
+             graphs_dropped=pre.rebind["graphs_dropped"],
+             tensors_paired=None if rb is None else rb.tensors,
+             tensors_copied=None if rb is None else rb.copied,
+             copied_bytes=None if rb is None else rb.bytes,
+             captures=captures, amg_graph=graph,
+             peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+             counts=counts, card=smi, **extra)
+    del slv, pre, h, m
+    torch.cuda.empty_cache()
+    return total
+
+
+def resetup_phases(amgx, dev, smi, gen) -> dict:
+    """Phase 29: values-only resetup on the headline, classical and DFG
+    paths at full size, then the small card-against-CPU checks.  Returns
+    the kernels' launches by path (``{"resetup_<path>": {kernel:
+    {pair: n}}}``)."""
+    import scipy.sparse as sp
+    import torch
+    from amgx_tpu_torch.errors import BadConfigurationError
+    from amgx_tpu_torch.io import (dfg_cylinder_pressure, poisson7pt,
+                                   spe10_block_system)
+    reuse = ", amg:structure_reuse_levels=-1"
+    out = {}
+
+    # ---- the headline 128³: the DIA plan re-derived on the card
+    t_phase = time.perf_counter()
+    side = FAMILY_SIDE
+    A0 = poisson7pt(side, side, side)
+    cfg = HEADLINE_CFG + reuse
+
+    def fresh_of(Ak):
+        m = amgx.Matrix(Ak, device="cuda")
+        m.device_dtype = np.float32
+        m.grid_dims = (side, side, side)
+        t0 = time.perf_counter()
+        s_ = amgx.create_solver(cfg)
+        s_.setup(m)
+        torch.cuda.synchronize(dev)
+        setup_s = time.perf_counter() - t0
+        return s_.solve(torch.ones(Ak.shape[0], dtype=torch.float64,
+                                   device=dev)), setup_s
+
+    out["resetup_headline"] = resetup_path(
+        amgx, dev, smi, gen, "resetup_headline", cfg, A0, np.float32,
+        "dia_device", fresh_of=fresh_of)
+    assert out["resetup_headline"]["B1"]["f32.f32"] > 0
+    emit("resetup_headline_phase",
+         elapsed_phase_s=time.perf_counter() - t_phase)
+
+    # ---- the classical 128³: the Galerkin products refreshed on the card
+    t_phase = time.perf_counter()
+
+    def level1_vs_rap(slv, Ak, k):
+        h = slv.preconditioner.hierarchy
+        P0 = h._structure[0][1][0]
+        ref = sp.csr_matrix(sp.csr_matrix(P0.T) @ Ak @ P0)
+        got = sp.csr_matrix(h.levels[1].A.host)
+        err = abs(got - ref).max() / abs(ref).max()
+        assert err <= RAP_RTOL, (k, err)
+        return dict(level1_rows=got.shape[0], level1_nnz=got.nnz,
+                    level1_rel_err_vs_host_rap=err, limit=RAP_RTOL)
+
+    out["resetup_classical"] = resetup_path(
+        amgx, dev, smi, gen, "resetup_classical",
+        CFG_CLA + ", amg:strength_threshold=0.2401" + reuse, A0,
+        np.float64, "classical_device", check_step=level1_vs_rap)
+    assert out["resetup_classical"]["B3"]["f64.f64"] > 0
+    del A0
+    emit("resetup_classical_phase",
+         elapsed_phase_s=time.perf_counter() - t_phase)
+
+    # ---- the DFG at ny = 512: aggregation replayed on the host.  Its
+    # couplings drift: under D·A·D the piecewise-constant aggregates no
+    # longer hold the operator's near-null vector D⁻¹·1, and a fresh
+    # setup of D₁·A₀·D₁ stagnates at relres 0.98 at this size (PERF.md)
+    t_phase = time.perf_counter()
+    out["resetup_dfg"] = resetup_path(
+        amgx, dev, smi, gen, "resetup_dfg", DFG_CFG + reuse,
+        dfg_cylinder_pressure(DFG_NY), np.float32, "host_replay",
+        drift=coupling_drift_values)
+    assert out["resetup_dfg"]["B2"]["f32.f32"] > 0
+    emit("resetup_dfg_phase", elapsed_phase_s=time.perf_counter() - t_phase)
+
+    # ---- small: the card against the CPU after two resetups
+    t_phase = time.perf_counter()
+    for case in ("headline16", "config4"):
+        got = {}
+        for where in ("cuda", "cpu"):
+            if case == "headline16":
+                A = poisson7pt(16, 16, 16)
+                m = amgx.Matrix(A, device=where)
+                cfg = HEADLINE_CFG + reuse
+            else:
+                A = spe10_block_system(12, 12, 12)
+                m = amgx.Matrix(A, block_dim=4, device=where)
+                cfg = CFG4
+            m.device_dtype = np.float32
+            s_ = amgx.create_solver(cfg)
+            s_.setup(m)
+            host0 = m.host.copy()
+            steps = []
+            for k in range(RESETUP_STEPS):
+                if k:
+                    m.replace_coefficients(drift_values(host0, k))
+                    s_.resetup(m)
+                r = s_.solve(np.ones(A.shape[0]))
+                assert r.status == amgx.SolveStatus.SUCCESS, (case, where)
+                steps.append((r.iterations, r.x.cpu()))
+            got[where] = steps
+        iters = [(g[0], c[0]) for g, c in zip(got["cuda"], got["cpu"])]
+        bit_equal = all(torch.equal(g[1], c[1])
+                        for g, c in zip(got["cuda"], got["cpu"]))
+        emit("resetup_card_vs_cpu", case=case, iterations=iters,
+             x_bit_equal=bit_equal)
+        assert all(a == b_ for a, b_ in iters), (case, iters)
+        assert bit_equal, case
+
+    # a structural change: a block matrix handed to a DIA hierarchy
+    m = amgx.Matrix(poisson7pt(10, 10, 10), device="cuda")
+    s_ = amgx.create_solver(HEADLINE_CFG + reuse)
+    s_.setup(m)
+    B = sp.kron(poisson7pt(5, 5, 5), sp.identity(2)).tocsr()
+    try:
+        s_.resetup(amgx.Matrix(B, block_dim=2, device="cuda"))
+        raised = None
+    except BadConfigurationError as e:
+        raised = str(e)
+    assert raised is not None, "a block matrix resetup did not raise"
+    emit("resetup_structural_change", raised=raised,
+         elapsed_phase_s=time.perf_counter() - t_phase)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2256,6 +2527,9 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     # ---- 24.-28. the solver names of this slice
     fam = family_phases(amgx, dev, smi, gen)
 
+    # ---- 29. values-only resetup on the three AMG paths
+    fam.update(resetup_phases(amgx, dev, smi, gen))
+
     # ---- the kernels of the paths
     kernels = []
     for key in ("f32.f32", "f64.f64"):
@@ -2277,28 +2551,31 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
             bound_ms=timing[key]["bound_ms"],
             bound_by=timing[key]["bound_by"],
             library_ms=timing[key]["library_ms"]))
-    key = "f32.f32"
-    kernels.append(dict(
-        name="ell_spmv<f32,f32>", route="cuda",
-        source="amgx_tpu_torch/csrc/ell_spmv.cu",
-        replaces="amgx_tpu/ops/pallas_ell.py:209",
-        launches=head_b3[key] + c_launches["ell_spmv"][key]
-        + dfg["b3_launches"][key] + dfg["b3_launches_full_depth"][key]
-        + nested["B3"][key],
-        launches_by_path=dict(
-            headline=head_b3[key], classical=c_launches["ell_spmv"][key],
-            nested_amg_16=nested["B3"][key],
-            dfg=dfg["b3_launches"][key],
-            dfg_full_depth=dfg["b3_launches_full_depth"][key]),
-        max_abs_err=ell_errs[key]["abs"],
-        max_row_rel_err=ell_errs[key]["rel"], ms=ell_timing[key]["ms"],
-        plain_ms=ell_timing[key]["plain_ms"],
-        bound_ms=ell_timing[key]["bound_ms"],
-        bound_by=ell_timing[key]["bound_by"],
-        library_ms=ell_timing[key]["library_ms"]))
+    # B3 in f64: the classical resetup path runs an f64 pack (phase 29)
+    for key in ("f32.f32", "f64.f64"):
+        v, xx = key.split(".")
+        kernels.append(dict(
+            name=f"ell_spmv<{v},{xx}>", route="cuda",
+            source="amgx_tpu_torch/csrc/ell_spmv.cu",
+            replaces="amgx_tpu/ops/pallas_ell.py:209",
+            launches=head_b3[key] + c_launches["ell_spmv"][key]
+            + dfg["b3_launches"][key] + dfg["b3_launches_full_depth"][key]
+            + nested["B3"][key],
+            launches_by_path=dict(
+                headline=head_b3[key],
+                classical=c_launches["ell_spmv"][key],
+                nested_amg_16=nested["B3"][key],
+                dfg=dfg["b3_launches"][key],
+                dfg_full_depth=dfg["b3_launches_full_depth"][key]),
+            max_abs_err=ell_errs[key]["abs"],
+            max_row_rel_err=ell_errs[key]["rel"], ms=ell_timing[key]["ms"],
+            plain_ms=ell_timing[key]["plain_ms"],
+            bound_ms=ell_timing[key]["bound_ms"],
+            bound_by=ell_timing[key]["bound_by"],
+            library_ms=ell_timing[key]["library_ms"]))
     kernels.extend(c4["kernels"])
     kernels.extend(dfg["kernels"])
-    # the launches of phases 24-27's full-width stacks, by kernel
+    # the launches of phases 24-27's and 29's full-width stacks, by kernel
     for entry in kernels:
         kern = {"dia_spmv": "B1", "ell_spmv": "B3", "shift_spmv": "B2",
                 "binned_spmv_B5": "B5", "binned_spmv_B4": "B4"}[
@@ -2307,7 +2584,8 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
                         .split(",")[:2])
         for path, tot in fam.items():
             n_ = tot.get(kern, {}).get(pair, 0)
-            entry["launches_by_path"][f"family_{path}"] = n_
+            entry["launches_by_path"][path if path.startswith(
+                "resetup_") else f"family_{path}"] = n_
             entry["launches"] += n_
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

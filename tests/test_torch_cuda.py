@@ -692,3 +692,137 @@ def test_family_smoother_graph_replay_equals_eager(card, sm):
     eager, cnt_e = counted(pre._apply_eager)
     assert torch.equal(z, eager) and torch.equal(first, eager)
     assert cnt_g == cnt_e
+
+
+def _resetup_case(case, where):
+    """A reuse-configured solver of one of the three AMG paths, set up on
+    ``where``, with its host matrix and its handle."""
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.io import dfg_cylinder_pressure, poisson7pt
+    from chip_smoke import CFG_CLA, DFG_CFG, HEADLINE_CFG
+    if case == "headline16":
+        A, cfg = poisson7pt(16, 16, 16), HEADLINE_CFG
+    elif case == "classical24":
+        A = poisson7pt(24, 24, 24)
+        cfg = CFG_CLA + ", amg:strength_threshold=0.2401"
+    else:
+        # SIZE_2 named: at ny = 64 the operator has a DIA plan under GEO
+        A = dfg_cylinder_pressure(64)
+        cfg = DFG_CFG.replace("amg:selector=GEO", "amg:selector=SIZE_2")
+    m = amgx.Matrix(A, device=where)
+    m.device_dtype = np.float32
+    slv = amgx.create_solver(cfg + ", amg:structure_reuse_levels=-1")
+    slv.setup(m)
+    return slv, A, m
+
+
+def _drifted(host, k):
+    """The values of D_k·A·D_k, D_k = diag(1 + 0.1·u·k), in the entry
+    order of ``host`` (a CSR, or a BSR of b×b blocks)."""
+    u = np.random.default_rng(5).uniform(size=host.shape[0])
+    d = 1.0 + 0.1 * u * k
+    b = host.blocksize[0] if hasattr(host, "blocksize") else 1
+    rows = np.repeat(np.arange(host.indptr.size - 1), np.diff(host.indptr))
+    db = d.reshape(-1, b)
+    if b == 1:
+        return host.data * d[rows] * d[host.indices]
+    return db[rows][:, :, None] * host.data * db[host.indices][:, None, :]
+
+
+RESETUP_PATHS = {"headline16": "dia_device",
+                 "classical24": "classical_device", "dfg64": "host_replay"}
+
+
+@pytest.mark.parametrize("case", sorted(RESETUP_PATHS))
+def test_resetup_replay_equals_eager(card, case):
+    """After a values-only resetup the graph captured before it is kept
+    (no capture), and its replay is torch.equal to an eager application
+    on the refreshed hierarchy, crediting the same launches."""
+    from amgx_tpu_torch.utils import cuda_graph as cg
+    slv, A, m = _resetup_case(case, card)
+    pre = slv.preconditioner
+    g = torch.Generator(device=card).manual_seed(1)
+    r = torch.randn(A.shape[0], dtype=torch.float64, device=card,
+                    generator=g).to(torch.float32)
+    before = pre.apply(r)
+    graph = next(iter(pre.graphs.values()))
+    caps = cg.CAPTURES["count"]
+    m.replace_coefficients(_drifted(m.host, 1))
+    slv.resetup(m)
+    assert pre.hierarchy.last_resetup == RESETUP_PATHS[case]
+    assert pre.rebind["graphs_kept"] == 1, pre.rebind
+    assert next(iter(pre.graphs.values())) is graph
+
+    def counted(fn):
+        for c in cg.counters():
+            for k in c:
+                c[k] = 0
+        out = fn(r)
+        torch.cuda.synchronize(card)
+        return out, cg.snapshot()
+
+    z, cnt_g = counted(pre.apply)
+    e, cnt_e = counted(pre._apply_eager)
+    assert cg.CAPTURES["count"] == caps
+    assert torch.equal(z, e) and cnt_g == cnt_e
+    assert not torch.equal(z, before)
+
+
+def test_resetup_graphs_kept_on_values_dropped_on_shape(card):
+    """A value change keeps the graphs; a change of size (a resetup under
+    ``structure_reuse_levels=0``, which coarsens afresh) drops them and
+    says why; the next application captures anew."""
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.io import poisson7pt
+    from amgx_tpu_torch.utils import cuda_graph as cg
+    from chip_smoke import HEADLINE_CFG
+    slv, A, m = _resetup_case("headline16", card)
+    slv.solve(np.ones(A.shape[0]))
+    m.replace_coefficients(_drifted(m.host, 2))
+    slv.resetup(m)
+    assert slv.preconditioner.rebind["graphs_kept"] == 1
+    slv2 = amgx.create_solver(HEADLINE_CFG)
+    slv2.setup(amgx.Matrix(A, device=card))
+    slv2.solve(np.ones(A.shape[0]))
+    caps = cg.CAPTURES["count"]
+    A3 = poisson7pt(16, 16, 12)
+    slv2.resetup(amgx.Matrix(A3, device=card))
+    rb = slv2.preconditioner.rebind
+    assert rb["graphs_dropped"] == 1 and "became" in rb["drops"][-1]
+    assert slv2.preconditioner.graphs == {}
+    res = slv2.solve(np.ones(A3.shape[0]))
+    assert res.status == amgx.SolveStatus.SUCCESS
+    assert cg.CAPTURES["count"] == caps + 1
+
+
+@pytest.mark.parametrize("case", ["headline16", "config4"])
+def test_resetup_solve_on_card_matches_cpu(card, case):
+    """Before and after each of two resetups the card takes the CPU's
+    iterations with the f32 pack, x bit-equal (the second resetup keeps
+    the graph the first solve captured a second time)."""
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.io import spe10_block_system
+    from chip_smoke import CFG4
+    out = {}
+    for where in ("cuda", "cpu"):
+        if case == "headline16":
+            slv, A, m = _resetup_case(case, where)
+        else:
+            A = spe10_block_system(12, 12, 12)
+            m = amgx.Matrix(A, block_dim=4, device=where)
+            m.device_dtype = np.float32
+            slv = amgx.create_solver(CFG4)
+            slv.setup(m)
+        got = []
+        host0 = m.host.copy()
+        for k in (0, 1, 2):
+            if k:
+                m.replace_coefficients(_drifted(host0, k))
+                slv.resetup(m)
+            r = slv.solve(np.ones(A.shape[0]))
+            assert r.status == amgx.SolveStatus.SUCCESS
+            got.append((r.iterations, r.x.cpu()))
+        out[where] = got
+    for (ig, xg), (ic, xc) in zip(out["cuda"], out["cpu"]):
+        assert ig == ic
+        assert torch.equal(xg, xc)

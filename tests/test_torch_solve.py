@@ -151,7 +151,7 @@ def test_interop_matrix_solves():
     CFG + ", out:matrix_reorder=RCM",
     CFG + ", telemetry=1",
     CFG + ", out:scaling=DIAGONAL_SYMMETRIC",
-    CFG + ", amg:structure_reuse_levels=1",
+    CFG + ", amg:amg_host_levels_rows=100",
     CFG.replace("amg:algorithm=AGGREGATION", "amg:algorithm=CLASSICAL"),
     CFG.replace("amg:algorithm=AGGREGATION, amg:selector=GEO",
                 "amg:algorithm=CLASSICAL, amg:selector=HMIS"),
