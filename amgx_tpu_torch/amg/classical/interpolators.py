@@ -1,10 +1,11 @@
-"""Interpolation for classical AMG: D1 and D2 (port of
+"""Interpolation for classical AMG: D1, D2 and MULTIPASS (port of
 ``amgx_tpu/amg/classical/interpolators.py``; reference
 ``core/src/classical/interpolators/``).  Host numpy/scipy setup code.
 
 Truncation follows ``interp_truncation_factor`` / ``interp_max_elements``
 (``base/src/truncate.cu:625`` truncateAndScale; core.cu:507-508).
-MULTIPASS and EM are a later slice of the port.
+EM, the energy-minimising interpolator, registers from
+:mod:`..energymin.interpolator`.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Dict
 import numpy as np
 import scipy.sparse as sp
 
-from ...errors import NotImplementedError_
+from ...errors import BadConfigurationError
 from .util import entry_mask_in
 
 
@@ -35,9 +36,7 @@ def register_interpolator(name):
 
 def create_interpolator(name, cfg, scope):
     if name not in _interp_registry:
-        raise NotImplementedError_(
-            f"interpolator {name!r} is not ported; ported: "
-            f"{sorted(_interp_registry)}")
+        raise BadConfigurationError(f"unknown interpolator {name!r}")
     return _interp_registry[name](cfg, scope)
 
 
@@ -206,3 +205,75 @@ class D2Interpolator(_InterpolatorBase):
         from .strength import AllStrength
         S_all = AllStrength(self.cfg, self.scope).compute(A_hat)
         return d1.compute(A_hat, S_all, cf_map)
+
+
+@register_interpolator("MULTIPASS")
+class MultipassInterpolator(_InterpolatorBase):
+    """Multipass interpolation for aggressive coarsening (reference
+    ``interpolators/multipass.cu``): C points inject; F points with strong C
+    neighbours interpolate directly (pass 1); remaining F points
+    interpolate through already-interpolated neighbours (passes 2..)."""
+
+    def compute(self, A, S, cf_map):
+        A = sp.csr_matrix(A)
+        if A.dtype != np.float64:
+            A = A.astype(np.float64)   # copies — mask attach won't hit
+        n = A.shape[0]
+        cnum = _coarse_numbering(cf_map)
+        nc = int(cf_map.sum())
+        indptr, indices, data = A.indptr, A.indices, A.data
+        rows = np.repeat(np.arange(n), np.diff(indptr))
+        strong = entry_mask_in(A, S)
+        diag = A.diagonal()
+        dsafe = np.where(diag == 0, 1.0, diag)
+
+        # P rows as growing COO; interpolated = has a P row already
+        P_rows = [np.flatnonzero(cf_map > 0)]
+        P_cols = [cnum[P_rows[0]]]
+        P_vals = [np.ones(len(P_rows[0]))]
+        done = cf_map > 0
+
+        max_passes = 10
+        for _ in range(max_passes):
+            if done.all():
+                break
+            P_cur = sp.csr_matrix(
+                (np.concatenate(P_vals),
+                 (np.concatenate(P_rows), np.concatenate(P_cols))),
+                shape=(n, nc))
+            # candidates: not-done rows with ≥1 strong done neighbour
+            cand_entry = strong & done[indices] & ~done[rows]
+            cand_rows = np.unique(rows[cand_entry])
+            if len(cand_rows) == 0:
+                # disconnected leftovers: zero rows (won't converge through
+                # them, but keeps shapes valid)
+                left = np.flatnonzero(~done)
+                done[left] = True
+                break
+            # distribute: row i of P = -(1/a_ii) Σ_{k strong,done} a_ik P_k
+            sel = cand_entry
+            M = sp.csr_matrix(
+                (np.where(sel, data, 0.0), indices.copy(), indptr.copy()),
+                shape=(n, n))
+            M.eliminate_zeros()
+            P_new = sp.csr_matrix(M @ P_cur)
+            P_new = sp.csr_matrix(sp.diags(-1.0 / dsafe) @ P_new)
+            # row-normalise so each new row sums to 1 (piecewise-constant
+            # consistency), only for candidate rows
+            rs = np.asarray(P_new.sum(axis=1)).ravel()
+            scale = np.where(np.abs(rs) > 1e-14, 1.0 / np.where(
+                rs == 0, 1.0, rs), 0.0)
+            P_new = sp.csr_matrix(sp.diags(scale) @ P_new)
+            coo = P_new.tocoo()
+            m = np.isin(coo.row, cand_rows)
+            P_rows.append(coo.row[m])
+            P_cols.append(coo.col[m])
+            P_vals.append(coo.data[m])
+            done[cand_rows] = True
+
+        P = sp.csr_matrix(
+            (np.concatenate(P_vals),
+             (np.concatenate(P_rows), np.concatenate(P_cols))),
+            shape=(n, nc))
+        P.sum_duplicates()
+        return self._finish(P)

@@ -3,7 +3,8 @@
 ``csr_multiply.h:100-126``, whose numeric phase reuses the symbolic
 structure).
 
-Host-symbolic, device-numeric:
+Symbolic once at setup, numeric at each resetup, both on the level's
+device:
 
 * at setup (only when ``structure_reuse_levels`` ≠ 0) each classical
   level records a :class:`LevelPlan`: the frozen P values, the A·P and
@@ -17,11 +18,14 @@ Host-symbolic, device-numeric:
   small coarsest operator comes to the host (its dense factorisation).
 
 No atomic scatter: ``jax.ops.segment_sum`` becomes, per schedule, the
-triples sorted by output slot once on the host (stable, so each slot
-adds its terms in schedule order) and an accumulation rank by rank —
-the k-th term of every slot that has one is added in one elementwise
-step — so every sum runs in one order on every device (``index_add_``
-on a CUDA tensor orders its adds differently from run to run).
+triples sorted by output slot once (stable, so each slot adds its terms
+in schedule order) and an accumulation rank by rank — the k-th term of
+every slot that has one is added in one elementwise step — so every sum
+runs in one order on every device (``index_add_`` on a CUDA tensor
+orders its adds differently from run to run).  The schedules are the
+device setup engine's :class:`~...ops.spgemm.GalerkinPlan` of the level:
+a plan the engine cached while it built the level serves here without a
+second symbolic pass.
 
 A pack layout that depends on the values (the shift pack's classes and
 slice mask, B3's ``row_len``, the compact packs of B2, B4 and B5) has to
@@ -33,7 +37,7 @@ resetups, as in the host replay.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import numpy as np
 import scipy.sparse as sp
@@ -42,7 +46,8 @@ import torch
 from ...core.matrix import (DIA_MAX_DIAGS, DeviceMatrix, Matrix,
                             assemble_device_matrix, dia_arrays,
                             dia_device_matrix, pack_host_arrays)
-from ...ops.spgemm import spgemm_symbolic
+from ...ops.spgemm import (GalerkinPlan, Schedule, build_galerkin_plan,
+                           run_schedule)
 
 #: the probe packs entry indices + 1 as f64 values, exact below 2^53
 #: (the JAX package probes in the pack dtype, f32, and stops at 2^24)
@@ -52,56 +57,10 @@ _VALUE_FIELDS = ("vals", "diag", "sh_vals", "bn_vals")
 _COMPACT_FIELDS = ("sh_compact", "bn_compact")
 
 
-@dataclasses.dataclass
-class Schedule:
-    """``out[s] = Σ a[t_a]·b[t_b]`` over the triples of slot s, the
-    triples sorted by slot (host arrays).  ``start`` holds each slot's
-    first triple, slots ordered by decreasing term count; ``steps[k]``
-    is how many slots have more than k terms; ``rank[s]`` is slot s's
-    place in that order."""
-    t_a: np.ndarray
-    t_b: np.ndarray
-    start: np.ndarray
-    steps: Tuple[int, ...]
-    rank: np.ndarray
-    n_out: int
-
-
-def ordered_schedule(t_a, t_b, t_out, n_out: int) -> Schedule:
-    """The :class:`Schedule` of a triple list sorted by output slot
-    (:func:`~...ops.spgemm.spgemm_symbolic`), every slot with a term."""
-    cnt = np.bincount(t_out, minlength=n_out)
-    if n_out and cnt.min() == 0 or np.any(t_out[1:] < t_out[:-1]):
-        raise ValueError("triples not sorted by slot, or a slot without "
-                         "a term")
-    first = np.concatenate([[0], np.cumsum(cnt)[:-1]])
-    by_cnt = np.argsort(-cnt, kind="stable")
-    rank = np.empty(n_out, dtype=np.int64)
-    rank[by_cnt] = np.arange(n_out)
-    sorted_cnt = cnt[by_cnt]
-    steps = tuple(int(np.searchsorted(-sorted_cnt, -k, side="right"))
-                  for k in range(1, int(cnt.max(initial=0)) + 1))
-    return Schedule(t_a=t_a, t_b=t_b, start=first[by_cnt], steps=steps,
-                    rank=rank, n_out=int(n_out))
-
-
 def _index(a: np.ndarray, dev) -> torch.Tensor:
     """int32 where the index space allows."""
     dt = np.int32 if a.size == 0 or a.max(initial=0) < 2 ** 31 else np.int64
     return torch.from_numpy(np.ascontiguousarray(a.astype(dt))).to(dev)
-
-
-def run_schedule(sch: Schedule, dev: dict, a: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
-    """The slot sums of ``sch`` on ``a``/``b``'s device (``dev`` holds the
-    schedule's device index arrays): the products in slot order, then
-    the k-th term of every slot that has one added in one step."""
-    prod = a[dev["t_a"]] * b[dev["t_b"]]
-    start = dev["start"]
-    acc = prod[start]
-    for k, m in enumerate(sch.steps[1:], 1):
-        acc[:m] += prod[start[:m] + k]
-    return acc[dev["rank"]]
 
 
 def _probe_pack(Ac: sp.csr_matrix) -> DeviceMatrix:
@@ -187,12 +146,9 @@ class LevelPlan:
     def device_arrays(self, device) -> dict:
         if self._dev is None or self._dev["P"].device != device:
             d = {"P": torch.from_numpy(self.P_data).to(device),
-                 "perm": _index(self.perm_RP, device)}
-            for key, sch in (("ap", self.ap), ("ac", self.ac)):
-                d[key] = {"t_a": _index(sch.t_a, device),
-                          "t_b": _index(sch.t_b, device),
-                          "start": torch.from_numpy(sch.start).to(device),
-                          "rank": _index(sch.rank, device)}
+                 "perm": _index(self.perm_RP, device),
+                 "ap": self.ap.device_arrays(device),
+                 "ac": self.ac.device_arrays(device)}
             for name, m in self.pack_maps.items():
                 d["map_" + name] = _index(m.reshape(-1) + 1, device)
             self._dev = d
@@ -200,41 +156,35 @@ class LevelPlan:
 
 
 def build_level_plan(A_csr: sp.csr_matrix, P_csr: sp.csr_matrix,
-                     Ac_csr: sp.csr_matrix,
-                     template) -> Optional[LevelPlan]:
-    """The symbolic schedules of one level, its triples sorted on the
-    device of ``template`` (the level's pack); None past the probe's
-    exactness, when the schedule's coarse pattern is not the one the
-    setup packed, or when the probe pack differs from ``template``."""
+                     Ac_csr: sp.csr_matrix, template,
+                     plan: Optional[GalerkinPlan] = None
+                     ) -> Optional[LevelPlan]:
+    """The refresh schedules of one level: those of ``plan`` (the
+    engine's cached Galerkin plan of this A and P pattern), else a
+    symbolic pass of its own on the device of ``template`` (the level's
+    pack).  None past the probe's exactness,
+    when the schedule's coarse pattern is not the one the setup packed,
+    or when the probe pack differs from ``template``."""
     A = sp.csr_matrix(A_csr)
     A.sort_indices()
     P = sp.csr_matrix(P_csr)
     P.sort_indices()
-    n, nc = P.shape
     if template is None or max(A.nnz, P.nnz, Ac_csr.nnz) >= _PROBE_EXACT:
         return None
-    tA, tP, to1, APptr, APind = spgemm_symbolic(
-        A.indptr, A.indices, P.indptr, P.indices, n, nc, template.device)
-    # R = Pᵀ with the data permutation recorded
-    probe = sp.csr_matrix((np.arange(P.nnz, dtype=np.float64), P.indices,
-                           P.indptr), shape=P.shape)
-    R = sp.csr_matrix(probe.T)
-    R.sort_indices()
-    perm_RP = np.rint(R.data).astype(np.int64)
-    tR, tAP, to2, Acptr, Acind = spgemm_symbolic(
-        R.indptr, R.indices, APptr, APind, nc, nc, template.device)
+    if plan is None:
+        plan = build_galerkin_plan(A, P, device=template.device)
     Acs = sp.csr_matrix(Ac_csr)
     Acs.sort_indices()
-    if not (np.array_equal(Acptr, Acs.indptr.astype(np.int64))
-            and np.array_equal(Acind, Acs.indices.astype(np.int32))):
+    if not (np.array_equal(plan.Ac_indptr, Acs.indptr.astype(np.int64))
+            and np.array_equal(plan.Ac_indices,
+                               Acs.indices.astype(np.int32))):
         return None
     maps = _value_maps(Acs, template)
     if maps is None:
         return None
     return LevelPlan(
-        P_data=np.asarray(P.data), perm_RP=perm_RP,
-        ap=ordered_schedule(tA, tP, to1, len(APind)),
-        ac=ordered_schedule(tR, tAP, to2, Acs.nnz),
+        P_data=np.asarray(P.data), perm_RP=plan.perm_RP,
+        ap=plan.ap, ac=plan.ac,
         Ac_indptr=Acs.indptr.copy(), Ac_indices=Acs.indices.copy(),
         Ac_shape=Acs.shape, pack_maps=maps, template=template)
 

@@ -1,9 +1,13 @@
-"""C/F splitting for classical AMG: PMIS (port of the PMIS part of
-``amgx_tpu/amg/classical/selectors.py``; reference
-``core/src/classical/selectors/pmis.cu``).  Host numpy/scipy setup code.
+"""C/F splitting selectors for classical AMG (port of
+``amgx_tpu/amg/classical/selectors.py``, copied; reference
+``core/src/classical/selectors/`` — PMIS, HMIS, RS, CR,
+AGGRESSIVE_PMIS/AGGRESSIVE_HMIS and DUMMY, registered core.cu:662-667).
+Host numpy/scipy setup code.
 
-HMIS, RS, CR, DUMMY and the aggressive selectors are a later slice of
-the port and raise :class:`~amgx_tpu_torch.errors.NotImplementedError_`.
+The tie-break seeds are the JAX package's: 7 (PMIS, HMIS), 11 (the
+second pass of the aggressive selectors) and 13 (CR) with
+``determinism_flag``, else the process's ``SESSION_SEED``.  RS is a
+serial Python heap: a small-size selector.
 """
 from __future__ import annotations
 
@@ -12,7 +16,7 @@ from typing import Dict
 import numpy as np
 import scipy.sparse as sp
 
-from ...errors import NotImplementedError_
+from ...errors import BadConfigurationError
 
 _selector_registry: Dict[str, type] = {}
 
@@ -56,9 +60,7 @@ def register_cf_selector(name):
 
 def create_cf_selector(name, cfg, scope):
     if name not in _selector_registry:
-        raise NotImplementedError_(
-            f"classical selector {name!r} is not ported; ported: "
-            f"{sorted(_selector_registry)}")
+        raise BadConfigurationError(f"unknown classical selector {name!r}")
     return _selector_registry[name](cfg, scope)
 
 
@@ -119,3 +121,116 @@ class PMISSelector(_CFSelectorBase):
     def select(self, S):
         seed = 7 if self.deterministic else SESSION_SEED
         return _pmis(S, seed)
+
+
+@register_cf_selector("HMIS")
+class HMISSelector(_CFSelectorBase):
+    """HMIS (``selectors/hmis.cu``): PMIS on the distance-2 strength graph
+    (S·Sᵀ sparsity), giving the sparser coarse grids of Hybrid-MIS."""
+
+    def select(self, S):
+        S2 = sp.csr_matrix(S.astype(np.float64) @ S.T.astype(np.float64))
+        S2.setdiag(0)
+        S2.eliminate_zeros()
+        S2.data[:] = 1
+        seed = 7 if self.deterministic else SESSION_SEED
+        return _pmis(sp.csr_matrix(S2.astype(np.int8)), seed)
+
+
+@register_cf_selector("RS")
+class RSSelector(_CFSelectorBase):
+    """Sequential Ruge-Stüben first pass (``selectors/rs.cu``): greedy
+    max-λ selection with neighbour updates (host-side; setup only)."""
+
+    def select(self, S):
+        n = S.shape[0]
+        lam = np.diff(sp.csr_matrix(S.T).indptr).astype(np.int64)
+        state = np.full(n, UNDECIDED, dtype=np.int8)
+        Su = sp.csr_matrix(S)
+        STu = sp.csr_matrix(S.T)
+        import heapq
+        heap = [(-lam[i], i) for i in range(n)]
+        heapq.heapify(heap)
+        while heap:
+            nl, i = heapq.heappop(heap)
+            if state[i] != UNDECIDED or -nl != lam[i]:
+                continue
+            state[i] = COARSE
+            # dependents of i become F; their influences gain weight
+            deps = STu.indices[STu.indptr[i]:STu.indptr[i + 1]]
+            for j in deps:
+                if state[j] == UNDECIDED:
+                    state[j] = FINE
+                    infl = Su.indices[Su.indptr[j]:Su.indptr[j + 1]]
+                    for k in infl:
+                        if state[k] == UNDECIDED:
+                            lam[k] += 1
+                            heapq.heappush(heap, (-lam[k], k))
+        state[state == UNDECIDED] = FINE
+        return (state == COARSE).astype(np.int8)
+
+
+@register_cf_selector("AGGRESSIVE_PMIS")
+class AggressivePMISSelector(PMISSelector):
+    """Aggressive coarsening: PMIS, then a second PMIS among the C points
+    over the distance-2 graph (``classical_amg_level.cu:155-201``)."""
+
+    def select(self, S):
+        cf = super().select(S)
+        c_idx = np.flatnonzero(cf)
+        if len(c_idx) < 2:
+            return cf
+        # strength graph among C points at distance ≤ 2
+        Sf = sp.csr_matrix(S.astype(np.float64))
+        S2 = sp.csr_matrix(Sf @ Sf + Sf)
+        Scc = S2[c_idx][:, c_idx]
+        Scc = sp.csr_matrix(Scc)
+        Scc.setdiag(0)
+        Scc.eliminate_zeros()
+        Scc.data[:] = 1
+        seed = 11 if self.deterministic else SESSION_SEED
+        cf_c = _pmis(sp.csr_matrix(Scc.astype(np.int8)), seed)
+        out = np.zeros_like(cf)
+        out[c_idx[cf_c.astype(bool)]] = 1
+        return out
+
+
+@register_cf_selector("AGGRESSIVE_HMIS")
+class AggressiveHMISSelector(HMISSelector):
+    def select(self, S):
+        cf = super().select(S)
+        c_idx = np.flatnonzero(cf)
+        if len(c_idx) < 2:
+            return cf
+        Sf = sp.csr_matrix(S.astype(np.float64))
+        S2 = sp.csr_matrix(Sf @ Sf + Sf)
+        Scc = sp.csr_matrix(S2[c_idx][:, c_idx])
+        Scc.setdiag(0)
+        Scc.eliminate_zeros()
+        if Scc.nnz:
+            Scc.data[:] = 1
+        seed = 11 if self.deterministic else SESSION_SEED
+        cf_c = _pmis(sp.csr_matrix(Scc.astype(np.int8)), seed)
+        out = np.zeros_like(cf)
+        out[c_idx[cf_c.astype(bool)]] = 1
+        return out
+
+
+@register_cf_selector("DUMMY")
+class DummyCFSelector(_CFSelectorBase):
+    """Every other point coarse (``selectors/dummy.cu`` parity)."""
+
+    def select(self, S):
+        n = S.shape[0]
+        cf = np.zeros(n, dtype=np.int8)
+        cf[::2] = 1
+        return cf
+
+
+@register_cf_selector("CR")
+class CRSelector(_CFSelectorBase):
+    """Compatible-relaxation selector (used by energymin; reference
+    ``selectors/cr.cu``): start from PMIS and promote slow-to-relax points."""
+
+    def select(self, S):
+        return _pmis(S, 13)

@@ -1,10 +1,11 @@
-"""Strength of connection for classical AMG (port of the AHAT and ALL
-measures of ``amgx_tpu/amg/classical/strength.py``; reference
+"""Strength of connection for classical AMG (port of the AHAT, ALL and
+AFFINITY measures of ``amgx_tpu/amg/classical/strength.py``; reference
 ``core/src/classical/strength/``).  Host numpy/scipy setup code.
 
 Parameters ``strength_threshold`` and ``max_row_sum`` (core.cu:504-506):
 rows whose row sum exceeds ``max_row_sum·|a_ii|`` lose their strong
-dependencies.  AFFINITY is a later slice of the port.
+dependencies.  AFFINITY (test-vector strength) seeds its vectors with
+``default_rng(42)``, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -13,12 +14,9 @@ from typing import Dict
 import numpy as np
 import scipy.sparse as sp
 
-from ...errors import BadConfigurationError, NotImplementedError_
+from ...errors import BadConfigurationError
 
 _strength_registry: Dict[str, type] = {}
-
-#: measures of the JAX package this slice does not carry
-_LATER_SLICE = ("AFFINITY",)
 
 
 def register_strength(name):
@@ -30,10 +28,6 @@ def register_strength(name):
 
 
 def create_strength(name, cfg, scope):
-    if name in _LATER_SLICE:
-        raise NotImplementedError_(
-            f"strength {name!r} is a later slice of the port; ported: "
-            f"{sorted(_strength_registry)}")
     if name not in _strength_registry:
         raise BadConfigurationError(f"unknown strength {name!r}")
     return _strength_registry[name](cfg, scope)
@@ -110,4 +104,40 @@ class AllStrength(_StrengthBase):
         S.eliminate_zeros()
         rows = np.repeat(np.arange(A.shape[0]), np.diff(A.indptr))
         S._amgx_mask_src = (A.indices, A.indptr, A.indices != rows)
+        return S
+
+
+@register_strength("AFFINITY")
+class AffinityStrength(_StrengthBase):
+    """Affinity (test-vector) strength (``strength/affinity.cu``): relax
+    random vectors with Jacobi and connect nodes whose test-vector values
+    correlate."""
+
+    def compute(self, A):
+        A = sp.csr_matrix(A)
+        n = A.shape[0]
+        k = int(self.cfg.get("affinity_vectors", self.scope))
+        iters = int(self.cfg.get("affinity_iterations", self.scope))
+        rng = np.random.default_rng(42)
+        X = rng.standard_normal((n, k))
+        d = A.diagonal()
+        dinv = 1.0 / np.where(d == 0, 1.0, d)
+        for _ in range(iters):
+            X = X - 0.6 * (dinv[:, None] * (A @ X))
+        # affinity c_ij = (x_i·x_j)^2 / (|x_i|^2 |x_j|^2) over the sparsity
+        indptr, indices = A.indptr, A.indices
+        rows = np.repeat(np.arange(n), np.diff(indptr))
+        num = np.einsum("ek,ek->e", X[rows], X[indices]) ** 2
+        den = (np.einsum("ek,ek->e", X[rows], X[rows]) *
+               np.einsum("ek,ek->e", X[indices], X[indices]))
+        aff = num / np.where(den == 0, 1.0, den)
+        off = indices != rows
+        aff = np.where(off, aff, -np.inf)
+        rowmax = np.full(n, -np.inf)
+        np.maximum.at(rowmax, rows, aff)
+        strong = off & (aff >= self.theta * rowmax[rows])
+        S = sp.csr_matrix((strong.astype(np.int8), indices.copy(),
+                           indptr.copy()), shape=A.shape)
+        S.eliminate_zeros()
+        S._amgx_mask_src = (A.indices, A.indptr, strong)
         return S

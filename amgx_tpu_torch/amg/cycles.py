@@ -7,6 +7,11 @@ stay 0-d device tensors (guarded divisions via ``torch.where``), so a
 cycle queues its work on the device without a single host sync; its f32
 inner products are summed in f64 and rounded once
 (:func:`~..ops.ordered.wdot`), so the card and the CPU take the same steps.
+
+``error_scaling`` 2/3 scales the coarse correction of a non-classical
+level by the λ minimising the residual 2-norm (2) or the error A-norm
+(3), clamped to [0.3, 10] in magnitude (reference
+``aggregation_amg_level.cu:740-860``); λ is a 0-d device tensor too.
 """
 from __future__ import annotations
 
@@ -20,6 +25,19 @@ def _guarded_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     """num / den, or 0 where den == 0 — without a host sync."""
     safe = torch.where(den == 0, torch.ones_like(den), den)
     return torch.where(den != 0, num / safe, torch.zeros_like(num))
+
+
+def _scaling_lambda(r, e, Ae, mode: int) -> torch.Tensor:
+    """λ of the scaled correction: ⟨r, Ae⟩/⟨Ae, Ae⟩ (mode 2) or
+    ⟨r, e⟩/⟨e, Ae⟩ (mode 3); 1 when the denominator is 0; its magnitude
+    clamped to [0.3, 10]."""
+    if mode == 2:
+        num, den = wdot(r, Ae), wdot(Ae, Ae)
+    else:
+        num, den = wdot(r, e), wdot(e, Ae)
+    one = torch.ones_like(den)
+    lam = torch.where(den == 0, one, num / torch.where(den == 0, one, den))
+    return torch.sign(lam) * torch.clamp(torch.abs(lam), 0.3, 10.0)
 
 
 def build_cycle(hierarchy, cycle_type: str = None):
@@ -72,7 +90,15 @@ def build_cycle(hierarchy, cycle_type: str = None):
             xc = kcycle(i + 1, bc, xc, flavor)
         else:
             raise ValueError(f"unknown cycle {flavor!r}")
-        x = lvl.prolongate_and_correct(x, xc)
+        if h.error_scaling in (2, 3) and lvl.kind != "classical":
+            # the prolongated (optionally smoothed) error, applied with
+            # the λ of the configured norm
+            e = lvl.prolongate_and_correct(torch.zeros_like(x), xc)
+            e = smooth(lvl, r, e, h.scaling_smoother_steps)
+            lam = _scaling_lambda(r, e, spmv(lvl.Ad, e), h.error_scaling)
+            x = x + lam * e
+        else:
+            x = lvl.prolongate_and_correct(x, xc)
         return smooth(lvl, b, x, postsweeps_at(i))
 
     def kcycle(i, b, x, flavor):

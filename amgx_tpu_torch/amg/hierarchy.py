@@ -20,13 +20,28 @@ scalar aggregation and the serial classical parts of
   whole setup down the host loop.
 
 * Aggregation beyond the GEO plan (an operator of more than 48
-  diagonals, or the SIZE_2/4/8, MULTI_PAIRWISE, PARALLEL_GREEDY and
-  DUMMY selectors): the host loop runs the selector on the host CSR
-  (:mod:`.aggregation.selectors`, bit-equal to the JAX package's), the
-  Galerkin product Sᵀ·A·S on the host (:mod:`.aggregation.galerkin`),
-  and an :class:`~.level.AggregationLevel` per level.  GEO without a
-  DIA plan and without attached coordinates becomes SIZE_2, as
-  upstream.
+  diagonals, a block system, or the SIZE_2/4/8, MULTI_PAIRWISE,
+  PARALLEL_GREEDY and DUMMY selectors): the host loop runs the selector
+  on the host CSR — on a b×b block system, on its Frobenius-condensed
+  scalar graph — (:mod:`.aggregation.selectors`, bit-equal to the JAX
+  package's), the Galerkin product Sᵀ·A·S through the device setup
+  engine, and an :class:`~.level.AggregationLevel` per level.  A DIA
+  level past the GEO plan's diagonal budget coarsens on the host,
+  structured 2×2×2 or pairwise (:mod:`.structured`, :mod:`.pairwise`);
+  GEO on a level without a DIA decomposition reads the attached
+  coordinates (``Matrix.geometry``; coarse levels take the aggregate
+  centroids), and without coordinates becomes SIZE_2, as upstream.
+* The Galerkin products of the host levels go through the device setup
+  engine (:mod:`.device_setup`; ``device_setup=1``, the default): a
+  pattern-keyed plan cache whose numeric pass runs on the level's
+  device as ordered segment sums.  Levels below
+  ``device_setup_min_rows`` (and the other gate declines) take the
+  scipy product.
+* ``algorithm=ENERGYMIN`` runs the classical host loop with
+  ``energymin_selector``/``energymin_interpolator`` (CR + EM), and the
+  first ``aggressive_levels`` classical levels take
+  ``aggressive_selector``/``aggressive_interpolator``; the device
+  classical paths read these effective names.
 
 Values-only resetup (``structure_reuse_levels`` ≠ 0; reference
 ``amg.cu:260-290``): each level records its coarsening decision in
@@ -36,7 +51,9 @@ later setup of the same hierarchy object keeps them and refreshes the
 values: the DIA plan re-derived on the device (``"dia_device"``), the
 classical Galerkin products refreshed on the device from schedules built
 at setup (:mod:`.classical.resetup_device`, ``"classical_device"``), or
-each level's Galerkin product replayed on the host (``"host_replay"``);
+each level's Galerkin product replayed (``"host_replay"``: the engine's
+cached plans, the host structured/pairwise step of a DIA level the
+device refresh does not derive);
 ``last_resetup`` names the path taken (``"fresh"`` for a full setup).
 A reuse-configured classical setup runs the host loop: the device
 pipeline builds levels no plan could refresh.
@@ -58,15 +75,22 @@ from ..device import host_scalar
 from ..errors import BadConfigurationError, NotImplementedError_
 from ..ops.spgemm import pad_to_symbolic
 from ..solvers.base import SolverFactory
+from .aggregation.galerkin import galerkin_coarse
 from .dia_device import derive_hierarchy_device, plan_dia_hierarchy
 from .level import (AggregationLevel, AMGLevel, ClassicalLevel,
                     PairwiseLevel, StructuredLevel)
-from .structured import (decompose_offsets, infer_grid_dims,
-                         stencil_values_consistent)
+from .pairwise import pairwise_galerkin_dia
+from .structured import (coarse_dims, decompose_offsets, infer_grid_dims,
+                         stencil_values_consistent, structured_galerkin)
 
 #: knobs of the AMG scope whose non-default values select a feature of
-#: a later slice of the port
-_LATER_SLICE = (("amg_host_levels_rows", -1), ("error_scaling", 0))
+#: a later slice of the port: host-computed coarse levels inside the
+#: AMG's one CUDA graph are not designed yet
+_LATER_SLICE = (("amg_host_levels_rows", -1),)
+
+#: the structured/pairwise path declined (too many diagonals): the
+#: caller retries with a graph-matching selector
+_PAIRWISE_FALLBACK = object()
 
 
 #: THE PMIS tie-break seed of the device classical paths
@@ -77,12 +101,55 @@ _LATER_SLICE = (("amg_host_levels_rows", -1), ("error_scaling", 0))
 _TIEBREAK_SEED = 7
 
 
-def _child_matrix(parent: Matrix, a) -> Matrix:
+def _child_matrix(parent: Matrix, a, block_dim: int = 1) -> Matrix:
     """A host-built hierarchy child inheriting the parent's device and
     device dtype."""
-    m = Matrix(a, device=parent.placement)
+    m = Matrix(a, block_dim=block_dim, device=parent.placement)
     m.device_dtype = parent.device_dtype
     return m
+
+
+def _child_matrix_dia(parent: Matrix, offsets, vals) -> Matrix:
+    """A host-derived DIA child (the host structured/pairwise step): the
+    coarse operator stays in diagonal form, its CSR view assembles only
+    when a consumer asks."""
+    m = Matrix.from_dia(offsets, vals, device=parent.placement)
+    m.device_dtype = parent.device_dtype
+    return m
+
+
+def _narrow_dia(cur: Matrix, arrs):
+    """The host Galerkin of a DIA level runs in the level's device dtype,
+    floored at f32 (``compute_dtype``), as the JAX package's does."""
+    dd = compute_dtype(np.dtype(cur.device_dtype)) \
+        if cur.device_dtype is not None else None
+    if dd is not None and dd.itemsize < arrs[1].dtype.itemsize:
+        return (arrs[0], arrs[1].astype(dd))
+    return arrs
+
+
+def _require_dia(cur: Matrix):
+    """The kept (offsets, host vals) of a DIA level a structure-reuse
+    refresh derives on the host; raises when the refreshed matrix has no
+    diagonal decomposition."""
+    arrs = cur.dia_cache() if cur.block_dim == 1 else None
+    if arrs is None:
+        raise _no_dia_structure()
+    offs, vals, _ = _drop_zero_diagonals(*arrs)
+    return offs, vals
+
+
+def _block_condensed(m: Matrix) -> sp.csr_matrix:
+    """A b×b block matrix condensed to the scalar weight graph the
+    aggregation selectors read: the Frobenius norm of each block (the
+    reference reads one component per block,
+    ``aggregation_edge_weight_component``)."""
+    bsr = m.host if isinstance(m.host, sp.bsr_matrix) else sp.bsr_matrix(
+        m.host, blocksize=(m.block_dim, m.block_dim))
+    bsr.sort_indices()
+    n = bsr.shape[0] // m.block_dim
+    vals = np.sqrt((bsr.data ** 2).sum(axis=(1, 2)))
+    return sp.csr_matrix((vals, bsr.indices, bsr.indptr), shape=(n, n))
 
 
 def _drop_zero_diagonals(offs, vals: np.ndarray):
@@ -136,6 +203,15 @@ class AMGHierarchy:
         self.cycle_iters = int(g("cycle_iters"))
         self.aggressive_levels = int(g("aggressive_levels"))
         self.structure_reuse_levels = int(g("structure_reuse_levels"))
+        #: the scaled coarse correction of non-classical levels (2: the
+        #: λ minimising the residual 2-norm, 3: the error A-norm)
+        self.error_scaling = int(g("error_scaling"))
+        self.scaling_smoother_steps = int(g("scaling_smoother_steps"))
+        #: the device setup engine (amg/device_setup/) for the host
+        #: levels' Galerkin products
+        self.device_setup = int(g("device_setup"))
+        self.device_setup_min_rows = int(g("device_setup_min_rows"))
+        self.device_setup_cache_mb = int(g("device_setup_cache_mb"))
         self.levels: List[AMGLevel] = []
         self.coarsest: Optional[Matrix] = None
         self.coarse_solver = None
@@ -308,16 +384,11 @@ class AMGHierarchy:
                 break
             kind, data = struct
             if kind == "aggregation":
-                if cur.block_dim != 1:
-                    raise NotImplementedError_(
-                        "resetup of aggregation AMG on block systems is a "
-                        "later slice of the port (ROADMAP A5)")
-                from .aggregation.galerkin import galerkin_coarse_scalar
                 agg, nc = data
-                Asc = cur.scalar_csr()
-                Ac_host = galerkin_coarse_scalar(Asc, agg).astype(Asc.dtype)
+                # the engine's cached plan: a numeric pass only
+                Ac_host = self._galerkin_agg(cur, agg)
                 lvl = AggregationLevel(cur, i, agg, nc)
-                nxt = _child_matrix(cur, Ac_host)
+                nxt = _child_matrix(cur, Ac_host, block_dim=cur.block_dim)
             elif kind == "classical":
                 P_host, = data
                 R_host = sp.csr_matrix(P_host.T)
@@ -325,14 +396,38 @@ class AMGHierarchy:
                 # classical keeps the full symbolic pattern, so recorded
                 # device plans stay applicable
                 Ac_host = self._galerkin_classical(
-                    Asc, R_host, P_host,
+                    cur, Asc, R_host, P_host,
                     keep_pattern=self.algorithm == "CLASSICAL")
                 lvl = ClassicalLevel(cur, i, _child_matrix(cur, P_host),
                                      _child_matrix(cur, R_host),
                                      getattr(level, "cf_map", None))
                 nxt = _child_matrix(cur, Ac_host)
+            elif kind == "pairwise":
+                # a level the device refresh did not derive: the host
+                # pairwise step on the refreshed diagonals
+                offs_c, vals_c = self._pairwise_numeric(
+                    _narrow_dia(cur, _require_dia(cur)))
+                lvl = PairwiseLevel(cur, i, data[0])
+                nxt = _child_matrix_dia(cur, offs_c, vals_c)
             else:
-                self._dia_level_unreusable(cur, kind, data)
+                dims = tuple(data[0])
+                offs, vals = _narrow_dia(cur, _require_dia(cur))
+                offs3 = decompose_offsets(offs, dims)
+                if offs3 is None or \
+                        not stencil_values_consistent(offs3, vals, dims):
+                    # a value-only refresh can light up a diagonal that
+                    # was all-zero at setup, which the recorded decode
+                    # never saw
+                    raise BadConfigurationError(
+                        "resetup: refreshed values no longer admit the "
+                        "recorded structured stencil (a diagonal that was "
+                        "all-zero at setup became coupled) — call setup() "
+                        "for a structural rebuild")
+                flat, vals_c, cdims = self._structured_numeric(
+                    offs3, vals, dims)
+                lvl = StructuredLevel(cur, i, dims, cdims)
+                nxt = _child_matrix_dia(cur, flat, vals_c)
+                nxt.grid_dims = cdims
             replayed = True
             self.levels.append(lvl)
             self._structure.append(struct)
@@ -347,31 +442,6 @@ class AMGHierarchy:
             self._cla_plans = None
         self.last_resetup = "host_replay" if replayed else \
             "dia_device" if consumed else "fresh"
-
-    def _dia_level_unreusable(self, cur: Matrix, kind: str, data):
-        """A structured or pairwise level the device refresh did not
-        consume: the reason, raised."""
-        inputs = self._dia_plan_inputs(cur)
-        if inputs is None:
-            raise _no_dia_structure()
-        offs, vals, _, _ = inputs
-        if kind == "structured":
-            dims = tuple(data[0])
-            offs3 = decompose_offsets(offs, dims)
-            if offs3 is None or (vals is not None and
-                                 not stencil_values_consistent(offs3, vals,
-                                                               dims)):
-                # a value-only refresh can light up a diagonal that was
-                # all-zero at setup, which the recorded decode never saw
-                raise BadConfigurationError(
-                    "resetup: refreshed values no longer admit the "
-                    "recorded structured stencil (a diagonal that was "
-                    "all-zero at setup became coupled) — call setup() for "
-                    "a structural rebuild")
-        raise NotImplementedError_(
-            f"resetup of a {kind} level the device refresh cannot derive "
-            "needs the host structured/pairwise numeric step, a later "
-            "slice of the port (ROADMAP A6)")
 
     def _reuse_dia_device(self, cur: Matrix, old) -> tuple:
         """Refresh a reused structured/pairwise prefix on the device: the
@@ -438,8 +508,12 @@ class AMGHierarchy:
             nxt = self.levels[i + 1].A if i + 1 < len(self.levels) \
                 else coarsest
             Ac_csr = sp.csr_matrix(nxt.host)
+            # the engine's plan of this product, when it cached one,
+            # serves without a second symbolic pass
             plan = build_level_plan(cur_csr, P_host, Ac_csr,
-                                    template=nxt.device())
+                                    template=nxt.device(),
+                                    plan=self._cached_galerkin_plan(
+                                        cur_csr, P_host))
             if plan is None:
                 return
             plans.append(plan)
@@ -504,25 +578,30 @@ class AMGHierarchy:
     def _param(self, name):
         return self.cfg.get(name, self.scope)
 
-    def _classical_params(self) -> dict:
+    def _classical_params(self, sname: str = None,
+                          interp: str = None) -> dict:
+        """The device classical paths' parameters; ``sname``/``interp``
+        are the effective strength and interpolator names (default: the
+        configured ones)."""
+        sname = sname or str(self._param("strength"))
+        interp = interp or str(self._param("interpolator"))
         return dict(
             theta=float(self._param("strength_threshold")),
             max_row_sum=float(self._param("max_row_sum")),
-            strength_all=str(self._param("strength")) == "ALL",
-            interp_d2=str(self._param("interpolator")) == "D2",
+            strength_all=sname == "ALL", interp_d2=interp == "D2",
             trunc_factor=float(self._param("interp_truncation_factor")),
             max_elements=int(self._param("interp_max_elements")))
 
-    def _device_classical_inputs(self, cur: Matrix):
+    def _device_classical_inputs(self, cur: Matrix, sel_name: str,
+                                 interp_name: str, sname: str):
         """Static gates shared by both device classical paths (the
-        pipeline and the device fine level): PMIS, D1/D2, AHAT/ALL
-        strength, a DIA pack of at most 16 two-sided diagonals and, for
-        D2, an A-hat plan of at most 48 offsets.  Returns ``(offsets,
-        dvals)`` — the device values of the kept diagonals — or None
-        (host path)."""
-        if str(self._param("selector")) != "PMIS" or \
-                str(self._param("interpolator")) not in ("D1", "D2") or \
-                str(self._param("strength")) not in ("AHAT", "ALL"):
+        pipeline and the device fine level), on the effective names a
+        level coarsens with: PMIS, D1/D2, AHAT/ALL strength, a DIA pack
+        of at most 16 two-sided diagonals and, for D2, an A-hat plan of
+        at most 48 offsets.  Returns ``(offsets, dvals)`` — the device
+        values of the kept diagonals — or None (host path)."""
+        if sel_name != "PMIS" or interp_name not in ("D1", "D2") or \
+                sname not in ("AHAT", "ALL"):
             return None
         inputs = self._dia_plan_inputs(cur, max_diags=16)
         if inputs is None:
@@ -533,8 +612,7 @@ class AMGHierarchy:
             # opposite-offset rows: a one-sided stencil takes the host path
             return None
         from .classical.device_fine import ahat_plan
-        if str(self._param("interpolator")) == "D2" and \
-                len(ahat_plan(offs)[0]) > 48:
+        if interp_name == "D2" and len(ahat_plan(offs)[0]) > 48:
             return None
         curd = cur.device()
         if curd.fmt != "dia":
@@ -546,9 +624,13 @@ class AMGHierarchy:
         ``(offsets, dvals)`` inputs or None (host path)."""
         if os.environ.get("AMGX_NO_DEVICE_PIPELINE") == "1":
             return None
+        if cur.block_dim != 1:
+            return None
         if self.structure_reuse_levels != 0 or self.aggressive_levels:
             # a reuse-configured setup takes the host loop, whose levels
             # the resetup plans can refresh
+            return None
+        if self.error_scaling in (2, 3):
             return None
         if len(self.levels) + 1 >= self.max_levels or \
                 cur.n_block_rows <= max(self.min_coarse_rows,
@@ -560,7 +642,9 @@ class AMGHierarchy:
             return None
         if self.cycle_type not in ("V", "W", "F"):
             return None
-        return self._device_classical_inputs(cur)
+        return self._device_classical_inputs(
+            cur, str(self._param("selector")),
+            str(self._param("interpolator")), str(self._param("strength")))
 
     def _build_classical_device_pipeline(self, cur: Matrix):
         """Fully-device classical setup: the fine level coarsens by shift
@@ -695,16 +779,20 @@ class AMGHierarchy:
         return M
 
     # ------------------------------------------------ classical: host loop
-    def _coarsen_classical_device_fine(self, cur: Matrix, idx: int):
+    def _coarsen_classical_device_fine(self, cur: Matrix, idx: int,
+                                       sname: str, sel_name: str,
+                                       interp_name: str):
         """Device classical coarsening of a DIA-eligible level
-        (:mod:`.classical.device_fine`) with the Galerkin product on the
-        host; None when a gate fails (the host path is the fallback)."""
-        inputs = self._device_classical_inputs(cur)
+        (:mod:`.classical.device_fine`) with the Galerkin product of the
+        host loop; None when a gate fails (the host path is the
+        fallback)."""
+        inputs = self._device_classical_inputs(cur, sel_name, interp_name,
+                                               sname)
         if inputs is None:
             return None
         offs, dvals = inputs
         from .classical.device_fine import classical_fine_device
-        p = self._classical_params()
+        p = self._classical_params(sname, interp_name)
         cf_map, P_host = classical_fine_device(
             offs, dvals, cur.n_block_rows, p["theta"], p["max_row_sum"],
             p["strength_all"], p["interp_d2"], p["trunc_factor"],
@@ -716,42 +804,101 @@ class AMGHierarchy:
         P_host = P_host.astype(Asc.dtype)
         R_host = sp.csr_matrix(P_host.T)
         Ac_host = self._galerkin_classical(
-            Asc, R_host, P_host,
+            cur, Asc, R_host, P_host,
             keep_pattern=self.structure_reuse_levels != 0)
         level = ClassicalLevel(cur, idx, _child_matrix(cur, P_host),
                                _child_matrix(cur, R_host), cf_map)
         return level, _child_matrix(cur, Ac_host), ("classical", (P_host,))
 
+    # ---------------------------------------------- aggregation: host loop
     def _coarsen_aggregation(self, cur: Matrix, idx: int):
         """One aggregation step of the host loop (``_coarsen_once``
-        upstream, scalar, single device): selector on the host CSR, the
-        host Galerkin product, an :class:`AggregationLevel`."""
-        from .aggregation.galerkin import galerkin_coarse_scalar
+        upstream, single device): the host structured/pairwise step for
+        a DIA level under GEO, else the selector on the host CSR (on a
+        block system its condensed graph), the Galerkin product through
+        the engine, an :class:`AggregationLevel`."""
         from .aggregation.selectors import create_selector
-        if cur.block_dim != 1:
-            raise NotImplementedError_(
-                "aggregation AMG on block systems is a later slice of the "
-                "port")
         name = self.selector
-        if name in ("GEO", "PAIRWISE"):
-            if self._dia_plan_inputs(cur) is not None:
-                # the JAX package coarsens such a level pairwise on the
-                # host, past the device plan's diagonal budget
-                raise NotImplementedError_(
-                    f"a DIA level of {cur.n_block_rows} rows past the GEO "
-                    "plan needs the host pairwise step, a later slice of "
-                    "the port")
-            # irregular and no coordinates attached (the port attaches
-            # none): the matching selector, as upstream
-            name = "SIZE_2"
-        Asc = cur.scalar_csr()
-        agg = create_selector(name, self.cfg, self.scope).select(Asc)
+        if name == "PAIRWISE":       # alias of the structured GEO path
+            name = "GEO"
+        if name == "GEO" and cur.block_dim == 1:
+            out = self._coarsen_pairwise(cur, idx)
+            if out is not _PAIRWISE_FALLBACK:
+                return out
+            if cur.geometry is None:
+                name = "SIZE_2"      # irregular and no coordinates
+        selector = create_selector(name, self.cfg, self.scope)
+        Asc = cur.scalar_csr() if cur.block_dim == 1 else \
+            _block_condensed(cur)
+        geom = cur.geometry
+        if geom is not None:
+            # attached per-row coordinates feed the GEO selector
+            # (AMGX_matrix_attach_geometry → geo_selector.cu)
+            Asc._amgx_geometry = geom
+        agg = selector.select(Asc)
         nc = int(agg.max()) + 1 if len(agg) else 0
         if nc == 0:
             return None, None, None
-        Ac_host = galerkin_coarse_scalar(Asc, agg).astype(Asc.dtype)
-        return (AggregationLevel(cur, idx, agg, nc),
-                _child_matrix(cur, Ac_host), ("aggregation", (agg, nc)))
+        Ac_host = self._galerkin_agg(cur, agg)
+        level = AggregationLevel(cur, idx, agg, nc)
+        Ac = _child_matrix(cur, Ac_host, block_dim=cur.block_dim)
+        if geom is not None:
+            # coarse coordinates: the aggregate centroids, so GEO keeps
+            # aggregating geometrically below the fine level
+            cnt = np.bincount(agg, minlength=nc).astype(np.float64)
+            Ac.geometry = tuple(
+                np.bincount(agg, weights=np.asarray(c, np.float64),
+                            minlength=nc) / np.maximum(cnt, 1)
+                for c in geom)
+        return level, Ac, ("aggregation", (agg, nc))
+
+    def _coarsen_pairwise(self, cur: Matrix, idx: int,
+                          max_diags: int = 48):
+        """The host structured/pairwise step (GEO on a DIA level the
+        device plan did not take): DIA in, DIA out, reshape transfers;
+        ``_PAIRWISE_FALLBACK`` when the level has no DIA decomposition
+        within ``max_diags`` (the caller retries with a matching
+        selector)."""
+        if cur.n_block_rows < 2:
+            return None, None, None
+        inputs = self._dia_plan_inputs(cur, max_diags)
+        if inputs is None:
+            return _PAIRWISE_FALLBACK
+        offs_raw, vals_raw, dims, _ = inputs
+        if vals_raw is None:        # hint-gated plan: the host needs values
+            vals_raw = cur.dia_cache(max_diags)[1]
+        arrs = _narrow_dia(cur, (offs_raw, vals_raw))
+        offs, vals = arrs
+        if dims is not None and max(dims) > 1:
+            offs3 = decompose_offsets(offs, dims)
+            if offs3 is not None:
+                out = self._structured_numeric(offs3, vals, dims)
+                if out is not None:
+                    flat, vals_c, cdims = out
+                    level = StructuredLevel(cur, idx, dims, cdims)
+                    Ac = _child_matrix_dia(cur, flat, vals_c)
+                    Ac.grid_dims = cdims
+                    return level, Ac, ("structured", (dims,))
+        offs_c, vals_c = self._pairwise_numeric(arrs)
+        level = PairwiseLevel(cur, idx, cur.n_block_rows)
+        return level, _child_matrix_dia(cur, offs_c, vals_c), \
+            ("pairwise", (cur.n_block_rows,))
+
+    @staticmethod
+    def _structured_numeric(offs3, vals, dims):
+        """The host structured Galerkin product; None when the coarse
+        grid would not shrink.  Returns (flat offsets, vals, cdims)."""
+        cdims = coarse_dims(dims)
+        if int(np.prod(cdims)) >= int(np.prod(dims)):
+            return None
+        return structured_galerkin(offs3, vals, dims)
+
+    @staticmethod
+    def _pairwise_numeric(arrs):
+        """The host pairwise Galerkin product, DIA in and DIA out (fresh
+        setup and structure reuse)."""
+        offs, vals = arrs
+        return pairwise_galerkin_dia(offs, vals)
 
     def _coarsen_once(self, cur: Matrix, idx: int):
         """One host-loop coarsening step: ``(level, coarse matrix, its
@@ -759,23 +906,39 @@ class AMGHierarchy:
         grid degenerates."""
         if self.algorithm == "AGGREGATION":
             return self._coarsen_aggregation(cur, idx)
-        if self.algorithm != "CLASSICAL":
-            raise NotImplementedError_(
-                f"algorithm={self.algorithm} is a later slice of the port")
+        if self.algorithm not in ("CLASSICAL", "ENERGYMIN"):
+            raise BadConfigurationError(
+                f"unknown AMG algorithm {self.algorithm!r}")
+        if cur.block_dim != 1:
+            raise BadConfigurationError(
+                "classical AMG requires block_dim=1 (use AGGREGATION for "
+                "block systems), as in the reference defaults")
         from .classical.interpolators import create_interpolator
         from .classical.selectors import create_cf_selector
         from .classical.strength import create_strength
-        strength = create_strength(str(self._param("strength")), self.cfg,
-                                   self.scope)
+        sname = str(self._param("strength"))
+        strength = create_strength(sname, self.cfg, self.scope)
         sel_name = str(self._param("selector"))
         interp_name = str(self._param("interpolator"))
+        if self.algorithm == "ENERGYMIN":
+            sel_name = str(self._param("energymin_selector"))
+            interp_name = str(self._param("energymin_interpolator"))
         if idx < self.aggressive_levels:
-            raise NotImplementedError_(
-                "aggressive coarsening (aggressive_levels) is a later "
-                "slice of the port")
-        out = self._coarsen_classical_device_fine(cur, idx)
-        if out is not None:
-            return out
+            # aggressive coarsening on the first levels switches the
+            # selector and interpolator (classical_amg_level.cu:155-201)
+            asel = str(self._param("aggressive_selector"))
+            if asel == "DEFAULT":
+                asel = sel_name if sel_name.startswith("AGGRESSIVE") \
+                    else "AGGRESSIVE_" + sel_name
+            sel_name = asel
+            interp_name = str(self._param("aggressive_interpolator"))
+        if self.algorithm == "CLASSICAL":
+            # a DIA level runs strength, PMIS and interpolation on the
+            # device when its effective names allow it
+            out = self._coarsen_classical_device_fine(
+                cur, idx, sname, sel_name, interp_name)
+            if out is not None:
+                return out
         Asc = cur.scalar_csr()
         S = strength.compute(Asc)
         cf_map = create_cf_selector(sel_name, self.cfg, self.scope) \
@@ -787,26 +950,68 @@ class AMGHierarchy:
         P_host = interp.compute(Asc, S, cf_map).astype(Asc.dtype)
         R_host = sp.csr_matrix(P_host.T)
         Ac_host = self._galerkin_classical(
-            Asc, R_host, P_host,
-            keep_pattern=self.structure_reuse_levels != 0)
+            cur, Asc, R_host, P_host,
+            keep_pattern=self.algorithm == "CLASSICAL"
+            and self.structure_reuse_levels != 0)
         level = ClassicalLevel(cur, idx, _child_matrix(cur, P_host),
                                _child_matrix(cur, R_host), cf_map)
         return level, _child_matrix(cur, Ac_host), ("classical", (P_host,))
 
-    @staticmethod
-    def _galerkin_classical(Asc, R_host, P_host,
-                            keep_pattern: bool = False) -> sp.csr_matrix:
-        """Galerkin RAP of one host level: the scipy triple product (the
-        device setup engine of the JAX package is a later slice).
+    # ------------------------------------------------ device setup engine
+    def _engine(self):
+        """The process-wide device setup engine, or None when
+        ``device_setup=0`` (the host products then run without
+        consulting it)."""
+        if not self.device_setup:
+            return None
+        from .device_setup import engine
+        return engine()
+
+    def _engine_args(self, cur: Matrix) -> dict:
+        return dict(device=cur.placement,
+                    min_rows=self.device_setup_min_rows,
+                    budget_bytes=self.device_setup_cache_mb << 20)
+
+    def _cached_galerkin_plan(self, A_csr, P_host):
+        eng = self._engine()
+        return None if eng is None else \
+            eng.cached_galerkin_plan(A_csr, P_host, A_csr.dtype)
+
+    def _galerkin_classical(self, cur: Matrix, Asc, R_host, P_host,
+                            keep_pattern: bool) -> sp.csr_matrix:
+        """Galerkin RAP of one host classical level: the engine's plan
+        and numeric pass on the level's device, the scipy triple product
+        after a gate decline (or with ``device_setup=0``).
         ``keep_pattern`` returns it on its full symbolic pattern (the
         frozen structure a values-only resetup refreshes)."""
-        Ac = sp.csr_matrix(R_host @ Asc @ P_host)
-        if keep_pattern:
-            Ac = pad_to_symbolic(Ac, Asc, P_host)
+        eng = self._engine()
+        Ac = None
+        if eng is not None:
+            Ac = eng.galerkin_csr(Asc, P_host, dtype=Asc.dtype,
+                                  keep_pattern=keep_pattern,
+                                  **self._engine_args(cur))
+        if Ac is None:
+            Ac = sp.csr_matrix(R_host @ Asc @ P_host)
+            if keep_pattern:
+                Ac = pad_to_symbolic(Ac, Asc, P_host)
         Ac = Ac.astype(Asc.dtype)
         Ac.sum_duplicates()
         Ac.sort_indices()
         return Ac
+
+    def _galerkin_agg(self, cur: Matrix, agg: np.ndarray):
+        """Galerkin product of one aggregation level (scalar CSR or b×b
+        BSR): the engine's ordered segment sum on the level's device,
+        the host sort-based generator after a gate decline."""
+        eng = self._engine()
+        host = cur.host
+        if eng is not None:
+            out = eng.galerkin_agg(host, agg, cur.block_dim,
+                                   dtype=host.dtype,
+                                   **self._engine_args(cur))
+            if out is not None:
+                return out.astype(host.dtype)
+        return galerkin_coarse(host, agg, cur.block_dim)
 
     def _setup_smoothers_and_coarse(self, coarsest: Matrix):
         for lvl in self.levels:

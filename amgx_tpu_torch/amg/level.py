@@ -1,4 +1,4 @@
-"""AMG levels (port of ``AMGLevel``, ``AggregationLevel`` (scalar),
+"""AMG levels (port of ``AMGLevel``, ``AggregationLevel``,
 ``PairwiseLevel``, ``StructuredLevel`` and ``ClassicalLevel`` of
 ``amgx_tpu/amg/level.py``; reference ``base/include/amg_level.h:73-238``).
 
@@ -62,13 +62,15 @@ def member_table(aggregates: np.ndarray, n_coarse: int) -> np.ndarray:
 
 class AggregationLevel(AMGLevel):
     """Implicit piecewise-constant transfer over ``aggregates`` (scalar
-    systems; reference ``aggregation_amg_level.cu:115-196``).
+    or b×b block systems; reference ``aggregation_amg_level.cu:115-196``).
 
     Restriction adds each aggregate's fine values in increasing fine
     index, one elementwise add per member slot over the table of
     :func:`member_table` built at setup — the JAX package's segment sum
     in the same order, without the card's atomic scatter-add, whose
-    order changes from run to run.  Prolongation is a gather."""
+    order changes from run to run.  Prolongation is a gather.  A block
+    level works on ``(-1, b)`` views: an aggregate's block rows move
+    together."""
 
     kind = "aggregation"
 
@@ -77,20 +79,26 @@ class AggregationLevel(AMGLevel):
         super().__init__(A, level_index)
         agg = np.asarray(aggregates, dtype=np.int64)
         self.n_coarse = int(n_coarse)
+        self.block_dim = int(A.block_dim)
         dev = A.placement
         self.aggregates = torch.from_numpy(agg).to(dev)
         self.members = torch.from_numpy(member_table(agg, self.n_coarse)) \
             .to(dev)
 
     def restrict_residual(self, r):
-        rp = torch.cat([r, r.new_zeros(1)])
+        b = self.block_dim
+        rb = r if b == 1 else r.reshape(-1, b)
+        rp = torch.cat([rb, rb.new_zeros((1,) + rb.shape[1:])])
         out = rp[self.members[0]]
         for k in range(1, self.members.shape[0]):
             out = out + rp[self.members[k]]
-        return out
+        return out if b == 1 else out.reshape(-1)
 
     def prolongate_and_correct(self, x, e):
-        return x + e[self.aggregates]
+        if self.block_dim == 1:
+            return x + e[self.aggregates]
+        b = self.block_dim
+        return x + e.reshape(-1, b)[self.aggregates].reshape(-1)
 
 
 class PairwiseLevel(AMGLevel):

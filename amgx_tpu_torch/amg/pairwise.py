@@ -1,14 +1,44 @@
-"""Row-aligned DIA arrays → scipy CSR (port of the host half of
-``amgx_tpu/amg/pairwise.py``).
+"""Pairwise (index-order {2I, 2I+1}) aggregation on DIA operators, the
+host half (port of ``amgx_tpu/amg/pairwise.py``, numpy, copied).
 
-The pairwise (index-order {2I, 2I+1}) Galerkin itself runs on the device
-in :mod:`amgx_tpu_torch.amg.dia_device`; the host pairwise coarsening
-loop belongs to a later slice.
+The planned levels of a GEO hierarchy derive on the device
+(:mod:`amgx_tpu_torch.amg.dia_device`); :func:`pairwise_galerkin_dia`
+is the host step of a DIA level past that plan (its coarse operator
+would exceed the plan's diagonal budget), at setup and at a
+values-only resetup.  :func:`dia_to_scipy` assembles a DIA level's CSR
+view.
 """
 from __future__ import annotations
 
 import numpy as np
 import scipy.sparse as sp
+
+
+def pairwise_galerkin_dia(offsets, vals: np.ndarray):
+    """Coarse operator for strict pairing {2I, 2I+1}, diagonal-wise.
+
+    A fine entry A[i, i+d] with i = 2I + r lands at coarse offset
+    o = (d + r) >> 1 (arithmetic floor shift), row I: strided adds over
+    the (nd, n) diagonal arrays, no sparse product (the DIA analog of
+    ``csr_galerkin_product``, csr_multiply.h:100-126)."""
+    nd, n = vals.shape
+    nc = (n + 1) // 2
+    coarse = {}
+    for k, d in enumerate(offsets):
+        for r in (0, 1):
+            o = (d + r) >> 1
+            row_vals = vals[k, r::2]
+            buf = coarse.get(o)
+            if buf is None:
+                buf = np.zeros(nc, dtype=vals.dtype)
+                coarse[o] = buf
+            m = len(row_vals)
+            buf[:m] += row_vals
+    offs_c = sorted(coarse)
+    vals_c = np.stack([coarse[o] for o in offs_c])
+    # out-of-range coarse columns need no mask: a fine value exists only
+    # for 0 ≤ i+d < n, which implies 0 ≤ I+o < nc for its coarse slot
+    return offs_c, vals_c
 
 
 def dia_to_scipy(offsets, vals: np.ndarray, n: int,

@@ -4,11 +4,13 @@
 For stencil matrices on an (nz, ny, nx) grid the hierarchy aggregates
 full 2×2×2 cells, so a 7-point operator stays 7-point on every coarse
 level.  These functions decode flat diagonal offsets into stencil
-triples, check that no coupling wraps around the grid, and infer grid
-dims from the offsets.
+triples, check that no coupling wraps around the grid, infer grid dims
+from the offsets, and (:func:`structured_galerkin`) form the coarse
+operator on the host for a level past the device plan.
 """
 from __future__ import annotations
 
+from itertools import product
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -92,3 +94,53 @@ def infer_grid_dims(offsets: Sequence[int], n: int) -> Optional[Dims]:
 def coarse_dims(dims: Dims) -> Dims:
     """Halve every dim > 1 (ceil), leave singleton dims alone."""
     return tuple((d + 1) // 2 if d > 1 else 1 for d in dims)
+
+
+def structured_galerkin(offsets3: List[Off3], vals: np.ndarray, dims: Dims):
+    """Piecewise-constant Galerkin product over 2×2×2 cells, diagonal-wise.
+
+    ``vals`` is (nd, n) row-aligned: A[i, i+flat(d)] = vals[k, i] with
+    zeros where the stencil leaves the grid.  Returns
+    (coarse flat offsets, coarse vals (ndc, nc), coarse dims).
+    """
+    nz, ny, nx = dims
+    cz, cy, cx = coarse_dims(dims)
+    pz, py, px = (2 * cz if nz > 1 else 1, 2 * cy if ny > 1 else 1,
+                  2 * cx if nx > 1 else 1)
+    acc = {}
+    rz_range = (0, 1) if nz > 1 else (0,)
+    ry_range = (0, 1) if ny > 1 else (0,)
+    rx_range = (0, 1) if nx > 1 else (0,)
+    for k, (dz, dy, dx) in enumerate(offsets3):
+        V = vals[k].reshape(nz, ny, nx)
+        if (pz, py, px) != (nz, ny, nx):
+            Vp = np.zeros((pz, py, px), dtype=vals.dtype)
+            Vp[:nz, :ny, :nx] = V
+        else:
+            Vp = V
+        for rz, ry, rx in product(rz_range, ry_range, rx_range):
+            o = ((dz + rz) >> 1 if nz > 1 else dz,
+                 (dy + ry) >> 1 if ny > 1 else dy,
+                 (dx + rx) >> 1 if nx > 1 else dx)
+            slab = Vp[rz::2, ry::2, rx::2]
+            buf = acc.get(o)
+            if buf is None:
+                acc[o] = slab.copy()
+            else:
+                buf += slab
+    # drop provably-empty coarse diagonals (out-of-range couplings are
+    # all-zero by construction: the fine entry they came from was zero)
+    nc = cz * cy * cx
+    out = {}
+    for (dz, dy, dx), buf in acc.items():
+        if not np.any(buf):
+            continue
+        flat = (dz * cy + dy) * cx + dx
+        if flat in out:            # distinct tuples, same flat offset —
+            out[flat] = out[flat] + buf  # only on degenerate tiny grids
+        else:
+            out[flat] = buf
+    flat_sorted = sorted(out)
+    vals_c = np.stack([out[f].reshape(-1) for f in flat_sorted]) \
+        if flat_sorted else np.zeros((0, nc), dtype=vals.dtype)
+    return flat_sorted, vals_c, (cz, cy, cx)

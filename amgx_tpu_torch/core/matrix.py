@@ -570,6 +570,19 @@ def pack_device(host, block_dim: int, dtype,
     return assemble_device_matrix(arrays, meta, device)
 
 
+def csr_structure_fingerprint(M) -> str:
+    """Stable hex digest of a scipy CSR/BSR sparsity structure (shape,
+    indptr and indices, never values) — the pattern key of the device
+    setup engine's plan cache (``amg/device_setup/``): equal
+    fingerprints, one symbolic plan."""
+    import hashlib
+    h = hashlib.blake2b(digest_size=16)
+    h.update(repr(tuple(M.shape)).encode())
+    h.update(np.ascontiguousarray(M.indptr).tobytes())
+    h.update(np.ascontiguousarray(M.indices).tobytes())
+    return h.hexdigest()
+
+
 class Matrix:
     """Host-side matrix handle wrapping a scipy CSR (or, for
     ``block_dim`` b > 1, BSR) and/or DIA arrays plus a cached device pack
@@ -593,6 +606,10 @@ class Matrix:
         #: (dtype, dinv) derived on the device with the hierarchy
         self._dinv_dev = None
         self.grid_dims = None
+        #: per-row coordinates, a tuple of 2 or 3 arrays (the target of
+        #: ``AMGX_matrix_attach_geometry``): the GEO selector aggregates
+        #: by them, and coarse levels carry the aggregate centroids
+        self.geometry = None
         if a is not None:
             self.set(a, block_dim=block_dim)
 

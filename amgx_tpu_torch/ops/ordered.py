@@ -3,8 +3,8 @@
 The card and the CPU order the partial sums of a library reduction or
 matrix-vector product differently, and in f32 an iteration count can
 follow the last bit of such a sum.  The solvers whose counts must agree
-on both devices (FGMRES, the K-cycle, BiCGStab, and the dense coarse
-solve below them) take the forms of this module:
+on both devices (FGMRES, the K-cycle, BiCGStab, CG/PCG, and the dense
+coarse solve below them) take the forms of this module:
 
 * an f32 inner product summed in f64 and rounded once: the products of
   two f32 values are exact in f64, and the devices' different f64

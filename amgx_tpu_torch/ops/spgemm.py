@@ -19,18 +19,31 @@ use ``torch.sort(stable=True)`` to keep both promises, because host CSR
 order and the truncation tie-break depend on them.
 
 ELL conventions: dead entries carry value 0 (columns −1 or self-pads),
-columns ascend within a row, pad rows are unit-diagonal.  The host
-symbolic planner (``GalerkinPlan``/``SpGEMMPlan``) is a later slice.
+columns ascend within a row, pad rows are unit-diagonal.
 
-The host symbolic half that a values-only resetup needs is numpy, copied
-from the JAX package: :func:`spgemm_symbolic` (a product's triple
-schedule), :func:`galerkin_pattern`, :func:`fill_pattern` and
-:func:`pad_to_symbolic` (a Galerkin product kept on its full symbolic
-pattern, so a later refresh finds every slot).
+The symbolic half (copied from the JAX package's host numpy and adapted
+to run in torch on the plan's device): :func:`spgemm_symbolic` (a
+product's triple schedule),
+:func:`transpose_perm`, :func:`galerkin_pattern`, :func:`fill_pattern`
+and :func:`pad_to_symbolic` (a Galerkin product kept on its full
+symbolic pattern, so a later refresh finds every slot), and the
+reusable plans :class:`GalerkinPlan` (``R·(A·P)``, R = Pᵀ) and
+:class:`SpGEMMPlan` (``A·B``) of the device setup engine
+(``amg/device_setup/``).  A plan is built once per sparsity pattern; its
+numeric pass (:func:`galerkin_numeric`, :func:`spgemm_numeric`) runs on
+the operands' device as ordered segment sums (:class:`Schedule`,
+:func:`run_schedule`): the triples sorted by output slot once, then the
+k-th term of every slot added in one elementwise step.  No atomic
+scatter and no ``index_add_``, so every sum runs in one order on every
+device — the order of ``jax.ops.segment_sum`` on the JAX package's CPU,
+each slot's terms in schedule order.  The JAX package pads its schedules
+to a ``size_bucket`` ladder only so that XLA does not retrace; eager
+torch needs no padding.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import dataclasses
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -270,48 +283,60 @@ def dia_galerkin_fn(a_offs: Tuple[int, ...], p_offs: Tuple[int, ...],
     return run, D
 
 
-# ------------------------------------------------------ host symbolic
-def _range_concat(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
-    """[starts[0]..+counts[0], starts[1]..+counts[1], ...] flattened."""
-    csum = np.concatenate([[0], np.cumsum(counts)])
-    return (np.arange(csum[-1], dtype=np.int64)
-            - np.repeat(csum[:-1], counts)
-            + np.repeat(starts.astype(np.int64), counts))
+# ------------------------------------------------------------ symbolic
+def as_index(a, device) -> torch.Tensor:
+    """An index array (numpy or tensor) as int64 on ``device``."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.ascontiguousarray(a))
+    return a.to(device=device, dtype=torch.int64)
 
 
 def spgemm_symbolic(Aptr, Aind, Bptr, Bind, n_rows: int, n_cols_B: int,
                     device="cpu"):
-    """Symbolic product C = A·B as a triple schedule: returns
-    ``(tA, tB, t_out, C_indptr, C_indices)`` with
-    ``C.data[t_out[q]] += A.data[tA[q]] * B.data[tB[q]]``.  The triples
-    come sorted by output slot, stably (each slot's terms in A's entry
-    order, B's row order within): one stable sort of the (row, column)
-    keys gives both the pattern and that order, on ``device`` (a card
-    sorts 10⁸ keys in a fraction of a second; a stable sort's result is
-    the same on every device)."""
-    rowlenB = np.diff(Bptr)
-    cnt = rowlenB[Aind]
-    tA = np.repeat(np.arange(len(Aind), dtype=np.int64), cnt)
-    tB = _range_concat(Bptr[Aind], cnt)
-    i_of = np.repeat(
-        np.repeat(np.arange(n_rows, dtype=np.int64), np.diff(Aptr)), cnt)
-    key = i_of * n_cols_B + Bind[tB].astype(np.int64)
-    del i_of
-    _, order = torch.sort(torch.from_numpy(key).to(device), stable=True)
-    order = order.cpu().numpy()
-    ks = key[order]
-    new = np.ones(len(ks), dtype=bool)
-    new[1:] = ks[1:] != ks[:-1]
-    t_out = np.cumsum(new) - 1
-    ukey = ks[new]
-    C_rows = ukey // n_cols_B
-    C_indices = (ukey % n_cols_B).astype(np.int32)
-    C_indptr = np.concatenate(
-        [[0], np.cumsum(np.bincount(C_rows, minlength=n_rows))]
-    ).astype(np.int64)
+    """Symbolic product C = A·B as a triple schedule, computed on
+    ``device``: returns int64 tensors there, ``(tA, tB, t_out,
+    C_indptr, C_indices)`` with ``C.data[t_out[q]] += A.data[tA[q]] *
+    B.data[tB[q]]``.  The triples come sorted by output slot, stably
+    (each slot's terms in A's entry order, B's row order within): one
+    stable sort of the (row, column) keys gives both the pattern and
+    that order.  Every step is integer work whose result does not depend
+    on the device (a card expands and sorts 10⁸ terms in a fraction of a
+    second)."""
+    dev = torch.device(device)
+    Aptr, Aind = as_index(Aptr, dev), as_index(Aind, dev)
+    Bptr, Bind = as_index(Bptr, dev), as_index(Bind, dev)
+    cnt = (Bptr[1:] - Bptr[:-1])[Aind]
+    tA = torch.repeat_interleave(torch.arange(len(Aind), device=dev), cnt)
+    # term q of A entry e reads B entry Bptr[Aind[e]] + (q - first[e])
+    shift_of = Bptr[:-1][Aind] - (torch.cumsum(cnt, 0) - cnt)
+    tB = torch.arange(len(tA), device=dev) + shift_of[tA]
+    del shift_of, cnt
+    row_of = torch.repeat_interleave(torch.arange(n_rows, device=dev),
+                                     Aptr[1:] - Aptr[:-1])
+    key = row_of[tA] * n_cols_B + Bind[tB]
+    del row_of
+    order, t_out, C_indptr, C_indices = sort_terms(key, n_rows, n_cols_B)
     return tA[order], tB[order], t_out, C_indptr, C_indices
 
 
+def sort_terms(key: torch.Tensor, n_rows: int, n_cols: int):
+    """The terms of a product keyed by their output slot ``row·n_cols +
+    col`` (an int64 tensor), sorted stably on its device: ``(order,
+    t_out, C_indptr, C_indices)`` — the permutation, each sorted term's
+    slot, and the output's CSR pattern (tensors on that device)."""
+    ks, order = torch.sort(key, stable=True)
+    new = torch.ones(len(ks), dtype=torch.bool, device=ks.device)
+    new[1:] = ks[1:] != ks[:-1]
+    t_out = torch.cumsum(new, 0) - 1
+    ukey = ks[new]
+    C_indices = (ukey % n_cols).to(torch.int32)
+    C_indptr = torch.zeros(n_rows + 1, dtype=torch.int64, device=ks.device)
+    C_indptr[1:] = torch.cumsum(
+        torch.bincount(ukey // n_cols, minlength=n_rows), 0)
+    return order, t_out, C_indptr, C_indices
+
+
+# ------------------------------------------------------ host patterns
 def galerkin_pattern(A: sp.csr_matrix, P: sp.csr_matrix) -> sp.csr_matrix:
     """Full symbolic pattern of Pᵀ·A·P (unit values): every structural
     slot, those where the current values cancel exactly included."""
@@ -354,3 +379,209 @@ def pad_to_symbolic(Ac: sp.csr_matrix, A: sp.csr_matrix,
     (a values-only refresh keeps the structure frozen, so the slots must
     exist where the current values cancel)."""
     return fill_pattern(galerkin_pattern(A, P), Ac)
+
+
+# ------------------------------------------------- ordered segment sums
+def _small(t: torch.Tensor) -> torch.Tensor:
+    """int32 where the index space allows (halves a schedule's bytes)."""
+    return t.to(torch.int32) \
+        if t.numel() == 0 or int(t.max()) < 2 ** 31 else t
+
+
+@dataclasses.dataclass
+class Schedule:
+    """``out[s] = Σ a[t_a]·b[t_b]`` (or ``Σ a[t_a]`` when ``t_b`` is None)
+    over the terms of slot s, the terms sorted by slot.  ``start`` holds
+    each slot's first term, slots ordered by decreasing term count;
+    ``steps[k]`` is how many slots have more than k terms; ``rank[s]`` is
+    slot s's place in that order.  The index tensors stay on the device
+    that built them."""
+    t_a: torch.Tensor
+    t_b: Optional[torch.Tensor]
+    start: torch.Tensor
+    steps: Tuple[int, ...]
+    rank: torch.Tensor
+    n_out: int
+
+    @property
+    def nbytes(self) -> int:
+        arrs = (self.t_a, self.t_b, self.start, self.rank)
+        return int(sum(a.numel() * a.element_size()
+                       for a in arrs if a is not None))
+
+    def device_arrays(self, device) -> dict:
+        def up(a):
+            return a.to(device)
+        return {"t_a": up(self.t_a),
+                "t_b": None if self.t_b is None else up(self.t_b),
+                "start": up(self.start), "rank": up(self.rank)}
+
+
+def ordered_schedule(t_a, t_b, t_out, n_out: int) -> Schedule:
+    """The :class:`Schedule` of a term list sorted by output slot
+    (:func:`spgemm_symbolic`; tensors on one device), every slot with a
+    term."""
+    dev = t_out.device
+    cnt = torch.bincount(t_out, minlength=n_out)
+    if n_out and int(cnt.min()) == 0 or \
+            bool((t_out[1:] < t_out[:-1]).any()):
+        raise ValueError("triples not sorted by slot, or a slot without "
+                         "a term")
+    first = torch.cumsum(cnt, 0) - cnt
+    by_cnt = torch.sort(-cnt, stable=True).indices
+    rank = torch.empty_like(by_cnt)
+    rank[by_cnt] = torch.arange(n_out, device=dev)
+    # steps[k-1]: the slots with at least k terms, k = 1 .. max count
+    hist = torch.bincount(cnt)[1:] if n_out else cnt
+    steps = tuple(int(v) for v in torch.flip(
+        torch.cumsum(torch.flip(hist, (0,)), 0), (0,)).tolist())
+    return Schedule(t_a=_small(t_a),
+                    t_b=None if t_b is None else _small(t_b),
+                    start=_small(first[by_cnt]), steps=steps,
+                    rank=_small(rank), n_out=int(n_out))
+
+
+def run_schedule(sch: Schedule, dev: dict, a: torch.Tensor,
+                 b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The slot sums of ``sch`` on ``a``'s device (``dev`` holds the
+    schedule's device index arrays): the terms in slot order, then the
+    k-th term of every slot that has one added in one step.  ``a`` may
+    carry trailing dimensions (b×b blocks) when ``b`` is None."""
+    prod = a[dev["t_a"]] if b is None else a[dev["t_a"]] * b[dev["t_b"]]
+    start = dev["start"]
+    acc = prod[start]
+    for k, m in enumerate(sch.steps[1:], 1):
+        acc[:m] += prod[start[:m] + k]
+    return acc[dev["rank"]]
+
+
+def transpose_perm(P: sp.csr_matrix) -> Tuple[np.ndarray, sp.csr_matrix]:
+    """R = Pᵀ with the data permutation recorded:
+    ``R.data = P.data[perm]``.  Returns (perm, R with probe data)."""
+    probe = sp.csr_matrix((np.arange(P.nnz, dtype=np.float64), P.indices,
+                           P.indptr), shape=P.shape)
+    R = sp.csr_matrix(probe.T)
+    R.sort_indices()
+    return np.rint(R.data).astype(np.int64), R
+
+
+class _DevicePlan:
+    """Per-device copies of a plan's index arrays, uploaded at the first
+    numeric pass on a device."""
+
+    def _device_arrays(self, device) -> dict:
+        device = torch.device(device)
+        if self._dev is None or self._dev[0] != device:
+            self._dev = (device, self._upload(device))
+        return self._dev[1]
+
+
+@dataclasses.dataclass
+class GalerkinPlan(_DevicePlan):
+    """One pattern's reusable Galerkin product: the ordered schedules of
+    ``AP = A·P`` and ``Ac = R·AP`` (R = Pᵀ through a recorded data
+    permutation) and the coarse CSR pattern.  Built once per (A pattern,
+    P pattern); the numeric pass is device work only."""
+    nnz_A: int
+    nnz_P: int
+    nnz_AP: int
+    nnz_Ac: int
+    perm_RP: np.ndarray
+    ap: Schedule
+    ac: Schedule
+    Ac_indptr: np.ndarray
+    Ac_indices: np.ndarray
+    Ac_shape: tuple
+    _dev: Optional[tuple] = None
+
+    @property
+    def nbytes(self) -> int:
+        """Index bytes of the plan — the plan cache's accounting
+        unit."""
+        return int(self.perm_RP.nbytes) + self.ap.nbytes + \
+            self.ac.nbytes + int(self.Ac_indices.nbytes) + \
+            int(self.Ac_indptr.nbytes)
+
+    def _upload(self, device) -> dict:
+        return {"perm": torch.from_numpy(self.perm_RP).to(device),
+                "ap": self.ap.device_arrays(device),
+                "ac": self.ac.device_arrays(device)}
+
+
+def build_galerkin_plan(A: sp.csr_matrix, P: sp.csr_matrix,
+                        device="cpu", max_bytes: Optional[int] = None
+                        ) -> Optional[GalerkinPlan]:
+    """Symbolic pass of the product ``R·(A·P)`` on ``device``.  ``A`` and
+    ``P`` must have sorted indices; only the patterns are read.  None,
+    before the second product's symbolic pass, when the two schedules'
+    index pairs alone would pass ``max_bytes``."""
+    n_out = A.shape[0]
+    nc = P.shape[1]
+    tA, tP, to1, APptr, APind = spgemm_symbolic(
+        A.indptr, A.indices, P.indptr, P.indices, n_out, nc, device)
+    perm_RP, R = transpose_perm(P)
+    Rind = as_index(R.indices, APptr.device)
+    if max_bytes is not None and 8 * (len(tA) + int(
+            (APptr[1:] - APptr[:-1])[Rind].sum())) > max_bytes:
+        return None
+    ap = ordered_schedule(tA, tP, to1, len(APind))
+    del tA, tP, to1
+    tR, tAP, to2, Acptr, Acind = spgemm_symbolic(
+        R.indptr, Rind, APptr, APind, nc, nc, device)
+    return GalerkinPlan(
+        nnz_A=A.nnz, nnz_P=P.nnz, nnz_AP=len(APind), nnz_Ac=len(Acind),
+        perm_RP=perm_RP.astype(np.int32) if P.nnz < 2 ** 31 else perm_RP,
+        ap=ap, ac=ordered_schedule(tR, tAP, to2, len(Acind)),
+        Ac_indptr=Acptr.cpu().numpy(), Ac_indices=Acind.cpu().numpy(),
+        Ac_shape=(nc, nc))
+
+
+def galerkin_numeric(plan: GalerkinPlan, vA: torch.Tensor,
+                     vP: torch.Tensor) -> torch.Tensor:
+    """Numeric pass on ``vA``'s device: (A values, P values) in CSR data
+    order → the (nnz_Ac,) coarse values."""
+    d = plan._device_arrays(vA.device)
+    vAP = run_schedule(plan.ap, d["ap"], vA, vP)
+    return run_schedule(plan.ac, d["ac"], vP[d["perm"]], vAP)
+
+
+@dataclasses.dataclass
+class SpGEMMPlan(_DevicePlan):
+    """One pattern pair's ``C = A·B`` schedule (both passes on the
+    operands' device) — the single-product sibling of
+    :class:`GalerkinPlan`."""
+    nnz_A: int
+    nnz_B: int
+    nnz_C: int
+    sched: Schedule
+    C_indptr: np.ndarray
+    C_indices: np.ndarray
+    C_shape: tuple
+    _dev: Optional[tuple] = None
+
+    @property
+    def nbytes(self) -> int:
+        return self.sched.nbytes + int(self.C_indices.nbytes) + \
+            int(self.C_indptr.nbytes)
+
+    def _upload(self, device) -> dict:
+        return self.sched.device_arrays(device)
+
+
+def build_spgemm_plan(A: sp.csr_matrix, B: sp.csr_matrix,
+                      device="cpu") -> SpGEMMPlan:
+    tA, tB, to, Cptr, Cind = spgemm_symbolic(
+        A.indptr, A.indices, B.indptr, B.indices, A.shape[0],
+        B.shape[1], device)
+    return SpGEMMPlan(nnz_A=A.nnz, nnz_B=B.nnz, nnz_C=len(Cind),
+                      sched=ordered_schedule(tA, tB, to, len(Cind)),
+                      C_indptr=Cptr.cpu().numpy(),
+                      C_indices=Cind.cpu().numpy(),
+                      C_shape=(A.shape[0], B.shape[1]))
+
+
+def spgemm_numeric(plan: SpGEMMPlan, vA: torch.Tensor,
+                   vB: torch.Tensor) -> torch.Tensor:
+    """Numeric pass of ``C = A·B`` on ``vA``'s device; the (nnz_C,)
+    values of C in its CSR order."""
+    return run_schedule(plan.sched, plan._device_arrays(vA.device), vA, vB)

@@ -3,7 +3,8 @@
 ``core/src/solvers/dense_lu_solver.cu``,
 ``base/src/solvers/dummy_solver.cu``).
 
-The coarsest level (a DIA or ELL pack) is densified once at setup and
+The coarsest level (a DIA or ELL pack, or a block level's BSR) is
+densified once at setup and
 LU-factorised in f64 on the host (``scipy.linalg.lu_factor``; the JAX
 package uses ``jax.scipy.linalg.lu_factor``, the reference cusolverDn);
 the factors give the explicit inverse, stored in the factor dtype (at
@@ -49,7 +50,11 @@ class DenseLUSolver(Solver):
     is_smoother = False
 
     def solver_setup(self):
-        dense = densify(self.Ad).astype(np.float64)
+        if self.Ad.block_dim > 1 and self.A is not None:
+            # a b×b block coarsest level (block aggregation): its BSR
+            dense = self.A.host.toarray().astype(np.float64)
+        else:
+            dense = densify(self.Ad).astype(np.float64)
         n = dense.shape[0]
         inv = scipy.linalg.lu_solve(scipy.linalg.lu_factor(dense),
                                     np.eye(n))

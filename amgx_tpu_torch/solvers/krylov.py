@@ -14,7 +14,9 @@ PIPELINED (Ghysels–Vanroose) one stacked reduction that also carries the
 monitor norm's accumulators (``blas.fused_reduce`` over widened
 operands), and both
 recompute the true residual every ``ca_residual_replace`` iterations.
-LMAX norms keep CLASSIC.  α and β stay 0-d device tensors (guarded
+LMAX norms keep CLASSIC.  CLASSIC sums its f32 inner products and its
+monitor norm in f64 and rounds once (``ordered.wdot``), so the card and
+the CPU take the same steps.  α and β stay 0-d device tensors (guarded
 divisions via ``torch.where``); the only host sync of an iteration is the
 convergence check, which also fetches the breakdown code of the CA,
 pipelined and flexible loops (``_cg_breakdown``).
@@ -184,7 +186,7 @@ class CGSolver(Solver):
         r = b - spmv(self.Ad, x)
         if mode == "CLASSIC":
             z = self._M(r)
-            return _CGState(r=r, p=z, rz=blas.dot(r, z))
+            return _CGState(r=r, p=z, rz=ordered.wdot(r, z))
         u = self._M(r)
         w = spmv(self.Ad, u)
         gamma, delta, rr = self._fused_scalars(r, u, w)
@@ -205,11 +207,11 @@ class CGSolver(Solver):
         if isinstance(st, _PipeCGState):
             return self._pipe_iteration(b, x, st, iter_idx)
         q = spmv(self.Ad, st.p)
-        alpha = _guarded_div(st.rz, blas.dot(st.p, q))
+        alpha = _guarded_div(st.rz, ordered.wdot(st.p, q))
         x = x + alpha * st.p
         r = st.r - alpha * q
         z = self._M(r)
-        rz_new = blas.dot(r, z)
+        rz_new = ordered.wdot(r, z)
         beta = _guarded_div(rz_new, st.rz)
         return x, _CGState(r=r, p=z + beta * st.p, rz=rz_new)
 
@@ -288,7 +290,7 @@ class CGSolver(Solver):
             # the stacked reduction carried the norm's accumulators
             return blas.finish_norm(st.rr, self.norm_type, st.r.shape[0],
                                     self.Ad.block_dim, self.use_scalar_norm)
-        return self.norm(st.r)
+        return self.norm(ordered.widen(st.r)).to(st.r.dtype)
 
 
 @dataclasses.dataclass

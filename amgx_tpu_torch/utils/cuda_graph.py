@@ -34,6 +34,7 @@ but the device runs nothing) are taken back out of the counters
 from __future__ import annotations
 
 import ctypes
+import gc
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -154,8 +155,19 @@ class CudaGraphCall:
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
 
         def capture():
-            with torch.cuda.graph(self.graph):
-                return _built(fn, *self.static_in)
+            # a garbage collection inside the capture may free another
+            # graph (an old solver's, held by a reference cycle), whose
+            # destruction invalidates the capture: collect first, then
+            # hold the collector off until the capture ends
+            gc.collect()
+            enabled = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(self.graph):
+                    return _built(fn, *self.static_in)
+            finally:
+                if enabled:
+                    gc.enable()
 
         self.static_out, self.delta = counted_capture(capture)
         CAPTURES["count"] += 1

@@ -124,10 +124,12 @@ exits non-zero (no phase is caught):
     pack's resident bytes and the peak memory since phase 19;
 22. the DFG operator at ny = 512 under the headline config at its own
     depth (``amg:max_levels=20``, 15 levels down to a 28-row coarse
-    solve): setup, the first solve (which captures the graph) and a
-    warm one (equal counts), iterations, the true relres in f64, the AMG
-    graph (:func:`graph_check`), B3 bit for bit on the ELL levels from
-    phase 19's dense coarsest level down;
+    solve): setup; a first solve capped at ``DFG_REPLAY_ITERS``
+    iterations (it captures the graph) and a warm one capped the same
+    way (it replays it): equal iterations and launches; the full solve,
+    iterations, the true relres in f64, the AMG graph
+    (:func:`graph_check`), B3 bit for bit on the ELL levels from phase
+    19's dense coarsest level down;
 23. the same stack as phase 19 at ny = 320 (544,649 rows, 67 shift
     tiles) on the card against the CPU, f32 pack and f64 pack: equal
     iterations, x bit-equal with the f32 pack.  The CPU solves run in
@@ -164,11 +166,13 @@ exits non-zero (no phase is caught):
     last: the headline 128³ (host-built ``poisson7pt`` with its DIA
     attach, f32 pack; the refresh re-derived on the card,
     ``"dia_device"``; iterations and x bit-equal to a fresh setup and
-    solve of each A_k), the classical 128³ (``CFG_CLA``, θ = 0.2401, f64
+    solve of each A_k), the classical stack at ``RESETUP_CLA_SIDE``³
+    (96³, cut from 128³ for time; ``CFG_CLA``, θ = 0.2401, f64
     pack — its level 1 held to the host Galerkin product with the frozen
     P at ``RAP_RTOL``; the reuse gate sends the setup down the host
-    classical loop; ``"classical_device"``) and the DFG at ny = 512 cut
-    at ``DFG_LEVELS`` (``"host_replay"``).  Each step: resetup seconds
+    classical loop; ``"classical_device"``) and the DFG at
+    ``RESETUP_DFG_NY`` (320, cut from 512 for time) cut at
+    ``DFG_LEVELS`` (``"host_replay"``).  Each step: resetup seconds
     against the fresh setup's (the DFG's couplings drift instead:
     :func:`coupling_drift_values`), the first solve after the resetup against
     a warm one, iterations, the true relres (≤ 1e-8), graphs kept and
@@ -178,7 +182,37 @@ exits non-zero (no phase is caught):
     card against the CPU before and after each of two resetups
     (headline 16³ and config 4 at 12³, equal counts, x bit-equal in
     f32), and a block matrix handed to a DIA hierarchy's resetup
-    raises.
+    raises;
+30. block aggregation: the gauntlet's SPD stack (``BLOCK_CFG``: PCG +
+    SIZE_2 aggregation on 3×3 blocks + BLOCK_JACOBI 2+2 + DENSE_LU) on
+    ``elasticity3(BLOCK_SIDE)`` (96: 884,736 block rows, 2,654,208
+    unknowns; f32 pack, f64 refinement): setup with the device setup
+    engine (the setup without it is ``scripts/torch_setup_engine.py
+    --phases 30``'s, moved out for time), the engine's plans, hits and
+    declines (only
+    "small"), a first and a warm solve with every count set to 0 just
+    before the first and read just after, the true relres in f64, the
+    levels and their dispatch labels (the fine level block-DIA, B1 as
+    b² dispatches; the coarse levels ``ell/binned-block``, B5, or, where
+    the block plan passes the binned padding budget, the scalar
+    expansion's ``ell/binned``, B4; no decline), the AMG graph
+    (:func:`graph_check`), peak memory; a
+    values-only resetup (the frozen aggregates replayed through the
+    engine's cached plans, ``"host_replay"``, graphs kept) and its
+    solve; the card against the CPU at 12³ with the engine on every
+    level (equal counts, x bit-equal);
+31. the classical setup algorithms: the classical 128³ stack with
+    ``aggressive_levels=1`` (AGGRESSIVE_PMIS + MULTIPASS on level 0,
+    PMIS + D2 below, every level on the host loop): setup with the
+    engine and the Galerkin products' share of it (engine off:
+    ``scripts/torch_setup_engine.py --phases 31``, moved out for time),
+    iterations, the true relres, a first and a warm solve, B1/B3
+    launches, the AMG graph, and an engine product of level 1 in f64 on
+    the card against scipy's (≤ 1e-12); then the card against the CPU
+    at 24³ (θ = 0.2401) for HMIS, AGGRESSIVE_HMIS, DUMMY, CR, MULTIPASS,
+    AFFINITY, ENERGYMIN and ``aggressive_levels``, and
+    ``error_scaling=2`` on the headline at 16³ (equal counts; its graph
+    replay bit-equal to an eager application).
 
 Then one JSON line of the four paths' kernels and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -273,6 +307,9 @@ DFG_CFG = HEADLINE_CFG.replace("amg:max_levels=20",
 DFG_NY, DFG_SMALL_NY = 512, 320
 #: FGMRES iterations of the profiled window of a warm DFG solve
 DFG_WINDOW_ITERS = 2
+#: phase 22: iterations of the capped capturing and replaying solves at
+#: the DFG's own depth (a replay there takes some 1.7 s)
+DFG_REPLAY_ITERS = 3
 #: per-row limits of B2 against its plain version (it is bit-equal by
 #: construction; the limits are those of the other kernels)
 SHIFT_TOL = {"f32": 1e-5, "f64": 1e-12}
@@ -311,13 +348,54 @@ ILU_CFG = CFG4.replace("out:max_iters=200", "out:max_iters=2000") \
 #: FAMILY_AGG_SIDE³ and config 4's system on FAMILY_BLOCK_GRID
 FAMILY_CLA_SIDE = 24
 FAMILY_AGG_SIDE = 16
-FAMILY_BLOCK_GRID = (16, 16, 16)
+FAMILY_BLOCK_GRID = (12, 12, 12)
 #: phase 29: steps of the resetup loop (step 0 is the fresh setup)
 RESETUP_STEPS = 3
+#: phase 29: the classical path's side, cut from 128 for time (at 128³
+#: the path took 61 s of the smoke, its reuse-configured setup 41 s on
+#: the host classical loop: PERF.md §7)
+RESETUP_CLA_SIDE = 96
+#: phase 29: the DFG path's ny, cut from 512 for time (the smallest ny
+#: whose fine level packs as ``ell/shift``, kernel B2, is 320)
+RESETUP_DFG_NY = 320
 #: phase 29: the classical level 1 refreshed on the card against the
 #: host Galerkin product with the frozen P, in f64 (the JAX package's
 #: bound, tests/test_classical_device.py:190-211)
 RAP_RTOL = 1e-10
+#: phase 30: block aggregation — the gauntlet's SPD stack
+#: (``io/gauntlet.py`` ``_CFG_SPD``: PCG + SIZE_2 aggregation on b×b
+#: blocks + BLOCK_JACOBI 2+2 + DENSE_LU) on ``elasticity3(BLOCK_SIDE)``,
+#: b = 3; the card against the CPU at BLOCK_SMALL_SIDE
+BLOCK_CFG = (
+    "config_version=2, solver(out)=PCG, out:max_iters=400, "
+    "out:monitor_residual=1, out:tolerance=1e-8, "
+    "out:convergence=RELATIVE_INI, out:preconditioner(amg)=AMG, "
+    "amg:algorithm=AGGREGATION, amg:selector=SIZE_2, amg:max_iters=1, "
+    "amg:max_levels=10, amg:smoother(sm)=BLOCK_JACOBI, sm:max_iters=1, "
+    "amg:presweeps=2, amg:postsweeps=2, amg:min_coarse_rows=24, "
+    "amg:coarse_solver=DENSE_LU_SOLVER")
+BLOCK_SIDE, BLOCK_SMALL_SIDE = 96, 12
+#: phase 31: the classical 128³ stack with aggressive coarsening on its
+#: first level (AGGRESSIVE_PMIS + MULTIPASS there, PMIS + D2 below)
+CLA_AGGR_CFG = CFG_CLA + ", amg:aggressive_levels=1"
+#: phase 31: the card against the CPU at FAMILY_CLA_SIDE³ (θ = 0.2401)
+#: for each setup algorithm of this slice
+CLA_NAMES = {
+    "HMIS": ("amg:selector=PMIS", "amg:selector=HMIS"),
+    "AGGRESSIVE_HMIS": ("amg:selector=PMIS, amg:interpolator=D2",
+                        "amg:selector=AGGRESSIVE_HMIS, "
+                        "amg:interpolator=MULTIPASS"),
+    "DUMMY": ("amg:selector=PMIS", "amg:selector=DUMMY"),
+    "CR": ("amg:selector=PMIS", "amg:selector=CR"),
+    "MULTIPASS": ("amg:selector=PMIS, amg:interpolator=D2",
+                  "amg:selector=AGGRESSIVE_PMIS, "
+                  "amg:interpolator=MULTIPASS"),
+    "AFFINITY": ("amg:max_row_sum=0.9", "amg:max_row_sum=0.9, "
+                 "amg:strength=AFFINITY"),
+    "ENERGYMIN": ("amg:algorithm=CLASSICAL", "amg:algorithm=ENERGYMIN"),
+    "aggressive_levels": ("amg:max_row_sum=0.9", "amg:max_row_sum=0.9, "
+                          "amg:aggressive_levels=1"),
+}
 
 
 #: the script's start, for the elapsed seconds on every phase line
@@ -983,10 +1061,13 @@ def config4_phases(amgx, dev, smi, gen, b1_errs) -> dict:
     data = rng.standard_normal((base.nnz, 3, 3))
     extra.append(("empty_tiles", sp.bsr_matrix(
         (data, base.indices, base.indptr), shape=(9000, 9000)), 3))
+    # built as CSR (its LIL build took most of this phase's time in an
+    # H100 run), row 17 replaced by a wide row
     wide = sp.random(20000, 20000, density=0.002, random_state=SEED,
-                     format="lil")
-    wide[17] = rng.standard_normal(20000) * (rng.random(20000) < 0.15)
-    wide = sp.csr_matrix(wide)
+                     format="csr")
+    row17 = rng.standard_normal(20000) * (rng.random(20000) < 0.15)
+    wide = sp.csr_matrix(sp.vstack([wide[:17], sp.csr_matrix(row17),
+                                    wide[18:]]))
     assert np.diff(wide.indptr).max() > 2048
     for name, M, b in extra:
         P = pack_device(M, b, np.float64, dia_max_diags=0, device=dev)
@@ -1438,15 +1519,17 @@ def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs) -> dict:
 def dfg_full_depth(amgx, dev, smi, gen, A, ell_errs) -> dict:
     """Phase 22: the DFG operator under the headline config at its own
     depth (``amg:max_levels=20``: SIZE_2 down to a 28-row dense coarse
-    solve), f32 pack, f64 refinement: setup, a first solve (which
-    captures the preconditioner's graph: one eager application, the
-    capture and the instantiation), a warm solve, iterations, the true
-    relres in f64 on the host, the graph's facts (:func:`graph_check`,
-    without an eager application: one takes some 30 s at this depth),
-    the launches of the first solve (returned; the warm solve's must
-    equal them); B3 against its plain version on the ELL levels from
-    phase 19's dense coarsest level down.  It runs beside phase 23's CPU
-    children."""
+    solve), f32 pack, f64 refinement: setup; a first solve capped at
+    ``DFG_REPLAY_ITERS`` iterations (it captures the preconditioner's
+    graph: one eager application, the capture and the instantiation)
+    and a warm solve capped the same way, which replays it: equal
+    iterations and equal launches; then the full solve (replays), its
+    iterations and the true relres in f64 on the host, the graph's facts
+    (:func:`graph_check`, without an eager application: one takes some
+    30 s at this depth), its launches (returned); B3 against its plain
+    version on the ELL levels from phase 19's dense coarsest level down.
+    It runs beside phase 23's CPU children.  ``scripts/torch_dfg_depth.py
+    --solve`` times a full warm solve at this depth."""
     import torch
     n = A.shape[0]
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1459,6 +1542,21 @@ def dfg_full_depth(amgx, dev, smi, gen, A, ell_errs) -> dict:
     setup_s = time.perf_counter() - t0
     h = slv.preconditioner.hierarchy
     b = torch.ones(n, dtype=torch.float64, device=dev)
+    # the capturing solve against a replaying one, both capped
+    max_iters, slv.max_iters = slv.max_iters, DFG_REPLAY_ITERS
+    capped = []
+    for _ in range(2):
+        reset_counts()
+        res_c = slv.solve(b)
+        torch.cuda.synchronize(dev)
+        capped.append((res_c.iterations, read_counts(), res_c.solve_time))
+    (it_first, counts_first, first_s), (it_warm, counts_warm, warm_s) = \
+        capped
+    assert it_first == it_warm == DFG_REPLAY_ITERS, capped
+    # the first solve's first application ran eagerly, the warm solve's
+    # all replay: equal counts
+    assert counts_warm == counts_first, (counts_first, counts_warm)
+    slv.max_iters = max_iters
     reset_counts()
     res = slv.solve(b)
     torch.cuda.synchronize(dev)
@@ -1468,13 +1566,6 @@ def dfg_full_depth(amgx, dev, smi, gen, A, ell_errs) -> dict:
     xh = res.x.cpu().numpy()
     relres = float(np.linalg.norm(1.0 - A @ xh) / np.sqrt(n))
     assert relres <= 1e-8, relres
-    reset_counts()
-    res2 = slv.solve(b)
-    torch.cuda.synchronize(dev)
-    assert res2.iterations == res.iterations
-    # the first solve's first application ran eagerly, the warm solve's
-    # all replay: equal counts
-    assert read_counts() == counts
     graph = graph_check(slv.preconditioner, dev, gen, eager=False)
     for i, lv in enumerate(h.levels[DFG_LEVELS - 1:], DFG_LEVELS - 1):
         check_ell(dev, gen, f"dfg_{DFG_NY}_full.level{i}.A",
@@ -1484,10 +1575,11 @@ def dfg_full_depth(amgx, dev, smi, gen, A, ell_errs) -> dict:
          levels=[lv.level_stats()[0] for lv in h.levels]
          + [h.coarsest.n_block_rows],
          iterations=res.iterations, relres_f64=relres, setup_s=setup_s,
-         solve_s=res.solve_time, solve_warm_s=res2.solve_time,
+         solve_s=res.solve_time, capped_iterations=DFG_REPLAY_ITERS,
+         capped_first_solve_s=first_s, capped_warm_solve_s=warm_s,
          amg_graph=graph, counts=counts,
          peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, card=smi)
-    del slv, m, h, res, res2
+    del slv, m, h, res, res_c
     torch.cuda.empty_cache()
     return counts
 
@@ -1844,8 +1936,6 @@ def family_small_checks(amgx) -> None:
                 cla_cfg + ", out:krylov_comm=PIPELINED"),
                ("classical_CF_JACOBI",
                 cla_cfg.replace("JACOBI_L1", "CF_JACOBI")),
-               # PCGF: CG whose inner products are ordered (the plain
-               # CG loop's f32 dots sum in each device's own order)
                ("PCGF_NOSOLVER",
                 CFG_CLA.split(", out:preconditioner")[0].replace(
                     "out:max_iters=100", "out:max_iters=200").replace(
@@ -2043,7 +2133,8 @@ def resetup_phases(amgx, dev, smi, gen) -> dict:
     emit("resetup_headline_phase",
          elapsed_phase_s=time.perf_counter() - t_phase)
 
-    # ---- the classical 128³: the Galerkin products refreshed on the card
+    # ---- the classical stack (96³): the Galerkin products refreshed on
+    # the card
     t_phase = time.perf_counter()
 
     def level1_vs_rap(slv, Ak, k):
@@ -2056,23 +2147,26 @@ def resetup_phases(amgx, dev, smi, gen) -> dict:
         return dict(level1_rows=got.shape[0], level1_nnz=got.nnz,
                     level1_rel_err_vs_host_rap=err, limit=RAP_RTOL)
 
+    cs = RESETUP_CLA_SIDE
     out["resetup_classical"] = resetup_path(
         amgx, dev, smi, gen, "resetup_classical",
-        CFG_CLA + ", amg:strength_threshold=0.2401" + reuse, A0,
-        np.float64, "classical_device", check_step=level1_vs_rap)
+        CFG_CLA + ", amg:strength_threshold=0.2401" + reuse,
+        poisson7pt(cs, cs, cs), np.float64, "classical_device",
+        check_step=level1_vs_rap)
     assert out["resetup_classical"]["B3"]["f64.f64"] > 0
     del A0
     emit("resetup_classical_phase",
          elapsed_phase_s=time.perf_counter() - t_phase)
 
-    # ---- the DFG at ny = 512: aggregation replayed on the host.  Its
-    # couplings drift: under D·A·D the piecewise-constant aggregates no
-    # longer hold the operator's near-null vector D⁻¹·1, and a fresh
-    # setup of D₁·A₀·D₁ stagnates at relres 0.98 at this size (PERF.md)
+    # ---- the DFG (ny = 320): aggregation replayed through the engine's
+    # cached plans.  Its couplings drift: under D·A·D the
+    # piecewise-constant aggregates no longer hold the operator's
+    # near-null vector D⁻¹·1, and a fresh setup of D₁·A₀·D₁ stagnates
+    # (relres 0.98 at ny = 512; PERF.md)
     t_phase = time.perf_counter()
     out["resetup_dfg"] = resetup_path(
         amgx, dev, smi, gen, "resetup_dfg", DFG_CFG + reuse,
-        dfg_cylinder_pressure(DFG_NY), np.float32, "host_replay",
+        dfg_cylinder_pressure(RESETUP_DFG_NY), np.float32, "host_replay",
         drift=coupling_drift_values)
     assert out["resetup_dfg"]["B2"]["f32.f32"] > 0
     emit("resetup_dfg_phase", elapsed_phase_s=time.perf_counter() - t_phase)
@@ -2125,6 +2219,295 @@ def resetup_phases(amgx, dev, smi, gen) -> dict:
     emit("resetup_structural_change", raised=raised,
          elapsed_phase_s=time.perf_counter() - t_phase)
     return out
+
+
+class GalerkinTimer:
+    """The seconds spent in the hierarchy's Galerkin products (classical
+    and aggregation, engine or scipy) while it is entered."""
+
+    def __enter__(self):
+        from amgx_tpu_torch.amg import hierarchy as H
+        self.H = H
+        self.seconds = 0.0
+        self.real = {}
+        for name in ("_galerkin_classical", "_galerkin_agg"):
+            real = getattr(H.AMGHierarchy, name)
+            self.real[name] = real
+
+            def timed(hier, *a, _real=real, **k):
+                t0 = time.perf_counter()
+                out = _real(hier, *a, **k)
+                self.seconds += time.perf_counter() - t0
+                return out
+            setattr(H.AMGHierarchy, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.real.items():
+            setattr(self.H.AMGHierarchy, name, real)
+
+
+def block_aggregation_phase(amgx, dev, smi, gen,
+                            engine_off: bool = False) -> dict:
+    """Phase 30: block aggregation (``BLOCK_CFG`` on
+    ``elasticity3(BLOCK_SIDE)``, f32 pack, f64 refinement): setup with
+    the device setup engine (``device_setup=1``; with ``engine_off``,
+    which ``scripts/torch_setup_engine.py`` sets, a setup without it
+    first), the engine's plans, hits and declines (only "small"
+    allowed), a first and a warm solve with every count set to 0 just
+    before the first and read just after, iterations, the true relres in f64 on the host, the
+    levels and their dispatch labels (no decline), the AMG graph
+    (:func:`graph_check`), peak memory; then a values-only resetup (A5:
+    the frozen aggregates replayed through the engine's cached block
+    plans, the graphs kept) and a solve; then the card against the CPU
+    at ``BLOCK_SMALL_SIDE`` with the engine on every level (equal
+    counts, x bit-equal).  Returns the launches by kernel."""
+    import torch
+    from amgx_tpu_torch.amg.device_setup import engine_stats, reset_engine
+    from amgx_tpu_torch.core.matrix import pack_kind
+    from amgx_tpu_torch.io.gauntlet import elasticity3
+    from amgx_tpu_torch.utils import cuda_graph as cg
+    t_phase = time.perf_counter()
+    A, b = elasticity3(BLOCK_SIDE)
+    n = A.shape[0]
+    cfg = BLOCK_CFG + ", amg:structure_reuse_levels=-1"
+    setup_s, galerkin_s = {}, {}
+    for ds in ((0, 1) if engine_off else (1,)):
+        reset_engine()
+        torch.cuda.reset_peak_memory_stats(dev)
+        m = amgx.Matrix(A, block_dim=b, device="cuda")
+        m.device_dtype = np.float32
+        torch.cuda.synchronize(dev)
+        with GalerkinTimer() as gt:
+            t0 = time.perf_counter()
+            slv = amgx.create_solver(cfg + f", device_setup={ds}")
+            slv.setup(m)
+            torch.cuda.synchronize(dev)
+            setup_s[ds] = time.perf_counter() - t0
+        galerkin_s[ds] = gt.seconds
+        if ds == 0:
+            assert engine_stats() is None
+            del slv, m
+            torch.cuda.empty_cache()
+    stats = engine_stats()
+    assert set(stats["declines"]) <= {"small"}, stats
+    assert stats["numeric_runs"] >= 1, stats
+    pre = amg_of(slv)
+    h = pre.hierarchy
+    rhs = torch.ones(n, dtype=torch.float64, device=dev)
+    reset_counts()
+    res = slv.solve(rhs)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    total = {}
+    merge_counts(total, counts)
+    res2 = slv.solve(rhs)
+    assert res.status == amgx.SolveStatus.SUCCESS, res.status
+    assert res2.iterations == res.iterations
+    assert not any(counts["declines"].values()), counts
+    relres = host_relres(A)(res.x)
+    assert relres <= 1e-8, relres
+    levels = [dict(block_rows=lv.level_stats()[0], kind=pack_kind(lv.Ad))
+              for lv in h.levels]
+    levels.append(dict(block_rows=h.coarsest.n_block_rows,
+                       kind=pack_kind(h.coarsest.device()),
+                       solver="DENSE_LU_SOLVER"))
+    # a coarse level whose block plan passes the binned padding budget
+    # packs as the scalar expansion's planes (B4), the JAX package's rule
+    assert levels[0]["kind"] == "dia/block", levels
+    assert all(lv["kind"] in ("dia/block", "ell/binned-block",
+                              "ell/binned") for lv in levels[:-1]), levels
+    assert counts["B5"].get("f32.f32", 0) > 0, counts
+    graph = graph_check(pre, dev, gen)
+    emit("block_aggregation", side=BLOCK_SIDE, block_dim=b,
+         block_rows=n // b, unknowns=n, stored_blocks=int(A.nnz // b // b),
+         setup_s_engine=setup_s[1], setup_s_no_engine=setup_s.get(0),
+         galerkin_s_engine=galerkin_s[1],
+         galerkin_s_no_engine=galerkin_s.get(0),
+         engine=stats, iterations=res.iterations, relres_f64=relres,
+         solve_s=res.solve_time, solve_warm_s=res2.solve_time,
+         levels=levels, counts=counts, amg_graph=graph,
+         peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, card=smi)
+
+    # ---- A5: a values-only resetup, the graphs kept
+    host0 = m.host.copy()
+    Ak = host0.copy()
+    Ak.data = drift_values(host0, 1)
+    with GalerkinTimer() as gt:
+        t0 = time.perf_counter()
+        m.replace_coefficients(Ak.data)
+        slv.resetup(m)
+        torch.cuda.synchronize(dev)
+        resetup_s = time.perf_counter() - t0
+    assert h.last_resetup == "host_replay", h.last_resetup
+    assert pre.rebind["graphs_dropped"] == 0, pre.rebind
+    st1 = engine_stats()
+    assert st1["builds"] == stats["builds"], (stats, st1)
+    caps = cg.CAPTURES["count"]
+    reset_counts()
+    res3 = slv.solve(rhs)
+    torch.cuda.synchronize(dev)
+    counts3 = read_counts()
+    merge_counts(total, counts3)
+    assert cg.CAPTURES["count"] == caps
+    assert res3.status == amgx.SolveStatus.SUCCESS, res3.status
+    relres3 = host_relres(Ak)(res3.x)
+    assert relres3 <= 1e-8, relres3
+    graph3 = graph_check(pre, dev, gen)
+    emit("block_aggregation_resetup", path=h.last_resetup,
+         resetup_s=resetup_s, galerkin_s=gt.seconds,
+         setup_s_engine=setup_s[1],
+         engine_hits=st1["hits"] - stats["hits"],
+         engine_builds=st1["builds"] - stats["builds"],
+         graphs_kept=pre.rebind["graphs_kept"],
+         graphs_dropped=pre.rebind["graphs_dropped"],
+         first_solve_s=res3.solve_time, iterations=res3.iterations,
+         relres_f64=relres3, counts=counts3, amg_graph=graph3, card=smi)
+    del slv, pre, h, m, res, res2, res3, A, Ak, host0
+    torch.cuda.empty_cache()
+
+    # ---- the card against the CPU, the engine on every level
+    As, _ = elasticity3(BLOCK_SMALL_SIDE)
+
+    def make(where):
+        ms = amgx.Matrix(As, block_dim=b, device=where)
+        ms.device_dtype = np.float32
+        return ms
+
+    facts = small_card_vs_cpu(amgx, f"elasticity3_{BLOCK_SMALL_SIDE}",
+                              BLOCK_CFG + ", device_setup_min_rows=0",
+                              make, As.shape[0])
+    assert facts["x_bit_equal"], facts
+    emit("block_aggregation_phase",
+         elapsed_phase_s=time.perf_counter() - t_phase)
+    return total
+
+
+def classical_algorithm_phase(amgx, dev, smi, gen,
+                              engine_off: bool = False) -> dict:
+    """Phase 31: the classical setup algorithms of this slice.  At full
+    width the classical 128³ stack with ``aggressive_levels=1``
+    (``CLA_AGGR_CFG``, f32 pack, f64 refinement; the device pipeline
+    declines, so every level runs the host loop: AGGRESSIVE_PMIS +
+    MULTIPASS on level 0, PMIS + D2 below): setup with the engine on and
+    (with ``engine_off``, as in :func:`block_aggregation_phase`) off,
+    with the Galerkin products' share of each, the engine's counts,
+    a first and a warm solve with every count set to 0 just before the
+    first and read just after, iterations, the true relres in f64 on the
+    host, B1/B3 launches, the AMG graph (:func:`graph_check`), and one
+    engine product of level 1 in f64 on the card against scipy's.  Then
+    the card against the CPU at ``FAMILY_CLA_SIDE``³ (θ = 0.2401) for
+    each name of ``CLA_NAMES``, and ``error_scaling=2`` on the headline
+    at 16³ with its graph replay bit-equal to an eager application.
+    Returns the launches by kernel."""
+    import scipy.sparse as sp
+    import torch
+    from amgx_tpu_torch.amg.device_setup import (DeviceSetupEngine,
+                                                 engine_stats, reset_engine)
+    from amgx_tpu_torch.io import poisson7pt, poisson7pt_device
+    t_phase = time.perf_counter()
+    side = FAMILY_SIDE
+    A = poisson7pt(side, side, side)
+    setup_s, share = {}, {}
+    for ds in ((0, 1) if engine_off else (1,)):
+        reset_engine()
+        m = amgx.Matrix(A, device="cuda")
+        m.device_dtype = np.float32
+        torch.cuda.synchronize(dev)
+        with GalerkinTimer() as gt:
+            t0 = time.perf_counter()
+            slv = amgx.create_solver(CLA_AGGR_CFG + f", device_setup={ds}")
+            slv.setup(m)
+            torch.cuda.synchronize(dev)
+            setup_s[ds] = time.perf_counter() - t0
+        share[ds] = dict(galerkin_s=gt.seconds,
+                         share=gt.seconds / setup_s[ds])
+        if ds == 0:
+            del slv, m
+            torch.cuda.empty_cache()
+    stats = engine_stats()
+    h = amg_of(slv).hierarchy
+    kinds = [s_[0] for s_ in h._structure]
+    assert kinds and all(k == "classical" for k in kinds), kinds
+    rhs = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+    reset_counts()
+    res = slv.solve(rhs)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    total = {}
+    merge_counts(total, counts)
+    res2 = slv.solve(rhs)
+    assert res.status == amgx.SolveStatus.SUCCESS, res.status
+    assert res2.iterations == res.iterations
+    assert not any(counts["declines"].values()), counts
+    relres = host_relres(A)(res.x)
+    assert relres <= 1e-8, relres
+    assert counts["B1"]["f32.f32"] > 0 and counts["B3"]["f32.f32"] > 0, \
+        counts
+    graph = graph_check(amg_of(slv), dev, gen)
+    # one engine product of level 1 on the card, f64, against scipy
+    A1 = sp.csr_matrix(h.levels[1].A.host).astype(np.float64)
+    P1 = sp.csr_matrix(h._structure[1][1][0]).astype(np.float64)
+    t0 = time.perf_counter()
+    got = DeviceSetupEngine().galerkin_csr(A1, P1, dtype=np.float64,
+                                           device=dev)
+    engine_l1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = sp.csr_matrix(sp.csr_matrix(P1.T) @ A1 @ P1)
+    scipy_l1_s = time.perf_counter() - t0
+    l1_err = abs(got - ref).max() / abs(ref).max()
+    assert l1_err <= 1e-12, l1_err
+    emit("classical_aggressive", n=A.shape[0], config="aggressive_levels=1",
+         setup_s_engine=setup_s[1], setup_s_no_engine=setup_s.get(0),
+         galerkin_engine=share[1], galerkin_no_engine=share.get(0),
+         engine=stats, levels=level_table(h), iterations=res.iterations,
+         relres_f64=relres, solve_s=res.solve_time,
+         solve_warm_s=res2.solve_time, counts=counts, amg_graph=graph,
+         level1=dict(rows=A1.shape[0], nnz=A1.nnz, P_nnz=P1.nnz,
+                     Ac_nnz=ref.nnz, engine_s=engine_l1_s,
+                     scipy_s=scipy_l1_s, rel_err_vs_scipy=l1_err,
+                     limit=1e-12), card=smi)
+    del slv, h, m, res, res2, A, A1, P1, got, ref
+    torch.cuda.empty_cache()
+
+    # ---- the card against the CPU for each name
+    small = FAMILY_CLA_SIDE
+    As = poisson7pt(small, small, small)
+    base = CFG_CLA + ", amg:strength_threshold=0.2401"
+
+    def make(where):
+        ms = amgx.Matrix(As, device=where)
+        ms.device_dtype = np.float32
+        return ms
+
+    names = {}
+    for name, (old, new) in CLA_NAMES.items():
+        assert old in base, name
+        facts = small_card_vs_cpu(amgx, f"classical_{name}",
+                                  base.replace(old, new), make,
+                                  As.shape[0])
+        names[name] = [facts["iterations_card"], facts["x_bit_equal"]]
+    # error_scaling=2 on the headline at 16³: counts and the graph
+    cfg = HEADLINE_CFG + ", amg:error_scaling=2"
+    out = {}
+    for where in ("cuda", "cpu"):
+        As16 = poisson7pt_device(16, 16, 16, device_dtype=np.float32,
+                                 device=where)
+        s_ = amgx.create_solver(cfg)
+        s_.setup(As16)
+        rr = s_.solve(np.ones(16 ** 3))
+        assert rr.status == amgx.SolveStatus.SUCCESS, where
+        out[where] = (rr.iterations, rr.x.cpu())
+        if where == "cuda":
+            scaled_graph = graph_check(amg_of(s_), dev, gen)
+    assert out["cuda"][0] == out["cpu"][0], out
+    emit("classical_algorithms_card_vs_cpu", side=small, names=names,
+         error_scaling_16=dict(iterations=out["cuda"][0],
+                               x_bit_equal=bool(torch.equal(
+                                   out["cuda"][1], out["cpu"][1])),
+                               amg_graph=scaled_graph),
+         elapsed_phase_s=time.perf_counter() - t_phase)
+    return total
 
 
 def main() -> int:
@@ -2530,6 +2913,13 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     # ---- 29. values-only resetup on the three AMG paths
     fam.update(resetup_phases(amgx, dev, smi, gen))
 
+    # ---- 30. block aggregation; 31. the classical setup
+    # algorithms
+    setup_paths = {
+        "block_aggregation": block_aggregation_phase(amgx, dev, smi, gen),
+        "classical_aggressive": classical_algorithm_phase(amgx, dev, smi,
+                                                          gen)}
+
     # ---- the kernels of the paths
     kernels = []
     for key in ("f32.f32", "f64.f64"):
@@ -2575,17 +2965,20 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
             library_ms=ell_timing[key]["library_ms"]))
     kernels.extend(c4["kernels"])
     kernels.extend(dfg["kernels"])
-    # the launches of phases 24-27's and 29's full-width stacks, by kernel
+    # the launches of phases 24-27's and 29-31's full-width stacks, by
+    # kernel
+    paths = {(p if p.startswith("resetup_") else f"family_{p}"): t
+             for p, t in fam.items()}
+    paths.update(setup_paths)
     for entry in kernels:
         kern = {"dia_spmv": "B1", "ell_spmv": "B3", "shift_spmv": "B2",
                 "binned_spmv_B5": "B5", "binned_spmv_B4": "B4"}[
                     entry["name"].split("<")[0]]
         pair = ".".join(entry["name"].split("<")[1].rstrip(">")
                         .split(",")[:2])
-        for path, tot in fam.items():
+        for path, tot in paths.items():
             n_ = tot.get(kern, {}).get(pair, 0)
-            entry["launches_by_path"][path if path.startswith(
-                "resetup_") else f"family_{path}"] = n_
+            entry["launches_by_path"][path] = n_
             entry["launches"] += n_
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

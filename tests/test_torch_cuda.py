@@ -357,11 +357,18 @@ def _graph_case(case, card):
     import amgx_tpu_torch as amgx
     from amgx_tpu_torch.io import (dfg_cylinder_pressure, poisson7pt,
                                    poisson7pt_device)
-    from chip_smoke import CFG_CLA, DFG_CFG, HEADLINE_CFG
-    if case == "headline16":
+    from chip_smoke import BLOCK_CFG, CFG_CLA, DFG_CFG, HEADLINE_CFG
+    if case in ("headline16", "scaled16"):
         A = poisson7pt_device(16, 16, 16, device_dtype=np.float32,
                               device=card)
-        cfg = HEADLINE_CFG
+        cfg = HEADLINE_CFG if case == "headline16" else \
+            HEADLINE_CFG + ", amg:error_scaling=2"
+    elif case == "elast12":
+        from amgx_tpu_torch.io.gauntlet import elasticity3
+        host, b = elasticity3(12)
+        A = amgx.Matrix(host, block_dim=b, device=card)
+        A.device_dtype = np.float32
+        cfg = BLOCK_CFG
     else:
         host = poisson7pt(24, 24, 24) if case == "classical24" else \
             dfg_cylinder_pressure(64)
@@ -374,7 +381,8 @@ def _graph_case(case, card):
     return slv
 
 
-GRAPH_CASES = ["headline16", "classical24", "dfg64"]
+GRAPH_CASES = ["headline16", "classical24", "dfg64", "scaled16",
+               "elast12"]
 
 
 @pytest.mark.parametrize("case", GRAPH_CASES)
