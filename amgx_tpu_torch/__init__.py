@@ -35,7 +35,11 @@ def create_solver(config) -> Solver:
     """Build the outer solver described by a config (JSON dict/string or
     ``key=value`` string, or an :class:`AMGConfig`)."""
     cfg = config if isinstance(config, AMGConfig) else AMGConfig(config)
-    return SolverFactory.allocate(cfg, "default", "solver")
+    slv = SolverFactory.allocate(cfg, "default", "solver")
+    # the outermost solver owns the solve boundary (precision knobs,
+    # scaling, RCM)
+    slv._toplevel = True
+    return slv
 
 
 __all__ = [

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ...device import to_host
+from ...ops.ordered import sum_along
 from ...ops.spgemm import (dedup_rows, ell_spgemm_fn, ell_transpose_fn,
                            row_chunks, row_ids, top_k)
 from .device_fine import pmis_multiplier
@@ -50,7 +51,7 @@ def strength_pmis(cols: torch.Tensor, vals: torch.Tensor, n_log: int,
     rown = row_ids(cols)
     off = cols != rown
     present = (vals != 0) & off
-    diag = torch.where(cols == rown, vals, 0.0).sum(1)
+    diag = sum_along(torch.where(cols == rown, vals, 0.0), 1)
     if strength_all:
         S = present
     else:
@@ -64,7 +65,7 @@ def strength_pmis(cols: torch.Tensor, vals: torch.Tensor, n_log: int,
         meas_f = torch.where(no_neg[:, None], meas_abs, meas)
         S = present & (meas_f >= theta * rowmax_f[:, None]) & (meas_f > 0)
         if max_row_sum < 1.0 + 1e-12:
-            rs = vals.sum(1)
+            rs = sum_along(vals, 1)
             dsafe = torch.where(diag == 0, 1.0, diag)
             weak = torch.abs(rs / dsafe) > max_row_sum
             S = S & ~weak[:, None]
@@ -137,8 +138,8 @@ def _d1_on(c_vals, c_live, diag, row_neg, row_pos, cf):
     signed row sums (distance1.cu formula)."""
     neg = c_live & (c_vals < 0)
     pos = c_live & (c_vals > 0)
-    s_c_neg = torch.where(neg, c_vals, 0.0).sum(1)
-    s_c_pos = torch.where(pos, c_vals, 0.0).sum(1)
+    s_c_neg = sum_along(torch.where(neg, c_vals, 0.0), 1)
+    s_c_pos = sum_along(torch.where(pos, c_vals, 0.0), 1)
     alpha = torch.where(s_c_neg != 0,
                         row_neg / torch.where(s_c_neg == 0, 1.0, s_c_neg),
                         0.0)
@@ -156,7 +157,7 @@ def _truncate(pc, pv, trunc_factor: float, max_elements: int, Kp: int):
     top ``max_elements`` by |w| (ties to the lower column — slot order
     is column order), rescale to preserve row sums."""
     absw = torch.abs(pv)
-    old = pv.sum(1)
+    old = sum_along(pv, 1)
     keep = pv != 0
     if trunc_factor < 1.0:
         rmax = absw.max(1).values
@@ -169,7 +170,7 @@ def _truncate(pc, pv, trunc_factor: float, max_elements: int, Kp: int):
         kv = torch.where(topv > 0, kv, 0.0)
     else:
         kc, kv = pc, torch.where(keep, pv, 0.0)
-    new = kv.sum(1)
+    new = sum_along(kv, 1)
     scale = torch.where(new != 0, old / torch.where(new == 0, 1.0, new),
                         1.0)
     return kc, kv * scale[:, None]
@@ -188,15 +189,15 @@ def interpolate(cols, vals, S, cf, Kc: int, Kfs: int, Kp: int,
     dt = vals.dtype
     colsl = cols.long()
     rown = row_ids(cols)
-    diag = torch.where(cols == rown, vals, 0.0).sum(1)
+    diag = sum_along(torch.where(cols == rown, vals, 0.0), 1)
     cnum = (torch.cumsum(cf.to(torch.int32), 0) - 1).to(torch.int32)
     cfc = cf[colsl]
     off = cols != rown
     present = (vals != 0) & off
     if not interp_d2:
         in_ci = S & cfc          # strength-filtered (distance1.cu)
-        row_neg = torch.where(present & (vals < 0), vals, 0.0).sum(1)
-        row_pos = torch.where(present & (vals > 0), vals, 0.0).sum(1)
+        row_neg = sum_along(torch.where(present & (vals < 0), vals, 0.0), 1)
+        row_pos = sum_along(torch.where(present & (vals > 0), vals, 0.0), 1)
         w = _d1_on(torch.where(in_ci, vals, 0.0), in_ci, diag, row_neg,
                    row_pos, cf)
         pc, pv = _truncate(torch.where(in_ci, cols, -1), w, trunc_factor,
@@ -204,7 +205,7 @@ def interpolate(cols, vals, S, cf, Kc: int, Kfs: int, Kp: int,
     else:
         sc_mask = S & cfc
         fs_mask = S & ~cfc
-        sum_ck = torch.where(sc_mask, vals, 0.0).sum(1)
+        sum_ck = sum_along(torch.where(sc_mask, vals, 0.0), 1)
         wrow = torch.where(
             sc_mask, vals / torch.where(sum_ck == 0, 1.0, sum_ck)[:, None],
             0.0)
@@ -238,8 +239,8 @@ def interpolate(cols, vals, S, cf, Kc: int, Kfs: int, Kp: int,
             hc, (hv, hisc), hl = dedup_rows(ac, [av, aisc], W2)
             hpresent = hl & (hv != 0)
             hoff = hpresent & (hc != row_ids(hc, r0))
-            row_neg = torch.where(hoff & (hv < 0), hv, 0.0).sum(1)
-            row_pos = torch.where(hoff & (hv > 0), hv, 0.0).sum(1)
+            row_neg = sum_along(torch.where(hoff & (hv < 0), hv, 0.0), 1)
+            row_pos = sum_along(torch.where(hoff & (hv > 0), hv, 0.0), 1)
             in_ci = hoff & (hisc > 0)
             # Â diag == A diag (distribution paths land on C columns;
             # weights only matter for F rows)

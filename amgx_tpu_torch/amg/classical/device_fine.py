@@ -31,6 +31,7 @@ import scipy.sparse as sp
 import torch
 
 from ...device import host_scalar, to_host
+from ...ops.ordered import sum_along
 from ...ops.spgemm import shift as _shift
 from ...ops.spgemm import top_k
 
@@ -241,7 +242,7 @@ def dia_truncate(ws, trunc_factor: float, max_elements: int, Kp: int):
     Returns (kv (n, Kp), topi (n, Kp) slot indices into ws)."""
     W = torch.stack(ws, dim=1)                     # (n, nh-1)
     absw = torch.abs(W)
-    old_sum = torch.sum(W, dim=1)
+    old_sum = sum_along(W, 1)
     keep = W != 0
     if trunc_factor < 1.0:
         rowmax = torch.max(absw, dim=1).values
@@ -256,7 +257,7 @@ def dia_truncate(ws, trunc_factor: float, max_elements: int, Kp: int):
     else:
         kv = torch.where(keep, W, 0.0)
         topi = torch.arange(W.shape[1], device=W.device).expand(W.shape)
-    new_sum = torch.sum(kv, dim=1)
+    new_sum = sum_along(kv, 1)
     scale = torch.where(new_sum != 0,
                         old_sum / torch.where(new_sum == 0, 1.0, new_sum),
                         1.0)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ...device import to_host
+from ...ops.ordered import sum_along
 from ...ops.spgemm import dia_galerkin_fn, top_k
 from ...ops.spgemm import shift as _shift
 from .device_fine import fine_program
@@ -67,7 +68,7 @@ def level_arrays(Ac: torch.Tensor, P_rows: torch.Tensor, cf: torch.Tensor,
         torch.zeros(n, dtype=Ac.dtype, device=Ac.device)
     dinv = torch.where(diag != 0,
                        1.0 / torch.where(diag == 0, 1.0, diag), 0.0)
-    l1row = torch.sum(torch.abs(A1), dim=0)
+    l1row = sum_along(torch.abs(A1), 0)
     R_rows = torch.stack([_shift(P_rows[pi], -int(p_offs[pi]))
                           for pi in range(len(p_offs))])
     cnum = (torch.cumsum(cf.to(torch.int32), 0) - 1).to(torch.int32)

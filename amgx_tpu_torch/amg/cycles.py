@@ -12,6 +12,14 @@ inner products are summed in f64 and rounded once
 level by the λ minimising the residual 2-norm (2) or the error A-norm
 (3), clamped to [0.3, 10] in magnitude (reference
 ``aggregation_amg_level.cu:740-860``); λ is a 0-d device tensor too.
+
+A hierarchy with a host tail (``amg_host_levels_rows``, ``host_from``:
+the first level that computes on the CPU) enters it through
+:func:`~..utils.cuda_graph.host_step`: the restricted residual and the
+zero guess go down to the CPU, the tail's cycle (or K-cycle) runs there
+on the tail's CPU tensors, and the correction comes back up.  The
+recursion reads the hierarchy's levels at each call, so a cycle built
+before a values-only resetup serves the refreshed levels.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import torch
 
 from ..ops.ordered import wdot
 from ..ops.spmv import spmv
+from ..utils.cuda_graph import host_step
 
 
 def _guarded_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -44,7 +53,9 @@ def build_cycle(hierarchy, cycle_type: str = None):
     """Return ``cycle_fn(b, x) -> x`` for the hierarchy."""
     ct = cycle_type or hierarchy.cycle_type
     h = hierarchy
-    levels = h.levels
+
+    def enters_host(i, b):
+        return i == h.host_from and b.device.type != "cpu"
 
     def smooth(lvl, b, x, sweeps):
         if sweeps <= 0:
@@ -69,6 +80,9 @@ def build_cycle(hierarchy, cycle_type: str = None):
 
     def cycle(i, b, x, flavor):
         """One multigrid cycle starting at level i."""
+        if enters_host(i, b):
+            return host_step(lambda b_, x_: cycle(i, b_, x_, flavor), b, x)
+        levels = h.levels
         if i == len(levels):
             return coarse_solve(b, x)
         lvl = levels[i]
@@ -105,6 +119,9 @@ def build_cycle(hierarchy, cycle_type: str = None):
         """K-cycle: accelerate the level-i solve with ``cycle_iters``
         iterations of flexible CG preconditioned by the next cycle
         (reference CG_Flex_Cycle, cycles/cg_flex_cycle.cu)."""
+        if enters_host(i, b):
+            return host_step(lambda b_, x_: kcycle(i, b_, x_, flavor), b, x)
+        levels = h.levels
         if i == len(levels):
             return coarse_solve(b, x)
         inner_flavor = "V" if flavor == "CGF" else flavor

@@ -70,11 +70,13 @@ import torch
 
 from ..config import AMGConfig
 from ..core.matrix import ComposedDIA, Matrix, dia_device_matrix
-from ..core.precision import compute_dtype
-from ..device import host_scalar
-from ..errors import BadConfigurationError, NotImplementedError_
+from ..core import precision
+from ..core.precision import compute_dtype, resolve_dtype
+from ..device import host_scalar, storage_dtype
+from ..errors import BadConfigurationError
 from ..ops.spgemm import pad_to_symbolic
 from ..solvers.base import SolverFactory
+from ..utils.logging import amgx_output
 from .aggregation.galerkin import galerkin_coarse
 from .dia_device import derive_hierarchy_device, plan_dia_hierarchy
 from .level import (AggregationLevel, AMGLevel, ClassicalLevel,
@@ -82,11 +84,6 @@ from .level import (AggregationLevel, AMGLevel, ClassicalLevel,
 from .pairwise import pairwise_galerkin_dia
 from .structured import (coarse_dims, decompose_offsets, infer_grid_dims,
                          stencil_values_consistent, structured_galerkin)
-
-#: knobs of the AMG scope whose non-default values select a feature of
-#: a later slice of the port: host-computed coarse levels inside the
-#: AMG's one CUDA graph are not designed yet
-_LATER_SLICE = (("amg_host_levels_rows", -1),)
 
 #: the structured/pairwise path declined (too many diagonals): the
 #: caller retries with a graph-matching selector
@@ -174,6 +171,31 @@ def _no_dia_structure():
         "for a structural rebuild")
 
 
+def _on_device(v, dev: torch.device):
+    """``v`` (a tensor, a device pack or ``Matrix``, or anything else,
+    returned as is) on ``dev``: a ``Matrix`` becomes a shallow copy that
+    shares its host data, with its cached packs and inverted diagonal
+    copied over; a pack dataclass is rebuilt field by field."""
+    import copy
+    import dataclasses
+    if isinstance(v, torch.Tensor):
+        return v.to(dev)
+    if isinstance(v, Matrix):
+        m = copy.copy(v)
+        m.placement = dev
+        for k in ("_device", "_setup_wide"):
+            if getattr(v, k, None) is not None:
+                setattr(m, k, _on_device(getattr(v, k), dev))
+        if v._dinv_dev is not None:
+            m._dinv_dev = (v._dinv_dev[0], v._dinv_dev[1].to(dev))
+        return m
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return dataclasses.replace(v, **{
+            f.name: _on_device(getattr(v, f.name), dev)
+            for f in dataclasses.fields(v) if f.init})
+    return v
+
+
 def _kept_rows(vals: torch.Tensor, keep) -> torch.Tensor:
     """The rows ``keep`` of a device DIA ``vals`` (all when None)."""
     if keep is None:
@@ -186,10 +208,6 @@ class AMGHierarchy:
         self.cfg = cfg
         self.scope = scope
         g = lambda name: cfg.get(name, scope)
-        for name, default in _LATER_SLICE:
-            if g(name) != default:
-                raise NotImplementedError_(
-                    f"{name}={g(name)!r} is a later slice of the port")
         self.algorithm = str(g("algorithm"))
         self.selector = str(g("selector"))
         self.max_levels = int(g("max_levels"))
@@ -212,6 +230,21 @@ class AMGHierarchy:
         self.device_setup = int(g("device_setup"))
         self.device_setup_min_rows = int(g("device_setup_min_rows"))
         self.device_setup_cache_mb = int(g("device_setup_cache_mb"))
+        #: mixed precision (core/precision.py): the storage dtype of the
+        #: level operators, smoother data and transfer packs from
+        #: ``mixed_precision_from_level`` down; None inherits (a bf16
+        #: fine-matrix device dtype implies the policy).  Setup math runs
+        #: at f32 or wider; values narrow by a device cast or at upload
+        self.hierarchy_dtype = resolve_dtype(str(g("hierarchy_dtype")))
+        #: levels with at most this many rows (the first such level and
+        #: every coarser one) compute on the CPU (reference
+        #: amg_host_levels_rows, amg.h:169-173); -1 keeps all on the
+        #: device.  ``host_from`` is the first host level's index
+        #: (``num_levels()`` when there is none)
+        self.host_levels_rows = int(g("amg_host_levels_rows"))
+        self.host_from = 0
+        self.mixed_from_level = int(g("mixed_precision_from_level"))
+        self.print_grid_stats = bool(g("print_grid_stats"))
         self.levels: List[AMGLevel] = []
         self.coarsest: Optional[Matrix] = None
         self.coarse_solver = None
@@ -244,6 +277,9 @@ class AMGHierarchy:
             self.levels = []
             raise
         self.setup_time = time.perf_counter() - t0
+        if self.print_grid_stats:
+            # an informational table: verbosity level 2, as upstream
+            amgx_output(self.grid_stats(), level=2)
         return self
 
     def _setup_fresh(self, A: Matrix):
@@ -1013,7 +1049,75 @@ class AMGHierarchy:
                 return out.astype(host.dtype)
         return galerkin_coarse(host, agg, cur.block_dim)
 
+    def _effective_hierarchy_dtype(self):
+        """The storage dtype the precision policy applies, or None: an
+        explicit ``hierarchy_dtype``, else a bf16 fine-matrix device
+        dtype (``tpu_matrix_dtype=bfloat16``)."""
+        if self.hierarchy_dtype is not None:
+            return self.hierarchy_dtype
+        if not self.levels:
+            return None
+        dd = getattr(self.levels[0].A, "device_dtype", None)
+        if dd is not None and precision.is_sub_f32(dd):
+            return dd
+        return None
+
+    def _apply_precision_policy(self):
+        """Narrow the stored hierarchy from ``mixed_precision_from_level``
+        down (``_apply_precision_policy`` upstream): each covered level's
+        operator and host-built transfers become precision views
+        (:func:`~..core.precision.precision_view`: a device cast of an
+        existing pack, else a narrow upload), device-born transfers are
+        cast when their pack may narrow.  The caller's matrix and the
+        coarsest level (the dense coarse solve) keep their dtype, and so
+        does every pack whose kernel has no bf16 pair (scalar binned
+        planes, shift packs)."""
+        hd = self._effective_hierarchy_dtype()
+        if hd is None:
+            return
+        for i, lvl in enumerate(self.levels):
+            if i < max(self.mixed_from_level, 0):
+                continue
+            A = lvl.A
+            if hd.itemsize < storage_dtype(A.device_dtype
+                                           or A.dtype).itemsize:
+                lvl.A = precision.precision_view(A, hd)
+            for slot in ("_P", "_R"):
+                T = getattr(lvl, slot, None)
+                if isinstance(T, Matrix):
+                    if hd.itemsize < storage_dtype(T.device_dtype
+                                                   or T.dtype).itemsize:
+                        setattr(lvl, slot, precision.precision_view(T, hd))
+                elif T is not None and precision.narrowable_pack(T) and \
+                        T.dtype.itemsize > hd.itemsize:
+                    setattr(lvl, slot, T.astype(hd))
+
+    def _place_host_tail(self, coarsest: Matrix) -> Matrix:
+        """Find the host tail (``amgx_tpu/amg/cycles.py:44-66``: the first
+        level at or below ``amg_host_levels_rows`` and every coarser
+        one) and, on a CUDA hierarchy, move its levels — packs, transfer
+        data, inverted diagonals — and the coarsest matrix to the CPU, so
+        their smoothers and the coarse solver set up there; returns the
+        coarsest matrix where it now lives."""
+        sizes = [lvl.Ad.n_rows for lvl in self.levels] + \
+            [coarsest.n_block_rows]
+        self.host_from = len(sizes)
+        if self.host_levels_rows > 0:
+            self.host_from = next((i for i, n in enumerate(sizes)
+                                   if n <= self.host_levels_rows),
+                                  len(sizes))
+        if self.host_from == len(sizes) or \
+                coarsest.placement.type != "cuda":
+            return coarsest
+        host = torch.device("cpu")
+        for lvl in self.levels[self.host_from:]:
+            for k, v in list(vars(lvl).items()):
+                setattr(lvl, k, _on_device(v, host))
+        return _on_device(coarsest, host)
+
     def _setup_smoothers_and_coarse(self, coarsest: Matrix):
+        self._apply_precision_policy()
+        coarsest = self._place_host_tail(coarsest)
         for lvl in self.levels:
             lvl.smoother = SolverFactory.allocate(self.cfg, self.scope,
                                                   "smoother")

@@ -55,7 +55,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..device import numpy_dtype, resolve_device, torch_dtype
+from ..device import numpy_dtype, resolve_device, storage_dtype, torch_dtype
 from ..errors import BadParametersError
 from ..ops import binned_spmv, ell_spmv, shift_spmv
 
@@ -619,7 +619,9 @@ class Matrix:
 
     @device_dtype.setter
     def device_dtype(self, v):
-        self._device_dtype_pref = None if v is None else numpy_dtype(v)
+        # torch.bfloat16 for a bf16 pack (numpy has no such type), else a
+        # numpy dtype
+        self._device_dtype_pref = storage_dtype(v)
 
     def set(self, a, block_dim: int = 1):
         """Upload a scipy/dense matrix: a CSR for ``block_dim`` 1, else a
@@ -831,10 +833,30 @@ class Matrix:
 
     def device(self, dtype=None) -> DeviceMatrix:
         """The device pack in ``dtype`` (default: ``device_dtype``, else
-        the host dtype), built once and cached."""
-        dtype = np.dtype(dtype or self.device_dtype or self.dtype)
+        the host dtype), built once and cached.  A bf16 pack is the f32
+        pack cast on the device (where its kind may narrow,
+        :func:`~.precision.device_cast`; else it stays f32), so its
+        values hold bf16(f32(v)), as ``_pack_cast_via`` records."""
+        dtype = storage_dtype(dtype or self.device_dtype or self.dtype)
         if self._device is not None and self._device_dtype == dtype:
             return self._device
+        if dtype == torch.bfloat16:
+            from .precision import device_cast
+            wide = self._build_pack(np.dtype(np.float32))
+            self._device = device_cast(wide, dtype)
+            self._device_dtype = dtype
+            self._pack_cast_via = np.dtype(np.float32)
+            if self._device is not wide:
+                # the smoother's setup reads the wide values, then drops
+                # them (precision.release_setup_wide)
+                self._setup_wide = wide
+            return self._device
+        self._device = self._build_pack(dtype)
+        self._device_dtype = dtype
+        return self._device
+
+    def _build_pack(self, dtype: np.dtype) -> DeviceMatrix:
+        """A fresh device pack of the host values in ``dtype``."""
         dia = self.dia_cache(DIA_MAX_DIAGS) if self.block_dim == 1 \
             else None
         if dia is not None and (len(dia[0]) == 0 or
@@ -845,15 +867,10 @@ class Matrix:
             dvals = torch.from_numpy(
                 np.ascontiguousarray(vals.astype(dtype, copy=False))
             ).to(self.placement)
-            self._device = dia_device_matrix(offs, dvals, None,
-                                             self.n_block_cols)
-        else:
-            # the scalar cache above already proved the matrix non-DIA;
-            # block matrices try block-DIA in the pack
-            arrays, meta = pack_host_arrays(
-                self.host, self.block_dim, dtype,
-                dia_max_diags=0 if self.block_dim == 1 else DIA_MAX_DIAGS)
-            self._device = assemble_device_matrix(arrays, meta,
-                                                  self.placement)
-        self._device_dtype = dtype
-        return self._device
+            return dia_device_matrix(offs, dvals, None, self.n_block_cols)
+        # the scalar cache above already proved the matrix non-DIA;
+        # block matrices try block-DIA in the pack
+        arrays, meta = pack_host_arrays(
+            self.host, self.block_dim, dtype,
+            dia_max_diags=0 if self.block_dim == 1 else DIA_MAX_DIAGS)
+        return assemble_device_matrix(arrays, meta, self.placement)

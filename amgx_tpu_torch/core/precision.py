@@ -1,10 +1,22 @@
-"""Precision policy: tolerance floors and the promotion ladder
-(port of ``amgx_tpu/core/precision.py``).
+"""Precision policy: dtype resolution, tolerance floors, the promotion
+ladder and the narrowing of device packs (port of
+``amgx_tpu/core/precision.py``).
 
-A solve whose tolerance lies below its device dtype's floor runs as
-defect correction: inner solves at the pack dtype, true residuals
-recomputed one rung wider (f32 → f64), bounded by the precision of the
-host matrix.  Host-side dtype arithmetic only.
+Three tiers, as upstream:
+
+* **storage** — AMG level operators, smoother data and transfer packs
+  may live in bfloat16 (``hierarchy_dtype``): SpMV is memory-bound, and
+  every SpMV over a bf16 pack accumulates in f32 (kernels B1, B3 and B5
+  widen each value in registers) and returns ``promote_types(A, x)``;
+* **Krylov** — the top-level solver's pack dtype (``krylov_dtype`` /
+  ``tpu_matrix_dtype``) is its vectors', dots' and monitor's dtype;
+* **refinement** — tolerances below the Krylov dtype's floor promote
+  through the defect-correction ladder (bf16 → f32 → f64, one rung of at
+  most twice the itemsize), bounded by the host matrix.
+
+numpy has no bfloat16: the port keys a bf16 storage dtype as
+``torch.bfloat16`` (:func:`~..device.storage_dtype`) and every other as
+a numpy dtype.
 """
 from __future__ import annotations
 
@@ -13,12 +25,31 @@ from typing import Optional
 import numpy as np
 import torch
 
+#: the names the dtype-valued config knobs accept
+DTYPE_NAMES = ("default", "float64", "float32", "bfloat16")
+
 #: relative-residual honesty multiplier: below ``FLOOR_ULPS·eps`` a
 #: convergence claim in that dtype cannot be told from rounding noise
 FLOOR_ULPS = 25.0
 
 #: the promotion ladder, narrow to wide
 LADDER = (np.dtype(np.float32), np.dtype(np.float64))
+
+
+def resolve_dtype(name: "str | None"):
+    """The storage dtype a config knob names (``torch.bfloat16`` or a
+    numpy dtype), or None for ``default``; an unknown name raises."""
+    if name is None:
+        return None
+    name = str(name).strip()
+    if name in ("", "default"):
+        return None
+    if name not in DTYPE_NAMES:
+        from ..errors import BadParametersError
+        raise BadParametersError(
+            f"unknown precision {name!r}; allowed: {DTYPE_NAMES}")
+    from ..device import storage_dtype
+    return storage_dtype(name)
 
 
 def _finfo(dtype):
@@ -78,3 +109,77 @@ def promotion_target(device_dtype, host_dtype,
         if tolerance >= tolerance_floor(rung):
             return rung
     return None
+
+
+def narrowable_pack(dm) -> bool:
+    """Can this device pack be narrowed to bf16 without losing its SpMV
+    kernel (``narrowable_pack`` upstream, on the port's pack kinds)?
+    DIA, block-DIA and ``dia3`` narrow (B1 has a (bf16, f32) pair), and
+    so do block-native binned planes (B5) and a plain scalar ELL pack
+    (B3); scalar binned planes (B4) and tile-DIA shift packs (B2) keep
+    their dtype, as the JAX package keeps its f32-only layouts.  A CSR
+    pack without planes narrows (its plain segment sum widens each
+    value)."""
+    if getattr(dm, "fmt", "") == "dia3":
+        return True
+    if getattr(dm, "bn_codes", None) is not None:
+        from ..ops.binned_spmv import bn_block_dim
+        return bn_block_dim(getattr(dm, "bn_dims", ())) > 1
+    return getattr(dm, "sh_vals", None) is None
+
+
+def device_cast(dm, dtype):
+    """An already-built device pack cast to ``dtype`` on its device (no
+    re-upload); ``dm`` itself when a bf16 cast would lose its kernel
+    (:func:`narrowable_pack`)."""
+    from ..device import storage_dtype
+    dtype = storage_dtype(dtype)
+    if is_sub_f32(dtype) and not narrowable_pack(dm):
+        return dm
+    return dm.astype(dtype)
+
+
+def precision_view(parent, dtype):
+    """A shallow Matrix view of ``parent`` whose device pack lives in
+    ``dtype`` while every host structure (scipy matrix, diagonals,
+    hints, geometry) stays shared and wide (``precision_view``
+    upstream).  With a parent pack the view casts it on the device (no
+    bytes over the wire) and records the value chain in
+    ``_pack_cast_via`` (the view holds dtype(parent_dtype(v)), which
+    the refinement's exactness test must follow); without one the view's
+    ``device_dtype`` makes the next upload narrow.  Returns ``parent``
+    itself when its pack may not narrow.
+
+    The wide pack stays reachable as ``_setup_wide`` until the hierarchy
+    has set up the view's smoother (:func:`release_setup_wide`): a
+    narrow level's inverted diagonal, block inverse and L1 row sums are
+    computed from the wide values, then stored narrow."""
+    import copy
+    from ..device import storage_dtype
+    dtype = storage_dtype(dtype)
+    m = copy.copy(parent)
+    m.device_dtype = dtype
+    m._dinv_dev = None
+    dev = getattr(parent, "_device", None)
+    if dev is not None:
+        cast = device_cast(dev, dtype)
+        if cast is dev:
+            return parent
+        m._device = cast
+        m._device_dtype = dtype
+        m._pack_cast_via = storage_dtype(dev.dtype)
+        m._setup_wide = dev
+        cached = getattr(parent, "_dinv_dev", None)
+        if cached is not None:
+            m._dinv_dev = (cast.dtype, cached[1].to(cast.dtype))
+    else:
+        m._device = None
+        m._device_dtype = None
+    return m
+
+
+def release_setup_wide(m) -> None:
+    """Drop a precision view's reference to its wide pack (after its
+    smoother's setup)."""
+    if m is not None:
+        m.__dict__.pop("_setup_wide", None)

@@ -12,7 +12,8 @@
 //
 // Bound on this card: memory.  One SpMV must read each stored entry's
 // column and value once, x once and write y once:
-//   bytes = nnz * (4 + sizeof(T)) + (n_cols + n) * sizeof(T)
+//   bytes = nnz * (4 + sizeof(V)) + (n_cols + n) * sizeof(T)
+// for values of type V and vectors of type T.
 // against 2 * nnz flops: below 0.25 flop/byte, far under the card's
 // ridge point.  The gather of x is data-dependent; for the banded
 // coarse operators of a classical hierarchy L2 serves most of it.  A
@@ -36,7 +37,14 @@
 // reproduces it bit for bit in the same order; it launches on the
 // caller's stream, allocates nothing, and the launcher returns
 // cudaGetLastError().
+//
+// Type pairs (vals, x): (f32, f32), (f64, f64) and (bf16, f32), the last
+// for a level of a bf16 hierarchy (hierarchy_dtype=bfloat16): each bf16
+// value widens to f32 in registers (exact) before its product, so the
+// sums run in f32 in the same order as the (f32, f32) pair, and the value
+// stream is half as many bytes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -46,7 +54,15 @@ namespace {
 constexpr int kThreads = 256;
 
 // type codes shared with the Python wrapper (ops/ell_spmv.py)
-enum TypeCode { kF32 = 0, kF64 = 1 };
+enum TypeCode { kF32 = 0, kF64 = 1, kBF16 = 2 };
+
+// a stored value in the accumulation type: the identity, or a bf16
+// value widened to f32 (exact)
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
 __device__ __forceinline__ float mul(float a, float b) {
   return __fmul_rn(a, b);
@@ -61,11 +77,11 @@ __device__ __forceinline__ double add(double a, double b) {
   return __dadd_rn(a, b);
 }
 
-template <typename T, int L>
+template <typename V, typename T, int L>
 __global__ void __launch_bounds__(kThreads)
     ell_spmv_kernel(const int32_t* __restrict__ cols,
                     const int32_t* __restrict__ row_len,
-                    const T* __restrict__ vals, const T* __restrict__ x,
+                    const V* __restrict__ vals, const T* __restrict__ x,
                     T* __restrict__ y, int64_t n, int64_t K,
                     int64_t n_cols) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
@@ -73,10 +89,10 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = static_cast<int>(t % L);
   T acc = T(0);
   if (row < n) {
-    const T* v = vals + row * K;
+    const V* v = vals + row * K;
     if (cols == nullptr) {
       for (int64_t k = lane; k < K; k += L)
-        acc = add(acc, mul(v[k], __ldg(x + k)));
+        acc = add(acc, mul(widen(v[k]), __ldg(x + k)));
     } else {
       const int32_t* c = cols + row * K;
       int64_t end = K;
@@ -86,7 +102,8 @@ __global__ void __launch_bounds__(kThreads)
       }
       for (int64_t k = lane; k < end; k += L) {
         const int64_t j = c[k];
-        if (j >= 0 && j < n_cols) acc = add(acc, mul(v[k], __ldg(x + j)));
+        if (j >= 0 && j < n_cols)
+          acc = add(acc, mul(widen(v[k]), __ldg(x + j)));
       }
     }
   }
@@ -98,30 +115,34 @@ __global__ void __launch_bounds__(kThreads)
   if (row < n && lane == 0) y[row] = acc;
 }
 
-template <typename T, int L>
+template <typename V, typename T, int L>
 int launch_l(const int32_t* cols, const int32_t* row_len, const void* vals,
              const void* x, void* y, int64_t n, int64_t K, int64_t n_cols,
              cudaStream_t stream) {
   const int64_t blocks = (n * L + kThreads - 1) / kThreads;
-  ell_spmv_kernel<T, L><<<static_cast<unsigned int>(blocks), kThreads, 0,
-                          stream>>>(cols, row_len,
-                                    static_cast<const T*>(vals),
+  ell_spmv_kernel<V, T, L><<<static_cast<unsigned int>(blocks), kThreads,
+                             0, stream>>>(cols, row_len,
+                                    static_cast<const V*>(vals),
                                     static_cast<const T*>(x),
                                     static_cast<T*>(y), n, K, n_cols);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename V, typename T>
 int launch(const int32_t* cols, const int32_t* rl, const void* vals,
            const void* x, void* y, int64_t n, int64_t K, int64_t n_cols,
            cudaStream_t s) {
-  if (K <= 1) return launch_l<T, 1>(cols, rl, vals, x, y, n, K, n_cols, s);
-  if (K <= 2) return launch_l<T, 2>(cols, rl, vals, x, y, n, K, n_cols, s);
-  if (K <= 4) return launch_l<T, 4>(cols, rl, vals, x, y, n, K, n_cols, s);
-  if (K <= 8) return launch_l<T, 8>(cols, rl, vals, x, y, n, K, n_cols, s);
+  if (K <= 1)
+    return launch_l<V, T, 1>(cols, rl, vals, x, y, n, K, n_cols, s);
+  if (K <= 2)
+    return launch_l<V, T, 2>(cols, rl, vals, x, y, n, K, n_cols, s);
+  if (K <= 4)
+    return launch_l<V, T, 4>(cols, rl, vals, x, y, n, K, n_cols, s);
+  if (K <= 8)
+    return launch_l<V, T, 8>(cols, rl, vals, x, y, n, K, n_cols, s);
   if (K <= 16)
-    return launch_l<T, 16>(cols, rl, vals, x, y, n, K, n_cols, s);
-  return launch_l<T, 32>(cols, rl, vals, x, y, n, K, n_cols, s);
+    return launch_l<V, T, 16>(cols, rl, vals, x, y, n, K, n_cols, s);
+  return launch_l<V, T, 32>(cols, rl, vals, x, y, n, K, n_cols, s);
 }
 
 }  // namespace
@@ -141,8 +162,10 @@ extern "C" int amgx_ell_spmv(int vals_type, int x_type, const void* cols,
   const int32_t* rl = static_cast<const int32_t*>(row_len);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vals_type == kF32 && x_type == kF32)
-    return launch<float>(c, rl, vals, x, y, n, K, n_cols, s);
+    return launch<float, float>(c, rl, vals, x, y, n, K, n_cols, s);
   if (vals_type == kF64 && x_type == kF64)
-    return launch<double>(c, rl, vals, x, y, n, K, n_cols, s);
+    return launch<double, double>(c, rl, vals, x, y, n, K, n_cols, s);
+  if (vals_type == kBF16 && x_type == kF32)
+    return launch<__nv_bfloat16, float>(c, rl, vals, x, y, n, K, n_cols, s);
   return -1;
 }

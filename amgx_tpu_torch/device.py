@@ -34,10 +34,21 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def _is_bf16(dtype) -> bool:
+    """bfloat16 in any spelling: ``torch.bfloat16``, the name, or the
+    ml_dtypes numpy type where the caller has one."""
+    if isinstance(dtype, torch.dtype):
+        return dtype == torch.bfloat16
+    return str(getattr(dtype, "name", dtype)).replace("torch.", "") == \
+        "bfloat16" or getattr(dtype, "__name__", "") == "bfloat16"
+
+
 def torch_dtype(dtype) -> torch.dtype:
     """A torch dtype from a torch or numpy dtype (or a name)."""
     if isinstance(dtype, torch.dtype):
         return dtype
+    if _is_bf16(dtype):
+        return torch.bfloat16
     dt = np.dtype(dtype)
     if dt not in _NP_TO_TORCH:
         raise BadParametersError(f"unsupported dtype {dtype!r}")
@@ -70,4 +81,17 @@ def numpy_dtype(dtype) -> np.dtype:
         if dtype not in _TORCH_TO_NP:
             raise BadParametersError(f"no numpy dtype for {dtype}")
         return _TORCH_TO_NP[dtype]
+    return np.dtype(dtype)
+
+
+def storage_dtype(dtype):
+    """A pack's storage dtype as the port keys it: ``torch.bfloat16`` for
+    bfloat16 (numpy has no such type), else the numpy dtype; None stays
+    None."""
+    if dtype is None:
+        return None
+    if _is_bf16(dtype):
+        return torch.bfloat16
+    if isinstance(dtype, torch.dtype):
+        return numpy_dtype(dtype)
     return np.dtype(dtype)

@@ -45,8 +45,8 @@ class SolveStatus(enum.IntEnum):
 
 
 class FailureKind(str, enum.Enum):
-    """What went wrong in a solve that did not converge (the members
-    this slice's solvers can report; values as in ``amgx_tpu``)."""
+    """What went wrong in a solve or its setup (the members the port's
+    solvers and fault points can report; values as in ``amgx_tpu``)."""
 
     NAN_POISON = "nan_poison"
     STAGNATION = "stagnation"
@@ -54,6 +54,11 @@ class FailureKind(str, enum.Enum):
     KRYLOV_BREAKDOWN = "krylov_breakdown"
     #: CG's ``pAp < 0``: the operator (or preconditioner) is not SPD
     INDEFINITE_OPERATOR = "indefinite_operator"
+    #: setup/resetup raised (hierarchy build, pack, the ``setup_error``
+    #: fault point)
+    SETUP_ERROR = "setup_error"
+    #: a device-side failure (transfer/upload error, out of memory)
+    DEVICE_ERROR = "device_error"
 
 
 #: breakdown codes carried by a solver's iteration state (0 = healthy;

@@ -608,12 +608,14 @@ def binned_entries_view(Ad):
 
 def binned_abs_rowsum(Ad) -> torch.Tensor:
     """Σ_j |A[i, j]| per scalar row from a scalar pack's planes alone
-    (padding contributes 0)."""
+    (padding contributes 0): each row's lanes in plane order, summed in
+    one fixed order on every device (:func:`~.ordered.segment_sum`, no
+    atomic scatter)."""
+    from .ordered import segment_sum
     n_tiles, T, ident, n = (int(Ad.bn_dims[i]) for i in (1, 3, 6, 7))
     row_pad = _row_pad_of_lane(Ad)
     v = Ad.bn_vals.reshape(-1).abs()
     if v.dtype == torch.bfloat16:
         v = v.float()
-    rs = torch.zeros(n_tiles * T, dtype=v.dtype, device=v.device)
-    rs.index_add_(0, row_pad, v)
+    rs = segment_sum(v, row_pad, n_tiles * T)
     return rs[:n] if ident else rs[Ad.bn_pos.long()]

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..core.matrix import DeviceMatrix, ell_device_matrix
+from .ordered import sum_along
 
 
 def device_ell_matrix(cols: torch.Tensor, vals: torch.Tensor, n_rows: int,
@@ -20,8 +21,9 @@ def device_ell_matrix(cols: torch.Tensor, vals: torch.Tensor, n_rows: int,
     """DeviceMatrix (fmt ``ell``) around device-resident ELL arrays.
 
     Dead (−1), out-of-range or zero-valued entries become column 0 with
-    value 0; the main diagonal is summed from the entries whose column is
-    their own row (zeros when ``square_diag`` is False, as for P/R)."""
+    value 0; the main diagonal is summed, slot by slot in order, from the
+    entries whose column is their own row (zeros when ``square_diag`` is
+    False, as for P/R)."""
     n, K = cols.shape
     assert n == n_rows, (n, n_rows)
     ok = (cols >= 0) & (cols < n_cols) & (vals != 0)
@@ -29,7 +31,7 @@ def device_ell_matrix(cols: torch.Tensor, vals: torch.Tensor, n_rows: int,
     vals = torch.where(ok, vals, 0).contiguous()
     if square_diag:
         rown = torch.arange(n, dtype=torch.int32, device=cols.device)[:, None]
-        diag = torch.where(cols == rown, vals, 0).sum(1)
+        diag = sum_along(torch.where(cols == rown, vals, 0), 1)
     else:
         diag = torch.zeros(n, dtype=vals.dtype, device=vals.device)
     return ell_device_matrix(cols, vals, diag, n_cols)

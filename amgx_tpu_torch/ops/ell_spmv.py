@@ -12,8 +12,10 @@ product with no column table, :func:`dense_matvec`); summed in ``x``'s
 dtype in the kernel's order (:func:`lanes`): each of L lanes sums the
 entries k = l, l + L, … left to right, then the lanes fold in halves.
 Each product and sum is rounded on its own, so the card and the CPU give
-the same bits.  Type pairs (vals, x): (f32, f32) and (f64, f64); any
-other pair raises.
+the same bits.  Type pairs (vals, x): (f32, f32), (f64, f64) and (bf16,
+f32) — a level of a bf16 hierarchy: each value widens exactly to f32
+before its product, and the sums run in f32 in the same order; any other
+pair raises.
 
 ``row_len`` (optional, (n,) int32, :func:`ell_row_len`) is one past the
 last slot of each row whose value is nonzero: the kernel stops every
@@ -36,9 +38,11 @@ import torch
 from ..errors import BadParametersError, DeviceError
 
 #: kernel type codes (``TypeCode`` in csrc/ell_spmv.cu)
-_TYPE_CODE = {torch.float32: 0, torch.float64: 1}
-_SHORT = {torch.float32: "f32", torch.float64: "f64"}
-SUPPORTED = ((torch.float32, torch.float32), (torch.float64, torch.float64))
+_TYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+_SHORT = {torch.float32: "f32", torch.float64: "f64",
+          torch.bfloat16: "bf16"}
+SUPPORTED = ((torch.float32, torch.float32), (torch.float64, torch.float64),
+             (torch.bfloat16, torch.float32))
 
 #: kernel launches per (vals, x) type pair, e.g. ``"f32.f32"`` — counted
 #: where the kernel is launched and nowhere else
@@ -138,6 +142,8 @@ def ell_spmv_reference(cols: Optional[torch.Tensor], vals: torch.Tensor,
     for dense rows) summed per lane left to right, then the lanes folded
     in halves, one elementwise add at a time."""
     n, K = vals.shape
+    if vals.dtype != x.dtype:
+        vals = vals.to(x.dtype)        # a bf16 value widens exactly
     if cols is None:
         p = vals * x
     else:

@@ -15,6 +15,13 @@ coarse solve below them) take the forms of this module:
   steps widen their operands before ``blas.fused_reduce``);
 * a linear combination added left to right, one elementwise op at a
   time: :func:`lincomb`;
+* a sum along one axis added left to right, one elementwise op at a
+  time (:func:`sum_along`), and a sum over segments of a flat entry
+  list — a stable sort by segment, then a segmented log-step scan
+  (:func:`segment_sum`): the L1 row sums of every pack
+  (``ops/spmv.py::abs_rowsum``, ``ops/binned_spmv.py::binned_abs_rowsum``
+  and the classical pipeline's level 1), in place of the library
+  reductions and the card's atomic ``index_add_``;
 * a dense matrix-vector product through kernel B3 over dense rows, which
   rounds each product and sum on its own in its plain version's order:
   :func:`dense_matvec`;
@@ -32,12 +39,13 @@ from .blas import dot, gram_dots, gram_dots_with_norm
 from .ell_spmv import dense_matvec
 
 __all__ = ["widen", "wdot", "wnrm2", "wgram_dots", "wgram_dots_with_norm",
-           "lincomb", "dense_matvec", "guarded_block_inv"]
+           "lincomb", "sum_along", "segment_sum", "dense_matvec",
+           "guarded_block_inv"]
 
 
 def widen(v):
-    """An f32 vector in f64; any other unchanged."""
-    return v.double() if v.dtype == torch.float32 else v
+    """An f32 (or bf16) vector in f64; any other unchanged."""
+    return v.double() if v.dtype in (torch.float32, torch.bfloat16) else v
 
 
 def wdot(x, y):
@@ -71,6 +79,41 @@ def lincomb(V, c):
     for k in range(1, V.shape[0]):
         acc = acc + c[k] * V[k]
     return acc
+
+
+def sum_along(v: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Σ over axis ``dim`` of ``v``, its slices added left to right one
+    elementwise op at a time (an empty axis sums to 0)."""
+    v = v.movedim(dim, 0)
+    if v.shape[0] == 0:
+        return v.new_zeros(v.shape[1:])
+    acc = v[0]
+    for k in range(1, v.shape[0]):
+        acc = acc + v[k]
+    return acc
+
+
+def segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int
+                ) -> torch.Tensor:
+    """Σ of ``vals`` over each segment id of ``seg`` in [0, n) along the
+    last axis of ``vals`` (leading axes are batch): the entries sorted
+    stably by segment (each segment keeps its entries' order), then a
+    segmented log-step scan (:func:`~.spgemm.seg_sum_scan`) whose every
+    step is one elementwise op.  Segments without entries sum to 0."""
+    from .spgemm import seg_sum_scan
+    out = vals.new_zeros(vals.shape[:-1] + (n,))
+    m = seg.shape[0]
+    if m == 0:
+        return out
+    s, order = torch.sort(seg.long(), stable=True)
+    v = vals[..., order]
+    new = torch.ones(m, dtype=torch.bool, device=seg.device)
+    new[1:] = s[1:] != s[:-1]
+    run = seg_sum_scan(v, new.expand(v.shape))
+    last = torch.ones(m, dtype=torch.bool, device=seg.device)
+    last[:-1] = new[1:]
+    out[..., s[last]] = run[..., last]
+    return out
 
 
 def guarded_block_inv(E: torch.Tensor) -> torch.Tensor:

@@ -66,11 +66,17 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for a :class:`~amgx_tpu_torch.core.DeviceMatrix` or a
     :class:`~amgx_tpu_torch.core.ComposedDIA`; ``x`` is the flat
     (n_cols·b,) vector and the result has dtype ``promote(A.dtype,
-    x.dtype)``."""
+    x.dtype)``.  A bf16 pack accumulates in f32 on every path (kernels
+    B1, B3 and B5 widen each value in registers), so an f32 vector
+    through a bf16 hierarchy stays f32."""
     if A.fmt == "dia3":
         # Galerkin composition R·(A·(P·x)) — three DIA streams instead of
         # one low-fill embedded matrix
         return spmv(A.R, spmv(A.A, spmv(A.P, x)))
+    if x.dtype == torch.bfloat16:
+        # an all-bf16 apply (a bf16 Krylov pack): the kernels take an f32
+        # x, accumulate in f32, and the result rounds once at the end
+        return spmv(A, x.float()).to(_out_dtype(A, x))
     if A.fmt == "dia":
         if A.block_dim > 1:
             return _bdia_spmv(A, x)
@@ -166,28 +172,34 @@ def residual(A, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def abs_rowsum(A) -> torch.Tensor:
     """Σ_j |A[i, j]| per scalar row from the pack (pad and explicit zeros
     add 0): the L1-Jacobi diagonal without host work.  A ``dia3``
-    operator carries the row sums of its embedded form."""
+    operator carries the row sums of its embedded form.  Every row adds
+    its terms in one fixed order on every device
+    (:func:`~.ordered.sum_along` over the diagonals or slots, the block
+    columns of each in turn; :func:`~.ordered.segment_sum` over a CSR
+    pack's entries)."""
+    from .ordered import segment_sum, sum_along
     if A.fmt == "dia3":
         return A.l1row
     if A.fmt == "csr" and A.vals is None:
         return binned_abs_rowsum(A)
     v = (A.ell_vals_view() if A.fmt == "ell" else A.vals).abs()
+    if v.dtype in (torch.bfloat16, torch.float16):
+        v = v.float()
+    b = A.block_dim
     if A.fmt == "dia":
-        if A.block_dim > 1:
+        if b > 1:
             # (nd, n, b, b): per scalar row (i, a), over every diagonal's
-            # block row a
-            return v.sum(dim=(0, 3)).reshape(-1)
-        return v.sum(dim=0)
+            # block row a, its columns c in turn
+            return sum_along(v.permute(0, 3, 1, 2).reshape(-1, A.n_rows, b)
+                             ).reshape(-1)
+        return sum_along(v, 0)
     if A.fmt == "ell":
-        if A.block_dim > 1:
-            return v.sum(dim=(1, 3)).reshape(-1)
-        return v.sum(dim=1)
-    if A.block_dim > 1:
-        per = v.sum(dim=2)
-        out = torch.zeros((A.n_rows, A.block_dim), dtype=per.dtype,
-                          device=per.device)
-        out.index_add_(0, A.row_ids.long(), per)
-        return out.reshape(-1)
-    out = torch.zeros(A.n_rows, dtype=v.dtype, device=v.device)
-    out.index_add_(0, A.row_ids.long(), v)
-    return out
+        if b > 1:
+            # (n, K, b, b) -> (K·b, n, b): slot k's columns c in turn
+            return sum_along(v.permute(1, 3, 0, 2).reshape(-1, A.n_rows, b)
+                             ).reshape(-1)
+        return sum_along(v, 1)
+    if b > 1:
+        per = sum_along(v, 2)                       # (nnz, b)
+        return segment_sum(per.T, A.row_ids, A.n_rows).T.reshape(-1)
+    return segment_sum(v, A.row_ids, A.n_rows)

@@ -7,7 +7,8 @@ On the card an application (:meth:`AMGSolver.apply`) is one CUDA graph
 replay: the first application after :meth:`~.base.Solver.setup` runs
 eagerly on a side stream and captures the same work
 (:class:`~..utils.cuda_graph.CudaGraphCall`), one graph per
-``(n, dtype, n_iters, x0 is None)``; ``setup`` drops them.  A
+``(n, dtype, n_iters, x0 is None)`` — graph segments cut at each entry
+into a host tail (``amg_host_levels_rows``); ``setup`` drops them.  A
 :meth:`~.base.Solver.resetup` keeps the hierarchy object (so
 ``structure_reuse_levels`` applies) and keeps the graphs when the
 refreshed tree pairs with the one they read (:mod:`._bind`);
@@ -81,15 +82,19 @@ class AMGSolver(Solver):
     def apply(self, b, x0=None, n_iters=None):
         """One application as a preconditioner or smoother: on a CUDA
         tensor a replay of its graph (captured at the first call with
-        this key), which returns a fresh tensor; on a CPU tensor, or
-        inside another graph's warm-up or capture, the eager cycle."""
-        if not b.is_cuda or building():
+        this key; graph segments around a host tail), which returns a
+        fresh tensor; on a CPU tensor, inside another graph's warm-up or
+        capture, or when every level runs on the CPU (no device work
+        to capture), the eager cycle."""
+        if not b.is_cuda or building() or self.hierarchy.host_from == 0:
             return self._apply_eager(b, x0, n_iters)
         n = self.max_iters if n_iters is None else n_iters
         key = (b.shape[0], b.dtype, n, x0 is None)
         args = (b,) if x0 is None else (b, x0)
         graph = self.graphs.get(key)
         if graph is None:
+            # a host tail cuts the capture into segments around each
+            # entry into it (utils/cuda_graph.py)
             graph = CudaGraphCall(
                 lambda b_, *x_: self._apply_eager(b_, *x_, n_iters=n),
                 *args)

@@ -13,6 +13,15 @@ convergence check (the solver's residual estimate is fetched as one
 small array); everything between two checks is queued on the device
 without a sync.  A solve whose tolerance lies below the device dtype's
 floor runs the f32 → f64 defect-correction loop (:meth:`_solve_refined`).
+
+The solve boundary of the top-level solver (``_toplevel``, set by
+``create_solver``): the precision knobs ``krylov_dtype`` /
+``tpu_matrix_dtype`` choose its pack dtype (:meth:`_apply_precision_knobs`),
+equation ``scaling`` runs the solve on a scaled copy
+(:mod:`.scalers`), ``matrix_reorder=RCM`` in permuted space
+(:meth:`_maybe_reorder`).  ``fault_inject`` arms named failure points
+(:mod:`..utils.faultinject`), and ``recovery_policy=AUTO`` walks the
+recovery ladder (:mod:`.recovery`) after a failed solve.
 """
 from __future__ import annotations
 
@@ -28,11 +37,12 @@ import torch
 from ..config import AMGConfig
 from ..core.matrix import (DeviceMatrix, Matrix, binned_planes,
                            dia_arrays_block, ell_host_arrays, ell_layout)
+from ..core import precision
 from ..core.precision import (is_floating, promotion_target,
                               tolerance_floor)
-from ..device import numpy_dtype, torch_dtype
+from ..device import numpy_dtype, storage_dtype, torch_dtype
 from ..errors import (BREAKDOWN_DIVERGENCE, BREAKDOWN_KRYLOV,
-                      BREAKDOWN_NAN, BadConfigurationError,
+                      BREAKDOWN_NAN, RC, AMGXError, BadConfigurationError,
                       BadParametersError, FailureInfo, FailureKind,
                       NotImplementedError_, SolveStatus, breakdown_kind)
 from ..ops import blas
@@ -40,6 +50,8 @@ from ..ops.binned_spmv import bn_block_dim, compact_pack
 from ..ops.ell_spmv import ell_row_len
 from ..ops.shift_spmv import shift_compact, shift_planes_like
 from ..ops.spmv import spmv
+from ..utils import faultinject
+from ..utils.logging import amgx_output, set_verbosity
 
 
 def check_convergence(criterion: str, nrm, nrm_ini, nrm_max, tolerance,
@@ -63,11 +75,14 @@ def check_convergence(criterion: str, nrm, nrm_ini, nrm_max, tolerance,
 
 def host_norm(v) -> np.ndarray:
     """A norm (0-d device tensor, or host value) as a 1-d numpy array in
-    its own real dtype — the one device→host fetch of a check."""
+    its own real dtype (a bf16 norm as f32, which numpy has) — the one
+    device→host fetch of a check."""
     if isinstance(v, torch.Tensor):
         v = v.detach()
         if v.is_complex():
             v = v.real
+        if v.dtype == torch.bfloat16:
+            v = v.float()
         return v.reshape(-1).cpu().numpy()
     return np.atleast_1d(np.asarray(v))
 
@@ -82,6 +97,10 @@ class SolveResult:
     setup_time: float = 0.0
     solve_time: float = 0.0
     failure: Optional[FailureInfo] = None
+    #: the recovery ladder's audit (:mod:`.recovery`) when the solve was
+    #: retried: {"kind", "action", "attempts", "outcome"} (each attempt
+    #: in the solver's ``recovery_log``); None when no recovery ran
+    recovery: Optional[dict] = None
 
 
 # --------------------------------------------------------------------------
@@ -121,13 +140,10 @@ class SolverFactory:
 
 
 #: knobs whose non-default values select a feature of a later slice of
-#: the port — they raise rather than silently taking another path
-_LATER_SLICE = (
-    ("scaling", "NONE"), ("krylov_dtype", "default"),
-    ("tpu_matrix_dtype", "default"), ("hierarchy_dtype", "default"),
-    ("recovery_policy", "NONE"), ("fault_inject", ""), ("telemetry", 0),
-    ("forensics", 0), ("setup_profile", 0), ("memledger", 0),
-)
+#: the port (telemetry) — they raise rather than silently taking
+#: another path
+_LATER_SLICE = (("telemetry", 0), ("forensics", 0), ("setup_profile", 0),
+                ("memledger", 0))
 
 
 class Solver:
@@ -146,9 +162,8 @@ class Solver:
             if g(name) != default:
                 raise NotImplementedError_(
                     f"{name}={g(name)!r} is a later slice of the port")
-        if str(g("matrix_reorder")) == "RCM":
-            raise NotImplementedError_(
-                "matrix_reorder=RCM is a later slice of the port")
+        for name in ("krylov_dtype", "tpu_matrix_dtype"):
+            precision.resolve_dtype(str(g(name)))   # a typo raises
         self.max_iters = int(g("max_iters"))
         self.tolerance = float(g("tolerance"))
         self.alt_rel_tolerance = float(g("alt_rel_tolerance"))
@@ -158,27 +173,75 @@ class Solver:
         self.monitor_residual = bool(g("monitor_residual"))
         self.store_res_history = bool(g("store_res_history"))
         self.print_solve_stats = bool(g("print_solve_stats"))
+        self.obtain_timings = bool(g("obtain_timings"))
         self.relaxation_factor = float(g("relaxation_factor"))
         #: the reduction layout of CG/PCG and (F)GMRES: CLASSIC, CA or
         #: PIPELINED (``solvers/krylov.py``)
         self.krylov_comm = str(g("krylov_comm"))
         self.ca_residual_replace = int(g("ca_residual_replace"))
+        # the recovery ladder (recovery_policy=AUTO) and the
+        # fault-injection plan (a non-empty spec arms it, once per spec)
+        self.recovery_policy = str(g("recovery_policy"))
+        self.recovery_max_attempts = int(g("recovery_max_attempts"))
+        fi_spec = str(g("fault_inject"))
+        if fi_spec:
+            faultinject.configure_knob(fi_spec)
+        # an EXPLICIT verbosity_level drives the level-gated output; the
+        # registry default leaves a verbosity the application set alone
+        if cfg.has("verbosity_level", scope):
+            set_verbosity(int(g("verbosity_level")))
         self.A: Optional[Matrix] = None
         self.Ad: Optional[DeviceMatrix] = None
+        self.scaler = None
+        self._reorder = None
         self.setup_time = 0.0
 
     # ------------------------------------------------------------ lifecycle
     def setup(self, A: "Matrix | DeviceMatrix"):
         """Setup (reference ``Solver::setup``, solver.cu:380-556): a full
-        rebuild, unless :meth:`resetup` called it."""
+        rebuild, unless :meth:`resetup` called it.  A top-level solver
+        first applies the precision knobs, the equation scaling (a scaled
+        copy; the reference scales in place and unscales) and RCM."""
         t0 = time.perf_counter()
+        # the matrix as the caller passed it: the ladder's rebuild rungs
+        # set up from it (a scaled copy would be scaled twice)
+        if self.recovery_policy not in ("", "NONE"):
+            self._setup_input = A
+        faultinject.maybe_raise(
+            "setup_error", AMGXError("injected setup failure", RC.CORE))
+        self.scaler = None
+        self._reorder = None
+        scaling = str(self.cfg.get("scaling", self.scope))
         if isinstance(A, Matrix):
+            top = getattr(self, "_toplevel", False)
+            if top:
+                A = self._apply_precision_knobs(A)
+            if scaling != "NONE" and A.block_dim == 1:
+                from .scalers import create_scaler
+                self.scaler = create_scaler(scaling, self.cfg, self.scope)
+                csr = A.scalar_csr()
+                self.scaler.setup(csr)
+                dd = A.device_dtype
+                A = Matrix(self.scaler.scale_matrix(csr), device=A.placement)
+                # the scaled copy keeps the precision knobs' pack dtype
+                A.device_dtype = dd
+            if top:
+                # only the outermost solver has the permute boundary
+                A = self._maybe_reorder(A) or A
             self.A = A
+            faultinject.maybe_raise(
+                "upload_error", AMGXError("injected transfer/upload failure",
+                                          RC.CUDA_FAILURE))
+            faultinject.maybe_raise(
+                "oom", AMGXError("injected device out-of-memory",
+                                 RC.NO_MEMORY))
             self.Ad = A.device()
         else:
             self.A = None
             self.Ad = A
         self.solver_setup()
+        # a bf16 view's wide pack served this setup; drop it
+        precision.release_setup_wide(self.A)
         # new matrix values, also on a resetup (a new rounding residue):
         # a later refined solve rebuilds its operator
         self.__dict__.pop("_wide", None)
@@ -186,6 +249,64 @@ class Solver:
             torch.cuda.synchronize(self.Ad.device)
         self.setup_time = time.perf_counter() - t0
         return self
+
+    def _apply_precision_knobs(self, A: Matrix) -> Matrix:
+        """``krylov_dtype`` (else ``tpu_matrix_dtype``): the top-level
+        solver's pack dtype, which is the Krylov loop's vector, dot and
+        monitoring precision (``amgx_tpu/solvers/base.py:359-398``).
+        Nested solvers take theirs from the hierarchy policy.  Returns a
+        shallow view when the knob applies (the caller's matrix is never
+        changed): a narrowing casts an existing pack on the device
+        (:func:`~..core.precision.precision_view`, no bytes over the
+        wire), a widening rebuilds from the wide host values."""
+        kd = precision.resolve_dtype(
+            str(self.cfg.get("krylov_dtype", self.scope)))
+        if kd is None:
+            kd = precision.resolve_dtype(
+                str(self.cfg.get("tpu_matrix_dtype", self.scope)))
+        if kd is None:
+            return A
+        cur = storage_dtype(A.device_dtype or A.dtype)
+        if cur == kd:
+            return A
+        dev = A._device
+        if dev is not None and kd.itemsize > dev.dtype.itemsize:
+            # an on-device upcast would keep the narrow digits
+            import copy
+            m = copy.copy(A)
+            m.device_dtype = kd
+            m._device = None
+            m._device_dtype = None
+            m._dinv_dev = None
+            return m
+        return precision.precision_view(A, kd)
+
+    def _maybe_reorder(self, A: Matrix) -> Optional[Matrix]:
+        """``matrix_reorder=RCM``: reverse Cuthill–McKee once at setup;
+        the solve then runs in permuted space and the rhs, guess and
+        solution are permuted at the boundary (``_maybe_reorder``
+        upstream, ``amgx_tpu/solvers/base.py:511-561``).  Returns the
+        permuted matrix, or None to keep ``A``."""
+        mode = str(self.cfg.get("matrix_reorder", self.scope))
+        if mode != "RCM":
+            # AUTO reorders only on a TPU or under the JAX package's
+            # Pallas interpreter, to bring a scattered matrix inside its
+            # windowed kernel's budget; on the card kernels B3/B4 gather
+            # x directly, so AUTO stays a no-op here, as it is in the JAX
+            # package on a CPU or GPU
+            return None
+        if A.block_dim != 1 or A.shape[0] != A.shape[1] or \
+                (A._host is None and A._dia is None
+                 and A._dia_thunk is None):
+            return None
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+        csr = A.scalar_csr()
+        perm = np.asarray(reverse_cuthill_mckee(csr, symmetric_mode=False),
+                          dtype=np.int64)
+        Ap = Matrix(csr[perm][:, perm].tocsr(), device=A.placement)
+        Ap.device_dtype = A.device_dtype
+        self._reorder = (perm, np.argsort(perm))
+        return Ap
 
     def resetup(self, A: "Matrix | DeviceMatrix"):
         """Numeric refresh after ``Matrix.replace_coefficients``: the same
@@ -252,17 +373,29 @@ class Solver:
     # ------------------------------------------------ tolerance and ladder
     def _promotion_plan(self):
         """(refine_active, wide_dtype, structural_block) for the current
-        tolerance (``base.py:645-701`` upstream)."""
+        tolerance (``base.py:645-701`` upstream).  The recovery ladder's
+        ``promote`` rung forces a promotion (``_force_promotion``) even
+        above the floor; a scaled solve is structurally unrefinable."""
         dtype = self.Ad.dtype
+        forced = bool(getattr(self, "_force_promotion", False))
         if not (self.monitor_residual
-                and self.tolerance < tolerance_floor(dtype)):
+                and (forced or self.tolerance < tolerance_floor(dtype))):
             return False, None, False
-        if self.tolerance <= 0 or self.A is None or not is_floating(dtype):
+        if self.tolerance <= 0 or self.scaler is not None or \
+                self.A is None or not is_floating(dtype):
             return False, None, True
         host_dt = np.dtype(self.A.dtype)
         if host_dt.itemsize <= dtype.itemsize:
             return False, None, False
         wide = promotion_target(dtype, host_dt, self.tolerance)
+        if wide is None and forced:
+            # the tolerance asked for no rung: take the next one up,
+            # within the host dtype and one residue plane
+            for rung in precision.LADDER:
+                if dtype.itemsize < rung.itemsize <= host_dt.itemsize \
+                        and rung.itemsize <= 2 * dtype.itemsize:
+                    wide = rung
+                    break
         if wide is None:
             return False, None, False
         return True, np.dtype(wide), False
@@ -292,27 +425,55 @@ class Solver:
     def solve(self, b, x0=None, zero_initial_guess: bool = False
               ) -> SolveResult:
         """Full solve with convergence monitoring; the reported norm is a
-        freshly computed true residual."""
+        freshly computed true residual (of the scaled system when
+        ``scaling`` is set, as upstream)."""
         if self.Ad is None:
             raise BadConfigurationError("solve() before setup()")
         dtype, dev = self.Ad.dtype, self.Ad.device
+        # the caller's own rhs and guess: the recovery ladder re-enters
+        # solve() with them
+        b_caller, x0_caller = b, x0
+        fault = faultinject.trace_mode()
+        if self.scaler is not None:
+            # the rhs at the pack dtype, times the f64 factors (the JAX
+            # package's host order: cast, then scale)
+            b = self.scaler.scale_rhs(_as_device(b, dtype, dev))
+            if x0 is not None and not zero_initial_guess:
+                x0 = self.scaler.scale_initial_guess(
+                    _as_device(x0, dtype, dev))
+        if self._reorder is not None:
+            # the pack lives in RCM space: permute after scaling on the
+            # way in, un-permute before unscaling on the way out; norms
+            # do not see the permutation
+            b = _permuted(b, self._reorder[0], dev)
+            if x0 is not None and not zero_initial_guess:
+                x0 = _permuted(x0, self._reorder[0], dev)
         refine, wide, structural = self._promotion_plan()
         self._check_tolerance_floor(refine, structural)
         x0 = None if zero_initial_guess else x0
         t0 = time.perf_counter()
         if refine:
             x, iters, nrm, nrm_ini, history, fail = \
-                self._solve_refined(b, x0, wide)
+                self._solve_refined(b, x0, wide, fault)
         else:
             b = _as_device(b, dtype, dev)
             x0 = torch.zeros_like(b) if x0 is None \
                 else _as_device(x0, dtype, dev)
             x, iters, nrm, nrm_ini, history, fail = \
-                self._solve_loop(b, x0, self.tolerance, self.max_iters)
+                self._solve_loop(b, x0, self.tolerance, self.max_iters,
+                                 fault=fault)
         brk_code, first_bad = fail
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         solve_time = time.perf_counter() - t0
+        # an injection is recorded only when it provoked something
+        if fault is not None and (bool(brk_code) if self.monitor_residual
+                                  else iters > fault[1]):
+            faultinject.fired(fault[0], iteration=fault[1])
+        if self._reorder is not None:
+            x = _permuted(x, self._reorder[1], dev)
+        if self.scaler is not None:
+            x = self.scaler.unscale_solution(x)
 
         nrm = np.atleast_1d(np.asarray(nrm, dtype=np.float64))
         nrm_ini = np.atleast_1d(np.asarray(nrm_ini, dtype=np.float64))
@@ -340,24 +501,42 @@ class Solver:
             status = SolveStatus.SUCCESS
         keep = self.store_res_history or self.print_solve_stats
         history = history[:iters + 1] if keep else None
-        if self.print_solve_stats and history is not None:
-            print("\n".join(f"  {i:4d}  {float(np.max(h)):15.6e}"
-                            for i, h in enumerate(history)))
-            print(f"  Total Iterations: {iters}")
-        return SolveResult(x=x, iterations=iters, status=status,
-                           residual_norm=nrm, residual_history=history,
-                           setup_time=self.setup_time,
-                           solve_time=solve_time, failure=failure)
+        if self.print_solve_stats:
+            _print_solve_stats(history, iters)
+        if self.obtain_timings:
+            # host-clock seconds, each phase ended by a device sync
+            amgx_output(f"Total Time: {self.setup_time + solve_time:10.6f}\n"
+                        f"    setup: {self.setup_time:10.6f} s\n"
+                        f"    solve: {solve_time:10.6f} s\n"
+                        f"    solve(per iteration): "
+                        f"{solve_time / max(iters, 1):10.6f} s\n")
+        res = SolveResult(x=x, iterations=iters, status=status,
+                          residual_norm=nrm, residual_history=history,
+                          setup_time=self.setup_time,
+                          solve_time=solve_time, failure=failure)
+        if status != SolveStatus.SUCCESS \
+                and self.recovery_policy not in ("", "NONE") \
+                and self.monitor_residual \
+                and not getattr(self, "_in_recovery", False):
+            # bounded escalation; the ladder re-enters solve() with
+            # _in_recovery set, so it never recurses into itself
+            from .recovery import maybe_recover
+            res = maybe_recover(self, b_caller, x0_caller,
+                                zero_initial_guess, res)
+        return res
 
     def _solve_loop(self, b, x0, tolerance, it_limit,
-                    final_residual: bool = True):
+                    final_residual: bool = True, fault=None):
         """The monitored iteration loop (``_build_solve_fn`` upstream):
         returns ``(x, iterations, nrm, nrm_ini, history, fail)``: norms
         are host numpy arrays in the solve dtype (one entry, or one per
         block component), ``history`` stacks the monitored norms, ``fail``
         is ``(breakdown code, first bad iteration)`` — ``(0, -1)`` for a
         healthy loop.  A solver's breakdown code is fetched with the
-        norm, in the iteration's one host sync."""
+        norm, in the iteration's one host sync.  ``fault`` — an armed
+        ``(mode, iteration)`` of :func:`~..utils.faultinject.trace_mode` —
+        poisons the Krylov state right after that iteration
+        (:func:`_inject_fault`)."""
         monitor = self.monitor_residual
         crit, alt = self.convergence, self.alt_rel_tolerance
         nrm_ini = host_norm(self.norm(b - spmv(self.Ad, x0)))
@@ -370,6 +549,8 @@ class Solver:
         limit = min(int(it_limit), self.max_iters)
         while not done and it < limit:
             x, state = self.solve_iteration(b, x, state, it)
+            if fault is not None and it == fault[1]:
+                x, state = _inject_fault(fault[0], x, state)
             if monitor:
                 est = self.residual_norm_estimate(b, x, state)
                 if est is None:
@@ -427,7 +608,7 @@ class Solver:
             return cached[1]
         wdt = torch_dtype(wide)
         Ad = self.Ad
-        pdt = numpy_dtype(Ad.dtype)
+        pdt = storage_dtype(Ad.dtype)
         binned = Ad.bn_codes is not None
         shift = Ad.sh_vals is not None
         if binned or shift:
@@ -441,7 +622,9 @@ class Solver:
             else:
                 host = np.asarray(self.A.host.data) if binned \
                     else self._host_pack_vals64()
-            exact = _representable(host, pdt)
+            # a pack cast from a wider pack holds dtype(via(v))
+            exact = _representable(host, pdt,
+                                   getattr(self.A, "_pack_cast_via", None))
         if exact:
             Ad64 = Ad.astype(wdt)
         elif shift:
@@ -500,7 +683,7 @@ class Solver:
         out[for_rows, pos] = host.data
         return out
 
-    def _solve_refined(self, b, x0, wide):
+    def _solve_refined(self, b, x0, wide, fault=None):
         """Mixed-precision iterative refinement (``base.py:1755-1899``
         upstream): inner solves at the pack dtype to
         ``max(tol, 2·floor)``, true residuals recomputed at ``wide``; one
@@ -513,12 +696,13 @@ class Solver:
         def split(v):
             if isinstance(v, torch.Tensor) and v.dtype == dtype:
                 return v.to(dev), None
-            v64 = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-                   else np.asarray(v)).astype(np.float64).ravel()
-            hi = v64.astype(numpy_dtype(dtype))
-            lo = v64 - hi.astype(np.float64)
-            return (torch.from_numpy(hi).to(dev),
-                    torch.from_numpy(lo).to(dev, lo_dt) if np.any(lo)
+            v64 = torch.from_numpy(np.ascontiguousarray(
+                (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                 else np.asarray(v)).astype(np.float64).ravel()))
+            hi = v64.to(dtype)
+            lo = v64 - hi.double()
+            return (hi.to(dev),
+                    lo.to(dev, lo_dt) if bool(torch.any(lo != 0))
                     else None)
 
         def widen(hi, lo):
@@ -553,7 +737,7 @@ class Solver:
             rb = (r64 / scale).to(dtype)
             dx, it, _, _, h_in, f_in = self._solve_loop(
                 rb, torch.zeros_like(rb), inner_tol,
-                self.max_iters - it_tot, final_residual=False)
+                self.max_iters - it_tot, final_residual=False, fault=fault)
             # the first inner breakdown wins, re-based onto the global
             # iteration count
             if fail[0] == 0 and f_in[0] != 0:
@@ -578,14 +762,82 @@ class Solver:
         return x64, it_tot, nrm, nrm_ini, hist, fail
 
 
-def _representable(vals64: np.ndarray, pdt) -> bool:
+def _representable(vals64: np.ndarray, pdt, via=None) -> bool:
     """Every value of ``vals64`` survives the round trip through ``pdt``
-    (chunked, stopping at the first chunk that does not)."""
+    (through ``via`` first, when the pack was cast from a wider one),
+    chunked, stopping at the first chunk that does not."""
     flat = vals64.reshape(-1)
     step = 1 << 22
-    return all(np.array_equal(c.astype(pdt).astype(c.dtype), c)
-               for c in (flat[s:s + step]
-                         for s in range(0, flat.size, step)))
+    chain = [torch_dtype(d) for d in (via, pdt) if d is not None]
+
+    def trip(c):
+        t = torch.from_numpy(np.ascontiguousarray(c))
+        w = t
+        for d in chain:
+            w = w.to(d)
+        return torch.equal(w.to(t.dtype), t)
+
+    return all(trip(flat[s:s + step]) for s in range(0, flat.size, step))
+
+
+def _permuted(v, idx: np.ndarray, dev: torch.device):
+    """``v[idx]``: a tensor on its own device, host data as a numpy
+    array."""
+    if isinstance(v, torch.Tensor):
+        return v[torch.from_numpy(idx).to(v.device)]
+    return np.asarray(v)[idx]
+
+
+def _inject_fault(mode: str, x, state):
+    """A solve-loop fault-injection point (``_inject_fault`` upstream)
+    applied to the iteration state: ``values_nan`` NaN-poisons x and
+    every floating array of the Krylov state (device tensors and the
+    host Hessenberg data alike); ``krylov_zero`` zeroes the 0-d Krylov
+    scalars (CG's ρ) and leaves the vectors healthy."""
+    def poison(v):
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            if mode == "values_nan":
+                return v * float("nan")
+            return torch.zeros_like(v) if v.dim() == 0 else v
+        if isinstance(v, np.ndarray) and np.issubdtype(v.dtype,
+                                                       np.inexact):
+            if mode == "values_nan":
+                return v * np.nan
+            return np.zeros_like(v) if v.ndim == 0 else v
+        return v
+
+    if dataclasses.is_dataclass(state):
+        state = dataclasses.replace(state, **{
+            f.name: poison(getattr(state, f.name))
+            for f in dataclasses.fields(state)})
+    elif isinstance(state, tuple):
+        state = tuple(poison(v) for v in state)
+    if mode == "values_nan":
+        x = poison(x)
+    return x, state
+
+
+def _print_solve_stats(history, iters: int) -> None:
+    """The per-iteration residual table (``_print_solve_stats``
+    upstream), through the level-gated output."""
+    if history is None:
+        return
+    lines = ["           iter      Mem Usage (GB)       residual      "
+             "rate\n",
+             "         --------------------------------------------------"
+             "------------\n"]
+    prev = None
+    for i, h in enumerate(history):
+        hval = float(np.max(h))
+        rate = "" if prev in (None, 0.0) else f"{hval / prev:9.4f}"
+        label = "Ini" if i == 0 else f"{i - 1:4d}"
+        lines.append(f"        {label}              -         "
+                     f"{hval:15.6e}  {rate}\n")
+        prev = hval
+    lines.append("         ----------------------------------------------"
+                 "----------------\n")
+    lines.append(f"        Total Iterations: {iters}\n")
+    amgx_output("".join(lines))
 
 
 def _as_device(v, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:

@@ -29,9 +29,11 @@ from .base import Solver, register_solver
 
 def densify(Ad) -> np.ndarray:
     """Dense host copy of a (small) DIA or ELL pack (a shift pack through
-    its ELL views)."""
-    vals = (Ad.ell_vals_view() if Ad.fmt == "ell" else Ad.vals) \
-        .detach().cpu().numpy()
+    its ELL views; bf16 values widened to f32, which numpy has)."""
+    vals = (Ad.ell_vals_view() if Ad.fmt == "ell" else Ad.vals).detach()
+    if vals.dtype == torch.bfloat16:
+        vals = vals.float()
+    vals = vals.cpu().numpy()
     n, m = Ad.n_rows, Ad.n_cols
     out = np.zeros((n, m), dtype=vals.dtype)
     if Ad.fmt == "ell":

@@ -39,24 +39,35 @@ def apply_dinv(dinv: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out.reshape(-1)
 
 
+def setup_source(slv):
+    """The pack a smoother's setup reads: the wide pack of a bf16 level
+    while the level keeps it (``Matrix._setup_wide``,
+    :func:`~..core.precision.precision_view`), else the smoother's own
+    pack.  A narrow level's smoother data is computed from the wide
+    values and stored narrow."""
+    A = slv.A
+    wide = getattr(A, "_setup_wide", None) if A is not None else None
+    return wide if wide is not None else slv.Ad
+
+
 def setup_dinv(slv) -> torch.Tensor:
     """The inverted (block) diagonal of a smoother's operator: the one the
     hierarchy derived on the device with the level when present, else
-    inverted on the device from the pack's own diagonal — elementwise for
-    a scalar pack, the (n, b, b) blocks under the guarded rule of
-    :func:`~..ops.ordered.guarded_block_inv` for a block pack (a bf16
-    pack inverts in f32 and stores the result narrow, as the JAX
-    package's ``_invert_block_diag`` does)."""
+    inverted on the device from the diagonal of :func:`setup_source` —
+    elementwise for a scalar pack, the (n, b, b) blocks under the guarded
+    rule of :func:`~..ops.ordered.guarded_block_inv` for a block pack (a
+    bf16 diagonal inverts in f32) — and stored in the pack's dtype."""
     Ad, A = slv.Ad, slv.A
     if A is not None:
         cached = getattr(A, "_dinv_dev", None)
         if cached is not None and cached[0] == Ad.dtype:
             return cached[1]
-    d = Ad.diag
+    d = setup_source(slv).diag
+    if d.dtype == torch.bfloat16:
+        d = d.float()
     if d.dim() == 1:
-        return invert_diag(d)
-    work = d.float() if d.dtype == torch.bfloat16 else d
-    return guarded_block_inv(work).to(d.dtype)
+        return invert_diag(d).to(Ad.dtype)
+    return guarded_block_inv(d).to(Ad.dtype)
 
 
 @register_solver("BLOCK_JACOBI")
@@ -90,14 +101,15 @@ class BlockJacobiSolver(Solver):
 class JacobiL1Solver(Solver):
     """L1-Jacobi: x ← x + ω·D_l1⁻¹·(b − A·x) with D_l1[i] = Σ_j |a_ij|
     (reference ``jacobi_l1_solver.cu``).  The row sums come from the
-    pack on its device (pad and explicit zeros add 0; a ``dia3`` level
+    pack on its device (the wide pack of a bf16 level,
+    :func:`setup_source`; pad and explicit zeros add 0; a ``dia3`` level
     carries the row sums of its embedded form, whose rows off the C set
     are zero and so get D_l1 = 1)."""
 
     is_smoother = True
 
     def solver_setup(self):
-        absrow = abs_rowsum(self.Ad)
+        absrow = abs_rowsum(setup_source(self))
         self.dinv = (1.0 / torch.where(absrow == 0, 1.0, absrow)) \
             .to(self.Ad.dtype)
 

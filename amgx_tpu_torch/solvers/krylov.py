@@ -108,6 +108,7 @@ class _CGState:
     r: torch.Tensor
     p: torch.Tensor
     rz: torch.Tensor
+    brk: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -163,6 +164,8 @@ class CGSolver(Solver):
         return r
 
     def _comm_mode(self) -> str:
+        if getattr(self, "_force_krylov_classic", False):
+            return "CLASSIC"        # the recovery ladder's fallback
         mode = self.forced_comm or self.krylov_comm
         if mode != "CLASSIC" and self.norm_type == blas.NORM_LMAX:
             # a max cannot ride the stacked sum
@@ -186,7 +189,8 @@ class CGSolver(Solver):
         r = b - spmv(self.Ad, x)
         if mode == "CLASSIC":
             z = self._M(r)
-            return _CGState(r=r, p=z, rz=ordered.wdot(r, z))
+            return _CGState(r=r, p=z, rz=ordered.wdot(r, z),
+                            brk=_no_breakdown(r.device))
         u = self._M(r)
         w = spmv(self.Ad, u)
         gamma, delta, rr = self._fused_scalars(r, u, w)
@@ -207,13 +211,16 @@ class CGSolver(Solver):
         if isinstance(st, _PipeCGState):
             return self._pipe_iteration(b, x, st, iter_idx)
         q = spmv(self.Ad, st.p)
-        alpha = _guarded_div(st.rz, ordered.wdot(st.p, q))
+        pq = ordered.wdot(st.p, q)
+        # the breakdown guards: an incoming ρ collapse, the new pAp's sign
+        brk = _cg_breakdown(st.brk, st.rz, pq)
+        alpha = _guarded_div(st.rz, pq)
         x = x + alpha * st.p
         r = st.r - alpha * q
         z = self._M(r)
         rz_new = ordered.wdot(r, z)
         beta = _guarded_div(rz_new, st.rz)
-        return x, _CGState(r=r, p=z + beta * st.p, rz=rz_new)
+        return x, _CGState(r=r, p=z + beta * st.p, rz=rz_new, brk=brk)
 
     def _replace_now(self, iter_idx: int) -> bool:
         rep = self.ca_residual_replace
@@ -335,14 +342,24 @@ class _GMRESBase(Solver):
             cs=np.zeros(m, ndt), sn=np.zeros(m, ndt), x_base=x,
             quasi_res=np.zeros(1, ndt), j=-1, beta=beta)
 
+    def _comm_mode(self) -> str:
+        """CA/PIPELINED select the fused Arnoldi pass; the recovery
+        ladder's ``krylov_classic`` rung forces CLASSIC."""
+        if getattr(self, "_force_krylov_classic", False):
+            return "CLASSIC"
+        return self.krylov_comm
+
     def _solve_ls_and_update(self, st: _GMRESState, j: int):
         """x = x_base + Z[:j+1]ᵀ·y (FGMRES) or x_base + M·(V[:j+1]ᵀ·y)
         (GMRES) where R[:j+1, :j+1]·y = g[:j+1]; x_base itself when y is
         0 (no column yet, or right after a cycle end)."""
         if j < 0:
             return st.x_base
+        # a poisoned basis (NaN) passes through to x, where the monitor
+        # classifies it
         y = scipy.linalg.solve_triangular(st.R[:j + 1, :j + 1],
-                                          st.g[:j + 1], lower=False)
+                                          st.g[:j + 1], lower=False,
+                                          check_finite=False)
         if not np.any(y):
             return st.x_base
         y = torch.from_numpy(np.ascontiguousarray(y, st.g.dtype)).to(
@@ -370,7 +387,7 @@ class _GMRESBase(Solver):
         Vj = st.V[:j + 1]
         h1 = ordered.wgram_dots(Vj, w)
         w = w - ordered.lincomb(Vj, h1)
-        if self.krylov_comm != "CLASSIC":
+        if self._comm_mode() != "CLASSIC":
             # fused Arnoldi: the second pass and ‖w‖² share one stacked
             # product; ‖w − V·h2‖² = ‖w‖² − ‖h2‖² (h2 is O(ε)·‖w‖)
             h2, ww = ordered.wgram_dots_with_norm(Vj, w)

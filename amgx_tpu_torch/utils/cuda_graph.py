@@ -23,6 +23,16 @@ instead: in the capture its kernels join the outer graph as nodes of
 their own, and in the warm-up no inner graph is captured that no replay
 would use.
 
+Host steps (``amg_host_levels_rows``): a CUDA graph cannot hold host
+work, so an application whose coarse levels run on the CPU is captured
+as *segments* cut at each entry into that tail (:func:`host_step`; the
+K-cycle enters the tail once per visit of the level above it).  Each
+segment is a graph of its own in one shared memory pool; a replay runs
+segment k, then the recorded host step on CPU copies of its device
+inputs (eagerly, on the CPU tensors of the tail), copies the result into
+the static tensor segment k + 1 reads, and so on.  Without a host tail
+the capture is one segment: the application stays one graph.
+
 Counting under replay: a replay launches no wrapper, so the launch and
 dispatch counters (``ops/spmv.py::DISPATCH``, the ``LAUNCHES`` of the
 four kernel modules, ``device.HOST_SYNCS``) would stop moving.  The
@@ -45,6 +55,8 @@ from ..errors import DeviceError
 
 #: how many :class:`CudaGraphCall` warm-ups or captures are running
 _building = 0
+#: the capture in progress (:class:`_Segments`), or None
+_segments = None
 #: graphs captured since the last reset (a kept graph is not captured
 #: again after a resetup)
 CAPTURES = {"count": 0}
@@ -65,6 +77,52 @@ def _built(fn: Callable, *args):
         return fn(*args)
     finally:
         _building -= 1
+
+
+def host_step(fn: Callable, b: torch.Tensor,
+              x: torch.Tensor) -> torch.Tensor:
+    """``fn(b, x)`` on CPU copies of ``b`` and ``x``, its result (shaped
+    and typed like ``x``) brought back to their device: an entry into
+    the host tail of a hierarchy.  Eagerly it runs at once; inside a
+    segmented capture it cuts the graph here and records the step, which
+    every replay runs between the two segments (:class:`_Segments`)."""
+    if _segments is not None:
+        return _segments.cut(fn, b, x)
+    host = torch.device("cpu")
+    return fn(b.to(host), x.to(host)).to(x.device)
+
+
+class _Segments:
+    """The state of a segmented capture: the segment graphs so far (the
+    last one capturing), and per host step the function, its device
+    inputs (produced by the segment before it) and the static tensor the
+    segment after it reads."""
+
+    def __init__(self, pool):
+        self.pool = pool
+        self.graphs: List[torch.cuda.CUDAGraph] = []
+        self.steps: list = []
+        self.begin()
+
+    def begin(self):
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        g.capture_begin(pool=self.pool)
+        self.graphs.append(g)
+
+    def cut(self, fn, b, x):
+        self.graphs[-1].capture_end()
+        ret = torch.empty_like(x)
+        self.steps.append((fn, b, x, ret))
+        self.begin()
+        return ret
+
+    def replay(self):
+        host = torch.device("cpu")
+        for k, g in enumerate(self.graphs):
+            g.replay()
+            if k < len(self.steps):
+                fn, b, x, ret = self.steps[k]
+                ret.copy_(fn(b.to(host), x.to(host)))
 
 
 def counters() -> List[Dict[str, int]]:
@@ -125,14 +183,16 @@ def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
 
 
 class CudaGraphCall:
-    """``fn(*args)`` (CUDA tensors in, one CUDA tensor out) captured as a
-    CUDA graph.  Construction runs the warm-up and the capture;
+    """``fn(*args)`` (CUDA tensors in, one CUDA tensor out) captured as
+    CUDA graph segments cut at each :func:`host_step` — one graph when
+    ``fn`` takes none.  Construction runs the warm-up and the capture;
     :meth:`take_first` hands out the warm-up's result, :meth:`__call__`
     replays.
 
     ``stats`` records the capture: seconds of the eager warm-up, of the
-    capture and of the instantiation, the graph's node count and the
-    bytes its private pool reserved."""
+    capture and of the instantiation, the node count (summed over the
+    segments), the bytes its private pool reserved, and the segment and
+    host-step counts (1 and 0 without a host tail)."""
 
     def __init__(self, fn: Callable, *args: torch.Tensor):
         dev = args[0].device
@@ -152,19 +212,31 @@ class CudaGraphCall:
         # the capture empties the cache first: the baseline does too
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
 
         def capture():
+            global _segments
             # a garbage collection inside the capture may free another
             # graph (an old solver's, held by a reference cycle), whose
             # destruction invalidates the capture: collect first, then
             # hold the collector off until the capture ends
+            torch.cuda.synchronize(dev)
             gc.collect()
             enabled = gc.isenabled()
             gc.disable()
+            side.wait_stream(cur)
             try:
-                with torch.cuda.graph(self.graph):
-                    return _built(fn, *self.static_in)
+                with torch.cuda.stream(side):
+                    seg = _Segments(torch.cuda.graph_pool_handle())
+                    _segments = seg
+                    try:
+                        out = _built(fn, *self.static_in)
+                    finally:
+                        # a capture that raises ends its open segment
+                        _segments = None
+                        seg.graphs[-1].capture_end()
+                cur.wait_stream(side)
+                self.segments = seg
+                return out
             finally:
                 if enabled:
                     gc.enable()
@@ -172,15 +244,18 @@ class CudaGraphCall:
         self.static_out, self.delta = counted_capture(capture)
         CAPTURES["count"] += 1
         t2 = time.perf_counter()
-        nodes = graph_nodes(self.graph)
-        self.graph.instantiate()
+        graphs = self.segments.graphs
+        nodes = sum(graph_nodes(g) for g in graphs)
+        for g in graphs:
+            g.instantiate()
         torch.cuda.synchronize(dev)
         t3 = time.perf_counter()
         self.first: Optional[torch.Tensor] = first
         self.stats = dict(
             warmup_s=t1 - t0, capture_s=t2 - t1,
             instantiate_s=t3 - t2, nodes=nodes,
-            pool_bytes=torch.cuda.memory_reserved(dev) - reserved)
+            pool_bytes=torch.cuda.memory_reserved(dev) - reserved,
+            segments=len(graphs), host_steps=len(self.segments.steps))
 
     def take_first(self) -> torch.Tensor:
         """The warm-up's result (the first call's answer), handed out
@@ -191,6 +266,6 @@ class CudaGraphCall:
     def __call__(self, *args: torch.Tensor) -> torch.Tensor:
         for s, a in zip(self.static_in, args):
             s.copy_(a)
-        self.graph.replay()
+        self.segments.replay()
         credit(self.delta)
         return self.static_out.clone()

@@ -61,7 +61,8 @@ exits non-zero (no phase is caught):
     padded pack;
 11. the classical stack at 24³ (θ = 0.2401) on the card against the
     same on the CPU: equal per-level rows and iteration counts, final x
-    within ``SMALL_X_RTOL``;
+    within ``SMALL_X_RTOL`` and bit-equal (every sum of the stack, its
+    setup's row sums included, runs in one order on both devices);
 12. where a classical setup and a warm classical solve spend their time
     (``torch.profiler``; the solve with the graph);
 13. the config-4 path: BASELINE config 4 (PBICGSTAB + MULTICOLOR_DILU)
@@ -124,12 +125,10 @@ exits non-zero (no phase is caught):
     pack's resident bytes and the peak memory since phase 19;
 22. the DFG operator at ny = 512 under the headline config at its own
     depth (``amg:max_levels=20``, 15 levels down to a 28-row coarse
-    solve): setup; a first solve capped at ``DFG_REPLAY_ITERS``
-    iterations (it captures the graph) and a warm one capped the same
-    way (it replays it): equal iterations and launches; the full solve,
-    iterations, the true relres in f64, the AMG graph
-    (:func:`graph_check`), B3 bit for bit on the ELL levels from phase
-    19's dense coarsest level down;
+    solve): setup; the full solve (its first application captures the
+    graph, the others replay it), iterations, the true relres in f64,
+    the AMG graph (:func:`graph_check`), B3 bit for bit on the ELL
+    levels from phase 19's dense coarsest level down;
 23. the same stack as phase 19 at ny = 320 (544,649 rows, 67 shift
     tiles) on the card against the CPU, f32 pack and f64 pack: equal
     iterations, x bit-equal with the f32 pack.  The CPU solves run in
@@ -156,8 +155,7 @@ exits non-zero (no phase is caught):
 27. PBICGSTAB + MULTICOLOR_ILU(0) on the DFG operator at ``ILU_NY``;
 28. the card against the CPU for every solver name of this slice (and
     PCG with ``krylov_comm`` CA and PIPELINED) on small systems: equal
-    iterations, x within ``SMALL_X_RTOL`` (whether x is bit-equal is
-    printed);
+    iterations, x within ``SMALL_X_RTOL`` and bit-equal;
 29. values-only resetup (``Matrix.replace_coefficients`` then
     ``Solver.resetup`` then a solve, ``RESETUP_STEPS`` steps of the
     drift A_k = D_k·A₀·D_k, D_k = diag(1 + 0.1·u·k)) on three paths at
@@ -212,9 +210,39 @@ exits non-zero (no phase is caught):
     at 24³ (θ = 0.2401) for HMIS, AGGRESSIVE_HMIS, DUMMY, CR, MULTIPASS,
     AFFINITY, ENERGYMIN and ``aggressive_levels``, and
     ``error_scaling=2`` on the headline at 16³ (equal counts; its graph
-    replay bit-equal to an eager application).
+    replay bit-equal to an eager application);
+32. the precision paths: the headline 128³ and the classical
+    ``PREC_CLA_SIDE``³ (64³) with ``hierarchy_dtype=bfloat16`` (every
+    level but the coarsest narrowed; f32 Krylov pack, f64 refinement to
+    1e-8): counts set to 0 just before the first solve and read just
+    after (B1's and B3's (bf16, f32) pairs launched), the true relres,
+    the AMG graph, each bf16 pack's kernel against its plain version bit
+    for bit, the pairs' single-launch times; the headline at 24³ card
+    against CPU; and, inside the config-4 phases, ``tpu_matrix_dtype=
+    bfloat16`` on phase 13's uploaded matrix (a precision view, the
+    pack cast on the card; B5's (bf16, f32) pair; the bf16 → f32 rung
+    to ``C4_BF16_TOL``, as far as a bf16 pack's ladder reaches);
+33. equation scaling (NBINORMALIZATION, DIAGONAL_SYMMETRIC) on the
+    classical 64³ (f64 pack) and ``matrix_reorder=RCM`` on a 64³
+    Poisson permuted at random: iterations, the caller's true relres,
+    counts; each at 24³ card against CPU (equal counts, x bit-equal);
+34. faults and recovery: ``values_nan`` once on the headline 128³ with
+    ``recovery_policy=AUTO`` (``nan_poison``, the ``restart`` rung
+    recovers, the AMG graph replayed, not captured again);
+    ``krylov_zero`` on the classical 64³ (``krylov_breakdown``);
+    ``setup_error``, ``upload_error`` and ``oom`` raise with the JAX
+    package's codes; a fault on every solve stops the ladder at
+    ``recovery_max_attempts``;
+35. host levels: the headline 128³ with ``amg_host_levels_rows=4096``
+    (levels of 4096, 512, 64 and 8 rows on the CPU, the graph cut into
+    segments around each entry into them) against the all-card run:
+    equal iterations, x bit-equal, segment, host-step and node counts,
+    warm solves.
 
-Then one JSON line of the four paths' kernels and, last, the contract line
+Phases 11, 28, 30, 31 and 33 hold the card's x bit-equal to the CPU's
+(IDRMSYNC on config 4 excepted: its s × s solves are library calls).
+
+Then one JSON line of the paths' kernels and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.
@@ -295,8 +323,8 @@ SEED = 20261016
 #: package at the same limit)
 SMALL_X_RTOL = 1e-6
 #: the fourth path: the headline stack on the DFG cylinder operator,
-#: its hierarchy cut at DFG_LEVELS levels (phase 22 runs the config's own
-#: depth).  The CG K-cycle (cycle_iters 2) visits level i 2^i times per
+#: its hierarchy cut at DFG_LEVELS levels (phase 22 runs the config's
+#: own depth).  The CG K-cycle (cycle_iters 2) visits level i 2^i times per
 #: application, each visit a few dozen kernels, replayed from one CUDA
 #: graph: at ny = 512 the config's own 14 levels make 2^13 = 8,192
 #: coarse solves per application; 10 levels make 256, on a 1,498-row
@@ -307,9 +335,6 @@ DFG_CFG = HEADLINE_CFG.replace("amg:max_levels=20",
 DFG_NY, DFG_SMALL_NY = 512, 320
 #: FGMRES iterations of the profiled window of a warm DFG solve
 DFG_WINDOW_ITERS = 2
-#: phase 22: iterations of the capped capturing and replaying solves at
-#: the DFG's own depth (a replay there takes some 1.7 s)
-DFG_REPLAY_ITERS = 3
 #: per-row limits of B2 against its plain version (it is bit-equal by
 #: construction; the limits are those of the other kernels)
 SHIFT_TOL = {"f32": 1e-5, "f64": 1e-12}
@@ -396,6 +421,24 @@ CLA_NAMES = {
     "aggressive_levels": ("amg:max_row_sum=0.9", "amg:max_row_sum=0.9, "
                           "amg:aggressive_levels=1"),
 }
+
+#: phase 32: the bf16 hierarchy paths (``hierarchy_dtype=bfloat16``,
+#: every level but the coarsest narrowed; f32 Krylov pack, f64
+#: refinement) and the classical side at PREC_CLA_SIDE³
+BF16_HIER = ", amg:hierarchy_dtype=bfloat16"
+PREC_CLA_SIDE = 64
+#: phase 32: config 4 on a bf16 pack (``tpu_matrix_dtype=bfloat16``): a
+#: bf16 pack's ladder has one rung, to f32 (a bf16 pack cannot claim f64
+#: residuals, ``promotion_target``; the JAX package refuses 1e-8 there),
+#: so the solve runs to a tolerance that rung reaches
+C4_BF16_TOL = 1e-5
+#: phase 33: the scaled classical stacks run on an f64 pack (a scaled
+#: solve is structurally unrefinable, as upstream: in f32 it would stall
+#: above 1e-8), and RCM on a randomly permuted Poisson
+SCALE_SIDE, RCM_SIDE, SMALL_BOUNDARY_SIDE = 64, 64, 24
+#: phase 35: the headline with its levels of at most this many rows on
+#: the CPU (4096, 512, 64 and 8 at 128³)
+HOST_LEVELS_ROWS = 4096
 
 
 #: the script's start, for the elapsed seconds on every phase line
@@ -546,17 +589,22 @@ def bound(nd, n, vdt, xdt, n_cols=None):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_ell(dev, gen, name, cols, vals64, n_cols, errs, row_len=None):
-    """B3 vs its plain version in both type pairs on one ELL pack (values
-    given in f64, cast to each pair's type; ``cols=None`` for dense
-    rows; ``row_len`` as the path passes it), per row to a relative 1e-5
-    (f32) or 1e-12 (f64), and bit for bit."""
+def check_ell(dev, gen, name, cols, vals64, n_cols, errs, row_len=None,
+              pairs=None):
+    """B3 vs its plain version in each (vals, x) type pair (default the
+    two same-type pairs) on one ELL pack (values given in f64, cast to
+    each pair's type; ``cols=None`` for dense rows; ``row_len`` as the
+    path passes it), per row to a relative 1e-5 (f32 x) or 1e-12 (f64
+    x), and bit for bit."""
     import torch
     from amgx_tpu_torch.ops import ell_spmv as emod
     n, K = vals64.shape
     absmax = vals64.abs().max().item()
-    for dt in (torch.float32, torch.float64):
-        vals = vals64.to(dt).contiguous()
+    if pairs is None:
+        pairs = ((torch.float32, torch.float32),
+                 (torch.float64, torch.float64))
+    for vdt, dt in pairs:
+        vals = vals64.to(vdt).contiguous()
         x = torch.randn(n_cols, dtype=torch.float64, device=dev,
                         generator=gen).to(dt)
         before = emod.launch_count()
@@ -572,9 +620,10 @@ def check_ell(dev, gen, name, cols, vals64, n_cols, errs, row_len=None):
         tol = 1e-12 if dt == torch.float64 else 1e-5
         assert rel < tol, (name, short(dt), diff, rel)
         assert torch.equal(y, ref), (name, short(dt), diff)
-        record(errs, f"{short(dt)}.{short(dt)}", diff, rel)
+        record(errs, f"{short(vdt)}.{short(dt)}", diff, rel)
         emit("ell_check", case=name, n=n, K=K, n_cols=n_cols,
              dense_rows=cols is None, vals_absmax=absmax, type=short(dt),
+             vals=short(vdt),
              row_len=None if row_len is None else dict(
                  mean=row_len.double().mean().item(),
                  max=int(row_len.max().item())),
@@ -623,21 +672,27 @@ def level_table(h):
 
 def profile_window(fn):
     """Device time by kernel of ``fn()`` under ``torch.profiler``:
-    (wall_s, device_s, device kernels, top rows)."""
+    (wall_s, device_s, device kernels, top rows).  The device events are
+    summed straight from the trace: ``key_averages()`` gives the same
+    sums but first builds an event object for every kernel and op, which
+    takes some ten times as long."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         wall = time.perf_counter() - t0
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")
-            and e.self_device_time_total > 0]
-    top = [dict(name=k[:90], device_ms=t / 1e3, calls=c)
-           for k, t, c in sorted(rows, key=lambda r: -r[1])[:8]]
-    return (wall, sum(r[1] for r in rows) / 1e6, sum(r[2] for r in rows),
-            top)
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            ns, calls = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.duration_ns(), calls + 1)
+    top = [dict(name=k[:90], device_ms=ns / 1e6, calls=c)
+           for k, (ns, c) in sorted(by_name.items(),
+                                    key=lambda r: -r[1][0])[:8]]
+    return (wall, sum(ns for ns, _ in by_name.values()) / 1e9,
+            sum(c for _, c in by_name.values()), top)
 
 
 def reset_counts() -> None:
@@ -1082,6 +1137,9 @@ def config4_phases(amgx, dev, smi, gen, b1_errs) -> dict:
         check_binned(dev, gen, "scalar_csr_wide_row", P, vdt, errs)
     del P
 
+    # ---- 32 (config 4): a bf16 precision view of phase 13's matrix
+    bf16 = config4_bf16_phase(amgx, A, m, dev, smi, gen, errs)
+
     # ---- 16. times at full width
     timing = {}
     bsr = sp.bsr_matrix(A, blocksize=(4, 4))
@@ -1147,8 +1205,18 @@ def config4_phases(amgx, dev, smi, gen, b1_errs) -> dict:
                     f"{dt}.{dt}"]),
                 max_abs_err=errs[key]["abs"],
                 max_row_rel_err=errs[key]["rel"], **t))
+    t = bf16["timing"]
+    kernels.append(dict(
+        name="binned_spmv_B5<bf16,f32,b=4>", route="cuda",
+        source="amgx_tpu_torch/csrc/binned_spmv.cu",
+        replaces="amgx_tpu/ops/pallas_csr.py:497", launches=0,
+        launches_by_path={}, max_abs_err=errs["B5.bf16.f32"]["abs"],
+        max_row_rel_err=errs["B5.bf16.f32"]["rel"],
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")}))
     return dict(kernels=kernels, b1_launches=c16["B1"],
-                b1_block_dia_errs=bdia_errs)
+                b1_block_dia_errs=bdia_errs,
+                bf16_launches=bf16["counts"])
 
 
 def check_shift(dev, gen, name, Ad, errs):
@@ -1308,7 +1376,7 @@ def cpu_reference(out_dir: str, name: str) -> int:
 def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs) -> dict:
     """Phases 19-23: the DFG cylinder path (aggregation AMG on an
     uploaded operator) and kernel B2; ``cpu_ref`` is the
-    :class:`CpuReference` it starts at phase 23, ``ell_errs`` B3's
+    :class:`CpuReference` it starts at phase 22, ``ell_errs`` B3's
     errors, which its checks here join."""
     import scipy.sparse as sp
     import torch
@@ -1519,17 +1587,15 @@ def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs) -> dict:
 def dfg_full_depth(amgx, dev, smi, gen, A, ell_errs) -> dict:
     """Phase 22: the DFG operator under the headline config at its own
     depth (``amg:max_levels=20``: SIZE_2 down to a 28-row dense coarse
-    solve), f32 pack, f64 refinement: setup; a first solve capped at
-    ``DFG_REPLAY_ITERS`` iterations (it captures the preconditioner's
-    graph: one eager application, the capture and the instantiation)
-    and a warm solve capped the same way, which replays it: equal
-    iterations and equal launches; then the full solve (replays), its
-    iterations and the true relres in f64 on the host, the graph's facts
-    (:func:`graph_check`, without an eager application: one takes some
-    30 s at this depth), its launches (returned); B3 against its plain
-    version on the ELL levels from phase 19's dense coarsest level down.
-    It runs beside phase 23's CPU children.  ``scripts/torch_dfg_depth.py
-    --solve`` times a full warm solve at this depth."""
+    solve), f32 pack, f64 refinement: setup; the full solve (its first
+    application runs eagerly and captures the preconditioner's graph,
+    the others replay it), its iterations and the true relres in f64 on
+    the host, the graph's facts (:func:`graph_check`, without an eager
+    application: one takes some 30 s at this depth), its launches
+    (returned); B3 against its plain version on the ELL levels from
+    phase 19's dense coarsest level down.  It runs beside phase 23's CPU
+    children.  ``scripts/torch_dfg_depth.py --solve`` times a warm solve
+    at this depth."""
     import torch
     n = A.shape[0]
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1542,21 +1608,6 @@ def dfg_full_depth(amgx, dev, smi, gen, A, ell_errs) -> dict:
     setup_s = time.perf_counter() - t0
     h = slv.preconditioner.hierarchy
     b = torch.ones(n, dtype=torch.float64, device=dev)
-    # the capturing solve against a replaying one, both capped
-    max_iters, slv.max_iters = slv.max_iters, DFG_REPLAY_ITERS
-    capped = []
-    for _ in range(2):
-        reset_counts()
-        res_c = slv.solve(b)
-        torch.cuda.synchronize(dev)
-        capped.append((res_c.iterations, read_counts(), res_c.solve_time))
-    (it_first, counts_first, first_s), (it_warm, counts_warm, warm_s) = \
-        capped
-    assert it_first == it_warm == DFG_REPLAY_ITERS, capped
-    # the first solve's first application ran eagerly, the warm solve's
-    # all replay: equal counts
-    assert counts_warm == counts_first, (counts_first, counts_warm)
-    slv.max_iters = max_iters
     reset_counts()
     res = slv.solve(b)
     torch.cuda.synchronize(dev)
@@ -1575,11 +1626,9 @@ def dfg_full_depth(amgx, dev, smi, gen, A, ell_errs) -> dict:
          levels=[lv.level_stats()[0] for lv in h.levels]
          + [h.coarsest.n_block_rows],
          iterations=res.iterations, relres_f64=relres, setup_s=setup_s,
-         solve_s=res.solve_time, capped_iterations=DFG_REPLAY_ITERS,
-         capped_first_solve_s=first_s, capped_warm_solve_s=warm_s,
-         amg_graph=graph, counts=counts,
+         solve_s=res.solve_time, amg_graph=graph, counts=counts,
          peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, card=smi)
-    del slv, m, h, res, res_c
+    del slv, m, h, res
     torch.cuda.empty_cache()
     return counts
 
@@ -1785,10 +1834,13 @@ def merge_counts(total: dict, counts: dict) -> None:
             total[k][pair] += n
 
 
-def small_card_vs_cpu(amgx, label, cfg, make, rhs_n, block_dim=1):
+def small_card_vs_cpu(amgx, label, cfg, make, rhs_n, block_dim=1,
+                      bit_equal=True):
     """One small stack on the card and on the CPU (plain versions): equal
-    iterations and x within SMALL_X_RTOL.  ``make(where)`` returns the
-    uploaded matrix on ``where``."""
+    iterations, x within SMALL_X_RTOL and, with ``bit_equal``, x equal
+    bit for bit (every sum of the stack runs in one order on both
+    devices).  ``make(where)`` returns the uploaded matrix on
+    ``where``."""
     out = {}
     for where in ("cuda", "cpu"):
         m = make(where)
@@ -1806,6 +1858,7 @@ def small_card_vs_cpu(amgx, label, cfg, make, rhs_n, block_dim=1):
     emit("family_card_vs_cpu", **facts)
     assert ig == ic, facts
     assert x_diff < SMALL_X_RTOL, facts
+    assert facts["x_bit_equal"] or not bit_equal, facts
     return facts
 
 
@@ -1964,9 +2017,11 @@ def family_small_checks(amgx) -> None:
             ("config4_PBICGSTAB_MCGS", MCGS_CFG),
             ("config4_PBICGSTAB_KACZMARZ", CFG4.replace(
                 "MULTICOLOR_DILU", "KACZMARZ"))):
-        small.append(small_card_vs_cpu(amgx, label, cfg,
-                                       host_matrix(A_blk, 4),
-                                       A_blk.shape[0]))
+        # IDRMSYNC's s × s solves are library calls (solvers/idr.py),
+        # whose order differs by device: its x is not held bit for bit
+        small.append(small_card_vs_cpu(
+            amgx, label, cfg, host_matrix(A_blk, 4), A_blk.shape[0],
+            bit_equal="IDRMSYNC" not in label))
     A_ilu = dfg_cylinder_pressure(32)
     small.append(small_card_vs_cpu(amgx, "dfg32_PBICGSTAB_ILU0", ILU_CFG,
                                    host_matrix(A_ilu), A_ilu.shape[0]))
@@ -2510,6 +2565,533 @@ def classical_algorithm_phase(amgx, dev, smi, gen,
     return total
 
 
+# --------------------------------------------------------------------------
+# phases 32-35: the solve boundary's knobs
+# --------------------------------------------------------------------------
+def bf16_packs(h):
+    """(name, pack) of every bf16 DIA, ``dia3`` stream and ELL pack of a
+    hierarchy's levels and transfers (the coarsest is never narrowed)."""
+    import torch
+    out, seen = [], set()
+    for i, lv in enumerate(h.levels):
+        roles = [("A", lv.Ad)]
+        if lv.Ad.fmt == "dia3":
+            roles = [(f"A.dia3.{r}", getattr(lv.Ad, r)) for r in "PAR"]
+        if lv.kind == "classical":
+            roles += [("P", lv.P), ("R", lv.R)]
+        for role, M in roles:
+            if id(M) in seen or M.dtype != torch.bfloat16 or \
+                    M.fmt not in ("dia", "ell") or M.block_dim != 1:
+                continue
+            seen.add(id(M))
+            out.append((f"level{i}.{role}", M))
+    return out
+
+
+def check_bf16_packs(dev, gen, label, h, b1_errs, b3_errs) -> dict:
+    """B1 and B3 in their (bf16, f32) pairs against their plain versions,
+    bit for bit, on every bf16 pack of ``h``; returns the pack kinds
+    checked."""
+    import torch
+    kinds = {}
+    for name, M in bf16_packs(h):
+        x = torch.randn(M.n_cols, dtype=torch.float64, device=dev,
+                        generator=gen).float()
+        if M.fmt == "dia":
+            check_dia_once(f"{label}.{name}", M.vals, x, M.dia_offsets,
+                           b1_errs)
+        else:
+            check_ell(dev, gen, f"{label}.{name}", M.cols, M.vals.double(),
+                      M.n_cols, b3_errs, row_len=M.row_len,
+                      pairs=((torch.bfloat16, torch.float32),))
+        kinds[M.fmt] = kinds.get(M.fmt, 0) + 1
+    return kinds
+
+
+def library_ms_of(csr, x, dev):
+    """The time of one cuSPARSE product of ``csr`` (a torch sparse CSR of
+    the pack's values) by ``x``, or None when this PyTorch refuses the
+    type pair."""
+    import torch
+    try:
+        csr @ x
+        torch.cuda.synchronize(dev)
+    except (RuntimeError, NotImplementedError) as e:
+        emit("library_choice", refused=str(e)[:200])
+        return None
+    return time_ms(lambda: csr @ x, dev)
+
+
+def precision_phase(amgx, dev, smi, gen, b1_errs, b3_errs) -> dict:
+    """Phase 32 (less config 4, which runs in :func:`config4_phases` on
+    its uploaded system): the headline 128³ and the classical
+    ``PREC_CLA_SIDE``³ with ``hierarchy_dtype=bfloat16`` (every level
+    but the coarsest narrowed; f32 Krylov pack, f64 refinement to 1e-8),
+    each with its counts set to 0 just before its first solve and read
+    just after, the true relres in f64, the AMG graph, B1/B3 in their
+    bf16 pairs against their plain versions on every narrowed pack, and
+    single-launch times of those pairs; the headline at 24³ on the card
+    against the port on the CPU.  Returns the launches and the kernels'
+    timings."""
+    import torch
+    from amgx_tpu_torch.io import poisson7pt, poisson7pt_device
+    from amgx_tpu_torch.ops import dia_spmv as dmod
+    from amgx_tpu_torch.ops import ell_spmv as emod
+    t_phase = time.perf_counter()
+    launches, timing = {}, {}
+
+    # ---- the headline at full width, bf16 hierarchy
+    side = 128
+    n = side ** 3
+    t0 = time.perf_counter()
+    A = poisson7pt_device(side, side, side, device_dtype=np.float32,
+                          device="cuda")
+    slv = amgx.create_solver(HEADLINE_CFG + BF16_HIER)
+    slv.setup(A)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    reset_counts()
+    res = slv.solve(b)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    res2 = slv.solve(b)
+    assert res.status == amgx.SolveStatus.SUCCESS, res.status
+    assert res2.iterations == res.iterations
+    assert counts["B1"]["bf16.f32"] > 0, counts
+    assert not any(counts["declines"].values()), counts
+    relres = pack_relres(A)(res.x)
+    assert relres <= 1e-8, relres
+    h = slv.preconditioner.hierarchy
+    dtypes = [short(lv.Ad.dtype) for lv in h.levels]
+    assert set(dtypes) == {"bf16"}, dtypes
+    assert h.coarsest.device().dtype == torch.float32
+    graph = graph_check(slv.preconditioner, dev, gen)
+    kinds = check_bf16_packs(dev, gen, "headline_bf16", h, b1_errs,
+                             b3_errs)
+    # B1 (bf16, f32) single launches on the fine level's narrow pack
+    P0 = h.levels[0].Ad
+    x = torch.randn(n, dtype=torch.float32, device=dev, generator=gen)
+    csr = csr_of_dia(P0.vals, P0.dia_offsets)
+    ms = time_ms(lambda: dmod.dia_spmv(P0.vals, x, P0.dia_offsets), dev)
+    plain_ms = time_ms(lambda: dmod.dia_spmv_reference(
+        P0.vals, x, P0.dia_offsets), dev)
+    # the library product of a bf16 matrix takes a bf16 vector
+    library_ms = library_ms_of(csr, x.to(torch.bfloat16), dev)
+    bound_ms, bound_by = bound(len(P0.dia_offsets), n, torch.bfloat16,
+                               torch.float32)
+    timing["B1"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        operator="headline 128³ level 0 (bf16)")
+    del csr
+    emit("precision_headline", n=n, config="hierarchy_dtype=bfloat16",
+         iterations=res.iterations, relres_f64=relres, setup_s=setup_s,
+         solve_s=res.solve_time, solve_warm_s=res2.solve_time,
+         level_dtypes=dtypes, coarsest_dtype="f32", counts=counts,
+         amg_graph=graph, packs_checked=kinds, b1_bf16_timing=timing["B1"],
+         card=smi)
+    launches["precision_headline"] = counts
+    del slv, res, res2, A, h, P0
+    torch.cuda.empty_cache()
+
+    # the same at 24³: the card against the port on the CPU
+    out = {}
+    for where in ("cuda", "cpu"):
+        As = poisson7pt_device(24, 24, 24, device_dtype=np.float32,
+                               device=where)
+        s_ = amgx.create_solver(HEADLINE_CFG + BF16_HIER)
+        s_.setup(As)
+        rr = s_.solve(np.ones(24 ** 3))
+        assert rr.status == amgx.SolveStatus.SUCCESS, where
+        out[where] = (rr.iterations, rr.x.cpu())
+    (ig, xg), (ic, xc) = out["cuda"], out["cpu"]
+    facts = dict(n=24 ** 3, iterations_card=ig, iterations_cpu=ic,
+                 x_bit_equal=bool(torch.equal(xg, xc)),
+                 x_rel_diff=((xg - xc).norm() / xc.norm()).item())
+    emit("precision_headline_card_vs_cpu", **facts)
+    # every sum of the bf16 stack runs in one order on both devices
+    assert ig == ic and facts["x_bit_equal"], facts
+
+    # ---- classical at PREC_CLA_SIDE³, bf16 hierarchy
+    side = PREC_CLA_SIDE
+    Ah = poisson7pt(side, side, side)
+    m = amgx.Matrix(Ah, device="cuda")
+    m.device_dtype = np.float32
+    t0 = time.perf_counter()
+    slv = amgx.create_solver(CFG_CLA + BF16_HIER)
+    slv.setup(m)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    b = torch.ones(Ah.shape[0], dtype=torch.float64, device=dev)
+    reset_counts()
+    res = slv.solve(b)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    res2 = slv.solve(b)
+    assert res.status == amgx.SolveStatus.SUCCESS, res.status
+    assert res2.iterations == res.iterations
+    relres = host_relres(Ah)(res.x)
+    assert relres <= 1e-8, relres
+    h = slv.preconditioner.hierarchy
+    table = [(lv.Ad.fmt, short(lv.Ad.dtype)) for lv in h.levels]
+    ell_narrow = any(f == "ell" and d == "bf16" for f, d in table)
+    assert counts["B1"]["bf16.f32"] > 0, counts
+    if ell_narrow:
+        assert counts["B3"]["bf16.f32"] > 0, counts
+    graph = graph_check(slv.preconditioner, dev, gen)
+    kinds = check_bf16_packs(dev, gen, "classical_bf16", h, b1_errs,
+                             b3_errs)
+    ell = [(nm, M) for nm, M in bf16_packs(h) if M.fmt == "ell"]
+    if ell:
+        name, M = max(ell, key=lambda p: p[1].cols.numel())
+        x = torch.randn(M.n_cols, dtype=torch.float32, device=dev,
+                        generator=gen)
+        ms = time_ms(lambda: emod.ell_spmv(M.cols, M.vals, x, M.row_len),
+                     dev)
+        plain_ms = time_ms(lambda: emod.ell_spmv_reference(
+            M.cols, M.vals, x), dev)
+        csr = csr_of_ell(M.cols, M.vals, M.n_cols)
+        library_ms = library_ms_of(csr, x.to(torch.bfloat16), dev)
+        nnz = int((M.vals != 0).sum().item())
+        nb, K = M.cols.shape
+        nbytes = nnz * (4 + 2) + (M.n_cols + nb) * 4
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        t_ops = 2 * nnz / PEAK_FLOPS["f32"]
+        timing["B3"] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            operator=f"classical {side}³ {name} ({nb} × {K}, {nnz} "
+            "nonzeros, bf16)")
+        del csr
+    emit("precision_classical", n=Ah.shape[0],
+         config="hierarchy_dtype=bfloat16", iterations=res.iterations,
+         relres_f64=relres, setup_s=setup_s, solve_s=res.solve_time,
+         solve_warm_s=res2.solve_time, levels=table,
+         ell_level_narrowed=ell_narrow, counts=counts, amg_graph=graph,
+         packs_checked=kinds, b3_bf16_timing=timing.get("B3"), card=smi)
+    launches["precision_classical"] = counts
+    del slv, res, res2, m, h, ell
+    torch.cuda.empty_cache()
+    emit("precision_phase", elapsed_phase_s=time.perf_counter() - t_phase)
+    return dict(launches=launches, timing=timing)
+
+
+def config4_bf16_phase(amgx, A, m, dev, smi, gen, errs) -> dict:
+    """Phase 32, config 4: ``tpu_matrix_dtype=bfloat16`` on the matrix
+    phase 13 uploaded — a precision view whose pack is the f32 pack cast
+    on the card (no bytes over the wire), so BiCGStab and the DILU run on
+    bf16 values (B5's (bf16, f32) pair) with the refinement's residuals
+    in f32 to ``C4_BF16_TOL``; counts set to 0 just before the first
+    solve and read just after; B5 (bf16, f32) against its plain version
+    on the view's pack and its single-launch time."""
+    import scipy.sparse as sp
+    import torch
+    from amgx_tpu_torch.ops import binned_spmv as bmod
+    t_phase = time.perf_counter()
+    f32_pack = m.device()
+    cfg = CFG4.replace("out:tolerance=1e-8",
+                       f"out:tolerance={C4_BF16_TOL}") \
+        + ", tpu_matrix_dtype=bfloat16"
+    t0 = time.perf_counter()
+    slv = amgx.create_solver(cfg)
+    slv.setup(m)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    view = slv.A
+    assert view is not m and m.device() is f32_pack
+    assert slv.Ad.dtype == torch.bfloat16, slv.Ad.dtype
+    assert view._pack_cast_via == np.float32
+    b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+    reset_counts()
+    res = slv.solve(b)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    res2 = slv.solve(b)
+    assert res.status == amgx.SolveStatus.SUCCESS, res.status
+    assert res2.iterations == res.iterations
+    assert counts["B5"]["bf16.f32"] > 0, counts
+    assert not any(counts["declines"].values()), counts
+    relres = host_relres(A)(res.x)
+    assert relres <= 2 * C4_BF16_TOL, relres
+    Ad = slv.Ad
+    check_binned(dev, gen, "config4_bf16_view", Ad, torch.bfloat16, errs)
+    x = torch.randn(A.shape[0], dtype=torch.float32, device=dev,
+                    generator=gen)
+    ms = time_ms(lambda: bmod.binned_spmv(Ad, x), dev)
+    plain_ms = time_ms(lambda: bmod.binned_compact_reference(
+        Ad.bn_compact, Ad.bn_pos, Ad.bn_dims, x), dev)
+    bsr = sp.bsr_matrix(A, blocksize=(4, 4))
+    lib = bsr_of_pack(bsr, torch.bfloat16, dev)
+    library_ms = library_ms_of(lib, x.to(torch.bfloat16), dev)
+    nblk = A.nnz // 16
+    bound_ms, bound_by = binned_bound(nblk, 4, A.shape[0] // 4,
+                                      A.shape[0] // 4, torch.bfloat16,
+                                      torch.float32)
+    timing = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                  bound_ms=bound_ms, bound_by=bound_by,
+                  operator="config-4 pack cast to bf16")
+    emit("precision_config4", config=f"tpu_matrix_dtype=bfloat16, "
+         f"tolerance={C4_BF16_TOL}", cast_on_device=True,
+         pack=amgx.pack_kind(Ad), iterations=res.iterations,
+         relres_f64=relres, setup_s=setup_s, solve_s=res.solve_time,
+         solve_warm_s=res2.solve_time, counts=counts,
+         b5_bf16_timing=timing, card=smi,
+         elapsed_phase_s=time.perf_counter() - t_phase)
+    del slv, res, res2, view, Ad, lib
+    torch.cuda.empty_cache()
+    return dict(counts=counts, timing=timing)
+
+
+def boundary_phase(amgx, dev, smi, gen) -> dict:
+    """Phase 33: equation scaling (NBINORMALIZATION and
+    DIAGONAL_SYMMETRIC, the outer solver's scope) on the classical
+    ``SCALE_SIDE``³ stack with an f64 pack, and ``matrix_reorder=RCM`` on
+    a ``RCM_SIDE``³ Poisson whose rows and columns are permuted at
+    random from ``SEED`` (f32 pack, f64 refinement): iterations, the
+    true relres of the caller's system in f64, counts; each also at
+    ``SMALL_BOUNDARY_SIDE``³ on the card against the CPU (equal counts,
+    x bit-equal; the scaled stacks there on an f32 pack to 1e-4, where
+    every sum is ordered).  Returns the launches."""
+    import scipy.sparse as sp
+    import torch
+    from amgx_tpu_torch.io import poisson7pt
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def permuted(side):
+        A0 = sp.csr_matrix(poisson7pt(side, side, side))
+        p = np.random.default_rng(SEED).permutation(A0.shape[0])
+        return sp.csr_matrix(A0[p][:, p])
+
+    # (label, config, matrix, pack dtype, side; the small check's config
+    # and pack dtype): the scaled stacks are held card against CPU on an
+    # f32 pack at a tolerance f32 reaches (f64 dots are library sums)
+    cases = [(f"scaling_{k}", CFG_CLA + f", out:scaling={k}",
+              lambda s_: poisson7pt(s_, s_, s_), np.float64, SCALE_SIDE,
+              CFG_CLA.replace("out:tolerance=1e-8", "out:tolerance=1e-4")
+              + f", out:scaling={k}", np.float32)
+             for k in ("NBINORMALIZATION", "DIAGONAL_SYMMETRIC")]
+    cfg = CFG_CLA + ", out:matrix_reorder=RCM"
+    cases.append(("matrix_reorder_RCM", cfg, permuted, np.float32,
+                  RCM_SIDE, cfg, np.float32))
+    for label, cfg, make, pdt, side, small_cfg, small_pdt in cases:
+        Ah = make(side)
+        m = amgx.Matrix(Ah, device="cuda")
+        m.device_dtype = pdt
+        t0 = time.perf_counter()
+        slv = amgx.create_solver(cfg)
+        slv.setup(m)
+        torch.cuda.synchronize(dev)
+        setup_s = time.perf_counter() - t0
+        b = torch.ones(Ah.shape[0], dtype=torch.float64, device=dev)
+        reset_counts()
+        res = slv.solve(b)
+        torch.cuda.synchronize(dev)
+        counts = read_counts()
+        res2 = slv.solve(b)
+        assert res.status == amgx.SolveStatus.SUCCESS, (label, res.status)
+        assert res2.iterations == res.iterations
+        relres = host_relres(Ah)(res.x)
+        # a scaled solve monitors the scaled residual (as upstream): the
+        # caller's system is held to a tenth of a digit less
+        assert relres <= (1e-7 if label.startswith("scaling") else 1e-8), \
+            (label, relres)
+        facts = dict(n=Ah.shape[0], pack=np.dtype(pdt).name,
+                     iterations=res.iterations, relres_f64=relres,
+                     setup_s=setup_s, solve_s=res.solve_time,
+                     solve_warm_s=res2.solve_time, counts=counts,
+                     reordered=slv._reorder is not None,
+                     scaled=slv.scaler is not None)
+        launches[label] = counts
+        del slv, res, res2, m
+        torch.cuda.empty_cache()
+        small = small_card_vs_cpu(
+            amgx, f"{label}_{SMALL_BOUNDARY_SIDE}", small_cfg,
+            _uploader(amgx, make(SMALL_BOUNDARY_SIDE), small_pdt),
+            SMALL_BOUNDARY_SIDE ** 3)
+        emit(label, **facts, card_vs_cpu=small, card=smi)
+    emit("boundary_phase", elapsed_phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def _uploader(amgx, A_host, pdt):
+    def make(where):
+        m_ = amgx.Matrix(A_host, device=where)
+        m_.device_dtype = pdt
+        return m_
+    return make
+
+
+def fault_phase(amgx, dev, smi, gen) -> dict:
+    """Phase 34: fault injection and the recovery ladder on the card.
+    The headline 128³ with ``values_nan`` at iteration 3 (once) and
+    ``recovery_policy=AUTO``: the first attempt reports ``nan_poison``,
+    the ``restart`` rung recovers, and the AMG graph captured by the
+    first solve is replayed (no capture after it); ``krylov_zero`` on PCG
+    over the classical ``PREC_CLA_SIDE``³ reports ``krylov_breakdown``;
+    ``setup_error``, ``upload_error`` and ``oom`` raise with the JAX
+    package's return codes; a fault that survives every rung stops the
+    ladder at ``recovery_max_attempts``.  Returns the launches."""
+    import torch
+    from amgx_tpu_torch.errors import RC, AMGXError, FailureKind
+    from amgx_tpu_torch.io import poisson7pt, poisson7pt_device
+    from amgx_tpu_torch.utils import cuda_graph, faultinject
+    t_phase = time.perf_counter()
+    launches = {}
+    faultinject.reset()
+    side = 128
+    n = side ** 3
+    A = poisson7pt_device(side, side, side, device_dtype=np.float32,
+                          device="cuda")
+    slv = amgx.create_solver(HEADLINE_CFG + ", recovery_policy=AUTO, "
+                             "fault_inject=values_nan:iter:3:count:1")
+    slv.setup(A)
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    captures0 = cuda_graph.CAPTURES["count"]
+    reset_counts()
+    res = slv.solve(b)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    captures = cuda_graph.CAPTURES["count"] - captures0
+    assert res.status == amgx.SolveStatus.SUCCESS, res.status
+    assert res.recovery == {"kind": "nan_poison", "action": "restart",
+                            "attempts": 1, "outcome": "recovered"}, \
+        res.recovery
+    # the first attempt captured the AMG's graph; the restart replayed it
+    assert captures == 1, captures
+    relres = pack_relres(A)(res.x)
+    assert relres <= 1e-8, relres
+    assert faultinject.stats()["values_nan"]["fired"] == 1
+    emit("fault_headline_restart", n=n, iterations=res.iterations,
+         relres_f64=relres, recovery=res.recovery,
+         attempts=slv.recovery_log, graphs_captured=captures,
+         solve_s=res.solve_time, counts=counts, card=smi)
+    launches["fault_headline"] = counts
+    faultinject.reset()
+    del slv, res, A
+    torch.cuda.empty_cache()
+
+    # krylov_zero on PCG over the classical stack
+    side = PREC_CLA_SIDE
+    Ah = poisson7pt(side, side, side)
+    m = amgx.Matrix(Ah, device="cuda")
+    m.device_dtype = np.float32
+    slv = amgx.create_solver(CFG_CLA + ", fault_inject=krylov_zero:iter:3:"
+                             "count:1")
+    slv.setup(m)
+    res = slv.solve(torch.ones(Ah.shape[0], dtype=torch.float64,
+                               device=dev))
+    assert res.status == amgx.SolveStatus.FAILED, res.status
+    assert res.failure.kind == FailureKind.KRYLOV_BREAKDOWN, res.failure
+    emit("fault_krylov_zero", n=Ah.shape[0], iterations=res.iterations,
+         failure=[res.failure.kind.value, res.failure.iteration])
+    faultinject.reset()
+    del slv, res, m
+
+    # the seam points: each raises with the JAX package's code, once
+    As = poisson7pt(16, 16, 16)
+    rcs = {}
+    for point, rc in (("setup_error", RC.CORE),
+                      ("upload_error", RC.CUDA_FAILURE),
+                      ("oom", RC.NO_MEMORY)):
+        faultinject.configure(f"{point}:count=1")
+        s_ = amgx.create_solver(CFG_CLA)
+        try:
+            s_.setup(amgx.Matrix(As, device="cuda"))
+            raise AssertionError(f"{point} did not raise")
+        except AMGXError as e:
+            assert e.rc == rc, (point, e.rc)
+            rcs[point] = int(e.rc)
+        s_.setup(amgx.Matrix(As, device="cuda"))     # one-shot
+        faultinject.reset()
+
+    # a fault on every solve: the ladder stops at its budget
+    A16 = poisson7pt_device(16, 16, 16, device_dtype=np.float32,
+                            device="cuda")
+    s_ = amgx.create_solver(HEADLINE_CFG + ", recovery_policy=AUTO, "
+                            "recovery_max_attempts=1, "
+                            "fault_inject=values_nan:iter:1")
+    s_.setup(A16)
+    res = s_.solve(np.ones(16 ** 3))
+    assert res.status != amgx.SolveStatus.SUCCESS
+    assert res.recovery["outcome"] == "exhausted", res.recovery
+    assert res.recovery["attempts"] == 1, res.recovery
+    faultinject.reset()
+    emit("fault_seams_and_budget", return_codes=rcs,
+         exhausted=res.recovery, attempts=s_.recovery_log,
+         elapsed_phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def host_levels_phase(amgx, dev, smi, gen) -> dict:
+    """Phase 35: the headline 128³ with ``amg_host_levels_rows`` =
+    ``HOST_LEVELS_ROWS``: the levels of 4096, 512, 64 and 8 rows set up
+    and run on the CPU, the application captured as graph segments cut
+    at each entry into that tail (the K-cycle enters it once per visit
+    of the level above).  Against the all-card headline on the same
+    operator: equal iterations and x bit-equal; counts set to 0 just
+    before the first solve and read just after; the graph's segment,
+    host-step and node counts; a replay bit-equal to an eager
+    application; warm solve against the all-card one.  Returns the
+    launches."""
+    import torch
+    from amgx_tpu_torch.io import poisson7pt_device
+    t_phase = time.perf_counter()
+    side = 128
+    n = side ** 3
+    A = poisson7pt_device(side, side, side, device_dtype=np.float32,
+                          device="cuda")
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    runs = {}
+    for label, knob in (("all_card", ""), ("host_tail", ", amg_host_"
+                                          f"levels_rows={HOST_LEVELS_ROWS}")):
+        t0 = time.perf_counter()
+        slv = amgx.create_solver(HEADLINE_CFG + knob)
+        slv.setup(A)
+        torch.cuda.synchronize(dev)
+        setup_s = time.perf_counter() - t0
+        reset_counts()
+        res = slv.solve(b)
+        torch.cuda.synchronize(dev)
+        counts = read_counts()
+        res2 = slv.solve(b)
+        assert res.status == amgx.SolveStatus.SUCCESS, (label, res.status)
+        assert res2.iterations == res.iterations
+        h = slv.preconditioner.hierarchy
+        runs[label] = dict(iterations=res.iterations, x=res.x,
+                           setup_s=setup_s, solve_s=res.solve_time,
+                           solve_warm_s=res2.solve_time, counts=counts,
+                           host_from=h.host_from,
+                           places=[lv.Ad.device.type for lv in h.levels]
+                           + [h.coarsest.device().device.type],
+                           rows=[lv.Ad.n_rows for lv in h.levels]
+                           + [h.coarsest.n_block_rows],
+                           graph=graph_check(slv.preconditioner, dev, gen))
+        del slv, res, res2, h
+    card, tail = runs["all_card"], runs["host_tail"]
+    assert tail["places"][tail["host_from"]:] == \
+        ["cpu"] * (len(tail["places"]) - tail["host_from"]), tail["places"]
+    assert all(r <= HOST_LEVELS_ROWS
+               for r in tail["rows"][tail["host_from"]:]), tail["rows"]
+    assert tail["graph"]["segments"] > 1, tail["graph"]
+    assert tail["iterations"] == card["iterations"], \
+        (tail["iterations"], card["iterations"])
+    bit_equal = bool(torch.equal(tail["x"], card["x"]))
+    assert bit_equal, ((tail["x"] - card["x"]).norm()
+                       / card["x"].norm()).item()
+    for r in runs.values():
+        del r["x"]
+    emit("host_levels", n=n, host_levels_rows=HOST_LEVELS_ROWS,
+         x_bit_equal=bit_equal, all_card=card, host_tail=tail,
+         card=smi,
+         elapsed_phase_s=time.perf_counter() - t_phase)
+    del A, b
+    torch.cuda.empty_cache()
+    return {"host_levels": tail["counts"], "host_levels_all_card":
+            card["counts"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2877,9 +3459,12 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     xg, xc = small_c["cuda"][2], small_c["cpu"][2]
     x_diff = ((xg - xc).norm() / xc.norm()).item()
     assert x_diff < SMALL_X_RTOL, x_diff
+    # every sum of the classical stack, its setup's row sums included,
+    # runs in one order on both devices
+    assert torch.equal(xg, xc), x_diff
     emit("classical_small_reference", n=24 ** 3, levels=tg,
          iterations=small_c["cuda"][1], x_rel_diff_card_vs_cpu=x_diff,
-         limit=SMALL_X_RTOL)
+         limit=SMALL_X_RTOL, x_bit_equal=True)
 
     # ---- 12. where a classical setup and a warm classical solve go
     def resetup():
@@ -2907,7 +3492,8 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     # ---- 19.-23. the DFG cylinder path (aggregation AMG, B2)
     dfg = dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs)
 
-    # ---- 24.-28. the solver names of this slice
+    # ---- 24.-28. the solver names of this slice; phase 23's comparison
+    # after 27, once the CPU children, running beside 22-27, are done
     fam = family_phases(amgx, dev, smi, gen)
 
     # ---- 29. values-only resetup on the three AMG paths
@@ -2919,6 +3505,15 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
         "block_aggregation": block_aggregation_phase(amgx, dev, smi, gen),
         "classical_aggressive": classical_algorithm_phase(amgx, dev, smi,
                                                           gen)}
+
+    # ---- 32. the precision paths (config 4's ran in its phases);
+    # 33. scaling and RCM; 34. faults and recovery; 35. host levels
+    prec = precision_phase(amgx, dev, smi, gen, errs, ell_errs)
+    setup_paths.update(prec["launches"])
+    setup_paths["precision_config4"] = c4["bf16_launches"]
+    setup_paths.update(boundary_phase(amgx, dev, smi, gen))
+    setup_paths.update(fault_phase(amgx, dev, smi, gen))
+    setup_paths.update(host_levels_phase(amgx, dev, smi, gen))
 
     # ---- the kernels of the paths
     kernels = []
@@ -2963,6 +3558,23 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
             bound_ms=ell_timing[key]["bound_ms"],
             bound_by=ell_timing[key]["bound_by"],
             library_ms=ell_timing[key]["library_ms"]))
+    # the bf16 pairs of phase 32 (their launches come from the paths
+    # below)
+    bf16_entries = [("dia_spmv<bf16,f32>", "dia_spmv.cu",
+                     "amgx_tpu/ops/pallas_spmv.py:101", errs, "B1")]
+    if "B3" in prec["timing"]:
+        bf16_entries.append(("ell_spmv<bf16,f32>", "ell_spmv.cu",
+                             "amgx_tpu/ops/pallas_ell.py:209", ell_errs,
+                             "B3"))
+    for name, src, replaces, e, kern in bf16_entries:
+        t = prec["timing"][kern]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"amgx_tpu_torch/csrc/{src}",
+            replaces=replaces, launches=0, launches_by_path={},
+            max_abs_err=e["bf16.f32"]["abs"],
+            max_row_rel_err=e["bf16.f32"]["rel"],
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}))
     kernels.extend(c4["kernels"])
     kernels.extend(dfg["kernels"])
     # the launches of phases 24-27's and 29-31's full-width stacks, by

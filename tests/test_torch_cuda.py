@@ -655,12 +655,14 @@ FAMILY_CASES = ["CF_JACOBI", "CHEBYSHEV", "CHEBYSHEV-noprec",
 def test_family_solve_on_card_matches_cpu(card, case):
     """Each solver name of the solver-family slice on the card against
     the same stack on the CPU (f32 pack, f64 refinement): equal
-    iterations, x within chip_smoke.SMALL_X_RTOL."""
+    iterations, x within chip_smoke.SMALL_X_RTOL and bit-equal, except
+    IDRMSYNC, whose s × s solves are library calls."""
     import amgx_tpu_torch as amgx
     from chip_smoke import small_card_vs_cpu
     cfg, mk = _family_checks()[case]
     make, n = mk()
-    small_card_vs_cpu(amgx, case, cfg, make, n)
+    small_card_vs_cpu(amgx, case, cfg, make, n,
+                      bit_equal=case != "IDRMSYNC")
 
 
 FAMILY_GRAPH_SMOOTHERS = ["CHEBYSHEV", "CHEBYSHEV_POLY", "CF_JACOBI",
@@ -834,3 +836,149 @@ def test_resetup_solve_on_card_matches_cpu(card, case):
     for (ig, xg), (ic, xc) in zip(out["cuda"], out["cpu"]):
         assert ig == ic
         assert torch.equal(xg, xc)
+
+
+# ------------------------------------------------------ the solve boundary
+@pytest.mark.parametrize("K,n,n_cols", [(1, 999, 1000), (7, 5000, 7001),
+                                        (27, 3000, 2000), (256, 300, 900)])
+def test_ell_bf16_pair_bit_equal(card, K, n, n_cols):
+    """B3's (bf16, f32) pair: each value widened in registers, summed in
+    f32 in the (f32, f32) pair's order — bit-equal to the plain version,
+    with and without row_len, one counted launch each."""
+    from amgx_tpu_torch.ops import ell_spmv as emod
+    g = torch.Generator(device=card).manual_seed(K + 1)
+    cols = torch.randint(-2, n_cols + 2, (n, K), dtype=torch.int32,
+                         device=card, generator=g)
+    vals = torch.randn((n, K), dtype=torch.float64, device=card,
+                       generator=g).to(torch.bfloat16)
+    keep = torch.randint(0, K + 1, (n, 1), device=card, generator=g)
+    vals = torch.where(torch.arange(K, device=card) < keep, vals, 0)
+    x = torch.randn(n_cols, dtype=torch.float32, device=card, generator=g)
+    ref = emod.ell_spmv_reference(cols, vals, x)
+    for rl in (None, emod.ell_row_len(vals)):
+        before = emod.LAUNCHES["bf16.f32"]
+        y = emod.ell_spmv(cols, vals, x, rl)
+        torch.cuda.synchronize(card)
+        assert emod.LAUNCHES["bf16.f32"] == before + 1
+        assert y.dtype == torch.float32
+        assert torch.equal(y, ref)
+
+
+def test_dia_bf16_pair_bit_equal_at_128(card):
+    """B1's (bf16, f32) pair on the 128³ operator cast to bf16 (the
+    headline's narrowed fine level), bit-equal to its plain version."""
+    from amgx_tpu_torch.io import poisson7pt_device
+    from amgx_tpu_torch.ops import dia_spmv as dmod
+    A = poisson7pt_device(128, 128, 128, device_dtype=np.float32,
+                          device="cuda").device().astype(torch.bfloat16)
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(128 ** 3, dtype=torch.float32, device=card,
+                    generator=g)
+    y = dmod.dia_spmv(A.vals, x, A.dia_offsets)
+    assert torch.equal(y, dmod.dia_spmv_reference(A.vals, x,
+                                                  A.dia_offsets))
+
+
+@pytest.mark.parametrize("case", ["headline", "classical"])
+def test_bf16_hierarchy_solve_on_card_matches_cpu(card, case):
+    """hierarchy_dtype=bfloat16 at 24³: the card takes the CPU's
+    iterations and x bit for bit (every bf16 pair is bit-equal to its
+    plain version, and the sums keep their order)."""
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.io import poisson7pt, poisson7pt_device
+    from chip_smoke import BF16_HIER, CFG_CLA, HEADLINE_CFG
+    out = {}
+    for where in ("cuda", "cpu"):
+        if case == "headline":
+            m = poisson7pt_device(24, 24, 24, device_dtype=np.float32,
+                                  device=where)
+            cfg = HEADLINE_CFG + BF16_HIER
+        else:
+            m = amgx.Matrix(poisson7pt(24, 24, 24), device=where)
+            m.device_dtype = np.float32
+            cfg = CFG_CLA + ", amg:strength_threshold=0.2401" + BF16_HIER
+        s = amgx.create_solver(cfg)
+        s.setup(m)
+        r = s.solve(np.ones(24 ** 3))
+        assert r.status == amgx.SolveStatus.SUCCESS
+        out[where] = (r.iterations, r.x.cpu())
+    assert out["cuda"][0] == out["cpu"][0]
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+
+
+@pytest.mark.parametrize("rows", [100, 4096])
+def test_host_tail_bit_equal_to_all_card(card, rows):
+    """amg_host_levels_rows: the tail's levels on the CPU, the graph cut
+    into segments around each entry; x and iterations equal to the
+    all-card run, a replay bit-equal to an eager application."""
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.io import poisson7pt_device
+    from chip_smoke import HEADLINE_CFG
+    A = poisson7pt_device(32, 32, 32, device_dtype=np.float32,
+                          device="cuda")
+    got = {}
+    for knob in ("", f", amg_host_levels_rows={rows}"):
+        s = amgx.create_solver(HEADLINE_CFG + knob)
+        s.setup(A)
+        r = s.solve(np.ones(32 ** 3))
+        assert r.status == amgx.SolveStatus.SUCCESS
+        got[knob] = (r.iterations, r.x, s.preconditioner)
+    (ia, xa, _), (ih, xh, pre) = got[""], got[f", amg_host_levels_rows={rows}"]
+    assert ia == ih and torch.equal(xa, xh)
+    (g,) = pre.graphs.values()
+    assert g.stats["segments"] > 1 and g.stats["host_steps"] == \
+        g.stats["segments"] - 1
+    b = torch.randn(32 ** 3, dtype=torch.float32, device=card)
+    assert torch.equal(pre.apply(b), pre._apply_eager(b))
+
+
+def test_scaled_and_reordered_solves_on_card_match_cpu(card):
+    """scaling and matrix_reorder=RCM at 16³ on an f32 pack (the scaled
+    solves to 1e-4, which f32 reaches unrefined): equal counts, x
+    bit-equal on the card and the CPU."""
+    import scipy.sparse as sp
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.io import poisson7pt
+    from chip_smoke import CFG_CLA
+    A0 = sp.csr_matrix(poisson7pt(16, 16, 16))
+    p = np.random.default_rng(5).permutation(A0.shape[0])
+    loose = CFG_CLA.replace("out:tolerance=1e-8", "out:tolerance=1e-4")
+    for A, cfg in (
+            (A0, loose + ", out:scaling=NBINORMALIZATION"),
+            (A0, loose + ", out:scaling=DIAGONAL_SYMMETRIC"),
+            (sp.csr_matrix(A0[p][:, p]),
+             CFG_CLA + ", out:matrix_reorder=RCM")):
+        out = {}
+        for where in ("cuda", "cpu"):
+            m = amgx.Matrix(A, device=where)
+            m.device_dtype = np.float32
+            s = amgx.create_solver(cfg)
+            s.setup(m)
+            r = s.solve(np.ones(A.shape[0]))
+            assert r.status == amgx.SolveStatus.SUCCESS
+            out[where] = (r.iterations, r.x.cpu())
+        assert out["cuda"][0] == out["cpu"][0], cfg
+        assert torch.equal(out["cuda"][1], out["cpu"][1]), cfg
+
+
+def test_restart_rung_replays_the_graph(card):
+    """values_nan once with recovery_policy=AUTO: restart recovers and
+    the AMG's graph captured by the first attempt is replayed."""
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.io import poisson7pt_device
+    from amgx_tpu_torch.utils import cuda_graph, faultinject
+    from chip_smoke import HEADLINE_CFG
+    faultinject.reset()
+    try:
+        A = poisson7pt_device(24, 24, 24, device_dtype=np.float32,
+                              device="cuda")
+        s = amgx.create_solver(HEADLINE_CFG + ", recovery_policy=AUTO, "
+                               "fault_inject=values_nan:iter:3:count:1")
+        s.setup(A)
+        c0 = cuda_graph.CAPTURES["count"]
+        r = s.solve(np.ones(24 ** 3))
+        assert r.recovery == {"kind": "nan_poison", "action": "restart",
+                              "attempts": 1, "outcome": "recovered"}
+        assert cuda_graph.CAPTURES["count"] - c0 == 1
+    finally:
+        faultinject.reset()

@@ -208,8 +208,10 @@ def test_width_budget_raises():
 
 @pytest.mark.parametrize("vdt,xdt", [
     (torch.float32, torch.float64), (torch.float64, torch.float32),
-    (torch.bfloat16, torch.float32), (torch.float16, torch.float16)])
+    (torch.bfloat16, torch.float64), (torch.float16, torch.float16)])
 def test_unsupported_type_pairs_raise(vdt, xdt):
+    """(bf16, f32) is a supported pair (a level of a bf16 hierarchy);
+    bf16 values with an f64 x are not."""
     with pytest.raises(BadParametersError):
         ell_spmv(torch.zeros((4, 2), dtype=torch.int32),
                  torch.ones((4, 2), dtype=vdt), torch.ones(4, dtype=xdt))

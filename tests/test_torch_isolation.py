@@ -19,7 +19,8 @@ PORT_FILES = sorted((ROOT / "amgx_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_headline_ab.py",
      ROOT / "scripts" / "torch_dfg_depth.py",
      ROOT / "scripts" / "torch_kernel_ab.py",
-     ROOT / "scripts" / "torch_setup_engine.py"]
+     ROOT / "scripts" / "torch_setup_engine.py",
+     ROOT / "scripts" / "torch_boundary_phases.py"]
 
 
 def test_import_leaves_jax_out_of_sys_modules():

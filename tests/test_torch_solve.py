@@ -148,24 +148,139 @@ def test_interop_matrix_solves():
 
 
 @pytest.mark.parametrize("cfg", [
-    CFG + ", out:matrix_reorder=RCM",
     CFG + ", telemetry=1",
-    CFG + ", out:scaling=DIAGONAL_SYMMETRIC",
-    CFG + ", amg:amg_host_levels_rows=100",
     CFG + ", forensics=1",
     CFG + ", memledger=1",
     CFG + ", setup_profile=1",
 ])
 def test_later_slice_features_raise(cfg):
-    """Features of later slices raise instead of silently taking another
-    path (``amg_host_levels_rows`` among them: host-computed coarse
-    levels inside the AMG's CUDA graph are not designed yet).  The
-    classical selectors, ``error_scaling`` and the other AMG setup
-    algorithms are ported (tests/test_torch_classical_algorithms.py)."""
+    """The telemetry knobs (slice 5) raise instead of silently taking
+    another path.  ``matrix_reorder=RCM``, ``scaling`` and
+    ``amg_host_levels_rows`` are ported: their parity cases are
+    :func:`test_solve_boundary_knobs_match_jax`."""
     with pytest.raises(NotImplementedError):
         slv = amgx_tpu_torch.create_solver(cfg)
         slv.setup(poisson7pt_device(8, 8, 8, device_dtype=np.float64,
                                     device="cpu"))
+
+
+@pytest.mark.parametrize("knob", [
+    ", out:matrix_reorder=RCM",
+    ", out:scaling=DIAGONAL_SYMMETRIC",
+    ", amg:amg_host_levels_rows=100",
+])
+def test_solve_boundary_knobs_match_jax(knob):
+    """The knobs that raised before their slice, on the headline stack at
+    8³ (f64) against the JAX package: equal iterations, histories to
+    ``HIST_RTOL``, x to 1e-8 relative (RCM solves in permuted space and
+    un-permutes x; the scaled solve monitors the scaled residual; the
+    host levels compute on the CPU, which here is the device too)."""
+    m_j = amgx_tpu.Matrix(jax_poisson7pt(8, 8, 8))
+    ref = amgx_tpu.create_solver(amgx_tpu.AMGConfig(CFG + knob))
+    ref.setup(m_j)
+    r_ref = ref.solve(np.ones(512))
+    m = amgx_tpu_torch.Matrix(poisson7pt(8, 8, 8), device="cpu")
+    slv = amgx_tpu_torch.create_solver(CFG + knob)
+    slv.setup(m)
+    r = slv.solve(np.ones(512))
+    assert r.status == SolveStatus.SUCCESS
+    assert r.iterations == r_ref.iterations
+    np.testing.assert_allclose(r.residual_history,
+                               np.asarray(r_ref.residual_history),
+                               rtol=HIST_RTOL)
+    xr = np.asarray(r_ref.x, dtype=np.float64)
+    np.testing.assert_allclose(r.x.numpy(), xr, rtol=0,
+                               atol=1e-8 * np.abs(xr).max())
+
+
+def _setup_lines(pkg, make, cfg, capsys):
+    slv = pkg.create_solver(pkg.AMGConfig(cfg))
+    capsys.readouterr()
+    slv.setup(make())
+    return capsys.readouterr().out.splitlines()
+
+
+@pytest.fixture
+def verbosity():
+    """Both packages' output gates back at their default afterwards."""
+    from amgx_tpu.utils import logging as jlog
+    from amgx_tpu_torch.utils import logging as plog
+    yield jlog, plog
+    jlog.set_verbosity(3)
+    plog.set_verbosity(3)
+
+
+def _jax_matrix():
+    return amgx_tpu.Matrix(jax_poisson7pt(8, 8, 8))
+
+
+def _port_matrix():
+    return amgx_tpu_torch.Matrix(poisson7pt(8, 8, 8), device="cpu")
+
+
+def test_print_grid_stats_matches_jax(capsys, verbosity):
+    """``print_grid_stats``: the grid table at verbosity 2, the JAX
+    package's lines."""
+    cfg = CFG + ", amg:print_grid_stats=1"
+    want = _setup_lines(amgx_tpu, _jax_matrix, cfg, capsys)
+    got = _setup_lines(amgx_tpu_torch, _port_matrix, cfg, capsys)
+    assert any("Number of Levels" in ln for ln in got)
+    assert got == want
+    # below verbosity 2 the table is gated off in both packages
+    cfg1 = cfg + ", verbosity_level=1"
+    assert _setup_lines(amgx_tpu_torch, _port_matrix, cfg1, capsys) == \
+        _setup_lines(amgx_tpu, _jax_matrix, cfg1, capsys) == []
+
+
+def test_print_solve_stats_and_timings_match_jax(capsys, verbosity):
+    """``print_solve_stats`` and ``obtain_timings`` print the JAX
+    package's lines (residuals to the printed digits; the seconds
+    masked), through the same gated output."""
+    import re
+    cfg = CFG + ", out:print_solve_stats=1, out:obtain_timings=1"
+
+    def lines(pkg, make):
+        slv = pkg.create_solver(pkg.AMGConfig(cfg))
+        slv.setup(make())
+        capsys.readouterr()
+        slv.solve(np.ones(512))
+        out = capsys.readouterr().out.splitlines()
+        timed = ("Total Time", "setup:", "solve:", "solve(per")
+        return [re.sub(r"\d+\.\d+", "<t>", ln)
+                if ln.strip().startswith(timed) else ln for ln in out]
+
+    want = lines(amgx_tpu, _jax_matrix)
+    got = lines(amgx_tpu_torch, _port_matrix)
+    assert any("Total Iterations" in ln for ln in got)
+    assert any(ln.startswith("Total Time") for ln in got)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        gs, ws = g.split(), w.split()
+        assert len(gs) == len(ws), (g, w)
+        for a, b in zip(gs, ws):
+            try:
+                assert float(a) == pytest.approx(float(b), rel=1e-5), (g, w)
+            except ValueError:
+                assert a == b, (g, w)
+
+
+def test_verbosity_level_gates_the_output(capsys, verbosity):
+    """An explicit ``verbosity_level`` sets the gate as the JAX package
+    does (0 silences even the level-1 solve statistics); the registry
+    default leaves an application's setting alone."""
+    jlog, plog = verbosity
+    cfg = CFG + ", out:print_solve_stats=1, verbosity_level=0"
+    for pkg, make in ((amgx_tpu, _jax_matrix),
+                      (amgx_tpu_torch, _port_matrix)):
+        slv = pkg.create_solver(pkg.AMGConfig(cfg))
+        slv.setup(make())
+        capsys.readouterr()
+        slv.solve(np.ones(512))
+        assert capsys.readouterr().out == ""
+    assert plog.get_verbosity() == jlog.get_verbosity() == 0
+    plog.set_verbosity(2)
+    amgx_tpu_torch.create_solver(CFG)
+    assert plog.get_verbosity() == 2
 
 
 def test_operator_past_dia_budget_raises():
