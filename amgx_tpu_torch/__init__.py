@@ -24,6 +24,7 @@ from . import errors, io
 from .config import AMGConfig
 from .core import DeviceMatrix, Matrix, pack_kind
 from .errors import RC, AMGXError, SolveStatus
+from .modes import MODE_IDS, PUBLIC_MODES, Mode, default_mode, parse_mode
 from .ops import blas
 from .ops.spmv import spmv
 from .solvers import Solver, SolverFactory, SolveResult
@@ -45,5 +46,6 @@ def create_solver(config) -> Solver:
 __all__ = [
     "create_solver", "AMGConfig", "Matrix", "DeviceMatrix", "Solver",
     "SolverFactory", "SolveResult", "RC", "SolveStatus", "AMGXError",
-    "blas", "spmv", "io", "errors", "pack_kind",
+    "blas", "spmv", "io", "errors", "pack_kind", "Mode", "parse_mode",
+    "default_mode", "PUBLIC_MODES", "MODE_IDS",
 ]

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.ordered import wdot
+from ..ops.ordered import div, mul, wdot
 from ..ops.spmv import spmv
 from ..utils.cuda_graph import host_step
 
@@ -33,7 +33,7 @@ from ..utils.cuda_graph import host_step
 def _guarded_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     """num / den, or 0 where den == 0 — without a host sync."""
     safe = torch.where(den == 0, torch.ones_like(den), den)
-    return torch.where(den != 0, num / safe, torch.zeros_like(num))
+    return torch.where(den != 0, div(num, safe), torch.zeros_like(num))
 
 
 def _scaling_lambda(r, e, Ae, mode: int) -> torch.Tensor:
@@ -136,12 +136,12 @@ def build_cycle(hierarchy, cycle_type: str = None):
                 # flexible (Notay) beta
                 beta = _guarded_div(wdot(r, z) - wdot(r_prev, z),
                                     wdot(r_prev, z_prev))
-                p = z + beta * p
+                p = z + mul(beta, p)
             q = spmv(Ad, p)
             alpha = _guarded_div(wdot(r, z), wdot(p, q))
-            x = x + alpha * p
+            x = x + mul(alpha, p)
             r_prev, z_prev = r, z
-            r = r - alpha * q
+            r = r - mul(alpha, q)
         return x
 
     def cycle_fn(b, x):

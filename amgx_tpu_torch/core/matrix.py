@@ -63,6 +63,8 @@ from ..ops import binned_spmv, ell_spmv, shift_spmv
 DIA_MAX_DIAGS = 48
 #: the ELL width budget (``Matrix.device(ell_max_width=2048)`` upstream)
 ELL_MAX_WIDTH = 2048
+#: the largest side of an fmt ``dense`` pack (``_DENSE_MAX`` upstream)
+DENSE_MAX = 3072
 #: widest ELL pack the shift planes are tried on (``k <= 256`` upstream)
 SHIFT_MAX_WIDTH = 256
 
@@ -418,6 +420,13 @@ def _try_shift(arrays, meta) -> None:
     del arrays["cols"], arrays["vals"]
 
 
+def dense_pack_enabled() -> bool:
+    """The JAX package builds fmt ``dense`` packs only on a TPU, or with
+    ``AMGX_DENSE_PACK=1`` (``amgx_tpu/core/matrix.py:1048-1056``); the
+    port reads the same switch."""
+    return os.environ.get("AMGX_DENSE_PACK") == "1"
+
+
 def pack_host_arrays(host, block_dim: int, dtype,
                      ell_max_width: int = ELL_MAX_WIDTH,
                      dia_max_diags: int = DIA_MAX_DIAGS,
@@ -491,13 +500,22 @@ def pack_host_arrays(host, block_dim: int, dtype,
                   "row_ids": for_rows.astype(np.int32)}
         meta.update(fmt="csr", ell_width=0)
     if b == 1:
+        if meta["fmt"] == "ell":
+            _try_shift(arrays, meta)
+        if n_rows <= DENSE_MAX and n_cols <= DENSE_MAX and \
+                "sh_vals" not in arrays and dense_pack_enabled():
+            # a small scattered operator that no structured kernel
+            # carries: one dense matrix, applied as a dense product
+            # (``pack_host_arrays:1186-1215`` upstream)
+            dense = np.zeros((n_rows, n_cols), dtype=dtype)
+            dense[for_rows, indices] = vals
+            return ({"vals": dense, "diag": diag},
+                    dict(meta, fmt="dense", ell_width=0))
         if meta["fmt"] == "csr":
             # the scalar ELL pack is kernel B2's (shift planes) or B3's;
             # only a row past the ELL budget takes the binned planes
             # (kernel B4)
             _try_binned(csr, 1, dtype, arrays, meta, False)
-        else:
-            _try_shift(arrays, meta)
     elif _block_native_on(block_native):
         _try_binned_block(bsr, dtype, arrays, meta)
     else:

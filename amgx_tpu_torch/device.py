@@ -14,6 +14,8 @@ from .errors import BadParametersError, DeviceError
 _NP_TO_TORCH = {
     np.dtype(np.float64): torch.float64,
     np.dtype(np.float32): torch.float32,
+    np.dtype(np.complex128): torch.complex128,
+    np.dtype(np.complex64): torch.complex64,
 }
 _TORCH_TO_NP = {v: k for k, v in _NP_TO_TORCH.items()}
 

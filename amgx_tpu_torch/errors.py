@@ -109,6 +109,11 @@ class BadConfigurationError(AMGXError):
         super().__init__(message, RC.BAD_CONFIGURATION)
 
 
+class BadModeError(AMGXError):
+    def __init__(self, message: str):
+        super().__init__(message, RC.BAD_MODE)
+
+
 class IOError_(AMGXError):
     def __init__(self, message: str):
         super().__init__(message, RC.IO_ERROR)

@@ -40,6 +40,11 @@ def dot(x, y):
 
 
 def nrm2(x):
+    """‖x‖₂ (a c64 vector's squares summed in c128 and rounded once, as
+    every complex inner product of the solvers is)."""
+    if x.dtype == torch.complex64:
+        w = x.to(torch.complex128)
+        return torch.sqrt(dot(w, w).real).float()
     return torch.sqrt(dot(x, x).real)
 
 

@@ -89,14 +89,19 @@ def dia_spmv_reference(vals: torch.Tensor, x: torch.Tensor,
                        offsets: Sequence[int]) -> torch.Tensor:
     """Plain PyTorch version (the analog of the shifted-slices path,
     ``amgx_tpu/ops/spmv.py:135-148``): nd multiply-adds over statically
-    shifted slices of one zero-padded copy of x, in x's dtype."""
+    shifted slices of one zero-padded copy of x, in the promoted dtype
+    of the pair (x's for every real pair the kernel takes; a complex
+    pack's apply, :func:`~.spmv.spmv`, rounds each c64 product part by
+    part, :func:`~.ordered.mul`)."""
+    from .ordered import mul
+    pet = torch.promote_types(vals.dtype, x.dtype)
     n, n_cols = vals.shape[1], x.shape[0]
     lo = max(0, -min(offsets))
     hi = max(0, n + max(offsets) - n_cols)
-    xp = torch.nn.functional.pad(x, (lo, hi))
+    xp = torch.nn.functional.pad(x.to(pet), (lo, hi))
     acc = None
     for k, o in enumerate(offsets):
-        term = vals[k].to(x.dtype) * xp[lo + o:lo + o + n]
+        term = mul(vals[k].to(pet), xp[lo + o:lo + o + n])
         acc = term if acc is None else acc + term
     return acc
 

@@ -8,8 +8,8 @@ Contract: ``y[r] = Σ_k vals[r, k] · x[cols[r, k]]`` for the (n, K)
 row-major pack, ``cols`` int32, rectangular allowed (``len(x)`` is the
 column count), columns outside ``[0, len(x))`` skipped; ``cols=None``
 means dense rows (column k is k, K == ``len(x)``: a dense matrix-vector
-product with no column table, :func:`dense_matvec`); summed in ``x``'s
-dtype in the kernel's order (:func:`lanes`): each of L lanes sums the
+product with no column table, :func:`~.ordered.dense_matvec`); summed in
+``x``'s dtype in the kernel's order (:func:`lanes`): each of L lanes sums the
 entries k = l, l + L, … left to right, then the lanes fold in halves.
 Each product and sum is rounded on its own, so the card and the CPU give
 the same bits.  Type pairs (vals, x): (f32, f32), (f64, f64) and (bf16,
@@ -140,18 +140,22 @@ def ell_spmv_reference(cols: Optional[torch.Tensor], vals: torch.Tensor,
     ``amgx_tpu/ops/spmv.py:191-193``) in the kernel's order: the products
     ``vals · x[cols]`` (out-of-range columns count as zero; ``vals · x``
     for dense rows) summed per lane left to right, then the lanes folded
-    in halves, one elementwise add at a time."""
+    in halves, one elementwise add at a time.  A pair of other dtypes
+    (a complex pack's apply, :func:`~.spmv.spmv`) runs in its promoted
+    dtype, each c64 product rounded part by part
+    (:func:`~.ordered.mul`)."""
+    from .ordered import mul
     n, K = vals.shape
-    if vals.dtype != x.dtype:
-        vals = vals.to(x.dtype)        # a bf16 value widens exactly
+    pet = torch.promote_types(vals.dtype, x.dtype)
+    vals, x = vals.to(pet), x.to(pet)  # a bf16 value widens exactly
     if cols is None:
-        p = vals * x
+        p = mul(vals, x)
     else:
         ok = (cols >= 0) & (cols < x.shape[0])
         if bool(ok.all()):
-            p = vals * x[cols]
+            p = mul(vals, x[cols])
         else:
-            p = torch.where(ok, vals * x[torch.where(ok, cols, 0)], 0)
+            p = torch.where(ok, mul(vals, x[torch.where(ok, cols, 0)]), 0)
     L = lanes(K)
     if K < L:
         acc = torch.nn.functional.pad(p, (0, L - K))
@@ -190,9 +194,3 @@ def ell_spmv(cols: Optional[torch.Tensor], vals: torch.Tensor,
         raise DeviceError(f"ell_spmv kernel launch failed (code {rc})")
     LAUNCHES[f"{_SHORT[vals.dtype]}.{_SHORT[x.dtype]}"] += 1
     return out
-
-
-def dense_matvec(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """y = M·x for a dense (n, len(x)) row-major M, through the same
-    kernel over dense rows (no column table), summed in its lane order."""
-    return ell_spmv(None, M, x)

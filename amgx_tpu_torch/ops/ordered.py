@@ -23,10 +23,18 @@ coarse solve below them) take the forms of this module:
   and the classical pipeline's level 1), in place of the library
   reductions and the card's atomic ``index_add_``;
 * a dense matrix-vector product through kernel B3 over dense rows, which
-  rounds each product and sum on its own in its plain version's order:
+  rounds each product and sum on its own in its plain version's order
+  (a complex one through that plain version, a counted decline):
   :func:`dense_matvec`;
 * the guarded inverse of b×b blocks (block Jacobi's D⁻¹, DILU's E⁻¹) by
-  an elementwise Gauss–Jordan elimination: :func:`guarded_block_inv`.
+  an elementwise Gauss–Jordan elimination: :func:`guarded_block_inv`;
+* c64 products and quotients as real elementwise ops, each rounded on
+  its own (:func:`mul`, :func:`div`): the card's complex kernels fuse a
+  product into the following sum (``a·c − b·d`` as one FMA), the CPU's
+  do not, and a c64 solve's count then follows the device.  A c64 inner
+  product widens to c128 as an f32 one widens to f64.  c128 keeps the
+  library's complex ops (its card = CPU agreement is to a tolerance, as
+  for f64).
 
 The kernels (B1–B5) keep the same rule in their own sources: each is
 bit-equal to its plain version.
@@ -36,16 +44,70 @@ from __future__ import annotations
 import torch
 
 from .blas import dot, gram_dots, gram_dots_with_norm
-from .ell_spmv import dense_matvec
+from .ell_spmv import ell_spmv, ell_spmv_reference
 
 __all__ = ["widen", "wdot", "wnrm2", "wgram_dots", "wgram_dots_with_norm",
            "lincomb", "sum_along", "segment_sum", "dense_matvec",
-           "guarded_block_inv"]
+           "guarded_block_inv", "mul", "div", "recip"]
 
 
 def widen(v):
-    """An f32 (or bf16) vector in f64; any other unchanged."""
-    return v.double() if v.dtype in (torch.float32, torch.bfloat16) else v
+    """An f32 (or bf16) vector in f64, a c64 one in c128; any other
+    unchanged."""
+    if v.dtype in (torch.float32, torch.bfloat16):
+        return v.double()
+    if v.dtype == torch.complex64:
+        return v.to(torch.complex128)
+    return v
+
+
+def _parts(v):
+    return (v.real, v.imag) if v.is_complex() else (v, None)
+
+
+def _c64(a, b) -> bool:
+    return any(torch.is_tensor(v) and v.dtype == torch.complex64
+               for v in (a, b))
+
+
+def mul(a, b):
+    """a·b elementwise (broadcasting).  A c64 product is computed as
+    ``(ar·br − ai·bi) + i(ar·bi + ai·br)`` with each product and sum its
+    own op, so every part rounds alike on the card and the CPU; a real
+    operand scales the other's parts.  Other operands take ``a * b``."""
+    if not _c64(a, b):
+        return a * b
+    if not (torch.is_tensor(a) and a.is_complex()):
+        a, b = b, a
+    ar, ai = _parts(a)
+    if not (torch.is_tensor(b) and b.is_complex()):
+        return torch.complex(ar * b, ai * b)
+    br, bi = _parts(b)
+    return torch.complex(ar * br - ai * bi, ar * bi + ai * br)
+
+
+def div(a, b):
+    """a / b elementwise: a c64 quotient as ``a·conj(b) / |b|²`` in real
+    elementwise ops (:func:`mul`); a real divisor divides each part.
+    Other operands take ``a / b``."""
+    if not _c64(a, b):
+        return a / b
+    b_c = torch.is_tensor(b) and b.is_complex()
+    if not b_c:
+        if torch.is_tensor(a) and a.is_complex():
+            return torch.complex(a.real / b, a.imag / b)
+        return a / b
+    br, bi = b.real, b.imag
+    den = br * br + bi * bi
+    num = mul(a, b.conj().resolve_conj())
+    return torch.complex(num.real / den, num.imag / den)
+
+
+def recip(d):
+    """1/d elementwise (:func:`div` for c64 d)."""
+    if d.dtype == torch.complex64:
+        return div(torch.ones_like(d), d)
+    return 1.0 / d
 
 
 def wdot(x, y):
@@ -74,10 +136,11 @@ def wgram_dots_with_norm(V, w):
 
 def lincomb(V, c):
     """Σ_k c[k]·V[k] over the rows of V, added left to right one
-    elementwise op at a time (``c`` stays on the device)."""
-    acc = c[0] * V[0]
+    elementwise op at a time (``c`` stays on the device; complex
+    products by :func:`mul`)."""
+    acc = mul(c[0], V[0])
     for k in range(1, V.shape[0]):
-        acc = acc + c[k] * V[k]
+        acc = acc + mul(c[k], V[k])
     return acc
 
 
@@ -154,3 +217,17 @@ def guarded_block_inv(E: torch.Tensor) -> torch.Tensor:
                 inv[:, r] = inv[:, r] - f * inv[:, c]
     bad = ~nz | (torch.abs(det) < bd * eps)
     return torch.where(bad[:, None, None], eye, inv / sc)
+
+
+def dense_matvec(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y = M·x for a dense (n, len(x)) row-major M: kernel B3 over dense
+    rows (no column table), summed in its lane order.  B3 takes no
+    complex pair (nor does the JAX package's window kernel): a complex
+    product takes B3's plain version on any device
+    (:func:`~.ell_spmv.ell_spmv_reference`), counted as the decline
+    ``dense/lanes``."""
+    if M.is_complex() or x.is_complex():
+        from .spmv import count_plain
+        count_plain("dense/lanes", x)
+        return ell_spmv_reference(None, M, x)
+    return ell_spmv(None, M, x)

@@ -105,6 +105,13 @@ def shift_pack(cols: np.ndarray, vals: np.ndarray,
         return None
     T = min(tile, -(-n // 128) * 128)
     n_tiles = -(-n // T)
+    # the first tile past max_classes refuses the pack: count its classes
+    # before sorting every entry (a scattered matrix fails there)
+    m0 = min(T, n) * K
+    c0, v0 = cols.reshape(-1)[:m0], vals.reshape(-1)[:m0]
+    d0 = c0.astype(np.int64) - np.repeat(np.arange(min(T, n)), K)
+    if len(np.unique(d0[v0 != 0])) > max_classes:
+        return None
     r = np.repeat(np.arange(n, dtype=np.int64), K)
     c = cols.reshape(-1).astype(np.int64)
     v = vals.reshape(-1)

@@ -26,6 +26,24 @@ package's labels:
   are plain PyTorch on any device, as upstream they are plain XLA.
 
 A ``dia3`` apply is its three DIA applies, each counted.
+
+Complex packs (the ``Z``/``C`` modes) take the plain paths under the JAX
+package's gates, which admit real f32/bf16 only
+(``amgx_tpu/ops/pallas_spmv.py:57-62``, ``pallas_ell.py:127-129``,
+``pallas_shift.py:134-136``; the packer builds no shift or binned planes
+of complex values): a scalar DIA pack takes ``dia/slices``, a scalar ELL
+pack ``ell/gather``, and the dense coarse product ``dense/lanes``
+(:func:`~.ordered.dense_matvec`), on any device, their c64 products
+rounded part by part (:func:`~.ordered.mul`) so that a c64 apply gives
+the card the CPU's bits.  On a CUDA tensor each such apply is a decline
+and is also counted in ``ON_CUDA`` (:func:`declines` reads both).  The
+kernel wrappers themselves keep refusing a complex tensor.
+
+``dense`` counts the applies of an fmt ``dense`` pack (built with
+``AMGX_DENSE_PACK=1``): kernel B3 over dense rows on a CUDA tensor, its
+plain version on a CPU tensor; ``op`` the applies of an implicit
+operator (:mod:`amgx_tpu_torch.operators`), whose base pack's apply is
+counted under its own label.
 """
 from __future__ import annotations
 
@@ -33,24 +51,48 @@ import torch
 
 from .binned_spmv import (binned_abs_rowsum, binned_entries_view,
                           binned_spmv, binned_supported, bn_block_dim)
-from .dia_spmv import dia_spmv
-from .ell_spmv import ell_spmv
+from .dia_spmv import dia_spmv, dia_spmv_reference
+from .ell_spmv import ell_spmv, ell_spmv_reference
 from .shift_spmv import shift_spmv, shift_supported
 
 DISPATCH = {k: 0 for k in (
     "dia/kernel", "dia/slices", "dia/block-kernel", "dia/block-slices",
     "ell/shift", "ell/window", "ell/gather", "ell/binned", "ell/binned-block",
     "csr/binned", "csr/binned-block", "ell/block-gather", "csr/segsum",
-    "csr/segsum-lean", "csr/block-segsum")}
+    "csr/segsum-lean", "csr/block-segsum", "dense", "dense/lanes", "op")}
+#: plain-path labels that are a decline only on a CUDA tensor (complex
+#: packs): their CUDA applies, counted apart from the CPU's
+ON_CUDA = {k: 0 for k in ("dia/slices", "ell/gather", "dense/lanes")}
 #: the labels of the JAX package's declines (plain paths a kernel pack
-#: falls to when its planes are missing)
+#: falls to when its planes are missing, or its dtype gate refuses)
 DECLINES = ("ell/block-gather", "csr/segsum", "csr/segsum-lean",
-            "csr/block-segsum")
+            "csr/block-segsum", "dia/slices", "ell/gather", "dense/lanes")
 
 
 def reset_dispatch() -> None:
     for k in DISPATCH:
         DISPATCH[k] = 0
+    for k in ON_CUDA:
+        ON_CUDA[k] = 0
+
+
+def declines() -> dict:
+    """Applies per decline label since the last reset: the plain labels
+    of ``ON_CUDA`` count their CUDA applies only."""
+    return {k: ON_CUDA[k] if k in ON_CUDA else DISPATCH[k]
+            for k in DECLINES}
+
+
+def count_plain(label: str, x: torch.Tensor) -> None:
+    """Count one apply of a plain-path label (a decline on a CUDA
+    tensor)."""
+    DISPATCH[label] += 1
+    if x.is_cuda:
+        ON_CUDA[label] += 1
+
+
+def _complex(A, x: torch.Tensor) -> bool:
+    return A.dtype.is_complex or x.is_complex()
 
 
 def _acc(dt: torch.dtype) -> torch.dtype:
@@ -73,16 +115,44 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
         # Galerkin composition R·(A·(P·x)) — three DIA streams instead of
         # one low-fill embedded matrix
         return spmv(A.R, spmv(A.A, spmv(A.P, x)))
+    if A.fmt == "op":
+        # an implicit operator (operators.ImplicitOperator, the
+        # reference's Operator::apply); its base pack dispatches as any
+        DISPATCH["op"] += 1
+        return A.apply(x)
     if x.dtype == torch.bfloat16:
         # an all-bf16 apply (a bf16 Krylov pack): the kernels take an f32
         # x, accumulate in f32, and the result rounds once at the end
         return spmv(A, x.float()).to(_out_dtype(A, x))
+    cplx = _complex(A, x)
+    if cplx and A.block_dim > 1:
+        from ..errors import NotImplementedError_
+        raise NotImplementedError_(
+            f"a complex {A.fmt} pack of {A.block_dim}x{A.block_dim} blocks "
+            "is ROADMAP item 7c of the port")
     if A.fmt == "dia":
         if A.block_dim > 1:
             return _bdia_spmv(A, x)
+        if cplx:
+            count_plain("dia/slices", x)
+            return dia_spmv_reference(A.vals, x, A.dia_offsets)
         DISPATCH["dia/kernel" if x.is_cuda else "dia/slices"] += 1
         return dia_spmv(A.vals, x, A.dia_offsets)
+    if A.fmt == "dense":
+        # one dense matrix-vector product (``spmv.py:150-156`` upstream):
+        # B3 over dense rows, in its lane order (ordered.dense_matvec)
+        from .ordered import dense_matvec
+        pet = torch.promote_types(_acc(A.dtype), x.dtype)
+        if not cplx:
+            DISPATCH["dense"] += 1
+        keep = A.vals.dtype == pet or (A.vals.dtype == torch.bfloat16
+                                       and pet == torch.float32)
+        M = A.vals if keep else A.vals.to(pet)
+        return dense_matvec(M, x.to(pet).contiguous()).to(_out_dtype(A, x))
     b = A.block_dim
+    if cplx and A.fmt == "ell" and A.cols is not None:
+        count_plain("ell/gather", x)
+        return ell_spmv_reference(A.cols, A.vals, x)
     if A.fmt == "ell" and shift_supported(A):
         DISPATCH["ell/shift"] += 1
         return shift_spmv(A, x)
@@ -164,6 +234,14 @@ def _bdia_spmv(A, x: torch.Tensor) -> torch.Tensor:
     return torch.stack(cols, dim=1).reshape(-1).to(_out_dtype(A, x))
 
 
+def spmm(A, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for a block of vectors X (n, m), one :func:`spmv` per
+    column (``spmm`` upstream unrolls it so: a kernel launch per
+    column); the eigensolvers' blocked product."""
+    return torch.stack([spmv(A, X[:, j].contiguous())
+                        for j in range(X.shape[1])], dim=1)
+
+
 def residual(A, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """r = b − A·x (reference ``axmb``, fixed_cycle.cu:151)."""
     return b - spmv(A, x)
@@ -180,6 +258,9 @@ def abs_rowsum(A) -> torch.Tensor:
     from .ordered import segment_sum, sum_along
     if A.fmt == "dia3":
         return A.l1row
+    if A.fmt == "dense":
+        v = A.vals.abs()
+        return sum_along(v.float() if v.dtype == torch.bfloat16 else v, 1)
     if A.fmt == "csr" and A.vals is None:
         return binned_abs_rowsum(A)
     v = (A.ell_vals_view() if A.fmt == "ell" else A.vals).abs()

@@ -28,7 +28,6 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-import warnings
 from typing import Dict, Optional, Type
 
 import numpy as np
@@ -153,6 +152,9 @@ class Solver:
     config_name = "?"
     #: True for relaxation methods whose one iteration is one sweep
     is_smoother = False
+    #: True for the solvers held against the JAX package on complex
+    #: operators; the others raise on a complex pack (ROADMAP item 7c)
+    complex_ok = False
 
     def __init__(self, cfg: AMGConfig, scope: str = "default"):
         self.cfg = cfg
@@ -239,6 +241,8 @@ class Solver:
         else:
             self.A = None
             self.Ad = A
+        if self.Ad.dtype.is_complex:
+            self._check_complex()
         self.solver_setup()
         # a bf16 view's wide pack served this setup; drop it
         precision.release_setup_wide(self.A)
@@ -325,6 +329,20 @@ class Solver:
     def solver_setup(self):
         """Override: build device-side data (diag inverse, hierarchy, ...)."""
 
+    def _check_complex(self):
+        """Raise for a complex operator unless this solver (and its
+        configuration) is one the port holds on complex systems."""
+        why = None
+        if not self.complex_ok:
+            why = f"{self.config_name} on a complex operator"
+        else:
+            comm = getattr(self, "forced_comm", None) or self.krylov_comm
+            if comm != "CLASSIC" and not self.is_smoother:
+                why = f"krylov_comm={comm} on a complex operator"
+        if why is not None:
+            raise NotImplementedError_(f"{why} is ROADMAP item 7c of the "
+                                       "port")
+
     # -------------------------------------------------------- the protocol
     def solve_init(self, b: torch.Tensor, x: torch.Tensor):
         """Return the solver-specific iteration state."""
@@ -409,10 +427,11 @@ class Solver:
         if refine or not self.monitor_residual or self.tolerance >= floor:
             return
         if structural:
-            warnings.warn(
-                f"tolerance {self.tolerance:g} is below the {dtype} "
-                f"precision floor (~{floor:.1g}); convergence to it "
-                "cannot be honestly declared")
+            name = str(dtype).replace("torch.", "")
+            amgx_output(
+                f"WARNING: tolerance {self.tolerance:g} is below the "
+                f"{name} precision floor (~{floor:.1g});"
+                " convergence to it cannot be honestly declared.\n")
             return
         raise BadParametersError(
             f"tolerance {self.tolerance:g} is below the {dtype} precision "
@@ -517,13 +536,47 @@ class Solver:
         if status != SolveStatus.SUCCESS \
                 and self.recovery_policy not in ("", "NONE") \
                 and self.monitor_residual \
-                and not getattr(self, "_in_recovery", False):
+                and not getattr(self, "_in_recovery", False) \
+                and not getattr(self, "_suppress_recovery", False):
             # bounded escalation; the ladder re-enters solve() with
             # _in_recovery set, so it never recurses into itself
             from .recovery import maybe_recover
             res = maybe_recover(self, b_caller, x0_caller,
                                 zero_initial_guess, res)
         return res
+
+    def solve_multi(self, B, X0=None, zero_initial_guess: bool = False,
+                    pad_to_bucket: bool = False) -> "list[SolveResult]":
+        """k right-hand sides against one operator (``solve_multi``
+        upstream, ``amgx_tpu/solvers/base.py:1174-1425``): ``B`` is (k, n)
+        or a sequence of k vectors, ``X0`` likewise (or None); returns one
+        :class:`SolveResult` per right-hand side, each with its own count,
+        status and true final residual.
+
+        Every batch runs its lanes in order through :meth:`solve`, the
+        branch the JAX package takes for the f32 → f64 refinement rung
+        (this port's main configuration), so each lane's ``x`` is the
+        bits of a single solve of its right-hand side.  The recovery
+        ladder is off for the batch, as upstream's sequential branch has
+        it.  ``pad_to_bucket`` (the serving micro-batcher's power-of-two
+        padding) adds only zero lanes, which converge at iteration 0 and
+        are never returned: the sequential batch runs none of them."""
+        if self.Ad is None:
+            raise BadConfigurationError("solve_multi() before setup()")
+        if (torch.is_tensor(B) or isinstance(B, np.ndarray)) and B.ndim == 2:
+            B = [B[i] for i in range(B.shape[0])]
+        else:
+            B = list(B)
+        suppress = not getattr(self, "_suppress_recovery", False)
+        if suppress:
+            self._suppress_recovery = True
+        try:
+            return [self.solve(bj, x0=None if X0 is None else X0[j],
+                               zero_initial_guess=zero_initial_guess)
+                    for j, bj in enumerate(B)]
+        finally:
+            if suppress:
+                self._suppress_recovery = False
 
     def _solve_loop(self, b, x0, tolerance, it_limit,
                     final_residual: bool = True, fault=None):
@@ -675,6 +728,8 @@ class Solver:
         if Ad.block_dim == 1 and Ad.fmt == "ell":
             return ell_host_arrays(self.A.host, np.float64)[1]
         host = self.A.host
+        if Ad.fmt == "dense":
+            return host.toarray().astype(np.float64)
         if Ad.fmt == "csr":
             return np.asarray(host.data, dtype=np.float64)
         for_rows, pos, k = ell_layout(host.indptr, host.indices)

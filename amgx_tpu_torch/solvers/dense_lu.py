@@ -28,12 +28,15 @@ from .base import Solver, register_solver
 
 
 def densify(Ad) -> np.ndarray:
-    """Dense host copy of a (small) DIA or ELL pack (a shift pack through
-    its ELL views; bf16 values widened to f32, which numpy has)."""
+    """Dense host copy of a (small) DIA, ELL or dense pack (a shift pack
+    through its ELL views; bf16 values widened to f32, which numpy
+    has)."""
     vals = (Ad.ell_vals_view() if Ad.fmt == "ell" else Ad.vals).detach()
     if vals.dtype == torch.bfloat16:
         vals = vals.float()
     vals = vals.cpu().numpy()
+    if Ad.fmt == "dense":
+        return vals
     n, m = Ad.n_rows, Ad.n_cols
     out = np.zeros((n, m), dtype=vals.dtype)
     if Ad.fmt == "ell":
@@ -50,13 +53,19 @@ def densify(Ad) -> np.ndarray:
 @register_solver("DENSE_LU_SOLVER")
 class DenseLUSolver(Solver):
     is_smoother = False
+    complex_ok = True
 
     def solver_setup(self):
         if self.Ad.block_dim > 1 and self.A is not None:
             # a b×b block coarsest level (block aggregation): its BSR
-            dense = self.A.host.toarray().astype(np.float64)
+            dense = self.A.host.toarray()
         else:
-            dense = densify(self.Ad).astype(np.float64)
+            dense = densify(self.Ad)
+        # f64, or c128 for a complex level (torch.linalg.lu_factor is not
+        # capturable in a CUDA graph: the factors come from the host, and
+        # an application is one dense product either way)
+        dense = dense.astype(np.complex128 if np.iscomplexobj(dense)
+                             else np.float64)
         n = dense.shape[0]
         inv = scipy.linalg.lu_solve(scipy.linalg.lu_factor(dense),
                                     np.eye(n))
@@ -89,6 +98,8 @@ class DenseLUSolver(Solver):
 class DummySolver(Solver):
     """The identity (reference ``dummy_solver.cu``): as a preconditioner
     M = I, so an application returns the right-hand side."""
+
+    complex_ok = True
 
     is_smoother = True
 

@@ -12,15 +12,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.ordered import guarded_block_inv
+from ..ops.ordered import guarded_block_inv, mul, recip
 from ..ops.spmv import abs_rowsum, spmv
 from .base import Solver, register_solver
 
 
 def invert_diag(d: torch.Tensor) -> torch.Tensor:
-    """1/d where d != 0, else 0 — on the device, in d's dtype."""
+    """1/d where d != 0, else 0 — on the device, in d's dtype (a complex
+    d by :func:`~..ops.ordered.recip`)."""
     safe = torch.where(d == 0, torch.ones_like(d), d)
-    return torch.where(d != 0, 1.0 / safe, torch.zeros_like(d))
+    return torch.where(d != 0, recip(safe), torch.zeros_like(d))
 
 
 def apply_dinv(dinv: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -30,7 +31,7 @@ def apply_dinv(dinv: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     matrix product orders and fuses them its own way on each device, and
     the card's f32 results then differ from the CPU's."""
     if dinv.dim() == 1:
-        return dinv * v
+        return mul(dinv, v)
     b = dinv.shape[-1]
     p = dinv * v.reshape(-1, 1, b)
     out = p[..., 0]
@@ -74,6 +75,8 @@ def setup_dinv(slv) -> torch.Tensor:
 class BlockJacobiSolver(Solver):
     """Damped (block) Jacobi: x ← x + ω·D⁻¹·(b − A·x), D⁻¹ applied by
     :func:`apply_dinv` (scalar or b×b blocks)."""
+
+    complex_ok = True
 
     is_smoother = True
 

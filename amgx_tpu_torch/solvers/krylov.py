@@ -56,6 +56,11 @@ from ..ops.spmv import spmv
 from .base import Solver, SolverFactory, register_solver
 
 
+#: products and quotients that may be complex, rounded part by part on
+#: every device (:func:`~..ops.ordered.mul`, :func:`~..ops.ordered.div`)
+_mul, _div = ordered.mul, ordered.div
+
+
 class _PrecondMixin:
     """Allocates the nested preconditioner from the config scope."""
 
@@ -81,8 +86,11 @@ class _PrecondMixin:
 
 
 def _guarded_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
-    """num / den, or 0 where den == 0 — without a host sync."""
-    return torch.where(den != 0, num / torch.where(den == 0, 1.0, den), 0.0)
+    """num / den, or 0 where den == 0 — without a host sync (a complex
+    quotient by :func:`~..ops.ordered.div`)."""
+    return torch.where(den != 0,
+                       ordered.div(num, torch.where(den == 0, 1.0, den)),
+                       0.0)
 
 
 def _cg_breakdown(brk: torch.Tensor, rz: torch.Tensor,
@@ -153,6 +161,8 @@ class CGSolver(Solver):
     """Plain conjugate gradient (reference ``cg_solver.cu``) in the
     reduction layout of ``krylov_comm`` (or ``forced_comm``)."""
 
+    complex_ok = True
+
     use_preconditioner = False
     forced_comm: Optional[str] = None
 
@@ -215,12 +225,12 @@ class CGSolver(Solver):
         # the breakdown guards: an incoming ρ collapse, the new pAp's sign
         brk = _cg_breakdown(st.brk, st.rz, pq)
         alpha = _guarded_div(st.rz, pq)
-        x = x + alpha * st.p
-        r = st.r - alpha * q
+        x = x + _mul(alpha, st.p)
+        r = st.r - _mul(alpha, q)
         z = self._M(r)
         rz_new = ordered.wdot(r, z)
         beta = _guarded_div(rz_new, st.rz)
-        return x, _CGState(r=r, p=z + beta * st.p, rz=rz_new, brk=brk)
+        return x, _CGState(r=r, p=z + _mul(beta, st.p), rz=rz_new, brk=brk)
 
     def _replace_now(self, iter_idx: int) -> bool:
         rep = self.ca_residual_replace
@@ -297,7 +307,7 @@ class CGSolver(Solver):
             # the stacked reduction carried the norm's accumulators
             return blas.finish_norm(st.rr, self.norm_type, st.r.shape[0],
                                     self.Ad.block_dim, self.use_scalar_norm)
-        return self.norm(ordered.widen(st.r)).to(st.r.dtype)
+        return self.norm(ordered.widen(st.r)).to(st.r.real.dtype)
 
 
 @dataclasses.dataclass
@@ -315,6 +325,7 @@ class _GMRESState:
 
 
 class _GMRESBase(Solver):
+    complex_ok = True
     #: keep the preconditioned basis Z (FGMRES), else rebuild x from V
     flexible = False
 
@@ -413,23 +424,30 @@ class _GMRESBase(Solver):
         hcol = np.zeros(m + 1, st.g.dtype)
         hcol[:j + 2] = got[:j + 2]
 
-        # previous Givens rotations, then the new one zeroing h[j+1]
+        # previous Givens rotations, then the new one zeroing h[j+1]; a
+        # complex column takes the unitary form G = [[c̄, s̄], [−s, c]]
+        # with c = a/r, s = b/r, r = √(|a|² + |b|²) (``krylov.py:612-640``
+        # upstream)
+        cj = np.conj if np.iscomplexobj(hcol) else (lambda v: v)
         for i in range(j):
             ci, si = st.cs[i], st.sn[i]
             hi, hi1 = hcol[i], hcol[i + 1]
-            hcol[i] = ci * hi + si * hi1
+            hcol[i] = cj(ci) * hi + cj(si) * hi1
             hcol[i + 1] = -si * hi + ci * hi1
         hj, hj1 = hcol[j], hcol[j + 1]
-        denom = np.sqrt(hj * hj + hj1 * hj1)
+        if np.iscomplexobj(hcol):
+            denom = np.sqrt(np.abs(hj) ** 2 + np.abs(hj1) ** 2)
+        else:
+            denom = np.sqrt(hj * hj + hj1 * hj1)
         if denom == 0:
             c, s = hj.dtype.type(1), hj.dtype.type(0)
         else:
             c, s = hj / denom, hj1 / denom
-        hcol[j] = c * hj + s * hj1
+        hcol[j] = cj(c) * hj + cj(s) * hj1
         hcol[j + 1] = 0
         st.cs[j], st.sn[j] = c, s
         gj = st.g[j]
-        st.g[j] = c * gj
+        st.g[j] = cj(c) * gj
         st.g[j + 1] = -s * gj
         st.R[:, j] = hcol
         st.quasi_res = np.abs(st.g[j + 1:j + 2])
@@ -456,9 +474,10 @@ class _GMRESBase(Solver):
 
 
 def _normalized(v: torch.Tensor, nrm: torch.Tensor) -> torch.Tensor:
-    """v / nrm, or zeros when nrm == 0 — without a host sync."""
+    """v / nrm, or zeros when nrm == 0 — without a host sync (a complex
+    v's parts each divided by the real norm)."""
     safe = torch.where(nrm == 0, torch.ones_like(nrm), nrm)
-    return torch.where(nrm > 0, v / safe, torch.zeros_like(v))
+    return torch.where(nrm > 0, _div(v, safe), torch.zeros_like(v))
 
 
 @register_solver("PCG")
@@ -517,12 +536,12 @@ class PCGFSolver(_PrecondMixin, Solver):
         pq = _wdot(st.p, q)
         brk = _cg_breakdown(st.brk, st.rz, pq)
         alpha = _guarded_div(st.rz, pq)
-        x = x + alpha * st.p
-        r_new = st.r - alpha * q
+        x = x + _mul(alpha, st.p)
+        r_new = st.r - _mul(alpha, q)
         z_new = self._apply_M(r_new)
         rz_new = _wdot(r_new, z_new)
         beta = _guarded_div(rz_new - _wdot(st.r, z_new), st.rz)
-        return x, _PCGFState(r=r_new, z=z_new, p=z_new + beta * st.p,
+        return x, _PCGFState(r=r_new, z=z_new, p=z_new + _mul(beta, st.p),
                              rz=rz_new, brk=brk)
 
     def residual_norm_estimate(self, b, x, st: _PCGFState):
@@ -568,6 +587,8 @@ _wdot = ordered.wdot
 class _BiCGStabBase(Solver):
     """BiCGStab skeleton; ``_M`` hooks (right) preconditioning."""
 
+    complex_ok = True
+
     def _M(self, r):
         return r
 
@@ -586,25 +607,26 @@ class _BiCGStabBase(Solver):
         brk = torch.where((st.brk == 0) & (rho_new == 0),
                           torch.full_like(st.brk, BREAKDOWN_KRYLOV),
                           st.brk)
-        beta = (rho_new / _safe(st.rho)) * (st.alpha / _safe(st.omega))
-        p = st.r + beta * (st.p - st.omega * st.v)
+        beta = _mul(_div(rho_new, _safe(st.rho)),
+                    _div(st.alpha, _safe(st.omega)))
+        p = st.r + _mul(beta, st.p - _mul(st.omega, st.v))
         p_hat = self._M(p)
         v = spmv(self.Ad, p_hat)
-        alpha = rho_new / _safe(_wdot(st.r_star, v))
-        s = st.r - alpha * v
+        alpha = _div(rho_new, _safe(_wdot(st.r_star, v)))
+        s = st.r - _mul(alpha, v)
         s_hat = self._M(s)
         t = spmv(self.Ad, s_hat)
         tt = _wdot(t, t)
-        omega = torch.where(tt != 0, _wdot(t, s) / _safe(tt),
+        omega = torch.where(tt != 0, _div(_wdot(t, s), _safe(tt)),
                             torch.zeros_like(tt))
-        x = x + alpha * p_hat + omega * s_hat
-        r = s - omega * t
+        x = x + _mul(alpha, p_hat) + _mul(omega, s_hat)
+        r = s - _mul(omega, t)
         return x, _BiCGStabState(r=r, r_star=st.r_star, p=p, v=v,
                                  rho=rho_new, alpha=alpha, omega=omega,
                                  brk=brk)
 
     def residual_norm_estimate(self, b, x, st: _BiCGStabState):
-        return self.norm(ordered.widen(st.r)).to(st.r.dtype)
+        return self.norm(ordered.widen(st.r)).to(st.r.real.dtype)
 
 
 @register_solver("BICGSTAB")

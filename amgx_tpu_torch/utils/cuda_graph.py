@@ -130,9 +130,9 @@ def counters() -> List[Dict[str, int]]:
     themselves (their identity is what the wrappers update)."""
     from .. import device
     from ..ops import binned_spmv, dia_spmv, ell_spmv, shift_spmv, spmv
-    return [spmv.DISPATCH, dia_spmv.LAUNCHES, ell_spmv.LAUNCHES,
-            shift_spmv.LAUNCHES, *binned_spmv.LAUNCHES.values(),
-            device.HOST_SYNCS]
+    return [spmv.DISPATCH, spmv.ON_CUDA, dia_spmv.LAUNCHES,
+            ell_spmv.LAUNCHES, shift_spmv.LAUNCHES,
+            *binned_spmv.LAUNCHES.values(), device.HOST_SYNCS]
 
 
 def snapshot() -> List[Dict[str, int]]:

@@ -183,8 +183,9 @@ exits non-zero (no phase is caught):
     raises;
 30. block aggregation: the gauntlet's SPD stack (``BLOCK_CFG``: PCG +
     SIZE_2 aggregation on 3×3 blocks + BLOCK_JACOBI 2+2 + DENSE_LU) on
-    ``elasticity3(BLOCK_SIDE)`` (96: 884,736 block rows, 2,654,208
-    unknowns; f32 pack, f64 refinement): setup with the device setup
+    ``elasticity3(BLOCK_SIDE)`` (80: 512,000 block rows, 1,536,000
+    unknowns, cut from 96 for time; f32 pack, f64 refinement): setup
+    with the device setup
     engine (the setup without it is ``scripts/torch_setup_engine.py
     --phases 30``'s, moved out for time), the engine's plans, hits and
     declines (only
@@ -399,7 +400,7 @@ BLOCK_CFG = (
     "amg:max_levels=10, amg:smoother(sm)=BLOCK_JACOBI, sm:max_iters=1, "
     "amg:presweeps=2, amg:postsweeps=2, amg:min_coarse_rows=24, "
     "amg:coarse_solver=DENSE_LU_SOLVER")
-BLOCK_SIDE, BLOCK_SMALL_SIDE = 96, 12
+BLOCK_SIDE, BLOCK_SMALL_SIDE = 80, 12
 #: phase 31: the classical 128³ stack with aggressive coarsening on its
 #: first level (AGGRESSIVE_PMIS + MULTIPASS there, PMIS + D2 below)
 CLA_AGGR_CFG = CFG_CLA + ", amg:aggressive_levels=1"
@@ -454,7 +455,8 @@ def emit(phase: str, **fields) -> None:
 def short(dt) -> str:
     import torch
     return {torch.float32: "f32", torch.float64: "f64",
-            torch.bfloat16: "bf16"}[dt]
+            torch.bfloat16: "bf16", torch.complex64: "c64",
+            torch.complex128: "c128"}[dt]
 
 
 def row_errors(y, ref, scale):
@@ -716,24 +718,29 @@ def read_counts() -> dict:
     from amgx_tpu_torch.ops import shift_spmv as shmod
     from amgx_tpu_torch.ops import spmv as smod
     return dict(dispatch={k: v for k, v in smod.DISPATCH.items() if v},
-                declines={k: smod.DISPATCH[k] for k in smod.DECLINES},
+                declines=smod.declines(),
                 B1=dict(dmod.LAUNCHES), B2=dict(shmod.LAUNCHES),
                 B3=dict(emod.LAUNCHES), B4=dict(bmod.LAUNCHES["B4"]),
                 B5=dict(bmod.LAUNCHES["B5"]))
 
 
-def graph_check(pre, dev, gen, eager=True) -> dict:
+def graph_check(pre, dev, gen, eager=True, declines=False) -> dict:
     """The AMG preconditioner's CUDA graph after a solve: its capture
     (warm-up, capture and instantiation seconds, nodes, pool bytes), the
     launches and dispatches one replay credits and the time of a replay;
     with ``eager``, the time of an eager application, whose counts must
     equal the replay's and whose result must equal the replay's bit for
-    bit on the same vector."""
+    bit on the same vector.  A replay credits no decline unless
+    ``declines`` (a complex hierarchy's plain SpMVs)."""
     import torch
     assert len(pre.graphs) == 1, list(pre.graphs)
     (key, g), = pre.graphs.items()
     r = torch.randn(key[0], dtype=torch.float64, device=dev,
-                    generator=gen).to(key[1])
+                    generator=gen)
+    if key[1].is_complex:
+        r = torch.complex(r, torch.randn(key[0], dtype=torch.float64,
+                                         device=dev, generator=gen))
+    r = r.to(key[1])
     torch.cuda.synchronize(dev)
     reset_counts()
     t0 = time.perf_counter()
@@ -741,7 +748,8 @@ def graph_check(pre, dev, gen, eager=True) -> dict:
     torch.cuda.synchronize(dev)
     replay_s = time.perf_counter() - t0
     replay_counts = read_counts()
-    assert not any(replay_counts["declines"].values()), replay_counts
+    assert declines or not any(replay_counts["declines"].values()), \
+        replay_counts
     assert len(pre.graphs) == 1
     facts = dict(key=[key[0], short(key[1]), key[2], key[3]], **g.stats,
                  replay_s=replay_s, credited_per_replay=replay_counts)
@@ -3092,6 +3100,572 @@ def host_levels_phase(amgx, dev, smi, gen) -> dict:
             card["counts"]}
 
 
+#: the shifted Helmholtz operator L − k²I + iεI of
+#: tests/test_complex.py:40-47 (k² = 0.4, ε = 0.35)
+HELM_SHIFT = -0.4 + 0.35j
+#: the headline stack with the iteration budget of a complex solve
+COMPLEX_CFG = HEADLINE_CFG.replace("out:max_iters=100", "out:max_iters=400")
+#: profiled iterations of the 128³ complex solve's busy share
+COMPLEX_WINDOW = 10
+#: the side of the full-width grids of phases 36-38 (the headline's)
+ITEM7B_SIDE = 128
+
+
+def helmholtz(side: int, dtype=np.complex128):
+    """The shifted Helmholtz operator on a side³ grid, host CSR."""
+    import scipy.sparse as sp
+    from amgx_tpu_torch.io import poisson7pt
+    L = poisson7pt(side, side, side).astype(np.complex128)
+    A = sp.csr_matrix(L + HELM_SHIFT * sp.identity(L.shape[0]))
+    return A.astype(dtype)
+
+
+def complex_rhs(n: int, dtype) -> np.ndarray:
+    rng = np.random.default_rng(SEED)
+    return (rng.standard_normal(n) + 1j * rng.standard_normal(n)) \
+        .astype(dtype)
+
+
+def mode_solve(amgx, mode_name, A_host, cfg):
+    """One solve in a mode: the matrix placed and packed by the mode."""
+    mode = amgx.parse_mode(mode_name)
+    m = amgx.Matrix(A_host.astype(mode.mat_dtype),
+                    device=mode.placement_device())
+    m.device_dtype = mode.effective_mat_dtype()
+    slv = amgx.create_solver(cfg)
+    slv.setup(m)
+    b = complex_rhs(A_host.shape[0], mode.vec_dtype) if mode.is_complex \
+        else np.ones(A_host.shape[0], dtype=mode.vec_dtype)
+    res = slv.solve(b)
+    x = res.x.cpu().numpy()
+    relres = float(np.linalg.norm(b - A_host @ x) / np.linalg.norm(b))
+    return res, x, relres
+
+
+def modes_complex_phase(amgx, dev, smi, gen) -> dict:
+    """Phase 36: the 12 modes (parse, placement, pack dtype); dZZI at full
+    width — the headline stack on the 128³ shifted Helmholtz in c128,
+    uploaded from the host matrix, its levels built on the card, every
+    SpMV a counted decline to the plain slices (``dia/slices``: the JAX
+    package's DIA kernel takes real f32/bf16 only), counts set to 0 just
+    before the solve and read just after; the reported relres against
+    the true one in f64 on the host; the graph of the complex AMG
+    application; the busy share of the first ``COMPLEX_WINDOW``
+    iterations.  Then at 24³, card against CPU: dZZI (equal counts, x
+    to 1e-9), dCCI at 1e-5 (x bit-equal) and hDDI on the CPU by its
+    mode.  Returns the launches (none: the complex path runs no
+    kernel)."""
+    import torch
+    from amgx_tpu_torch.io import poisson7pt
+    t_phase = time.perf_counter()
+    table = {}
+    for name in amgx.PUBLIC_MODES:
+        m = amgx.parse_mode(name)
+        place = m.placement_device()
+        assert place.type == ("cpu" if name[0] == "h" else "cuda"), name
+        assert amgx.parse_mode(amgx.MODE_IDS[name]) == m
+        assert m.is_complex == (name[1] in "ZC")
+        table[name] = dict(id=amgx.MODE_IDS[name], device=str(place),
+                           vec=m.vec_dtype.name,
+                           pack=m.effective_mat_dtype().name)
+    emit("modes", modes=table)
+
+    mode = amgx.parse_mode("dZZI")
+    side = ITEM7B_SIDE
+    n = side ** 3
+    t0 = time.perf_counter()
+    A = helmholtz(side)
+    host_s = time.perf_counter() - t0
+    m = amgx.Matrix(A, device=mode.placement_device())
+    m.device_dtype = mode.effective_mat_dtype()
+    slv = amgx.create_solver(COMPLEX_CFG)
+    slv.setup(m)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    h = slv.preconditioner.hierarchy
+    levels = [[lv.kind, lv.Ad.fmt, lv.Ad.n_rows, short(lv.Ad.dtype),
+               lv.Ad.device.type] for lv in h.levels]
+    assert all(f == "dia" and d == "cuda" for _, f, _, _, d in levels), \
+        levels
+    bh = complex_rhs(n, np.complex128)
+    b = torch.from_numpy(bh).to(dev)
+    reset_counts()
+    res = slv.solve(b)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    x = res.x
+    assert x.dtype == torch.complex128 and x.shape == (n,) and x.is_cuda
+    assert torch.isfinite(torch.view_as_real(x)).all().item()
+    relres = float(np.linalg.norm(bh - A @ x.cpu().numpy())
+                   / np.linalg.norm(bh))
+    reported = float(res.residual_norm[0] / np.linalg.norm(bh))
+    assert abs(reported - relres) <= 1e-6 * relres, (reported, relres)
+    d = counts["dispatch"]
+    assert d.get("dia/slices", 0) > 0 and "dia/kernel" not in d, d
+    assert set(d) <= {"dia/slices", "dense/lanes"}, d
+    assert counts["declines"]["dia/slices"] == d["dia/slices"], counts
+    assert counts["declines"]["dense/lanes"] == d.get("dense/lanes", 0)
+    assert not any(v for k in ("B1", "B2", "B3", "B4", "B5")
+                   for v in counts[k].values()), counts
+    graph = graph_check(slv.preconditioner, dev, gen, declines=True)
+    slv.max_iters = COMPLEX_WINDOW
+    window_s = slv.solve(b).solve_time
+    wall, dev_s, kern, top = profile_window(lambda: slv.solve(b))
+    emit("complex_dZZI_128", n=n, mode="dZZI", pack="complex128",
+         pack_mb=h.levels[0].Ad.vals.numel() * 16 / 1e6, levels=levels,
+         coarsest_rows=h.coarsest.n_block_rows,
+         iterations=res.iterations, status=int(res.status),
+         relres_f64=relres, relres_reported=reported,
+         host_matrix_s=host_s, setup_s=setup_s, solve_s=res.solve_time,
+         counts=counts, amg_graph=graph,
+         profiled_iterations=COMPLEX_WINDOW, window_solve_s=window_s,
+         device_busy_s=dev_s, device_kernels=kern,
+         busy_share_of_unprofiled=dev_s / window_s, top=top[:4],
+         card=smi, elapsed_phase_s=time.perf_counter() - t_phase)
+    del slv, res, x, b, m, h
+    torch.cuda.empty_cache()
+
+    # card against CPU at 24³, each mode and its host twin
+    A24 = helmholtz(24)
+    runs = {}
+    for name, cfg in (("dZZI", COMPLEX_CFG), ("hZZI", COMPLEX_CFG),
+                      ("dCCI", COMPLEX_CFG.replace(
+                          "out:tolerance=1e-8", "out:tolerance=1e-5")),
+                      ("hCCI", COMPLEX_CFG.replace(
+                          "out:tolerance=1e-8", "out:tolerance=1e-5")),
+                      ("hDDI", HEADLINE_CFG)):
+        Am = A24 if name[1] in "ZC" else poisson7pt(24, 24, 24)
+        t0 = time.perf_counter()
+        res, x, rr = mode_solve(amgx, name, Am, cfg)
+        assert res.status == amgx.SolveStatus.SUCCESS, (name, res.status)
+        assert res.x.device.type == ("cpu" if name[0] == "h" else "cuda")
+        runs[name] = dict(iterations=res.iterations, relres_f64=rr, x=x,
+                          dtype=str(res.x.dtype),
+                          seconds=time.perf_counter() - t0)
+    zz = float(np.linalg.norm(runs["dZZI"]["x"] - runs["hZZI"]["x"])
+               / np.linalg.norm(runs["hZZI"]["x"]))
+    assert runs["dZZI"]["iterations"] == runs["hZZI"]["iterations"], runs
+    assert zz <= 1e-9, zz
+    cc_equal = bool(np.array_equal(runs["dCCI"]["x"], runs["hCCI"]["x"]))
+    assert runs["dCCI"]["iterations"] == runs["hCCI"]["iterations"]
+    assert cc_equal, "dCCI: card x differs from CPU x"
+    assert runs["hDDI"]["dtype"] == "torch.float64"
+    for r in runs.values():
+        del r["x"]
+    emit("complex_card_vs_cpu", n=24 ** 3, runs=runs,
+         zzi_x_rel_diff=zz, cci_x_bit_equal=cc_equal, card=smi,
+         elapsed_phase_s=time.perf_counter() - t_phase)
+    return {"complex_dZZI_128": counts}
+
+
+#: the shift of phase 37's operator (tests/test_solvers.py:262-290)
+SHIFT_SIGMA = -0.7
+SHIFT_PCG_CFG = (
+    "config_version=2, solver(out)=PCG, out:max_iters=400, "
+    "out:monitor_residual=1, out:tolerance=1e-10, "
+    "out:convergence=RELATIVE_INI")
+#: phase 37's batch sizes
+MULTI_K, MULTI_PAD_K = 8, 5
+
+
+def operators_multi_phase(amgx, dev, smi, gen) -> dict:
+    """Phase 37 on the headline 128³ Poisson: PCG on
+    ``ShiftedOperator(A, −0.7)`` to 1e-10 over an f64 pack (B1 f64 under
+    the ``op`` dispatch), its relres through the shifted pack; the
+    ``DeflatedOperator`` apply against its formula; ``solve_multi`` of
+    ``MULTI_K`` seed-made right-hand sides on the f32 headline stack,
+    each lane's x bit-equal to its own ``solve``, then ``MULTI_PAD_K``
+    with ``pad_to_bucket``.  Counts set to 0 just before each solve and
+    read just after.  Returns the launches."""
+    import torch
+    from amgx_tpu_torch import operators
+    from amgx_tpu_torch.io import poisson7pt_device
+    from amgx_tpu_torch.ops.spmv import spmv
+    t_phase = time.perf_counter()
+    side = ITEM7B_SIDE
+    n = side ** 3
+    A64 = poisson7pt_device(side, side, side, device_dtype=np.float64,
+                            device="cuda")
+    op = operators.ShiftedOperator(A64, SHIFT_SIGMA)
+    slv = amgx.create_solver(SHIFT_PCG_CFG)
+    t0 = time.perf_counter()
+    slv.setup(op)
+    setup_s = time.perf_counter() - t0
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    reset_counts()
+    res = slv.solve(b)
+    torch.cuda.synchronize(dev)
+    shift_counts = read_counts()
+    res2 = slv.solve(b)
+    assert res.status == amgx.SolveStatus.SUCCESS, res.status
+    assert res2.iterations == res.iterations
+    d = shift_counts["dispatch"]
+    assert d["op"] > 0 and d["op"] == d["dia/kernel"], d
+    assert shift_counts["B1"]["f64.f64"] == d["dia/kernel"], shift_counts
+    Ad = A64.device()
+    r = b - (spmv(Ad, res.x) - SHIFT_SIGMA * res.x)
+    relres = (torch.linalg.vector_norm(r)
+              / torch.linalg.vector_norm(b)).item()
+    assert relres <= 1e-9, relres
+    # the deflated apply against its formula
+    V = torch.linalg.qr(torch.randn((n, 2), dtype=torch.float64,
+                                    device=dev, generator=gen))[0]
+    lam = torch.tensor([3.0, 0.5], dtype=torch.float64, device=dev)
+    dop = operators.DeflatedOperator(A64, V, lam)
+    v = torch.randn(n, dtype=torch.float64, device=dev, generator=gen)
+    want = spmv(Ad, v) - V @ (lam * (V.T @ v))
+    defl_err = (spmv(dop, v) - want).abs().max().item() \
+        / want.abs().max().item()
+    assert defl_err <= 1e-14, defl_err
+    emit("shifted_operator_128", n=n, sigma=SHIFT_SIGMA,
+         iterations=res.iterations, relres_f64=relres, setup_s=setup_s,
+         solve_s=res.solve_time, solve_warm_s=res2.solve_time,
+         counts=shift_counts, deflated_rel_err=defl_err, card=smi)
+    del slv, res, res2, op, dop, V, A64, Ad
+    torch.cuda.empty_cache()
+
+    A = poisson7pt_device(side, side, side, device_dtype=np.float32,
+                          device="cuda")
+    slv = amgx.create_solver(HEADLINE_CFG)
+    slv.setup(A)
+    B = torch.randn((MULTI_K, n), dtype=torch.float64, device=dev,
+                    generator=gen)
+    slv.solve(B[0])                     # the graph's capture
+    reset_counts()
+    t0 = time.perf_counter()
+    out = slv.solve_multi(B)
+    torch.cuda.synchronize(dev)
+    multi_s = time.perf_counter() - t0
+    multi_counts = read_counts()
+    assert len(out) == MULTI_K
+    lanes = []
+    for j, rj in enumerate(out):
+        single = slv.solve(B[j])
+        assert rj.status == amgx.SolveStatus.SUCCESS, (j, rj.status)
+        assert rj.iterations == single.iterations, j
+        assert torch.equal(rj.x, single.x), f"lane {j} differs from solve"
+        lanes.append(rj.iterations)
+    padded = slv.solve_multi(B[:MULTI_PAD_K], pad_to_bucket=True)
+    assert len(padded) == MULTI_PAD_K
+    assert all(torch.equal(p.x, o.x) for p, o in zip(padded, out))
+    emit("solve_multi_128", n=n, k=MULTI_K, iterations=lanes,
+         lanes_bit_equal_to_solve=True, warm_s_per_rhs=multi_s / MULTI_K,
+         pad_to_bucket_k=MULTI_PAD_K, pad_results=len(padded),
+         counts=multi_counts, card=smi,
+         elapsed_phase_s=time.perf_counter() - t_phase)
+    del slv, out, padded, A, B
+    torch.cuda.empty_cache()
+    return {"shifted_operator_128": shift_counts,
+            "solve_multi_128": multi_counts}
+
+
+def dirichlet_eigs(dims) -> np.ndarray:
+    """Every eigenvalue of the 7-point Dirichlet Laplacian on an
+    nx × ny × nz grid, ascending: Σ_d (2 − 2cos(π k_d/(n_d + 1)))."""
+    parts = [2 - 2 * np.cos(np.pi * np.arange(1, d + 1) / (d + 1))
+             for d in dims]
+    return np.sort((parts[0][:, None, None] + parts[1][None, :, None]
+                    + parts[2][None, None, :]).ravel())
+
+
+#: LOBPCG at 128³, preconditioned by the headline's aggregation AMG
+LOBPCG_CFG = (
+    "config_version=2, eig_solver(e)=LOBPCG, e:eig_max_iters=200, "
+    "e:eig_tolerance=1e-7, e:eig_which=smallest, e:eig_wanted_count=4, "
+    "e:preconditioner(amg)=AMG, amg:algorithm=AGGREGATION, "
+    "amg:selector=GEO, amg:max_iters=1, amg:max_levels=20, "
+    "amg:cycle=CG, amg:cycle_iters=2, amg:smoother(sm)=BLOCK_JACOBI, "
+    "sm:max_iters=1, amg:presweeps=2, amg:postsweeps=2, "
+    "amg:min_coarse_rows=32, amg:coarse_solver=DENSE_LU_SOLVER")
+#: the link graph of PAGERANK: pages, out-degrees, dangling share
+PR_PAGES, PR_MAX_DEG, PR_DANGLING = 1 << 20, 32, 0.05
+PR_CFG = ("config_version=2, eig_solver(e)=PAGERANK, e:eig_max_iters=300, "
+          "e:eig_tolerance=1e-6, e:eig_damping_factor=0.85")
+#: the other six at 32 × 31 × 30 (distinct sides: no eigenvalue repeats,
+#: which single-vector Lanczos could not see), the JAX tests' knobs with
+#: the iteration budgets this size needs
+EIG_DIMS = (32, 31, 30)
+EIG_CASES = (
+    ("POWER_ITERATION", ", e:eig_max_iters=20000, e:eig_tolerance=1e-10",
+     "largest", 1e-5),
+    ("INVERSE_ITERATION", ", e:eig_max_iters=300, e:eig_tolerance=1e-9, "
+     "e:solver(il)=PCG, il:max_iters=100, il:monitor_residual=0",
+     "smallest", 1e-4),
+    ("SUBSPACE_ITERATION", ", e:eig_max_iters=3000, e:eig_tolerance=1e-9, "
+     "e:eig_wanted_count=3", "largest3", 1e-4),
+    ("LANCZOS", ", e:eig_max_iters=300, e:eig_wanted_count=3", "largest3",
+     1e-6),
+    ("ARNOLDI", ", e:eig_max_iters=300, e:eig_wanted_count=1", "largest",
+     1e-4),
+    ("JACOBI_DAVIDSON", ", e:eig_max_iters=3000, e:eig_tolerance=1e-9",
+     "largest", 1e-5),
+)
+
+
+def link_graph(n: int):
+    """A seed-made web graph: out-degrees 1..PR_MAX_DEG, PR_DANGLING of
+    the pages without links, targets uniform (rows = source pages)."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(SEED)
+    deg = rng.integers(1, PR_MAX_DEG + 1, size=n)
+    deg[rng.random(n) < PR_DANGLING] = 0
+    rows = np.repeat(np.arange(n), deg)
+    cols = rng.integers(0, n, size=rows.size)
+    W = sp.csr_matrix((np.ones(rows.size, np.float32), (rows, cols)),
+                      shape=(n, n))
+    W.sum_duplicates()
+    return W
+
+
+def pagerank_reference(W, d: float, tol: float):
+    """PageRank by power iteration in f64 on the CPU (scipy), the
+    JAX package's formula: x ← d·Pᵀx + d·Σ x[dangling]/n + (1 − d)/n."""
+    import scipy.sparse as sp
+    n = W.shape[0]
+    deg = np.asarray(W.sum(axis=1), dtype=np.float64).ravel()
+    dangling = deg == 0
+    PT = sp.csr_matrix((sp.diags(1.0 / np.where(dangling, 1.0, deg))
+                        @ W.astype(np.float64)).T)
+
+    def step(x):
+        y = d * (PT @ x) + d * x[dangling].sum() / n + (1 - d) / n
+        return y / y.sum()
+
+    x = np.full(n, 1.0 / n)
+    for _ in range(1000):
+        y = step(x)
+        if np.abs(y - x).sum() <= tol:
+            return y, step
+        x = y
+    return x, step
+
+
+def eigen_phase(amgx, dev, smi, gen) -> dict:
+    """Phase 38: LOBPCG at 128³ on an f64 pack, preconditioned by the
+    headline's aggregation AMG, held to the closed-form four smallest
+    eigenvalues of the 7-point Dirichlet Laplacian (the stencil checked
+    first against a dense eigendecomposition at 6 × 5 × 4); PAGERANK and
+    the ``PageRankOperator`` on a seed-made link graph of ``PR_PAGES``
+    pages, held to a scipy power iteration on the CPU; the other six
+    eigensolvers at ``EIG_DIMS`` against the closed-form spectrum, which
+    ``scipy.sparse.linalg.eigsh`` confirms at its low end.
+    Counts set to 0 just before each solve and read just after.  Returns
+    the launches."""
+    import scipy.sparse.linalg as sla
+    import torch
+    from amgx_tpu_torch import operators
+    from amgx_tpu_torch.eigen import EigenSolverFactory
+    from amgx_tpu_torch.io import poisson7pt, poisson7pt_device
+    from amgx_tpu_torch.ops.spmv import spmv
+    t_phase = time.perf_counter()
+    small = poisson7pt(6, 5, 4).toarray()
+    np.testing.assert_allclose(np.linalg.eigvalsh(small),
+                               dirichlet_eigs((6, 5, 4)), atol=1e-12)
+    side = ITEM7B_SIDE
+    A = poisson7pt_device(side, side, side, device_dtype=np.float64,
+                          device="cuda")
+    t0 = time.perf_counter()
+    es = EigenSolverFactory.allocate(amgx.AMGConfig(LOBPCG_CFG))
+    es.setup(A)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    reset_counts()
+    res = es.solve()
+    torch.cuda.synchronize(dev)
+    lob_counts = read_counts()
+    want = dirichlet_eigs((side,) * 3)[:4]
+    got = np.sort(np.asarray(res.eigenvalues))
+    lob_err = float(np.max(np.abs(got - want) / want))
+    assert res.status == amgx.SolveStatus.SUCCESS, res.status
+    assert lob_err <= 1e-6, (got, want)
+    assert lob_counts["B1"]["f64.f64"] > 0, lob_counts
+    emit("lobpcg_128", n=side ** 3, eigenvalues=got.tolist(),
+         closed_form=want.tolist(), max_rel_err=lob_err,
+         iterations=res.iterations, setup_s=setup_s,
+         solve_s=res.solve_time, counts=lob_counts, card=smi)
+    del es, res, A
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    W = link_graph(PR_PAGES)
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pr = EigenSolverFactory.allocate(amgx.AMGConfig(PR_CFG))
+    pr.setup(amgx.Matrix(W, device="cuda"))
+    torch.cuda.synchronize(dev)
+    pr_setup_s = time.perf_counter() - t0
+    reset_counts()
+    pres = pr.solve()
+    torch.cuda.synchronize(dev)
+    pr_counts = read_counts()
+    ranks = pres.eigenvectors[:, 0].astype(np.float64)
+    ref, step = pagerank_reference(W, 0.85, 1e-10)
+    tol = pr.tolerance
+    assert pres.status == amgx.SolveStatus.SUCCESS, pres.status
+    assert abs(ranks.sum() - 1.0) <= 1e-5 and (ranks >= 0).all()
+    stat = float(np.abs(step(ranks) - ranks).sum())
+    vs_ref = float(np.abs(ranks - ref).sum())
+    assert stat <= 2 * tol and vs_ref <= 20 * tol, (stat, vs_ref)
+    label = amgx.pack_kind(pr.PT)
+    assert label in ("ell/window", "ell/binned", "csr/binned"), label
+    kern = "B3" if label == "ell/window" else "B4"
+    assert pr_counts[kern]["f32.f32"] > 0, pr_counts
+    # the operator form: one apply of the ranks returns them
+    t0 = time.perf_counter()
+    op = operators.PageRankOperator(W, 0.85)
+    op_setup_s = time.perf_counter() - t0
+    xr = torch.from_numpy(pres.eigenvectors[:, 0].copy()).to(dev)
+    reset_counts()
+    y = spmv(op, xr)
+    torch.cuda.synchronize(dev)
+    op_counts = read_counts()
+    op_stat = float((y - xr).abs().sum().item())
+    assert op_stat <= 2 * tol, op_stat
+    assert amgx.pack_kind(op.base) == label
+    assert op_counts[kern]["f32.f32"] == 1, op_counts
+    emit("pagerank", pages=PR_PAGES, links=int(W.nnz),
+         dangling=int((np.diff(W.indptr) == 0).sum()), pack=label,
+         kernel=kern, iterations=pres.iterations, graph_s=graph_s,
+         setup_s=pr_setup_s, solve_s=pres.solve_time,
+         stationarity_l1=stat, vs_scipy_l1=vs_ref, tolerance=tol,
+         operator_setup_s=op_setup_s, operator_stationarity_l1=op_stat,
+         counts=pr_counts, operator_counts=op_counts, card=smi)
+    del pr, op, W, xr, y
+    torch.cuda.empty_cache()
+
+    Ah = poisson7pt(*EIG_DIMS)
+    spectrum = dirichlet_eigs(EIG_DIMS)
+    w_top, w_low = spectrum[-3:], spectrum[:1]
+    # scipy's Lanczos on the CPU agrees with the closed form
+    w_sa = sla.eigsh(Ah, k=1, which="SA", tol=1e-10)[0]
+    assert abs(w_sa[0] - w_low[0]) <= 1e-9 * w_low[0], (w_sa, w_low)
+    m = amgx.Matrix(Ah, device="cuda")
+    eig_counts, rows = {}, []
+    for name, extra, which, rtol in EIG_CASES:
+        es = EigenSolverFactory.allocate(amgx.AMGConfig(
+            f"config_version=2, eig_solver(e)={name}{extra}"))
+        es.setup(m)
+        reset_counts()
+        r = es.solve()
+        torch.cuda.synchronize(dev)
+        c = read_counts()
+        merge_counts(eig_counts, c)
+        lam = np.sort(np.abs(np.asarray(r.eigenvalues)))[::-1]
+        ref = {"largest": w_top[-1:], "largest3": w_top[::-1],
+               "smallest": w_low}[which]
+        err = float(np.max(np.abs(lam[:len(ref)] - np.sort(ref)[::-1])
+                           / np.abs(ref).max()))
+        rows.append(dict(name=name, eigenvalues=lam.tolist(),
+                         iterations=r.iterations, status=int(r.status),
+                         max_rel_err=err, limit=rtol,
+                         solve_s=r.solve_time,
+                         B1=sum(c["B1"].values())))
+        assert err <= rtol, rows[-1]
+        assert sum(c["B1"].values()) > 0, (name, c)
+    emit("eigensolvers_32", dims=list(EIG_DIMS), rows=rows,
+         closed_form_top=w_top.tolist(), closed_form_low=w_low.tolist(),
+         eigsh_low=w_sa.tolist(), card=smi,
+         elapsed_phase_s=time.perf_counter() - t_phase)
+    return {"lobpcg_128": lob_counts, "pagerank": pr_counts,
+            "eigen_32": eig_counts}
+
+
+#: phase 39's SIZE_2 hierarchy cut at 5 levels: the K-cycle visits
+#: level i 2^i times, and at the aggregation's own 9 levels its CPU twin
+#: alone takes half a minute
+DENSE_MAX_LEVELS = 5
+
+
+def binary_dense_phase(amgx, dev, smi, gen) -> dict:
+    """Phase 39: the classical 24³ system written with ``write_binary``,
+    read back with ``read_system_auto`` and solved on the card, bit-equal
+    to the solve of the original matrix; the headline stack with SIZE_2
+    aggregation at 24³ (cut at ``DENSE_MAX_LEVELS``) under
+    ``AMGX_DENSE_PACK=1`` (set for this phase only): its coarse levels
+    pack ``dense`` (B3 over dense rows), its count against the CPU
+    port's.  GEO keeps every 24³ level DIA, so the phase names SIZE_2,
+    whose coarse levels are scattered.  Returns the launches."""
+    import tempfile
+
+    import torch
+    from amgx_tpu_torch.io import poisson7pt, read_system_auto, write_binary
+    t_phase = time.perf_counter()
+    A = poisson7pt(24, 24, 24)
+    cfg = CFG_CLA + ", amg:strength_threshold=0.2401"
+    rhs = np.random.default_rng(SEED).standard_normal(A.shape[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "classical24.bin")
+        write_binary(path, A, rhs=rhs)
+        data = read_system_auto(path)
+    assert abs(data.A - A).max() == 0 and np.array_equal(data.rhs, rhs)
+    xs = {}
+    for label, M in (("original", A), ("read_back", data.A)):
+        m = amgx.Matrix(M, device="cuda")
+        m.device_dtype = np.float32
+        s_ = amgx.create_solver(cfg)
+        s_.setup(m)
+        r = s_.solve(data.rhs)
+        assert r.status == amgx.SolveStatus.SUCCESS, (label, r.status)
+        xs[label] = (r.iterations, r.x)
+    bin_equal = bool(torch.equal(xs["original"][1], xs["read_back"][1]))
+    assert xs["original"][0] == xs["read_back"][0] and bin_equal
+
+    dense_cfg = HEADLINE_CFG.replace(
+        "amg:selector=GEO", "amg:selector=SIZE_2").replace(
+        "amg:max_levels=20", f"amg:max_levels={DENSE_MAX_LEVELS}")
+    old = os.environ.get("AMGX_DENSE_PACK")
+    os.environ["AMGX_DENSE_PACK"] = "1"
+    try:
+        runs = {}
+        for where in ("cuda", "cpu"):
+            m = amgx.Matrix(A, device=where)
+            m.device_dtype = np.float32
+            s_ = amgx.create_solver(dense_cfg)
+            s_.setup(m)
+            if where == "cuda":
+                reset_counts()
+            r = s_.solve(np.ones(A.shape[0]))
+            if where == "cuda":
+                torch.cuda.synchronize(dev)
+                dense_counts = read_counts()
+            assert r.status == amgx.SolveStatus.SUCCESS, (where, r.status)
+            runs[where] = dict(
+                iterations=r.iterations, x=r.x.cpu(),
+                fmts=[lv.Ad.fmt for lv in s_.preconditioner.hierarchy
+                      .levels])
+    finally:
+        if old is None:
+            del os.environ["AMGX_DENSE_PACK"]
+        else:
+            os.environ["AMGX_DENSE_PACK"] = old
+    g, c = runs["cuda"], runs["cpu"]
+    assert g["fmts"] == c["fmts"] and "dense" in g["fmts"], g["fmts"]
+    assert g["iterations"] == c["iterations"], (g["iterations"],
+                                                c["iterations"])
+    assert dense_counts["dispatch"].get("dense", 0) > 0, dense_counts
+    assert dense_counts["B3"]["f32.f32"] >= \
+        dense_counts["dispatch"]["dense"], dense_counts
+    dense_equal = bool(torch.equal(g["x"], c["x"]))
+    emit("binary_dense", n=A.shape[0], binary_iterations=xs["original"][0],
+         binary_x_bit_equal=bin_equal, dense_levels=g["fmts"],
+         dense_iterations_card=g["iterations"],
+         dense_iterations_cpu=c["iterations"],
+         dense_x_bit_equal=dense_equal, counts=dense_counts, card=smi,
+         elapsed_phase_s=time.perf_counter() - t_phase)
+    return {"dense_pack_24": dense_counts}
+
+
+def item7b_phases(amgx, dev, smi, gen) -> dict:
+    """Phases 36-39 (modes and complex, operators and ``solve_multi``,
+    the eigensolvers, binary IO and fmt ``dense``); returns their
+    launches by path."""
+    paths = modes_complex_phase(amgx, dev, smi, gen)
+    paths.update(operators_multi_phase(amgx, dev, smi, gen))
+    paths.update(eigen_phase(amgx, dev, smi, gen))
+    paths.update(binary_dense_phase(amgx, dev, smi, gen))
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3514,6 +4088,10 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     setup_paths.update(boundary_phase(amgx, dev, smi, gen))
     setup_paths.update(fault_phase(amgx, dev, smi, gen))
     setup_paths.update(host_levels_phase(amgx, dev, smi, gen))
+
+    # ---- 36.-39. modes and complex, operators and solve_multi, the
+    # eigensolvers, binary IO and fmt dense
+    setup_paths.update(item7b_phases(amgx, dev, smi, gen))
 
     # ---- the kernels of the paths
     kernels = []

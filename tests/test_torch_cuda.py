@@ -71,13 +71,14 @@ def test_dense_rows_kernel_matches_plain(card, dt, n):
     """B3 over dense rows (the dense coarse solve's inverse): bit-equal
     to its plain version, one counted launch."""
     from amgx_tpu_torch.ops import ell_spmv as emod
+    from amgx_tpu_torch.ops.ordered import dense_matvec
     g = torch.Generator(device=card).manual_seed(n)
     M = torch.randn((n, n), dtype=torch.float64, device=card,
                     generator=g).to(dt)
     x = torch.randn(n, dtype=torch.float64, device=card,
                     generator=g).to(dt)
     before = emod.launch_count()
-    y = emod.dense_matvec(M, x)
+    y = dense_matvec(M, x)
     torch.cuda.synchronize(card)
     assert emod.launch_count() == before + 1
     assert torch.equal(y, emod.ell_spmv_reference(None, M, x))
@@ -982,3 +983,76 @@ def test_restart_rung_replays_the_graph(card):
         assert cuda_graph.CAPTURES["count"] - c0 == 1
     finally:
         faultinject.reset()
+
+
+@pytest.mark.parametrize("cdt", [torch.complex64, torch.complex128])
+def test_complex_spmv_declines_on_card(card, cdt):
+    """A complex pack takes the plain path on the card (the JAX package's
+    kernels take real dtypes only), counted as a decline; no kernel
+    launches, the wrappers refuse a complex tensor handed to them, and a
+    c64 apply gives the CPU's bits."""
+    import scipy.sparse as sp
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.errors import BadParametersError
+    from amgx_tpu_torch.io import poisson7pt
+    from amgx_tpu_torch.ops import dia_spmv as dmod
+    from amgx_tpu_torch.ops import ell_spmv as emod
+    from amgx_tpu_torch.ops import spmv as smod
+    ndt = np.complex64 if cdt == torch.complex64 else np.complex128
+    L = poisson7pt(12, 12, 12).astype(np.complex128)
+    A = sp.csr_matrix(L + (-0.4 + 0.35j) * sp.identity(L.shape[0]))
+    rng = np.random.default_rng(1)
+    S = sp.random(500, 500, density=0.02, format="csr",
+                  random_state=np.random.RandomState(1)) * (1 + 2j) \
+        + sp.identity(500)
+    for M, label in ((A, "dia/slices"), (S, "ell/gather")):
+        M = sp.csr_matrix(M).astype(ndt)
+        xh = (rng.standard_normal(M.shape[0])
+              + 1j * rng.standard_normal(M.shape[0])).astype(ndt)
+        gpu = amgx.Matrix(M, device=card).device()
+        cpu = amgx.Matrix(M, device="cpu").device()
+        smod.reset_dispatch()
+        b1, b3 = dmod.launch_count(), emod.launch_count()
+        y = smod.spmv(gpu, torch.from_numpy(xh).to(card))
+        torch.cuda.synchronize(card)
+        assert smod.declines()[label] == 1 and smod.DISPATCH[label] == 1
+        assert dmod.launch_count() == b1 and emod.launch_count() == b3
+        want = smod.spmv(cpu, torch.from_numpy(xh))
+        if cdt == torch.complex64:
+            assert torch.equal(y.cpu(), want)
+        else:
+            assert _rel(torch.view_as_real(y.cpu()),
+                        torch.view_as_real(want)) < 1e-13
+    x = torch.ones(gpu.n_rows, dtype=cdt, device=card)
+    with pytest.raises(BadParametersError):
+        emod.ell_spmv(gpu.cols, gpu.vals, x)
+
+
+def test_solve_multi_lanes_bit_equal(card):
+    """Each lane of ``solve_multi`` on the card is the bits of a single
+    ``solve`` of its right-hand side (the f32 headline stack, 16³)."""
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.io import poisson7pt_device
+    cfg = (
+        "config_version=2, solver(out)=FGMRES, out:max_iters=100, "
+        "out:monitor_residual=1, out:tolerance=1e-8, "
+        "out:convergence=RELATIVE_INI, out:gmres_n_restart=6, "
+        "out:preconditioner(amg)=AMG, amg:algorithm=AGGREGATION, "
+        "amg:selector=GEO, amg:max_iters=1, amg:max_levels=20, "
+        "amg:cycle=CG, amg:cycle_iters=2, "
+        "amg:smoother(sm)=BLOCK_JACOBI, sm:max_iters=1, "
+        "amg:presweeps=2, amg:postsweeps=2, amg:min_coarse_rows=32, "
+        "amg:coarse_solver=DENSE_LU_SOLVER")
+    A = poisson7pt_device(16, 16, 16, device_dtype=np.float32, device=card)
+    slv = amgx.create_solver(cfg)
+    slv.setup(A)
+    g = torch.Generator(device=card).manual_seed(3)
+    B = torch.randn((4, 16 ** 3), dtype=torch.float64, device=card,
+                    generator=g)
+    out = slv.solve_multi(B)
+    assert len(out) == 4
+    for bj, rj in zip(B, out):
+        single = slv.solve(bj)
+        assert rj.iterations == single.iterations and rj.status == 0
+        assert torch.equal(rj.x, single.x)
+    assert len(slv.solve_multi(B[:3], pad_to_bucket=True)) == 3

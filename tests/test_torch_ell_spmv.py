@@ -169,7 +169,7 @@ def test_dense_rows_match_an_arange_column_table(dt, n):
     """``cols=None`` (dense rows, :func:`dense_matvec`) gives the same
     bits as the ELL pack of the same matrix with column table k ↦ k, and
     in f64 the dense product to 1e-13."""
-    from amgx_tpu_torch.ops.ell_spmv import dense_matvec
+    from amgx_tpu_torch.ops.ordered import dense_matvec
     rng = np.random.default_rng(n)
     M = torch.from_numpy(rng.standard_normal((n, n))).to(dt)
     x = torch.from_numpy(rng.standard_normal(n)).to(dt)

@@ -20,11 +20,14 @@ PORT_FILES = sorted((ROOT / "amgx_tpu_torch").rglob("*.py")) + \
      ROOT / "scripts" / "torch_dfg_depth.py",
      ROOT / "scripts" / "torch_kernel_ab.py",
      ROOT / "scripts" / "torch_setup_engine.py",
-     ROOT / "scripts" / "torch_boundary_phases.py"]
+     ROOT / "scripts" / "torch_boundary_phases.py",
+     ROOT / "scripts" / "torch_item7b_phases.py"]
 
 
 def test_import_leaves_jax_out_of_sys_modules():
-    code = ("import sys, amgx_tpu_torch, amgx_tpu_torch.interop\n"
+    code = ("import sys, amgx_tpu_torch, amgx_tpu_torch.interop, "
+            "amgx_tpu_torch.eigen, amgx_tpu_torch.operators, "
+            "amgx_tpu_torch.modes\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'amgx_tpu' or "
             "m.startswith('amgx_tpu.')]\n"
