@@ -72,22 +72,29 @@ def edge_weights(A: sp.csr_matrix, formula: int = 0,
     return W
 
 
-def _row_argmax(indptr, indices, data, valid_entry_mask):
-    """Per-row argmax over masked entries → column index or −1."""
+def _row_argmax(indptr, indices, data, valid_entry_mask, row_of=None):
+    """Per-row argmax over masked entries → column index or −1 (the first
+    entry achieving the row's maximum).  The row reductions run over the
+    CSR segments of the nonempty rows (``reduceat``): the same maxima and
+    first indices as a scatter over the rows, without ``ufunc.at``;
+    ``row_of`` is each entry's row where the caller has it."""
     n = len(indptr) - 1
     out = np.full(n, -1, dtype=np.int64)
     d = np.where(valid_entry_mask, data, -np.inf)
-    rows_nonempty = np.flatnonzero(np.diff(indptr) > 0)
+    deg = np.diff(indptr)
+    rows_nonempty = np.flatnonzero(deg > 0)
     if len(rows_nonempty) == 0:
         return out
+    starts = indptr[rows_nonempty]
     maxw = np.full(n, -np.inf)
-    np.maximum.at(maxw, np.repeat(np.arange(n), np.diff(indptr)), d)
+    maxw[rows_nonempty] = np.maximum.reduceat(d, starts)
+    if row_of is None:
+        row_of = np.repeat(np.arange(n), deg)
     # first entry achieving the max in each row
-    row_of = np.repeat(np.arange(n), np.diff(indptr))
     is_max = (d == maxw[row_of]) & np.isfinite(d) & valid_entry_mask
     entry_idx = np.where(is_max, np.arange(len(d)), len(d))
     first = np.full(n, len(d), dtype=np.int64)
-    np.minimum.at(first, row_of, entry_idx)
+    first[rows_nonempty] = np.minimum.reduceat(entry_idx, starts)
     got = first < len(d)
     out[got] = indices[first[got]]
     return out
@@ -123,7 +130,7 @@ def pairwise_aggregate(W: sp.csr_matrix, max_iterations: int = 15,
         if n_un == 0 or n_un <= max_unassigned_frac * n:
             break
         valid = unmatched[row_of] & unmatched[indices]
-        best = _row_argmax(indptr, indices, data, valid)
+        best = _row_argmax(indptr, indices, data, valid, row_of)
         # handshake: i—j match iff best[i]==j and best[j]==i
         cand = (best >= 0) & unmatched
         idx = np.flatnonzero(cand)
@@ -144,7 +151,7 @@ def pairwise_aggregate(W: sp.csr_matrix, max_iterations: int = 15,
     if merge_singletons and len(single):
         # merge each singleton into its heaviest neighbour's aggregate
         valid = np.ones(len(data), dtype=bool)
-        best = _row_argmax(indptr, indices, data, valid)
+        best = _row_argmax(indptr, indices, data, valid, row_of)
         for i in single:
             j = best[i]
             if j >= 0 and agg[j] >= 0:

@@ -227,11 +227,22 @@ class DeviceSetupEngine:
     # ------------------------------------------------ aggregation RAP
     def galerkin_agg(self, A_host, agg: np.ndarray, block_dim: int = 1,
                      *, dtype, device="cpu", min_rows: int = 0,
-                     budget_bytes: Optional[int] = None):
+                     budget_bytes: Optional[int] = None,
+                     agg_cols: Optional[np.ndarray] = None,
+                     shape: Optional[tuple] = None):
         """Galerkin product of unsmoothed aggregation (R = Sᵀ, P = S):
         one ordered segment sum over the (agg[row], agg[col]) pairs of a
         scalar CSR or a b×b BSR.  Returns CSR/BSR (host; values computed
-        on ``device``) or None after a gate decline."""
+        on ``device``) or None after a gate decline.
+
+        ``agg_cols``/``shape``: the rectangular shard-local form of a
+        distributed level (one rank's row block: its local coarse rows
+        from ``agg``, the global coarse columns of every column, halo
+        columns included, from ``agg_cols``; ``shape`` = (local coarse
+        rows, global coarse columns)).  Its result keeps every slot of
+        the pattern, exact zeros included, as upstream
+        (``engine.py:295-352``); a block matrix declines it
+        (``"block-dist"``)."""
         budget = self._budget(budget_bytes)
         dtype = np.dtype(dtype)
         b = int(block_dim)
@@ -245,14 +256,27 @@ class DeviceSetupEngine:
         agg = np.asarray(agg)
         reason = self._gates(n, M.nnz == 0 or len(agg) == 0, dtype,
                              min_rows)
+        rect = agg_cols is not None
+        if not reason and rect and b != 1:
+            reason = "block-dist"
         if reason:
             return self._decline(reason)
-        nc = int(agg.max()) + 1
+        if rect:
+            agg_cols = np.asarray(agg_cols)
+            nc, nc_cols = int(shape[0]), int(shape[1])
+        else:
+            nc = nc_cols = int(agg.max()) + 1
         ah = hashlib.blake2b(np.ascontiguousarray(agg).tobytes(),
-                             digest_size=16).hexdigest()
-        key = ("agg", csr_structure_fingerprint(M), ah, b, dtype.str)
+                             digest_size=16)
+        if rect:
+            ah.update(np.ascontiguousarray(agg_cols).tobytes())
+            ah.update(repr((nc, nc_cols)).encode())
+        key = ("agg", csr_structure_fingerprint(M), ah.hexdigest(), b,
+               dtype.str)
         plan = self._plan(
-            key, lambda: _build_agg_plan(M, agg, nc, b, device), budget)
+            key, lambda: _build_agg_plan(M, agg, nc, b, device,
+                                         agg_cols=agg_cols,
+                                         nc_cols=nc_cols), budget)
         if plan is None:
             return None
         tdt = getattr(torch, dtype.name)
@@ -266,8 +290,9 @@ class DeviceSetupEngine:
             self.numeric_runs += 1
         if b == 1:
             Ac = sp.csr_matrix((data, plan.C_indices.copy(),
-                                plan.C_indptr.copy()), shape=(nc, nc))
-            Ac.eliminate_zeros()
+                                plan.C_indptr.copy()), shape=(nc, nc_cols))
+            if not rect:
+                Ac.eliminate_zeros()
             Ac.sort_indices()
             return Ac
         return sp.bsr_matrix((data, plan.C_indices.copy(),
@@ -294,18 +319,23 @@ class _AggPlan(spgemm._DevicePlan):
 
 
 def _build_agg_plan(M, agg: np.ndarray, nc: int, block_dim: int,
-                    device="cpu") -> _AggPlan:
+                    device="cpu", agg_cols: Optional[np.ndarray] = None,
+                    nc_cols: Optional[int] = None) -> _AggPlan:
     """Symbolic pass of the aggregation Galerkin product on ``device``:
     the coarse pattern and the entries sorted by coarse slot (stably),
-    from the structure and the aggregates alone."""
+    from the structure and the aggregates alone.  ``agg_cols``/
+    ``nc_cols`` split the row and column aggregate maps (the rectangular
+    shard-local form); square when omitted."""
     dev = torch.device(device)
     n = M.shape[0] // block_dim
+    ncc = nc if nc_cols is None else int(nc_cols)
     indptr = spgemm.as_index(M.indptr, dev)
     rows = torch.repeat_interleave(torch.arange(n, device=dev),
                                    indptr[1:] - indptr[:-1])
     agg_t = spgemm.as_index(agg, dev)
-    key = agg_t[rows] * nc + agg_t[spgemm.as_index(M.indices, dev)]
-    order, t_out, C_indptr, C_indices = spgemm.sort_terms(key, nc, nc)
+    agg_c = agg_t if agg_cols is None else spgemm.as_index(agg_cols, dev)
+    key = agg_t[rows] * ncc + agg_c[spgemm.as_index(M.indices, dev)]
+    order, t_out, C_indptr, C_indices = spgemm.sort_terms(key, nc, ncc)
     return _AggPlan(sched=spgemm.ordered_schedule(order, None, t_out,
                                                   len(C_indices)),
                     C_indptr=C_indptr.cpu().numpy(),

@@ -43,6 +43,19 @@ scalar aggregation and the serial classical parts of
   ``aggressive_selector``/``aggressive_interpolator``; the device
   classical paths read these effective names.
 
+* A distributed matrix (``Matrix.set_distribution``, a sharded pack)
+  coarsens per rank (``_coarsen_aggregation_dist`` upstream): each rank
+  aggregates its own diagonal block, coarse ids are rank-contiguous,
+  and each rank's coarse rows come from its own row block through the
+  engine's rectangular Galerkin form (halo columns resolve through the
+  global aggregate ids), so no step assembles a global matrix.  A coarse
+  grid too small per rank consolidates onto a sub-mesh, or off the mesh
+  onto one replicated level: the legacy
+  ``matrix_consolidation_lower/upper_threshold`` or the
+  ``dist_agglomerate_min_rows`` planner (:mod:`..distributed.agglomerate`).
+  CLASSICAL and ENERGYMIN, ``amg_host_levels_rows`` and a resetup on a
+  distributed matrix are ROADMAP item 8b of the port.
+
 Values-only resetup (``structure_reuse_levels`` ≠ 0; reference
 ``amg.cu:260-290``): each level records its coarsening decision in
 ``_structure`` — ``("structured", (dims,))``, ``("pairwise", (n,))``,
@@ -96,6 +109,13 @@ _PAIRWISE_FALLBACK = object()
 #: PMIS selector keeps its own rule: 7 with ``determinism_flag``, else
 #: its session seed)
 _TIEBREAK_SEED = 7
+
+
+def _rebucket_blocks(blocks, new_offsets):
+    """Re-split per-rank row blocks at new offsets (consolidation only:
+    the migrated data is small by construction)."""
+    from ..distributed.partition import split_row_blocks
+    return split_row_blocks(sp.vstack(blocks), new_offsets)
 
 
 def _child_matrix(parent: Matrix, a, block_dim: int = 1) -> Matrix:
@@ -230,6 +250,11 @@ class AMGHierarchy:
         self.device_setup = int(g("device_setup"))
         self.device_setup_min_rows = int(g("device_setup_min_rows"))
         self.device_setup_cache_mb = int(g("device_setup_cache_mb"))
+        #: distributed coarse levels: below this many rows per active
+        #: rank a coarse level agglomerates onto a P/factor sub-mesh
+        #: (0 disables; :mod:`..distributed.agglomerate`)
+        self.dist_agglomerate_min_rows = int(g("dist_agglomerate_min_rows"))
+        self.dist_agglomerate_factor = int(g("dist_agglomerate_factor"))
         #: mixed precision (core/precision.py): the storage dtype of the
         #: level operators, smoother data and transfer packs from
         #: ``mixed_precision_from_level`` down; None inherits (a bf16
@@ -264,7 +289,7 @@ class AMGHierarchy:
         recorded structure (``amg.cu:260-290``)."""
         t0 = time.perf_counter()
         reuse = self._structure is not None and \
-            self.structure_reuse_levels != 0
+            self.structure_reuse_levels != 0 and A.dist is None
         try:
             if reuse:
                 self._setup_reuse(A)
@@ -282,7 +307,27 @@ class AMGHierarchy:
             amgx_output(self.grid_stats(), level=2)
         return self
 
+    def _check_distributed(self, A: Matrix):
+        """The paths a distributed hierarchy does not take in this slice
+        of the port raise (ROADMAP item 8b); the precision policy skips
+        its sharded levels, as upstream, with a warning."""
+        from ..errors import NotImplementedError_
+        if self.algorithm in ("CLASSICAL", "ENERGYMIN"):
+            raise NotImplementedError_(
+                f"{self.algorithm} AMG on a distributed matrix is ROADMAP "
+                "item 8b of the port")
+        if self.host_levels_rows > 0:
+            raise NotImplementedError_(
+                "amg_host_levels_rows on a distributed matrix is ROADMAP "
+                "item 8b of the port")
+        if self.hierarchy_dtype is not None:
+            amgx_output(f"WARNING: hierarchy_dtype={self.hierarchy_dtype} "
+                        "skips the sharded levels of a distributed "
+                        "matrix.\n")
+
     def _setup_fresh(self, A: Matrix):
+        if A.dist is not None:
+            self._check_distributed(A)
         self.levels = []
         self._structure = []
         self._cla_plans = None
@@ -362,7 +407,8 @@ class AMGHierarchy:
         derive all coarse levels on the device, and append them; returns
         the coarsest planned matrix (``cur`` when nothing was planned)."""
         if self.algorithm != "AGGREGATION" or \
-                self.selector not in ("GEO", "PAIRWISE"):
+                self.selector not in ("GEO", "PAIRWISE") or \
+                cur.dist is not None:
             return cur
         inputs = self._dia_plan_inputs(cur)
         if inputs is None:
@@ -857,6 +903,11 @@ class AMGHierarchy:
         name = self.selector
         if name == "PAIRWISE":       # alias of the structured GEO path
             name = "GEO"
+        if cur.dist is not None:
+            # per rank; GEO keeps its name (no structured step on a
+            # sharded level), as upstream (``hierarchy.py:989-997``)
+            return self._coarsen_aggregation_dist(
+                cur, idx, create_selector(name, self.cfg, self.scope))
         if name == "GEO" and cur.block_dim == 1:
             out = self._coarsen_pairwise(cur, idx)
             if out is not _PAIRWISE_FALLBACK:
@@ -887,6 +938,129 @@ class AMGHierarchy:
                             minlength=nc) / np.maximum(cnt, 1)
                 for c in geom)
         return level, Ac, ("aggregation", (agg, nc))
+
+    def _coarsen_aggregation_dist(self, cur: Matrix, idx: int, selector):
+        """Distributed aggregation coarsening, per rank end to end
+        (``_coarsen_aggregation_dist`` upstream, ``hierarchy.py:
+        1344-1490``): each rank aggregates its own diagonal block, coarse
+        ids are rank-contiguous, and rank p's coarse rows come from its
+        row block, its halo columns resolved through the global
+        aggregate ids (the engine's rectangular form, the host COO remap
+        after a decline).  A coarse grid too small per rank consolidates:
+        onto a sub-mesh of the first ranks, or off the mesh onto one
+        replicated level (``trash_segment``).  The coarse level is again
+        a block-distributed :class:`Matrix`."""
+        from ..distributed.agglomerate import (active_parts, plan_for,
+                                               redistribute_blocks)
+        mesh, axis, _, _ = cur.dist
+        curd = cur.device()
+        offsets = np.asarray(curd.offsets)
+        n_parts = curd.n_parts
+        n = int(offsets[-1])
+        blocks = cur.rank_blocks()
+        agg_real = np.empty(n, dtype=np.int64)
+        counts = []
+        base = 0
+        for p in range(n_parts):
+            lo, hi = offsets[p], offsets[p + 1]
+            if hi == lo:
+                counts.append(0)
+                continue
+            agg_p = selector.select(sp.csr_matrix(blocks[p][:, lo:hi]))
+            agg_real[lo:hi] = agg_p + base
+            cnt = int(agg_p.max()) + 1 if len(agg_p) else 0
+            counts.append(cnt)
+            base += cnt
+        nc = base
+        if nc == 0 or nc >= n:
+            return None, None, None
+        coarse_offsets = np.concatenate([[0], np.cumsum(counts)])
+        eng = self._engine()
+
+        def coarse_block(p):
+            lo, hi = offsets[p], offsets[p + 1]
+            if eng is not None and hi > lo and blocks[p].nnz:
+                C = eng.galerkin_agg(
+                    blocks[p], agg_real[lo:hi] - coarse_offsets[p],
+                    dtype=blocks[p].dtype, agg_cols=agg_real,
+                    shape=(counts[p], nc), **self._engine_args(cur))
+                if C is not None:
+                    return sp.csr_matrix(C.astype(blocks[p].dtype))
+            coo = blocks[p].tocoo()
+            C = sp.csr_matrix(
+                (coo.data, (agg_real[coo.row + lo] - coarse_offsets[p],
+                            agg_real[coo.col])), shape=(counts[p], nc))
+            C.sum_duplicates()
+            C.sort_indices()
+            return C
+
+        c_blocks = [coarse_block(p) for p in range(n_parts)]
+
+        # consolidation (the reference's "glue", distributed/glue.h and
+        # amg.cu:328-390): the legacy thresholds, else the planner
+        lower = int(self.cfg.get("matrix_consolidation_lower_threshold"))
+        agg_min = self.dist_agglomerate_min_rows
+        n_loc_f = curd.n_loc
+        p_active = plan = None
+        if lower > 0 and nc // n_parts < lower:
+            upper = max(int(self.cfg.get(
+                "matrix_consolidation_upper_threshold")), 1)
+            p_active = min(n_parts, max(1, -(-nc // upper)))
+        elif agg_min > 0 and nc // max(n_parts, 1) < agg_min:
+            plan = plan_for(coarse_offsets, agg_min,
+                            self.dist_agglomerate_factor, level=idx)
+            if plan is not None:
+                p_active = plan.p_active
+        if p_active is not None:
+            if p_active <= 1:
+                # fully consolidated: one replicated coarse level; the
+                # fine padding rows go to the dropped segment nc
+                Ac = _child_matrix(cur, sp.csr_matrix(sp.vstack(c_blocks)))
+                agg_pad = np.full(n_parts * n_loc_f, nc, dtype=np.int64)
+                for p in range(n_parts):
+                    lo, hi = offsets[p], offsets[p + 1]
+                    agg_pad[p * n_loc_f:p * n_loc_f + (hi - lo)] = \
+                        agg_real[lo:hi]
+                level = AggregationLevel(cur, idx, agg_pad, n_coarse=nc,
+                                         trash_segment=True,
+                                         real=agg_pad < nc)
+                level.submesh_parts = 1
+                return level, Ac, ("aggregation-consolidated",
+                                   (agg_real, nc))
+            # a sub-mesh: the coarse rows re-bucketed onto the first
+            # p_active ranks; the others hold only padding
+            if plan is not None:
+                coarse_offsets = np.asarray(plan.dst_offsets)
+                c_blocks = redistribute_blocks(c_blocks, plan)
+            else:
+                nc_act = -(-nc // p_active)
+                coarse_offsets = np.concatenate([
+                    np.minimum(np.arange(p_active + 1) * nc_act, nc),
+                    np.full(n_parts - p_active, nc, dtype=np.int64)])
+                c_blocks = _rebucket_blocks(c_blocks, coarse_offsets)
+
+        nc_loc = int(np.max(np.diff(coarse_offsets))) + 1  # ≥ 1 pad slot
+        Ac = Matrix(device=cur.placement)
+        Ac.set_distributed_blocks(c_blocks, coarse_offsets, mesh, axis=axis)
+        Ac.set_distribution(mesh, axis, coarse_offsets, n_loc=nc_loc)
+        Ac.device_dtype = cur.device_dtype
+        # aggregates in padded coordinates: a fine padding row maps to
+        # its rank's coarse padding slot
+        own = np.searchsorted(coarse_offsets, np.arange(nc),
+                              side="right") - 1
+        pad_of = own * nc_loc + (np.arange(nc) - coarse_offsets[own])
+        agg_pad = np.empty(n_parts * n_loc_f, dtype=np.int64)
+        real = np.zeros(n_parts * n_loc_f, dtype=bool)
+        for p in range(n_parts):
+            lo, hi = offsets[p], offsets[p + 1]
+            row = np.full(n_loc_f, p * nc_loc + nc_loc - 1, dtype=np.int64)
+            row[:hi - lo] = pad_of[agg_real[lo:hi]]
+            agg_pad[p * n_loc_f:(p + 1) * n_loc_f] = row
+            real[p * n_loc_f:p * n_loc_f + (hi - lo)] = True
+        level = AggregationLevel(cur, idx, agg_pad,
+                                 n_coarse=n_parts * nc_loc, real=real)
+        level.submesh_parts = active_parts(coarse_offsets)
+        return level, Ac, ("aggregation-dist", (agg_real, nc))
 
     def _coarsen_pairwise(self, cur: Matrix, idx: int,
                           max_diags: int = 48):
@@ -945,6 +1119,8 @@ class AMGHierarchy:
         if self.algorithm not in ("CLASSICAL", "ENERGYMIN"):
             raise BadConfigurationError(
                 f"unknown AMG algorithm {self.algorithm!r}")
+        if cur.dist is not None:
+            self._check_distributed(cur)
         if cur.block_dim != 1:
             raise BadConfigurationError(
                 "classical AMG requires block_dim=1 (use AGGREGATION for "
@@ -1079,6 +1255,9 @@ class AMGHierarchy:
             if i < max(self.mixed_from_level, 0):
                 continue
             A = lvl.A
+            if A.dist is not None:
+                # sharded levels keep their dtype, as upstream
+                continue
             if hd.itemsize < storage_dtype(A.device_dtype
                                            or A.dtype).itemsize:
                 lvl.A = precision.precision_view(A, hd)

@@ -25,6 +25,10 @@ class AMGLevel:
         self.A = A
         self.level_index = level_index
         self.smoother = None
+        #: distributed levels: the active ranks of the sub-mesh this
+        #: level's coarse grid lives on after consolidation
+        #: (:mod:`..distributed.agglomerate`); None on one shard
+        self.submesh_parts = None
 
     @property
     def Ad(self):
@@ -47,13 +51,15 @@ class AMGLevel:
 def member_table(aggregates: np.ndarray, n_coarse: int) -> np.ndarray:
     """The (max aggregate size, n_coarse) int64 table of every
     aggregate's fine rows in increasing order, padded with the index n
-    (a zero appended to the restricted vector)."""
+    (a zero appended to the restricted vector).  Rows whose aggregate is
+    negative belong to no aggregate."""
     n = len(aggregates)
     order = np.argsort(aggregates, kind="stable")
-    counts = np.bincount(aggregates, minlength=n_coarse)
+    order = order[aggregates[order] >= 0]
+    counts = np.bincount(aggregates[order], minlength=n_coarse)
     start = np.concatenate([[0], np.cumsum(counts)[:-1]])
     a_sorted = aggregates[order]
-    pos = np.arange(n) - start[a_sorted]
+    pos = np.arange(len(order)) - start[a_sorted]
     table = np.full((max(int(counts.max(initial=0)), 1), n_coarse), n,
                     dtype=np.int64)
     table[pos, a_sorted] = order
@@ -70,20 +76,34 @@ class AggregationLevel(AMGLevel):
     in the same order, without the card's atomic scatter-add, whose
     order changes from run to run.  Prolongation is a gather.  A block
     level works on ``(-1, b)`` views: an aggregate's block rows move
-    together."""
+    together.
+
+    A distributed level (``hierarchy._coarsen_aggregation_dist``) passes
+    ``real``, the mask of its fine rows that are not padding: the
+    restriction adds real rows only (padding entries are exact zeros by
+    the padding invariant, so the sums are the JAX package's, and the
+    table stays as tall as the largest real aggregate, not as a rank's
+    count of pad rows), while prolongation gathers every row, padding
+    rows from a coarse padding slot.  ``trash_segment`` (a coarse level
+    consolidated off the mesh, the reference's "glue" path): padding
+    rows map to segment ``n_coarse``, one extra slot that prolongation
+    reads as 0 (``level.py:100-134`` upstream)."""
 
     kind = "aggregation"
 
     def __init__(self, A: Matrix, level_index: int, aggregates: np.ndarray,
-                 n_coarse: int):
+                 n_coarse: int, trash_segment: bool = False,
+                 real: np.ndarray = None):
         super().__init__(A, level_index)
         agg = np.asarray(aggregates, dtype=np.int64)
         self.n_coarse = int(n_coarse)
         self.block_dim = int(A.block_dim)
+        self.trash_segment = bool(trash_segment)
         dev = A.placement
         self.aggregates = torch.from_numpy(agg).to(dev)
-        self.members = torch.from_numpy(member_table(agg, self.n_coarse)) \
-            .to(dev)
+        summed = agg if real is None else np.where(real, agg, -1)
+        self.members = torch.from_numpy(
+            member_table(summed, self.n_coarse)).to(dev)
 
     def restrict_residual(self, r):
         b = self.block_dim
@@ -95,6 +115,8 @@ class AggregationLevel(AMGLevel):
         return out if b == 1 else out.reshape(-1)
 
     def prolongate_and_correct(self, x, e):
+        if self.trash_segment:
+            e = torch.cat([e, e.new_zeros(self.block_dim)])
         if self.block_dim == 1:
             return x + e[self.aggregates]
         b = self.block_dim

@@ -628,6 +628,13 @@ class Matrix:
         #: ``AMGX_matrix_attach_geometry``): the GEO selector aggregates
         #: by them, and coarse levels carry the aggregate centroids
         self.geometry = None
+        #: the distribution (mesh, axis, offsets, n_loc), or None
+        self.dist = None
+        #: per-rank row blocks (global column ids) of a matrix uploaded
+        #: block by block (:meth:`set_distributed_blocks`), and their
+        #: row offsets
+        self.blocks = None
+        self.block_offsets = None
         if a is not None:
             self.set(a, block_dim=block_dim)
 
@@ -641,6 +648,58 @@ class Matrix:
         # numpy dtype
         self._device_dtype_pref = storage_dtype(v)
 
+    def set_distribution(self, mesh, axis: str = "p", offsets=None,
+                         n_loc=None):
+        """Declare this matrix row-distributed over ``mesh`` (a
+        :class:`~..distributed.matrix.DeviceMesh`; the
+        ``AMGX_matrix_upload_distributed`` analog): the partition comes
+        from explicit row ``offsets`` or an equal split, ``n_loc`` pads
+        every shard to at least that many rows.  The pack then lives on
+        the mesh's device."""
+        from ..distributed.matrix import check_mesh
+        mesh = check_mesh(mesh, axis)
+        self.dist = (mesh, axis, None if offsets is None
+                     else np.asarray(offsets), n_loc)
+        self.placement = mesh.device
+        self._device = None
+        self._device_dtype = None
+        return self
+
+    def set_distributed_blocks(self, blocks, offsets, mesh,
+                               axis: str = "p"):
+        """Upload per-rank row blocks (global column ids): the global
+        matrix is never assembled, and the setup (the partition maps, the
+        per-rank coarsening and Galerkin products) reads the blocks
+        (``distributed_arranger.h:85-231``)."""
+        blocks = [sp.csr_matrix(b) for b in blocks]
+        offsets = np.asarray(offsets)
+        if len(blocks) != len(offsets) - 1:
+            raise BadParametersError("one row block per partition required")
+        for p, b in enumerate(blocks):
+            if b.shape[0] != offsets[p + 1] - offsets[p]:
+                raise BadParametersError(
+                    f"block {p} has {b.shape[0]} rows, offsets say "
+                    f"{offsets[p + 1] - offsets[p]}")
+        self.block_dim = 1
+        self.dtype = np.dtype(blocks[0].dtype)
+        self._host = None
+        self._dia = None
+        self._dia_checked_max = 0
+        self._dinv_dev = None
+        self._drop_generator_state()
+        self.blocks = blocks
+        self.block_offsets = offsets
+        self.set_distribution(mesh, axis, offsets)
+        return self
+
+    def assemble_global(self) -> sp.csr_matrix:
+        """The global matrix of a block-distributed upload (small
+        consolidated grids and test oracles only; the setup never calls
+        it on a fine level)."""
+        if self._host is not None:
+            return sp.csr_matrix(self._host)
+        return sp.csr_matrix(sp.vstack(self.blocks))
+
     def set(self, a, block_dim: int = 1):
         """Upload a scipy/dense matrix: a CSR for ``block_dim`` 1, else a
         BSR of b×b blocks (the scalar size must divide by b)."""
@@ -649,6 +708,8 @@ class Matrix:
             raise BadParametersError(
                 f"block_dim {b} does not divide the shape {np.shape(a)}")
         self.block_dim = b
+        self.blocks = None
+        self.block_offsets = None
         self._host = _bsr_from_any(a, b)
         self._host.sort_indices()
         self.dtype = np.dtype(self._host.dtype)
@@ -797,7 +858,10 @@ class Matrix:
 
     @property
     def host(self) -> sp.spmatrix:
-        """The host matrix: scipy CSR, or BSR for a block matrix."""
+        """The host matrix: scipy CSR, or BSR for a block matrix (none
+        for a block-distributed upload, :meth:`scalar_csr`)."""
+        if self._host is None and self.blocks is not None:
+            return self.scalar_csr()
         if self._host is None and \
                 getattr(self, "_csr_pattern", None) is not None:
             # a level refreshed on the device: its CSR values download
@@ -814,10 +878,20 @@ class Matrix:
         return self._host
 
     def scalar_csr(self) -> sp.csr_matrix:
+        """The matrix as a scalar CSR; raises for a block-distributed
+        upload, whose setup reads ``blocks`` per rank
+        (:meth:`assemble_global` serves small grids)."""
+        if self._host is None and self.blocks is not None:
+            raise BadParametersError(
+                "global view of a block-distributed matrix requested — "
+                "setup algorithms must use .blocks (scalable contract); "
+                "assemble_global() exists for small consolidated grids")
         return sp.csr_matrix(self.host)
 
     @property
     def n_block_rows(self) -> int:
+        if self._host is None and self.blocks is not None:
+            return int(self.block_offsets[-1])
         if self._host is None and hasattr(self, "_n_dia"):
             return self._n_dia[0]
         if self._host is None and self._dia is not None:
@@ -826,6 +900,8 @@ class Matrix:
 
     @property
     def n_block_cols(self) -> int:
+        if self._host is None and self.blocks is not None:
+            return int(self.blocks[0].shape[1])
         if self._host is None and hasattr(self, "_n_dia"):
             return self._n_dia[1]
         if self._host is None and self._dia is not None:
@@ -839,11 +915,23 @@ class Matrix:
             return self._host.shape
         return (self.n_block_rows, self.n_block_cols)
 
+    def rank_blocks(self):
+        """Per-rank row blocks of a distributed matrix: the uploaded
+        blocks, or the host matrix split at the distribution's
+        offsets."""
+        if self._host is None and self.blocks is not None:
+            return self.blocks
+        from ..distributed.partition import split_row_blocks
+        return split_row_blocks(self.scalar_csr(),
+                                np.asarray(self.device().offsets))
+
     @property
     def nnz(self) -> int:
         if self._host is None and getattr(self, "_nnz_hint", None) \
                 is not None:
             return self._nnz_hint
+        if self._host is None and self.blocks is not None:
+            return int(sum(b.nnz for b in self.blocks))
         if self._host is None:
             arrs = self.dia_cache()
             return int(np.count_nonzero(arrs[1]))
@@ -857,6 +945,10 @@ class Matrix:
         values hold bf16(f32(v)), as ``_pack_cast_via`` records."""
         dtype = storage_dtype(dtype or self.device_dtype or self.dtype)
         if self._device is not None and self._device_dtype == dtype:
+            return self._device
+        if self.dist is not None:
+            self._device = self._build_sharded(dtype)
+            self._device_dtype = dtype
             return self._device
         if dtype == torch.bfloat16:
             from .precision import device_cast
@@ -872,6 +964,34 @@ class Matrix:
         self._device = self._build_pack(dtype)
         self._device_dtype = dtype
         return self._device
+
+    def _build_sharded(self, dtype):
+        """The sharded ELL pack of a distributed matrix (the
+        ``self.dist`` branch of ``Matrix.device`` upstream): from the
+        uploaded row blocks, else from the host matrix split at the
+        distribution's offsets.  A complex, bf16 or b×b distributed
+        matrix is ROADMAP item 8b of the port."""
+        from ..errors import NotImplementedError_
+        from ..distributed.matrix import (shard_matrix,
+                                          shard_matrix_from_blocks)
+        if self.block_dim != 1:
+            raise NotImplementedError_(
+                "a distributed matrix of b×b blocks is ROADMAP item 8b of "
+                "the port")
+        name = "bfloat16" if dtype == torch.bfloat16 else \
+            np.dtype(dtype).name
+        if name == "bfloat16" or "complex" in name or \
+                np.issubdtype(self.dtype, np.complexfloating):
+            raise NotImplementedError_(
+                f"a distributed matrix in {name} (host {self.dtype}) is "
+                "ROADMAP item 8b of the port")
+        mesh, axis, offsets, n_loc = self.dist
+        if self._host is None and self.blocks is not None:
+            return shard_matrix_from_blocks(
+                self.blocks, self.block_offsets, mesh, axis=axis,
+                dtype=dtype, n_loc=n_loc)
+        return shard_matrix(self.scalar_csr(), mesh, axis=axis,
+                            dtype=dtype, offsets=offsets, n_loc=n_loc)
 
     def _build_pack(self, dtype: np.dtype) -> DeviceMatrix:
         """A fresh device pack of the host values in ``dtype``."""

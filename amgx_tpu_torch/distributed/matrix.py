@@ -1,0 +1,505 @@
+"""Sharded ELL packs and the distributed SpMV on one device (port of
+``amgx_tpu/distributed/matrix.py``; reference ``multiply.cu:75-196``,
+SURVEY §3.4):
+
+    exchange_halo → SpMV on the interior → boundary correction
+
+The JAX package drives distribution from one process: a sharded vector
+is one global array of length P·n_loc, rank-major and padded with
+identity rows; ``shard_map`` runs the SpMV's per-shard body and the
+exchange is a mesh collective.  The port keeps that single-controller
+model with every shard on one device (:func:`make_mesh`): a sharded
+vector is the flat padded (P·n_loc,) tensor on the mesh's device, so the
+Krylov loops, the cycles and the CUDA graph capture take it unchanged,
+and its dots and norms are the port's ordered flat ones.
+
+* :func:`exchange_halo` moves real data on the JAX package's
+  distance-wise schedule: the B2L gather ``x[send_idx]`` builds a (P, B)
+  send buffer; for each rank distance d rank p receives rank
+  (p + d) mod P's buffer (a roll of the shard axis by −d); the
+  ``halo_src`` gather builds the (P, H) halo.  Past the
+  :func:`uses_all_gather` threshold one gather of every buffer takes the
+  place of the per-distance rolls.
+* :func:`dist_spmv` runs every shard's interior in one launch of kernel
+  B3 (:func:`~..ops.ell_spmv.ell_spmv`, called directly, never through
+  the ELL dispatch of :mod:`..ops.spmv`) over one stacked (P·n_loc, K)
+  pack whose local columns are rebased to p·n_loc + c and whose halo
+  columns are −1: B3 skips a column outside ``[0, len(x))``, which adds
+  the same bits as the JAX package's product with a zero halo slot for
+  finite x.  The boundary rows then get their halo terms, a gather and a
+  sum in one order (:func:`~..ops.ordered.sum_along`) written back
+  row by row — each boundary row appears once, so no atomic scatter and
+  no trash slot.
+
+Padding invariant (as upstream): shards are equal-sized; padding rows
+are identity rows whose right-hand side and solution entries stay
+exactly zero through every cycle operation.
+
+Block (b > 1) and complex sharded packs are ROADMAP item 8b of the port;
+shards on several cards are item 8c.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from ..device import resolve_device, torch_dtype
+from ..errors import BadParametersError, NotImplementedError_
+from ..ops.ell_spmv import ell_row_len, ell_spmv
+from ..ops.ordered import sum_along
+from .partition import Partition, build_partition_from_blocks, \
+    split_row_blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceMesh:
+    """A 1-D mesh of ``n_parts`` shards on one torch device (the port's
+    counterpart of ``jax.make_mesh((P,), ("p",))``)."""
+
+    n_parts: int
+    device: torch.device
+    axis: str = "p"
+
+
+def make_mesh(n_parts: int, device=None, axis: str = "p") -> DeviceMesh:
+    """A mesh of ``n_parts`` shards on one device: the card by default,
+    the CPU when ``device="cpu"``.  A sequence of several devices (one
+    shard per card) is ROADMAP item 8c of the port and raises."""
+    if isinstance(device, (list, tuple)):
+        if len({str(torch.device(d)) for d in device}) > 1:
+            raise NotImplementedError_(
+                f"a mesh over {len(device)} devices (shards on several "
+                "cards) is ROADMAP item 8c of the port")
+        device = device[0] if device else None
+    n_parts = int(n_parts)
+    if n_parts < 1:
+        raise BadParametersError(f"a mesh needs at least one shard, got "
+                                 f"{n_parts}")
+    return DeviceMesh(n_parts=n_parts,
+                      device=resolve_device("cuda" if device is None
+                                            else device),
+                      axis=str(axis))
+
+
+def check_mesh(mesh, axis: str = "p") -> DeviceMesh:
+    """``mesh`` as a :class:`DeviceMesh` over axis ``axis``; anything
+    else raises."""
+    if not isinstance(mesh, DeviceMesh):
+        raise BadParametersError(
+            f"expected a mesh from amgx_tpu_torch.distributed.make_mesh, "
+            f"got {type(mesh).__name__}")
+    if axis != mesh.axis:
+        raise BadParametersError(f"mesh axis {mesh.axis!r}, asked for "
+                                 f"{axis!r}")
+    return mesh
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedMatrix:
+    """Frozen sharded ELL pack on one device.
+
+    ``cols``/``vals`` are the stacked interior pack (P·n_loc, K): row
+    p·n_loc + l is shard p's local row l, its local columns rebased to
+    p·n_loc_cols + c, its halo columns −1 (kernel B3 skips them).  The
+    halo maps are flat: ``send_idx`` (P, B) the columns of x each rank
+    sends (the B2L map, rebased), ``halo_src`` (P, H) the d_slot·B +
+    position of each halo slot in the received buffers; ring 2 likewise
+    (square packs only).  ``bnd_rows`` (Nb,) are the flat boundary rows
+    of every shard, ``bnd_vals``/``bnd_hidx`` (Nb, Kb) their halo
+    entries in slot order and each entry's index into the flat (P·H)
+    halo (a zero slot at P·H pads short rows)."""
+
+    cols: torch.Tensor
+    vals: torch.Tensor
+    row_len: torch.Tensor
+    diag: torch.Tensor
+    send_idx: torch.Tensor
+    halo_src: torch.Tensor
+    send_idx2: Optional[torch.Tensor]
+    halo_src2: Optional[torch.Tensor]
+    bnd_rows: torch.Tensor
+    bnd_vals: torch.Tensor
+    bnd_hidx: torch.Tensor
+    #: (n_global,) padded slot of each real row (:func:`pad_map`)
+    pad_idx: torch.Tensor
+    #: (P, D) source rank of each received buffer, for the rings past
+    #: :func:`uses_all_gather` (None on the per-distance schedule)
+    gather_order: Optional[torch.Tensor]
+    gather_order2: Optional[torch.Tensor]
+    n_global: int
+    n_parts: int
+    n_loc: int
+    ell_width: int
+    axis: str
+    dists: tuple
+    dists2: tuple
+    offsets: tuple
+    mesh: DeviceMesh
+    n_loc_cols: Optional[int] = None
+    col_offsets: Optional[tuple] = None
+    send_counts: tuple = ()
+    halo_counts: tuple = ()
+    halo_counts2: tuple = ()
+    bnd_counts: tuple = ()
+    block_dim: int = 1
+
+    fmt = "sharded-ell"
+
+    @property
+    def n(self) -> int:
+        """Padded global size (P·n_loc): the vector length."""
+        return self.n_parts * self.n_loc
+
+    @property
+    def n_rows(self) -> int:
+        return self.n_parts * self.n_loc
+
+    @property
+    def n_cols(self) -> int:
+        """Padded global column size."""
+        return self.n_parts * (self.n_loc_cols if self.n_loc_cols
+                               is not None else self.n_loc)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.vals.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.vals.device
+
+    @property
+    def halo_entries(self) -> int:
+        """Ring-1 halo values one SpMV moves (the partition's unpadded
+        halo sizes, summed over the ranks)."""
+        return int(sum(self.halo_counts))
+
+    def astype(self, dtype) -> "ShardedMatrix":
+        dt = torch_dtype(dtype)
+        return dataclasses.replace(self, vals=self.vals.to(dt),
+                                   diag=self.diag.to(dt),
+                                   bnd_vals=self.bnd_vals.to(dt))
+
+
+def pad_map(offsets: np.ndarray, n_loc: int) -> np.ndarray:
+    """real global row id → padded id (rank p, local l → p·n_loc + l)."""
+    offsets = np.asarray(offsets)
+    n_parts = len(offsets) - 1
+    out = np.empty(int(offsets[-1]), dtype=np.int64)
+    for p in range(n_parts):
+        lo, hi = int(offsets[p]), int(offsets[p + 1])
+        out[lo:hi] = p * n_loc + np.arange(hi - lo)
+    return out
+
+
+def embed_padded(M: sp.csr_matrix, row_offsets, row_nloc,
+                 col_offsets, col_nloc) -> sp.csr_matrix:
+    """Re-index a real-sized sparse matrix into padded coordinates (pad
+    rows and columns stay empty)."""
+    M = sp.coo_matrix(M)
+    rmap = pad_map(np.asarray(row_offsets), row_nloc)
+    cmap = pad_map(np.asarray(col_offsets), col_nloc)
+    n_parts = len(row_offsets) - 1
+    shape = (n_parts * row_nloc, (len(col_offsets) - 1) * col_nloc)
+    return sp.csr_matrix((M.data, (rmap[M.row], cmap[M.col])), shape=shape)
+
+
+def shard_arrays(blocks, part: Partition, dtype, rect: bool = False,
+                 col_offsets=None, n_loc_cols: Optional[int] = None):
+    """The JAX package's per-shard ELL arrays ``(cols, vals, diag)`` of
+    shape (P, n_loc, K) / (P, n_loc), on the host: columns index the
+    shard's extended vector ``[x_local (n_loc_cols) | halo (H)]``,
+    padding rows are identity rows (zero rows in a rectangular pack)."""
+    n_parts, n_loc = part.n_parts, part.n_loc
+    col_offsets = part.offsets if col_offsets is None else \
+        np.asarray(col_offsets)
+    nlc = n_loc if n_loc_cols is None else int(n_loc_cols)
+    K = max((int(np.diff(b.indptr).max()) if b.nnz else 1
+             for b in blocks), default=1)
+    cols = np.zeros((n_parts, n_loc, K), dtype=np.int32)
+    vals = np.zeros((n_parts, n_loc, K), dtype=dtype)
+    diag = np.zeros((n_parts, n_loc), dtype=dtype)
+    for p in range(n_parts):
+        lo, hi = part.offsets[p], part.offsets[p + 1]
+        clo, chi = col_offsets[p], col_offsets[p + 1]
+        nl = hi - lo
+        sub = blocks[p]
+        sub.sort_indices()
+        ext = part.halo_global[p]
+        gcols = sub.indices.astype(np.int64)
+        local = (gcols >= clo) & (gcols < chi)
+        lcols = np.where(local, gcols - clo, 0)
+        if len(ext):
+            halo_slot = np.minimum(np.searchsorted(ext, gcols),
+                                   len(ext) - 1)
+            lcols = np.where(local, lcols, nlc + halo_slot)
+        deg = np.diff(sub.indptr)
+        rr = np.repeat(np.arange(nl), deg)
+        pos = np.arange(len(gcols)) - np.repeat(sub.indptr[:-1], deg)
+        cols[p, rr, pos] = lcols
+        vals[p, rr, pos] = sub.data
+        if not rect:
+            on_diag = gcols == rr + lo
+            # duplicate diagonal entries are legal CSR input: added
+            diag[p] += np.bincount(rr[on_diag], weights=sub.data[on_diag],
+                                   minlength=n_loc).astype(dtype)
+            r = np.arange(nl, n_loc)
+            cols[p, r, 0] = r
+            vals[p, r, 0] = 1.0
+            diag[p, r] = 1.0
+    return cols, vals, diag
+
+
+def stacked_interior(cols: np.ndarray, nlc: int) -> np.ndarray:
+    """The (P·n_loc, K) column table of one B3 launch over every shard:
+    shard p's local column c becomes p·nlc + c, a halo column −1."""
+    n_parts = cols.shape[0]
+    if n_parts * nlc >= 2**31:
+        raise BadParametersError(
+            f"{n_parts}·{nlc} columns exceed the kernel's int32 columns")
+    base = (np.arange(n_parts, dtype=np.int32) * np.int32(nlc))[:, None,
+                                                                None]
+    out = np.where(cols < nlc, cols + base, np.int32(-1))
+    return out.reshape(-1, cols.shape[2])
+
+
+def _boundary_terms(cols: np.ndarray, vals: np.ndarray, part: Partition,
+                    nlc: int):
+    """The boundary correction's tables: flat boundary rows (Nb,), their
+    halo entries' values and flat halo indices (Nb, Kb), in slot order
+    (a short row pads with value 0 at the zero slot P·H)."""
+    n_parts, n_loc, _ = cols.shape
+    H = part.H
+    rows, vs, hs = [], [], []
+    for p in range(n_parts):
+        cnt = int(part.bnd_count[p])
+        if not cnt:
+            continue
+        br = part.bnd_rows[p, :cnt].astype(np.int64)
+        c = cols[p, br]
+        is_h = c >= nlc
+        rows.append(p * n_loc + br)
+        vs.append((vals[p, br], is_h))
+        hs.append(np.where(is_h, p * H + (c.astype(np.int64) - nlc), -1))
+    if not rows:
+        return (np.zeros(0, np.int64), np.zeros((0, 1), vals.dtype),
+                np.zeros((0, 1), np.int64))
+    bnd = np.concatenate(rows)
+    kb = max(int(m.sum(axis=1).max()) for _, m in vs)
+    bv = np.zeros((len(bnd), kb), dtype=vals.dtype)
+    bh = np.full((len(bnd), kb), n_parts * H, dtype=np.int64)
+    at = 0
+    for (v, m), h in zip(vs, hs):
+        nb = v.shape[0]
+        # each row's halo entries moved to the front, in slot order
+        pos = np.cumsum(m, axis=1) - 1
+        r, k = np.nonzero(m)
+        bv[at + r, pos[r, k]] = v[r, k]
+        bh[at + r, pos[r, k]] = h[r, k]
+        at += nb
+    return bnd, bv, bh
+
+
+def shard_matrix(A: sp.csr_matrix, mesh: DeviceMesh, axis: str = "p",
+                 dtype=None, offsets=None, n_loc: Optional[int] = None,
+                 partition: Optional[Partition] = None) -> ShardedMatrix:
+    """Pack a global CSR matrix into a :class:`ShardedMatrix` over
+    ``mesh`` (splits it into per-rank row blocks first; equal row blocks
+    unless ``offsets`` or ``partition`` give them)."""
+    A = sp.csr_matrix(A)
+    mesh = check_mesh(mesh, axis)
+    if partition is not None:
+        offsets = np.asarray(partition.offsets)
+    elif offsets is None:
+        n = A.shape[0]
+        nl = -(-n // mesh.n_parts)
+        offsets = np.minimum(np.arange(mesh.n_parts + 1) * nl, n)
+    else:
+        offsets = np.asarray(offsets)
+    return shard_matrix_from_blocks(split_row_blocks(A, offsets), offsets,
+                                    mesh, axis=axis, dtype=dtype,
+                                    n_loc=n_loc, partition=partition)
+
+
+def shard_matrix_from_blocks(blocks, offsets, mesh: DeviceMesh,
+                             axis: str = "p", dtype=None,
+                             n_loc: Optional[int] = None,
+                             partition: Optional[Partition] = None,
+                             col_offsets=None,
+                             n_loc_cols: Optional[int] = None
+                             ) -> ShardedMatrix:
+    """Pack per-rank row blocks (global column ids) into a
+    :class:`ShardedMatrix` (``AMGX_matrix_upload_distributed``
+    semantics: no step assembles a global matrix; the halo maps come
+    from :func:`~.partition.build_partition_from_blocks`).
+    ``col_offsets``/``n_loc_cols``: a rectangular operator whose column
+    space is partitioned otherwise (its halo lives in the column space,
+    its padding rows are zero rows and it carries no ring 2)."""
+    blocks = [sp.csr_matrix(b) for b in blocks]
+    offsets = np.asarray(offsets)
+    mesh = check_mesh(mesh, axis)
+    rect = col_offsets is not None
+    dtype = np.dtype(dtype or blocks[0].dtype)
+    if np.issubdtype(dtype, np.complexfloating) or \
+            not np.issubdtype(dtype, np.floating):
+        raise NotImplementedError_(
+            f"a {dtype} sharded pack is ROADMAP item 8b of the port")
+    n_parts = mesh.n_parts
+    if len(blocks) != n_parts:
+        raise BadParametersError(
+            f"{len(blocks)} row blocks for a {n_parts}-way mesh axis")
+    part = partition or build_partition_from_blocks(
+        blocks, offsets, n_rings=1 if rect else 2, col_offsets=col_offsets)
+    if n_loc is not None and n_loc > part.n_loc:
+        part = dataclasses.replace(part, n_loc=int(n_loc))
+    n_loc = part.n_loc
+    if rect:
+        col_offsets = np.asarray(col_offsets)
+        nlc = int(n_loc_cols or np.max(np.diff(col_offsets)))
+    else:
+        col_offsets = part.offsets
+        nlc = n_loc
+    cols, vals, diag = shard_arrays(blocks, part, dtype, rect=rect,
+                                    col_offsets=col_offsets, n_loc_cols=nlc)
+    bnd, bv, bh = _boundary_terms(cols, vals, part, nlc)
+    dev = mesh.device
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    flat_vals = up(vals.reshape(-1, vals.shape[2]))
+    r1 = part.rings[0]
+    base = np.arange(n_parts, dtype=np.int64)[:, None] * nlc
+    r2 = part.rings[1] if len(part.rings) > 1 else None
+    order1 = _gather_order(part.dists, n_parts)
+    order2 = None if r2 is None else _gather_order(r2.dists, n_parts)
+    return ShardedMatrix(
+        cols=up(stacked_interior(cols, nlc)), vals=flat_vals,
+        row_len=ell_row_len(flat_vals), diag=up(diag.reshape(-1)),
+        send_idx=up(r1.send_idx.astype(np.int64) + base),
+        halo_src=up(r1.halo_src.astype(np.int64)),
+        send_idx2=None if r2 is None else
+        up(r2.send_idx.astype(np.int64) + base),
+        halo_src2=None if r2 is None else up(r2.halo_src.astype(np.int64)),
+        bnd_rows=up(bnd), bnd_vals=up(bv), bnd_hidx=up(bh),
+        pad_idx=up(pad_map(part.offsets, n_loc)),
+        gather_order=None if order1 is None else up(order1),
+        gather_order2=None if order2 is None else up(order2),
+        n_global=part.n_global, n_parts=n_parts, n_loc=n_loc,
+        ell_width=int(cols.shape[2]), axis=axis, dists=part.dists,
+        dists2=(1,) if r2 is None else r2.dists,
+        offsets=tuple(int(o) for o in part.offsets), mesh=mesh,
+        n_loc_cols=nlc if rect else None,
+        col_offsets=tuple(int(o) for o in col_offsets) if rect else None,
+        send_counts=tuple(int(c) for c in part.send_count),
+        halo_counts=tuple(int(c) for c in part.halo_count),
+        halo_counts2=() if r2 is None else
+        tuple(int(c) for c in r2.halo_count),
+        bnd_counts=tuple(int(c) for c in part.bnd_count))
+
+
+def shard_block_matrix(*_args, **_kw):
+    """Block (b×b) sharded packs: ROADMAP item 8b of the port."""
+    raise NotImplementedError_(
+        "a sharded pack of b×b blocks is ROADMAP item 8b of the port")
+
+
+# --------------------------------------------------------------------------
+# the halo exchange and the distributed SpMV
+# --------------------------------------------------------------------------
+def uses_all_gather(dists: tuple, n_parts: int) -> bool:
+    """The exchange-path predicate: a dense link set takes one gather of
+    every buffer in place of the per-distance schedule."""
+    return n_parts > 1 and len(dists) >= n_parts - 1
+
+
+def _gather_order(dists: tuple, n_parts: int) -> Optional[np.ndarray]:
+    """(P, D) source rank (p + d) mod P of each buffer rank p receives,
+    when ``dists`` takes the gather of every buffer; else None."""
+    if not uses_all_gather(dists, n_parts):
+        return None
+    return (np.arange(n_parts)[:, None] + np.asarray(dists)[None]) \
+        % n_parts
+
+
+def _exchange(buf: torch.Tensor, dists: tuple, n_parts: int,
+              order: Optional[torch.Tensor]) -> torch.Tensor:
+    """Distance-wise neighbour exchange of the (P, B) send buffers: row p
+    of the result holds, for each d in ``dists`` in turn, rank
+    (p + d) mod P's buffer — one roll of the shard axis by −d each (the
+    JAX package's ``ppermute`` per distance), or past
+    :func:`uses_all_gather` one gather of every rank's buffers in the
+    same order."""
+    if n_parts == 1:
+        return buf
+    if order is not None:
+        return buf[order].reshape(n_parts, -1)
+    return torch.cat([torch.roll(buf, -d, 0) for d in dists], dim=1)
+
+
+def exchange_halo(A: ShardedMatrix, x: torch.Tensor, ring: int = 1
+                  ) -> torch.Tensor:
+    """The ring-``ring`` halo values of the sharded ``x``: a (P, H_ring)
+    tensor whose row p holds the values of
+    ``partition.rings[ring-1].halo_global[p]``."""
+    if ring not in (1, 2):
+        raise BadParametersError(f"halo ring must be 1 or 2, got {ring}")
+    if ring == 2 and A.send_idx2 is None:
+        raise BadParametersError("a rectangular pack carries no ring 2")
+    send_idx = A.send_idx if ring == 1 else A.send_idx2
+    halo_src = A.halo_src if ring == 1 else A.halo_src2
+    dists = A.dists if ring == 1 else A.dists2
+    order = A.gather_order if ring == 1 else A.gather_order2
+    got = _exchange(x[send_idx], dists, A.n_parts, order)
+    return torch.gather(got, 1, halo_src)
+
+
+def dist_spmv(A: ShardedMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A·x for the flat sharded ``x`` of length P·n_loc_cols: the
+    halo exchange, every shard's interior in one call of kernel B3 (its
+    plain version on a CPU tensor), then the boundary rows' halo terms
+    summed in slot order and added row by row."""
+    if x.dtype != A.dtype:
+        raise BadParametersError(
+            f"dist_spmv: a {A.dtype} pack takes a {A.dtype} vector, got "
+            f"{x.dtype}")
+    halo = exchange_halo(A, x, 1)
+    y = ell_spmv(A.cols, A.vals, x, A.row_len)
+    if A.bnd_rows.numel():
+        hz = torch.cat([halo.reshape(-1), halo.new_zeros(1)])
+        corr = sum_along(A.bnd_vals * hz[A.bnd_hidx], 1)
+        y[A.bnd_rows] = y[A.bnd_rows] + corr
+    return y
+
+
+def shard_vector(A: ShardedMatrix, v) -> torch.Tensor:
+    """A real-sized global vector padded to P·n_loc on the pack's device
+    in its dtype (rank p's rows at [p·n_loc, p·n_loc + count_p)); a
+    vector already of the padded length is taken as is.  The
+    ``halo_exchange`` fault point fails here, at the distributed solve's
+    host seam, with the device-error code."""
+    from ..utils import faultinject
+    if faultinject.active():
+        from ..errors import RC, AMGXError
+        faultinject.maybe_raise(
+            "halo_exchange",
+            AMGXError("injected halo-exchange failure", RC.CUDA_FAILURE))
+    if not isinstance(v, torch.Tensor):
+        v = torch.from_numpy(np.ascontiguousarray(np.asarray(v)))
+    v = v.to(device=A.device, dtype=A.dtype)
+    if v.shape[0] == A.n:
+        return v.contiguous()
+    out = torch.zeros(A.n, dtype=A.dtype, device=A.device)
+    out[A.pad_idx] = v
+    return out
+
+
+def unshard_vector(A: ShardedMatrix, v: torch.Tensor) -> torch.Tensor:
+    """The padded sharded ``v`` back in real global order (on its
+    device)."""
+    return v[A.pad_idx]
+

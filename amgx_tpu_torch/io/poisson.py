@@ -63,3 +63,30 @@ def poisson7pt(nx: int, ny: int, nz: int) -> sp.csr_matrix:
     A._amgx_dia = (offsets, vals)
     A._amgx_grid_dims = (nz, ny, nx)
     return A
+
+
+def generate_distributed_poisson_7pt(nx: int, ny: int, nz: int,
+                                     px: int = 1, py: int = 1, pz: int = 1):
+    """The global 7-point Poisson and its partition vector for a
+    px×py×pz processor grid over the (nx·px, ny·py, nz·pz) global grid
+    (``AMGX_generate_distributed_poisson_7pt``; port of
+    ``amgx_tpu/io/poisson.py:124-153``): each rank owns an nx×ny×nz
+    brick and rows are numbered rank-contiguously (the renumbered layout
+    of ``generate_poisson7_dist_renum.cu``).  Returns
+    ``(A_global_csr, partition_vector)``."""
+    gx, gy, gz = nx * px, ny * py, nz * pz
+    n = gx * gy * gz
+    X, Y, Z = np.meshgrid(np.arange(gx), np.arange(gy), np.arange(gz),
+                          indexing="ij")
+    X, Y, Z = X.ravel(), Y.ravel(), Z.ravel()
+    lex = (Z * gy + Y) * gx + X
+    rank = (Z // nz) * (px * py) + (Y // ny) * px + (X // nx)
+    local = ((Z % nz) * ny + (Y % ny)) * nx + (X % nx)
+    per_rank = nx * ny * nz
+    perm = np.empty(n, dtype=np.int64)
+    perm[lex] = rank * per_rank + local
+    A = poisson7pt(gx, gy, gz)
+    P = sp.csr_matrix((np.ones(n), (perm, np.arange(n))), shape=(n, n))
+    A_renum = (P @ A @ P.T).tocsr()
+    partition = np.repeat(np.arange(px * py * pz), per_rank)
+    return A_renum, partition

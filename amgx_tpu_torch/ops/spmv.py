@@ -39,6 +39,13 @@ the card the CPU's bits.  On a CUDA tensor each such apply is a decline
 and is also counted in ``ON_CUDA`` (:func:`declines` reads both).  The
 kernel wrappers themselves keep refusing a complex tensor.
 
+``sharded/window`` counts the applies of a sharded ELL pack
+(:mod:`amgx_tpu_torch.distributed`) on a CUDA tensor: its halo exchange,
+every shard's interior in one launch of kernel B3, and the boundary
+correction (:func:`~amgx_tpu_torch.distributed.matrix.dist_spmv`);
+``sharded/gather`` the same apply on a CPU tensor, the interior through
+B3's plain version.
+
 ``dense`` counts the applies of an fmt ``dense`` pack (built with
 ``AMGX_DENSE_PACK=1``): kernel B3 over dense rows on a CUDA tensor, its
 plain version on a CPU tensor; ``op`` the applies of an implicit
@@ -59,7 +66,8 @@ DISPATCH = {k: 0 for k in (
     "dia/kernel", "dia/slices", "dia/block-kernel", "dia/block-slices",
     "ell/shift", "ell/window", "ell/gather", "ell/binned", "ell/binned-block",
     "csr/binned", "csr/binned-block", "ell/block-gather", "csr/segsum",
-    "csr/segsum-lean", "csr/block-segsum", "dense", "dense/lanes", "op")}
+    "csr/segsum-lean", "csr/block-segsum", "dense", "dense/lanes", "op",
+    "sharded/window", "sharded/gather")}
 #: plain-path labels that are a decline only on a CUDA tensor (complex
 #: packs): their CUDA applies, counted apart from the CPU's
 ON_CUDA = {k: 0 for k in ("dia/slices", "ell/gather", "dense/lanes")}
@@ -115,6 +123,12 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
         # Galerkin composition R·(A·(P·x)) — three DIA streams instead of
         # one low-fill embedded matrix
         return spmv(A.R, spmv(A.A, spmv(A.P, x)))
+    if A.fmt == "sharded-ell":
+        # the halo exchange, the shards' interior in one B3 call and the
+        # boundary correction (``spmv.py:107-110`` upstream)
+        from ..distributed.matrix import dist_spmv
+        DISPATCH["sharded/window" if x.is_cuda else "sharded/gather"] += 1
+        return dist_spmv(A, x)
     if A.fmt == "op":
         # an implicit operator (operators.ImplicitOperator, the
         # reference's Operator::apply); its base pack dispatches as any
@@ -258,6 +272,9 @@ def abs_rowsum(A) -> torch.Tensor:
     from .ordered import segment_sum, sum_along
     if A.fmt == "dia3":
         return A.l1row
+    if A.fmt == "sharded-ell":
+        # halo entries belong to their row; padding rows sum to 1
+        return sum_along(A.vals.abs(), 1)
     if A.fmt == "dense":
         v = A.vals.abs()
         return sum_along(v.float() if v.dtype == torch.bfloat16 else v, 1)

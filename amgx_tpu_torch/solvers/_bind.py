@@ -50,6 +50,7 @@ _SKIP = frozenset({
 #: host-side state of a ``Matrix`` (its device pack is what graphs read)
 _SKIP_MATRIX = frozenset({
     "dtype", "_device_dtype_pref", "_host", "_dia", "_dia_checked_max",
+    "blocks", "block_offsets",
     "_dia_thunk",
     "_nnz_hint", "_csr_pattern", "_csr_vals_dev", "cf_map", "grid_dims",
     "_dia_offsets_hint", "_stencil_consistent", "_vals_f32_exact"})
@@ -193,6 +194,21 @@ def collect(root, hints: Optional[Dict[str, Slot]] = None) -> List[Slot]:
         if k not in _SKIP:
             visit(vars(root)[k], k, _Attr(root, k))
     return out
+
+
+def normalize_placement(root, mesh) -> None:
+    """A distributed solve's placement seam (``DeviceBindings.
+    normalize_placement`` upstream, which re-places a level held on a
+    subset of the mesh's devices across the mesh): a mesh of the port
+    holds every shard on one device, so there is nothing to move; the
+    walk checks that every tensor of the solver tree is on that device.
+    One shard per card is ROADMAP item 8c of the port."""
+    from ..errors import BadParametersError
+    for slot in collect(root):
+        if slot.kind == "t" and slot.value.device != mesh.device:
+            raise BadParametersError(
+                f"{slot.path} lives on {slot.value.device}, the mesh on "
+                f"{mesh.device}")
 
 
 def _same_value(a, b) -> bool:

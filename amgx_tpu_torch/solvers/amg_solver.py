@@ -31,6 +31,7 @@ from .base import Solver, register_solver
 class AMGSolver(Solver):
     is_smoother = True
     complex_ok = True
+    sharded_ok = True
 
     def _check_complex(self):
         """Complex systems run aggregation AMG (GEO or SIZE_2 selectors)
@@ -71,6 +72,8 @@ class AMGSolver(Solver):
         self.hierarchy = AMGHierarchy(self.cfg, self.scope)
         self.hierarchy.setup(self.A)
         self._cycle = build_cycle(self.hierarchy)
+        if self.A.dist is not None:
+            _bind.normalize_placement(self, self.A.dist[0])
 
     def _keep_or_drop(self, graphs):
         """After a resetup: keep the graphs on the refreshed tree's values

@@ -22,6 +22,13 @@ equation ``scaling`` runs the solve on a scaled copy
 (:meth:`_maybe_reorder`).  ``fault_inject`` arms named failure points
 (:mod:`..utils.faultinject`), and ``recovery_policy=AUTO`` walks the
 recovery ladder (:mod:`.recovery`) after a failed solve.
+
+A distributed matrix (``Matrix.set_distribution``) packs a sharded ELL
+pack (:mod:`..distributed`): the solve shards b and the guess at its
+entry and unshards x at its exit; the precision knobs, ``scaling`` and
+``matrix_reorder`` are skipped there, as upstream, with a warning; the
+pack is structurally unrefinable; and only the solvers marked
+``sharded_ok`` set up on it (the others are ROADMAP item 8b).
 """
 from __future__ import annotations
 
@@ -155,6 +162,9 @@ class Solver:
     #: True for the solvers held against the JAX package on complex
     #: operators; the others raise on a complex pack (ROADMAP item 7c)
     complex_ok = False
+    #: True for the solvers held against the JAX package on a sharded
+    #: pack; the others raise on one (ROADMAP item 8b)
+    sharded_ok = False
 
     def __init__(self, cfg: AMGConfig, scope: str = "default"):
         self.cfg = cfg
@@ -214,8 +224,13 @@ class Solver:
         self.scaler = None
         self._reorder = None
         scaling = str(self.cfg.get("scaling", self.scope))
+        if isinstance(A, Matrix) and A.dist is not None:
+            # the solve boundary's knobs skip a distributed matrix
+            # (``base.py:415-417`` and ``:528`` upstream)
+            self._warn_skipped_on_distributed(scaling)
+            scaling = "NONE"
         if isinstance(A, Matrix):
-            top = getattr(self, "_toplevel", False)
+            top = getattr(self, "_toplevel", False) and A.dist is None
             if top:
                 A = self._apply_precision_knobs(A)
             if scaling != "NONE" and A.block_dim == 1:
@@ -243,6 +258,8 @@ class Solver:
             self.Ad = A
         if self.Ad.dtype.is_complex:
             self._check_complex()
+        if self.Ad.fmt == "sharded-ell":
+            self._check_sharded()
         self.solver_setup()
         # a bf16 view's wide pack served this setup; drop it
         precision.release_setup_wide(self.A)
@@ -253,6 +270,20 @@ class Solver:
             torch.cuda.synchronize(self.Ad.device)
         self.setup_time = time.perf_counter() - t0
         return self
+
+    def _warn_skipped_on_distributed(self, scaling: str) -> None:
+        """Name the solve-boundary knobs a distributed matrix skips."""
+        g = lambda name: str(self.cfg.get(name, self.scope))
+        skipped = [f"scaling={scaling}"] if scaling != "NONE" else []
+        if getattr(self, "_toplevel", False):
+            skipped += [f"{k}={g(k)}" for k in ("krylov_dtype",
+                                                "tpu_matrix_dtype")
+                        if precision.resolve_dtype(g(k)) is not None]
+            if g("matrix_reorder") == "RCM":
+                skipped.append("matrix_reorder=RCM")
+        if skipped:
+            amgx_output("WARNING: " + ", ".join(skipped) + " skipped on a "
+                        "distributed matrix.\n")
 
     def _apply_precision_knobs(self, A: Matrix) -> Matrix:
         """``krylov_dtype`` (else ``tpu_matrix_dtype``): the top-level
@@ -320,6 +351,10 @@ class Solver:
         CUDA graphs (where every tensor they read keeps its shape, dtype
         and device, :mod:`._bind`) survive; :meth:`setup` stays a full
         rebuild."""
+        if isinstance(A, Matrix) and A.dist is not None:
+            raise NotImplementedError_(
+                "resetup of a distributed matrix is ROADMAP item 8b of the "
+                "port")
         self._numeric_resetup = True
         try:
             return self.setup(A)
@@ -341,6 +376,20 @@ class Solver:
                 why = f"krylov_comm={comm} on a complex operator"
         if why is not None:
             raise NotImplementedError_(f"{why} is ROADMAP item 7c of the "
+                                       "port")
+
+    def _check_sharded(self):
+        """Raise for a sharded pack unless this solver (and its reduction
+        layout) is one the port holds against the JAX package there."""
+        why = None
+        if not self.sharded_ok:
+            why = f"{self.config_name} on a sharded pack"
+        else:
+            comm = getattr(self, "forced_comm", None) or self.krylov_comm
+            if comm != "CLASSIC" and not self.is_smoother:
+                why = f"krylov_comm={comm} on a sharded pack"
+        if why is not None:
+            raise NotImplementedError_(f"{why} is ROADMAP item 8b of the "
                                        "port")
 
     # -------------------------------------------------------- the protocol
@@ -400,6 +449,7 @@ class Solver:
                 and (forced or self.tolerance < tolerance_floor(dtype))):
             return False, None, False
         if self.tolerance <= 0 or self.scaler is not None or \
+                self.Ad.fmt == "sharded-ell" or \
                 self.A is None or not is_floating(dtype):
             return False, None, True
         host_dt = np.dtype(self.A.dtype)
@@ -470,6 +520,14 @@ class Solver:
         refine, wide, structural = self._promotion_plan()
         self._check_tolerance_floor(refine, structural)
         x0 = None if zero_initial_guess else x0
+        dist = self.Ad.fmt == "sharded-ell"
+        if dist:
+            # padded, rank-major, on the pack's device (the
+            # ``halo_exchange`` fault seam)
+            from ..distributed.matrix import shard_vector
+            b = shard_vector(self.Ad, b)
+            if x0 is not None:
+                x0 = shard_vector(self.Ad, x0)
         t0 = time.perf_counter()
         if refine:
             x, iters, nrm, nrm_ini, history, fail = \
@@ -489,6 +547,9 @@ class Solver:
         if fault is not None and (bool(brk_code) if self.monitor_residual
                                   else iters > fault[1]):
             faultinject.fired(fault[0], iteration=fault[1])
+        if dist:
+            from ..distributed.matrix import unshard_vector
+            x = unshard_vector(self.Ad, x)
         if self._reorder is not None:
             x = _permuted(x, self._reorder[1], dev)
         if self.scaler is not None:

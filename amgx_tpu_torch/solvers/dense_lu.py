@@ -3,8 +3,9 @@
 ``core/src/solvers/dense_lu_solver.cu``,
 ``base/src/solvers/dummy_solver.cu``).
 
-The coarsest level (a DIA or ELL pack, or a block level's BSR) is
-densified once at setup and
+The coarsest level (a DIA or ELL pack, a block level's BSR, or a
+sharded level embedded with identity pad rows) is densified once at
+setup and
 LU-factorised in f64 on the host (``scipy.linalg.lu_factor``; the JAX
 package uses ``jax.scipy.linalg.lu_factor``, the reference cusolverDn);
 the factors give the explicit inverse, stored in the factor dtype (at
@@ -50,13 +51,34 @@ def densify(Ad) -> np.ndarray:
     return out
 
 
+def sharded_dense(A, Ad) -> np.ndarray:
+    """The dense padded (P·n_loc)² matrix of a sharded coarsest level
+    (``dense_lu.py:30-47`` upstream): the tiny coarsest system assembled
+    from its row blocks and embedded through ``pad_map``, identity rows
+    on the padding slots, so every shard's solve is the same replicated
+    product."""
+    from ..distributed.matrix import pad_map
+    from ..errors import BadParametersError
+    if A is None:
+        raise BadParametersError(
+            "a sharded coarsest level needs its matrix handle")
+    dense = A.assemble_global().toarray()
+    pm = pad_map(np.asarray(Ad.offsets), Ad.n_loc)
+    big = np.eye(Ad.n, dtype=dense.dtype)
+    big[np.ix_(pm, pm)] = dense
+    return big
+
+
 @register_solver("DENSE_LU_SOLVER")
 class DenseLUSolver(Solver):
     is_smoother = False
     complex_ok = True
+    sharded_ok = True
 
     def solver_setup(self):
-        if self.Ad.block_dim > 1 and self.A is not None:
+        if self.Ad.fmt == "sharded-ell":
+            dense = sharded_dense(self.A, self.Ad)
+        elif self.Ad.block_dim > 1 and self.A is not None:
             # a b×b block coarsest level (block aggregation): its BSR
             dense = self.A.host.toarray()
         else:

@@ -77,6 +77,7 @@ class BlockJacobiSolver(Solver):
     :func:`apply_dinv` (scalar or b×b blocks)."""
 
     complex_ok = True
+    sharded_ok = True
 
     is_smoother = True
 
@@ -107,9 +108,11 @@ class JacobiL1Solver(Solver):
     pack on its device (the wide pack of a bf16 level,
     :func:`setup_source`; pad and explicit zeros add 0; a ``dia3`` level
     carries the row sums of its embedded form, whose rows off the C set
-    are zero and so get D_l1 = 1)."""
+    are zero and so get D_l1 = 1; a sharded pack's halo entries belong to
+    their row, its padding rows sum to 1)."""
 
     is_smoother = True
+    sharded_ok = True
 
     def solver_setup(self):
         absrow = abs_rowsum(setup_source(self))

@@ -50,10 +50,12 @@ The port's seams: ``setup_error`` in ``Solver.setup``, ``upload_error``
 and ``oom`` at the pack phase, ``values_nan`` and ``krylov_zero`` in the
 eager Krylov loop (``Solver._solve_loop``) at iteration ``iter``: the
 poison hits the Krylov state, never a tensor an AMG's CUDA graph
-captured.  ``worker_death``, ``aot_corrupt`` and ``halo_exchange`` stay
-in the vocabulary (a misspelt point still fails loudly), but their seams
-belong to later slices of the port: arming one raises
-:class:`~..errors.NotImplementedError_`.
+captured.  ``halo_exchange`` raises from
+:func:`~..distributed.matrix.shard_vector`, where a distributed solve
+places its right-hand side and guess.  ``worker_death`` and
+``aot_corrupt`` stay in the vocabulary (a misspelt point still fails
+loudly), but their seams belong to a later slice of the port: arming one
+raises :class:`~..errors.NotImplementedError_`.
 
 **Zero overhead when off**: the plan is a single module global that is
 ``None`` until armed — every seam's guard is one ``is None`` check.
@@ -74,7 +76,7 @@ POINTS = ("values_nan", "krylov_zero", "setup_error", "upload_error",
 TRACED_POINTS = ("values_nan", "krylov_zero")
 
 #: points whose seams belong to later slices of the port
-LATER_SLICE_POINTS = ("worker_death", "aot_corrupt", "halo_exchange")
+LATER_SLICE_POINTS = ("worker_death", "aot_corrupt")
 
 
 class InjectedFault(Exception):

@@ -109,7 +109,7 @@ exits non-zero (no phase is caught):
     B2; the coarse ELL levels on B3; no decline), peak memory, the AMG
     graph (:func:`graph_check`), and the device time and busy share of a
     warm solve (``torch.profiler``).  The hierarchy is cut at
-    ``DFG_LEVELS`` levels; phase 22 runs the config's own depth;
+    ``DFG_LEVELS`` levels; phase 22 runs it deeper;
 20. B2 against its plain versions on the card, every row to its own
     limit and bit for bit against the planes' and the compact pack's
     plain version, in (f32, f32) and (f64, f64): that fine pack, the
@@ -123,14 +123,16 @@ exits non-zero (no phase is caught):
     its plain version (over the compact pack), one cuSPARSE CSR SpMV, the bounds over the
     stored entries, the compact pack and the class planes, the compact
     pack's resident bytes and the peak memory since phase 19;
-22. the DFG operator at ny = 512 under the headline config at its own
-    depth (``amg:max_levels=20``, 15 levels down to a 28-row coarse
-    solve): setup; the full solve (its first application captures the
+22. the DFG operator at ny = 512 under the headline config at
+    ``DFG_DEEP_LEVELS`` (13) of its own 15 levels (cut for time; the
+    config's own depth, down to a 28-row coarse solve, is
+    ``scripts/torch_dfg_depth.py``'s): setup; the full solve (its first application captures the
     graph, the others replay it), iterations, the true relres in f64,
     the AMG graph (:func:`graph_check`), B3 bit for bit on the ELL
     levels from phase 19's dense coarsest level down;
-23. the same stack as phase 19 at ny = 320 (544,649 rows, 67 shift
-    tiles) on the card against the CPU, f32 pack and f64 pack: equal
+23. the same stack at ny = 320 (544,649 rows, 67 shift tiles), cut at
+    ``DFG_SMALL_LEVELS`` (8) levels, on the card against the CPU, f32
+    pack and f64 pack: equal
     iterations, x bit-equal with the f32 pack.  The CPU solves run in
     two child processes (one per pack dtype) started at phase 22, after
     the last kernel timing, so phase 22 (whose replays keep the device
@@ -240,8 +242,29 @@ exits non-zero (no phase is caught):
     equal iterations, x bit-equal, segment, host-step and node counts,
     warm solves.
 
-Phases 11, 28, 30, 31 and 33 hold the card's x bit-equal to the CPU's
-(IDRMSYNC on config 4 excepted: its s × s solves are library calls).
+36.-39. the modes and complex solves, the implicit operators and
+    ``solve_multi``, the eigensolvers, binary IO and fmt ``dense``
+    (each function's docstring says what it checks);
+40. distribution on one card: (40a) the 128³ Poisson of
+    ``generate_distributed_poisson_7pt(64, 64, 64, 2, 2, 2)`` in 8
+    shards on the card, f64 pack, under ``DIST_CFG`` (FGMRES(20) +
+    SIZE_2 aggregation, BLOCK_JACOBI 1+2, DENSE_LU) to 1e-8, its counts
+    set to 0 just before the first solve and read just after: every
+    SpMV of a sharded level ``sharded/window`` (the halo exchange and
+    one B3 launch over the stacked interior), none ``sharded/gather``;
+    setup, first and warm solve, the busy share of a warm solve, the
+    levels with their active ranks, level 0's halo entries a SpMV, the
+    AMG graph (:func:`graph_check`); B3 on the stacked 128³ interior bit
+    for bit against its plain version in f32 and f64 and timed, with a
+    copy-rate bound beside the datasheet one; (40b) the same stack at
+    64³ under the legacy consolidation thresholds and under the
+    agglomeration planner (sub-meshes, then a replicated level); (40c)
+    16³ card against CPU (f32: equal counts, x bit-equal; f64: x to
+    1e-9) and sharded PCG against one unsharded card (x to 1e-8).
+
+Phases 11, 28, 30, 31, 33 and 40 hold the card's x bit-equal to the
+CPU's (IDRMSYNC on config 4 excepted: its s × s solves are library
+calls).
 
 Then one JSON line of the paths' kernels and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -324,8 +347,7 @@ SEED = 20261016
 #: package at the same limit)
 SMALL_X_RTOL = 1e-6
 #: the fourth path: the headline stack on the DFG cylinder operator,
-#: its hierarchy cut at DFG_LEVELS levels (phase 22 runs the config's
-#: own depth).  The CG K-cycle (cycle_iters 2) visits level i 2^i times per
+#: its hierarchy cut at DFG_LEVELS levels (phase 22 runs it deeper).  The CG K-cycle (cycle_iters 2) visits level i 2^i times per
 #: application, each visit a few dozen kernels, replayed from one CUDA
 #: graph: at ny = 512 the config's own 14 levels make 2^13 = 8,192
 #: coarse solves per application; 10 levels make 256, on a 1,498-row
@@ -333,6 +355,19 @@ SMALL_X_RTOL = 1e-6
 DFG_LEVELS = 10
 DFG_CFG = HEADLINE_CFG.replace("amg:max_levels=20",
                                f"amg:max_levels={DFG_LEVELS}")
+#: phase 22's depth: 13 of the config's own 15 levels (cut for time:
+#: the K-cycle visits level i 2^i times, so the two deepest levels held
+#: three quarters of its graph; ``scripts/torch_dfg_depth.py`` runs all
+#: 15)
+DFG_DEEP_LEVELS = 13
+DFG_DEEP_CFG = HEADLINE_CFG.replace("amg:max_levels=20",
+                                    f"amg:max_levels={DFG_DEEP_LEVELS}")
+#: phase 23's depth at ny = 320 on the card and in the CPU children (cut
+#: from DFG_LEVELS for time: the children are the smoke's critical
+#: path)
+DFG_SMALL_LEVELS = 8
+DFG_SMALL_CFG = HEADLINE_CFG.replace("amg:max_levels=20",
+                                     f"amg:max_levels={DFG_SMALL_LEVELS}")
 DFG_NY, DFG_SMALL_NY = 512, 320
 #: FGMRES iterations of the profiled window of a warm DFG solve
 DFG_WINDOW_ITERS = 2
@@ -1299,11 +1334,12 @@ def shift_bounds(Ad, nnz, dt):
 
 
 def dfg_solve(amgx, A, where, pdt):
-    """One DFG solve of ``b = 1`` under ``DFG_CFG`` on ``where`` with a
-    ``pdt`` pack: (iterations, x on the host, true relres in f64)."""
+    """One phase-23 DFG solve of ``b = 1`` under ``DFG_SMALL_CFG`` on
+    ``where`` with a ``pdt`` pack: (iterations, x on the host, true
+    relres in f64)."""
     m = amgx.Matrix(A, device=where)
     m.device_dtype = pdt
-    slv = amgx.create_solver(DFG_CFG)
+    slv = amgx.create_solver(DFG_SMALL_CFG)
     slv.setup(m)
     res = slv.solve(np.ones(A.shape[0]))
     assert res.status == amgx.SolveStatus.SUCCESS, (where, pdt)
@@ -1548,7 +1584,7 @@ def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs) -> dict:
     del slv, res, res2, x, m, Ad, h
     torch.cuda.empty_cache()
 
-    # ---- 22. the config's own depth, through the graph, beside the CPU
+    # ---- 22. a deeper hierarchy, through the graph, beside the CPU
     # half of phase 23 (two child processes from here on: no kernel
     # timing is left to run beside them)
     cpu_ref.start()
@@ -1593,9 +1629,10 @@ def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs) -> dict:
 
 
 def dfg_full_depth(amgx, dev, smi, gen, A, ell_errs) -> dict:
-    """Phase 22: the DFG operator under the headline config at its own
-    depth (``amg:max_levels=20``: SIZE_2 down to a 28-row dense coarse
-    solve), f32 pack, f64 refinement: setup; the full solve (its first
+    """Phase 22: the DFG operator under the headline config cut at
+    ``DFG_DEEP_LEVELS`` of its own 15 levels (SIZE_2; the config's own
+    depth ends at a 28-row dense coarse solve), f32 pack, f64
+    refinement: setup; the full solve (its first
     application runs eagerly and captures the preconditioner's graph,
     the others replay it), its iterations and the true relres in f64 on
     the host, the graph's facts (:func:`graph_check`, without an eager
@@ -1610,11 +1647,12 @@ def dfg_full_depth(amgx, dev, smi, gen, A, ell_errs) -> dict:
     t0 = time.perf_counter()
     m = amgx.Matrix(A, device="cuda")
     m.device_dtype = np.float32
-    slv = amgx.create_solver(HEADLINE_CFG)
+    slv = amgx.create_solver(DFG_DEEP_CFG)
     slv.setup(m)
     torch.cuda.synchronize(dev)
     setup_s = time.perf_counter() - t0
     h = slv.preconditioner.hierarchy
+    assert len(h.levels) + 1 == DFG_DEEP_LEVELS, len(h.levels)
     b = torch.ones(n, dtype=torch.float64, device=dev)
     reset_counts()
     res = slv.solve(b)
@@ -1630,7 +1668,8 @@ def dfg_full_depth(amgx, dev, smi, gen, A, ell_errs) -> dict:
         check_ell(dev, gen, f"dfg_{DFG_NY}_full.level{i}.A",
                   lv.Ad.ell_cols_view(), lv.Ad.ell_vals_view().double(),
                   lv.Ad.n_cols, ell_errs, row_len=lv.Ad.row_len)
-    emit("dfg_full_depth", ny=DFG_NY, rows=n, config="amg:max_levels=20",
+    emit("dfg_full_depth", ny=DFG_NY, rows=n,
+         config=f"amg:max_levels={DFG_DEEP_LEVELS}",
          levels=[lv.level_stats()[0] for lv in h.levels]
          + [h.coarsest.n_block_rows],
          iterations=res.iterations, relres_f64=relres, setup_s=setup_s,
@@ -3666,6 +3705,329 @@ def item7b_phases(amgx, dev, smi, gen) -> dict:
     return paths
 
 
+# --------------------------------------------------------------------------
+# phase 40: distribution on one card (ROADMAP item 8a)
+# --------------------------------------------------------------------------
+#: tests/test_distributed.py:140-148 word for word: FGMRES(20) + SIZE_2
+#: aggregation, 12 levels, BLOCK_JACOBI 1+2, DENSE_LU
+DIST_CFG = (
+    "config_version=2, solver(out)=FGMRES, out:max_iters=100, "
+    "out:monitor_residual=1, out:tolerance=1e-8, "
+    "out:convergence=RELATIVE_INI, out:gmres_n_restart=20, "
+    "out:preconditioner(amg)=AMG, amg:algorithm=AGGREGATION, "
+    "amg:selector=SIZE_2, amg:max_iters=1, amg:max_levels=12, "
+    "amg:smoother(sm)=BLOCK_JACOBI, sm:max_iters=1, amg:presweeps=1, "
+    "amg:postsweeps=2, amg:min_coarse_rows=16, "
+    "amg:coarse_solver=DENSE_LU_SOLVER")
+#: PCG + BLOCK_JACOBI of tests/test_distributed.py:114-129
+DIST_PCG_CFG = (
+    "config_version=2, solver(s)=PCG, s:max_iters=300, "
+    "s:monitor_residual=1, s:tolerance=1e-10, s:convergence=RELATIVE_INI, "
+    "s:preconditioner(p)=BLOCK_JACOBI, p:max_iters=3")
+#: shards of every distributed run (a 2×2×2 processor grid)
+DIST_PARTS = 8
+#: the brick a rank owns: 64³ gives the 128³ headline grid (40a), 32³
+#: the 64³ consolidation runs (40b), 8³ the 16³ card-against-CPU runs
+DIST_BRICK = 64
+DIST_CONS_BRICK = 32
+DIST_SMALL_BRICK = 8
+#: 40b's two consolidation triggers.  The legacy pair: with an upper
+#: threshold of 8·lower or more every level under ``lower`` rows a rank
+#: goes straight to one rank (⌈nc/upper⌉ = 1 for nc < 8·lower), so the
+#: upper threshold is 2·lower to show a sub-mesh before the replicated
+#: level
+DIST_LEGACY = ("matrix_consolidation_lower_threshold=2048, "
+               "matrix_consolidation_upper_threshold=4096")
+DIST_PLANNER = "dist_agglomerate_min_rows=4096"
+
+
+def dist_system(brick: int):
+    """The distributed 7-point Poisson over a 2×2×2 grid of ``brick``³
+    bricks and its rank offsets (host CSR, rank-contiguous rows)."""
+    from amgx_tpu_torch.distributed import partition_offsets_from_vector
+    from amgx_tpu_torch.io import generate_distributed_poisson_7pt
+    A, pv = generate_distributed_poisson_7pt(brick, brick, brick, 2, 2, 2)
+    return A, partition_offsets_from_vector(pv, DIST_PARTS)
+
+
+def dist_matrix(amgx, A, offsets, where, pdt):
+    """``A`` uploaded on ``where`` and distributed over 8 shards there."""
+    from amgx_tpu_torch.distributed import make_mesh
+    m = amgx.Matrix(A, device=where)
+    m.device_dtype = pdt
+    m.set_distribution(make_mesh(DIST_PARTS, device=where), offsets=offsets)
+    return m
+
+
+def dist_levels(h) -> list:
+    """Per level, then the coarsest: the pack format, real and stored
+    rows, the active ranks of its shards and of its coarse grid's
+    sub-mesh (``submesh_parts``)."""
+    from amgx_tpu_torch.distributed.agglomerate import active_parts
+
+    def entry(A, Ad, coarse):
+        return dict(fmt=Ad.fmt, rows=A.n_block_rows, stored=Ad.n_rows,
+                    active=active_parts(Ad.offsets)
+                    if Ad.fmt == "sharded-ell" else 1,
+                    coarse_active=coarse)
+
+    return [entry(lv.A, lv.Ad, lv.submesh_parts) for lv in h.levels] + \
+        [entry(h.coarsest, h.coarsest.device(), None)]
+
+
+def dist_solve(amgx, dev, A, offsets, where, pdt, cfg, warm=True):
+    """Setup and solve (b = 1) of the distributed ``A``: the solver, the
+    first result, the counts of that first solve (card only), a warm
+    result, setup seconds and the true relres in f64 on the host."""
+    import torch
+    t0 = time.perf_counter()
+    m = dist_matrix(amgx, A, offsets, where, pdt)
+    slv = amgx.create_solver(cfg)
+    slv.setup(m)
+    setup_s = time.perf_counter() - t0
+    b = np.ones(A.shape[0])
+    if where == "cuda":
+        torch.cuda.synchronize(dev)
+        reset_counts()
+    res = slv.solve(b)
+    counts = None
+    if where == "cuda":
+        torch.cuda.synchronize(dev)
+        counts = read_counts()
+    res2 = slv.solve(b) if warm else None
+    x = res.x.cpu().numpy()
+    relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+    return dict(slv=slv, res=res, res2=res2, counts=counts,
+                setup_s=setup_s, relres=relres, x=res.x.cpu())
+
+
+def sharded_interior_csr(Ad, vals):
+    """The interior entries of a stacked sharded pack (halo slots, −1,
+    and zeros dropped) as a torch sparse CSR (the cuSPARSE yardstick)."""
+    import torch
+    cols = Ad.cols
+    n, K = cols.shape
+    keep = ((vals != 0) & (cols >= 0)).reshape(-1)
+    rows = torch.arange(n, device=cols.device).repeat_interleave(K)[keep]
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=cols.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
+    return torch.sparse_csr_tensor(crow, cols.reshape(-1)[keep].long(),
+                                   vals.reshape(-1)[keep],
+                                   size=(n, Ad.n_cols)), int(keep.sum())
+
+
+def copy_gbs(dev) -> float:
+    """Device-to-device copy rate of 1 GiB (read + write bytes over the
+    median time of ``time_ms``)."""
+    import torch
+    src = torch.empty(1 << 28, dtype=torch.float32, device=dev)
+    dst = torch.empty_like(src)
+    ms = time_ms(lambda: dst.copy_(src), dev, reps=10, warm=2)
+    del src, dst
+    return 2 * (1 << 30) / (ms * 1e-3) / 1e9
+
+
+def sharded_interior_kernel(dev, gen, smi, Ad, errs) -> dict:
+    """B3 on the stacked sharded interior of the 128³ level 0: held bit
+    for bit against ``ell_spmv_reference`` in f32 and f64
+    (:func:`check_ell`), then timed: kernel, plain version, cuSPARSE
+    CSR of the interior entries, the bound over the pack's slots
+    (n·K column and value reads, x read, y written) at the datasheet
+    rate and at the copy rate measured in this run."""
+    import torch
+    from amgx_tpu_torch.ops import ell_spmv as emod
+    check_ell(dev, gen, "sharded_interior_128^3", Ad.cols, Ad.vals.double(),
+              Ad.n_cols, errs, row_len=Ad.row_len)
+    gbs = copy_gbs(dev)
+    n, K = Ad.cols.shape
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        vals = Ad.vals.to(dt).contiguous()
+        x = torch.randn(Ad.n_cols, dtype=dt, device=dev, generator=gen)
+        csr, nnz = sharded_interior_csr(Ad, vals)
+        ms = time_ms(lambda: emod.ell_spmv(Ad.cols, vals, x, Ad.row_len),
+                     dev)
+        plain_ms = time_ms(lambda: emod.ell_spmv_reference(Ad.cols, vals,
+                                                           x), dev)
+        library_ms = time_ms(lambda: csr @ x, dev)
+        bound_ms, bound_by = ell_bound(n * K, n, Ad.n_cols, dt)
+        nbytes = n * K * (4 + dt.itemsize) + (Ad.n_cols + n) * dt.itemsize
+        key = f"{short(dt)}.{short(dt)}"
+        out[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        bound_copy_ms=nbytes / (gbs * 1e9) * 1e3)
+        emit("sharded_interior_timing", n=n, K=K, n_cols=Ad.n_cols,
+             interior_nnz=nnz, type=short(dt), least_bytes=nbytes,
+             copy_gbs=gbs, card=smi, **out[key])
+        del csr
+    return out
+
+
+def dist_headline_phase(amgx, dev, smi, gen) -> dict:
+    """40a: the distributed headline at full width — the 128³ Poisson
+    (``generate_distributed_poisson_7pt(64, 64, 64, 2, 2, 2)``) in 8
+    shards on the card, f64 pack, ``DIST_CFG`` to 1e-8, its counts set
+    to 0 just before the first solve and read just after; B3 on the
+    stacked interior bit for bit and timed."""
+    import torch
+    t_phase = time.perf_counter()
+    A, offsets = dist_system(DIST_BRICK)
+    torch.empty(1, device=dev)      # the allocator is up before a reset
+    torch.cuda.reset_peak_memory_stats(dev)
+    r = dist_solve(amgx, dev, A, offsets, "cuda", np.float64, DIST_CFG)
+    slv, res, res2, counts = r["slv"], r["res"], r["res2"], r["counts"]
+    h = slv.preconditioner.hierarchy
+    Ad0 = h.levels[0].Ad
+    graph = graph_check(slv.preconditioner, dev, gen)
+    wall, dev_s, kern, top = profile_window(lambda: slv.solve(
+        np.ones(A.shape[0])))
+    assert res.status == amgx.SolveStatus.SUCCESS, res.status
+    assert res2.iterations == res.iterations
+    assert r["relres"] <= 1e-8, r["relres"]
+    assert Ad0.fmt == "sharded-ell", Ad0.fmt
+    disp = counts["dispatch"]
+    assert disp.get("sharded/window", 0) > 0 and \
+        disp.get("sharded/gather", 0) == 0, disp
+    assert counts["B3"]["f64.f64"] >= disp["sharded/window"], counts
+    assert not any(counts["declines"].values()), counts
+    errs = {}
+    timing = sharded_interior_kernel(dev, gen, smi, Ad0, errs)
+    emit("dist_headline", n=A.shape[0], shards=DIST_PARTS,
+         iterations=res.iterations, status=int(res.status),
+         relres=r["relres"], setup_s=r["setup_s"],
+         solve_s=res.solve_time, solve_warm_s=res2.solve_time,
+         busy_share_of_unprofiled=dev_s / res2.solve_time,
+         device_busy_s=dev_s, profiled_wall_s=wall, device_kernels=kern,
+         top=top, levels=dist_levels(h),
+         halo_entries_level0=Ad0.halo_entries,
+         halo_dists_level0=list(Ad0.dists), send_buffer_level0=int(
+             Ad0.send_idx.shape[1]),
+         boundary_rows_level0=int(Ad0.bnd_rows.numel()),
+         counts=counts, amg_graph=graph,
+         peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, card=smi,
+         elapsed_phase_s=time.perf_counter() - t_phase)
+    launches = counts["dispatch"]["sharded/window"]
+    del slv, r, h, Ad0
+    torch.cuda.empty_cache()
+    return dict(counts=counts, timing=timing, errs=errs,
+                interior_launches=launches)
+
+
+def dist_consolidation_phase(amgx, dev, smi) -> dict:
+    """40b: the 40a stack at 64³ under the legacy consolidation
+    thresholds (``DIST_LEGACY``: a sub-mesh level, then a replicated
+    one) and under the agglomeration planner (``DIST_PLANNER``: its
+    sub-meshes), each to 1e-8 on the card."""
+    import torch
+    A, offsets = dist_system(DIST_CONS_BRICK)
+    out = {}
+    for label, extra in (("legacy", DIST_LEGACY), ("planner", DIST_PLANNER)):
+        t_phase = time.perf_counter()
+        cfg = DIST_CFG.replace("config_version=2, ",
+                               f"config_version=2, {extra}, ")
+        r = dist_solve(amgx, dev, A, offsets, "cuda", np.float64, cfg)
+        res = r["res"]
+        levels = dist_levels(r["slv"].preconditioner.hierarchy)
+        sub = [lv["coarse_active"] for lv in levels[:-1]]
+        assert res.status == amgx.SolveStatus.SUCCESS, (label, res.status)
+        assert r["relres"] <= 1e-8, (label, r["relres"])
+        assert any(s is not None and 1 < s < DIST_PARTS for s in sub), \
+            (label, sub)
+        if label == "legacy":
+            assert 1 in sub and any(lv["fmt"] != "sharded-ell"
+                                    for lv in levels), (label, levels)
+        disp = r["counts"]["dispatch"]
+        assert disp.get("sharded/window", 0) > 0 and \
+            disp.get("sharded/gather", 0) == 0, disp
+        emit("dist_consolidation", trigger=label, config=extra,
+             n=A.shape[0], iterations=res.iterations,
+             status=int(res.status), relres=r["relres"],
+             setup_s=r["setup_s"], solve_s=res.solve_time,
+             solve_warm_s=r["res2"].solve_time, levels=levels,
+             counts=r["counts"], card=smi,
+             elapsed_phase_s=time.perf_counter() - t_phase)
+        out[f"dist_consolidation_{label}"] = r["counts"]
+        del r
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_card_cpu_phase(amgx, dev, smi) -> dict:
+    """40c: card against CPU at 16³ in 8 shards — the 40a stack on an
+    f32 pack to 1e-5 (equal counts, x bit-equal) and on an f64 pack to
+    1e-8 (equal counts, x to 1e-9); PCG + BLOCK_JACOBI on 8 shards
+    against the same on one unsharded card (x to 1e-8 relative,
+    ``tests/test_distributed.py:114-129``)."""
+    import torch
+    t_phase = time.perf_counter()
+    A, offsets = dist_system(DIST_SMALL_BRICK)
+    cases = {}
+    out = {}
+    for label, pdt, tol in (("f32", np.float32, "1e-5"),
+                            ("f64", np.float64, "1e-8")):
+        cfg = DIST_CFG.replace("out:tolerance=1e-8",
+                               f"out:tolerance={tol}")
+        runs = {w: dist_solve(amgx, dev, A, offsets, w, pdt, cfg,
+                              warm=False) for w in ("cuda", "cpu")}
+        g, c = runs["cuda"], runs["cpu"]
+        assert g["res"].iterations == c["res"].iterations, \
+            (label, g["res"].iterations, c["res"].iterations)
+        # the f32 solve stops on FGMRES's estimate; its true f32 residual
+        # sits at the tolerance (the same status on both devices)
+        assert g["res"].status == c["res"].status, label
+        assert label == "f32" or \
+            g["res"].status == amgx.SolveStatus.SUCCESS, label
+        diff = ((g["x"] - c["x"]).norm() / c["x"].norm()).item()
+        bit_equal = bool(torch.equal(g["x"], c["x"]))
+        if label == "f32":
+            assert bit_equal, (label, diff)
+        else:
+            assert diff <= 1e-9, (label, diff)
+        assert [lv["rows"] for lv in dist_levels(
+            g["slv"].preconditioner.hierarchy)] == \
+            [lv["rows"] for lv in dist_levels(
+                c["slv"].preconditioner.hierarchy)]
+        cases[label] = dict(iterations=g["res"].iterations,
+                            status=int(g["res"].status),
+                            relres=g["relres"], x_rel_diff=diff,
+                            x_bit_equal=bit_equal, setup_s=g["setup_s"],
+                            solve_s=g["res"].solve_time,
+                            levels=dist_levels(
+                                g["slv"].preconditioner.hierarchy),
+                            counts=g["counts"])
+        out[f"dist_16_{label}"] = g["counts"]
+    # 8 shards against one unsharded card
+    dist = dist_solve(amgx, dev, A, offsets, "cuda", np.float64,
+                      DIST_PCG_CFG, warm=False)
+    m1 = amgx.Matrix(A, device="cuda")
+    s1 = amgx.create_solver(DIST_PCG_CFG)
+    s1.setup(m1)
+    one = s1.solve(np.ones(A.shape[0]))
+    x1 = one.x.cpu()
+    diff = ((dist["x"] - x1).norm() / x1.norm()).item()
+    assert diff <= 1e-8, diff
+    assert dist["res"].status == amgx.SolveStatus.SUCCESS
+    assert dist["counts"]["dispatch"].get("sharded/window", 0) > 0
+    emit("dist_card_vs_cpu", n=A.shape[0], shards=DIST_PARTS, **cases,
+         pcg_sharded_vs_one_card=dict(
+             iterations_sharded=dist["res"].iterations,
+             iterations_one=one.iterations, x_rel_diff=diff,
+             relres=dist["relres"], counts=dist["counts"]),
+         card=smi, elapsed_phase_s=time.perf_counter() - t_phase)
+    out["dist_16_pcg"] = dist["counts"]
+    return out
+
+
+def item8a_phases(amgx, dev, smi, gen) -> dict:
+    """Phase 40 (40a, 40b, 40c); returns the launches by path and the
+    sharded interior's kernel facts."""
+    head = dist_headline_phase(amgx, dev, smi, gen)
+    paths = {"dist_headline_128": head["counts"]}
+    paths.update(dist_consolidation_phase(amgx, dev, smi))
+    paths.update(dist_card_cpu_phase(amgx, dev, smi))
+    return dict(paths=paths, head=head)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4093,6 +4455,11 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     # eigensolvers, binary IO and fmt dense
     setup_paths.update(item7b_phases(amgx, dev, smi, gen))
 
+    # ---- 40. distribution on one card: the 128³ headline in 8 shards,
+    # consolidation, card against CPU
+    dist = item8a_phases(amgx, dev, smi, gen)
+    setup_paths.update(dist["paths"])
+
     # ---- the kernels of the paths
     kernels = []
     for key in ("f32.f32", "f64.f64"):
@@ -4170,6 +4537,22 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
             n_ = tot.get(kern, {}).get(pair, 0)
             entry["launches_by_path"][path] = n_
             entry["launches"] += n_
+    # B3 on the stacked sharded interior of phase 40 (its launches: the
+    # distributed SpMVs of 40a in f64, of 40c's f32 run in f32)
+    for key in ("f32.f32", "f64.f64"):
+        v, xx = key.split(".")
+        t = dist["head"]["timing"][key]
+        path = "dist_16_f32" if key == "f32.f32" else "dist_headline_128"
+        n_ = dist["paths"][path]["dispatch"].get("sharded/window", 0)
+        kernels.append(dict(
+            name=f"ell_spmv<{v},{xx},sharded_interior>", route="cuda",
+            source="amgx_tpu_torch/csrc/ell_spmv.cu",
+            replaces="amgx_tpu/ops/pallas_ell.py:209", launches=n_,
+            launches_by_path={path: n_},
+            max_abs_err=dist["head"]["errs"][key]["abs"],
+            max_row_rel_err=dist["head"]["errs"][key]["rel"],
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "bound_copy_ms")}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1056,3 +1056,71 @@ def test_solve_multi_lanes_bit_equal(card):
         assert rj.iterations == single.iterations and rj.status == 0
         assert torch.equal(rj.x, single.x)
     assert len(slv.solve_multi(B[:3], pad_to_bucket=True)) == 3
+
+
+def _dist_poisson(brick, where, pdt):
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.distributed import (make_mesh,
+                                            partition_offsets_from_vector)
+    from amgx_tpu_torch.io import generate_distributed_poisson_7pt
+    A, pv = generate_distributed_poisson_7pt(brick, brick, brick, 2, 2, 2)
+    m = amgx.Matrix(A, device=where)
+    m.device_dtype = pdt
+    m.set_distribution(make_mesh(8, device=where),
+                       offsets=partition_offsets_from_vector(pv, 8))
+    return A, m
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_sharded_interior_kernel_bit_equal(card, dt):
+    """B3 on the stacked sharded interior (halo columns −1, skipped) is
+    its plain version bit for bit, and the distributed SpMV on the card
+    is the CPU's."""
+    from amgx_tpu_torch.distributed import dist_spmv, shard_vector
+    from amgx_tpu_torch.ops import ell_spmv as emod
+    A, m = _dist_poisson(12, "cuda", np.dtype(str(dt).split(".")[1]))
+    Ad = m.device()
+    assert Ad.fmt == "sharded-ell" and bool((Ad.cols < 0).any())
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(Ad.n_cols, dtype=torch.float64, device=card,
+                    generator=g).to(dt)
+    before = emod.launch_count()
+    y = emod.ell_spmv(Ad.cols, Ad.vals, x, Ad.row_len)
+    torch.cuda.synchronize(card)
+    assert emod.launch_count() == before + 1
+    assert torch.equal(y, emod.ell_spmv_reference(Ad.cols, Ad.vals, x))
+    _, mc = _dist_poisson(12, "cpu", np.dtype(str(dt).split(".")[1]))
+    xv = np.random.default_rng(0).standard_normal(A.shape[0])
+    yg = dist_spmv(Ad, shard_vector(Ad, xv))
+    Acd = mc.device()
+    yc = dist_spmv(Acd, shard_vector(Acd, xv))
+    assert torch.equal(yg.cpu(), yc)
+
+
+def test_distributed_solve_on_card_matches_cpu(card):
+    """The distributed FGMRES + SIZE_2 stack at 12³ in 8 shards, f32
+    pack: the card takes the CPU's count with x bit-equal, every SpMV a
+    ``sharded/window`` (B3) and the AMG one graph."""
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.ops import spmv as smod
+    cfg = ("config_version=2, solver(out)=FGMRES, out:max_iters=100, "
+           "out:monitor_residual=1, out:tolerance=1e-5, "
+           "out:convergence=RELATIVE_INI, out:gmres_n_restart=20, "
+           "out:preconditioner(amg)=AMG, amg:algorithm=AGGREGATION, "
+           "amg:selector=SIZE_2, amg:max_iters=1, amg:max_levels=12, "
+           "amg:smoother(sm)=BLOCK_JACOBI, sm:max_iters=1, "
+           "amg:presweeps=1, amg:postsweeps=2, amg:min_coarse_rows=16, "
+           "amg:coarse_solver=DENSE_LU_SOLVER")
+    out = {}
+    for where in ("cuda", "cpu"):
+        A, m = _dist_poisson(6, where, np.float32)
+        s = amgx.create_solver(cfg)
+        s.setup(m)
+        smod.reset_dispatch()
+        r = s.solve(np.ones(A.shape[0]))
+        out[where] = (r.iterations, r.x.cpu(), dict(smod.DISPATCH), s)
+    assert out["cuda"][0] == out["cpu"][0]
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert out["cuda"][2]["sharded/window"] > 0
+    assert out["cuda"][2]["sharded/gather"] == 0
+    assert len(out["cuda"][3].preconditioner.graphs) == 1

@@ -101,19 +101,23 @@ def test_spec_parsing_and_triggers():
 def test_unknown_and_later_slice_points():
     """A misspelt point fails loudly (ValueError, as upstream); the
     points whose seams belong to later slices raise NotImplementedError_
-    when armed."""
+    when armed, and ``halo_exchange`` (its seam ported) arms."""
     with pytest.raises(ValueError, match="unknown fault-injection"):
         faultinject.configure("definitely_not_a_point:count=1")
     with pytest.raises(ValueError, match="unknown fault-injection"):
         SolverFactory.create("CG", amgx.AMGConfig(
             "config_version=2, solver(s)=CG, s:fault_inject=bogus"), "s")
-    for point in ("worker_death", "aot_corrupt", "halo_exchange"):
+    for point in ("worker_death", "aot_corrupt"):
         assert point in faultinject.POINTS
         with pytest.raises(NotImplementedError_):
             faultinject.configure(f"{point}:count=1")
         with pytest.raises(NotImplementedError_):
             faultinject.configure({point: {"count": 1}})
     assert not faultinject.active()
+    # halo_exchange has its seam (distributed.matrix.shard_vector)
+    faultinject.configure("halo_exchange:count=1")
+    assert faultinject.active()
+    faultinject.reset()
 
 
 def test_knob_arms_once_per_spec():
