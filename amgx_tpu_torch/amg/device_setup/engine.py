@@ -70,6 +70,8 @@ class DeviceSetupEngine:
         self.builds = 0
         self.evictions = 0
         self.numeric_runs = 0
+        #: numeric passes of the distributed shard-local form
+        self.dist_runs = 0
         self.declines: dict = {}
 
     def _budget(self, budget_bytes) -> int:
@@ -148,7 +150,8 @@ class DeviceSetupEngine:
                     "evictions": int(self.evictions),
                     "fallbacks": int(sum(self.declines.values())),
                     "declines": dict(self.declines),
-                    "numeric_runs": int(self.numeric_runs)}
+                    "numeric_runs": int(self.numeric_runs),
+                    "dist_runs": int(self.dist_runs)}
 
     # -------------------------------------------------------- declines
     def _decline(self, reason: str):
@@ -213,6 +216,55 @@ class DeviceSetupEngine:
         if not keep_pattern:
             # scipy's product prunes exact cancellations; so does this
             Ac.eliminate_zeros()
+        return Ac
+
+    def galerkin_dist(self, A_loc, P_ext, P_loc, *, dtype, device="cpu",
+                      min_rows: int = 0,
+                      budget_bytes: Optional[int] = None
+                      ) -> Optional[sp.csr_matrix]:
+        """The shard-local distributed Galerkin partial
+        ``P_locᵀ·(A_loc·P_ext)`` (``galerkin_dist`` upstream,
+        ``engine.py:221-290``; the reference's ``RAP_ext``,
+        ``csr_multiply.h:100-126``): ``A_loc`` is one rank's row block
+        over its [local | ring-1] column space, ``P_ext`` its local P rows
+        stacked with the halo'd P rows, ``P_loc`` the local rows alone.
+        The symbolic pass runs on ``device`` (cached by the three
+        patterns and the dtype), the numeric pass there too.  Returns the
+        rank's (nc, nc) coarse partial on its full symbolic pattern, exact
+        zeros included, or None after a gate decline (the caller runs
+        the scipy product)."""
+        budget = self._budget(budget_bytes)
+        dtype = np.dtype(dtype)
+        A_loc = _canon(A_loc)
+        P_ext = _canon(P_ext)
+        P_loc = _canon(P_loc)
+        reason = self._gates(A_loc.shape[0], A_loc.nnz == 0 or
+                             P_ext.nnz == 0 or P_loc.nnz == 0, dtype,
+                             min_rows)
+        if reason:
+            return self._decline(reason)
+        key = ("rapd", csr_structure_fingerprint(A_loc),
+               csr_structure_fingerprint(P_ext),
+               csr_structure_fingerprint(P_loc), dtype.str)
+        n_ap = int(np.diff(P_ext.indptr)[A_loc.indices].sum())
+        plan = self._plan(
+            key, lambda: spgemm.build_galerkin_plan(
+                A_loc, P_ext, device=device, max_bytes=budget,
+                P_left=P_loc), budget, min_bytes=8 * n_ap)
+        if plan is None:
+            return None
+        tdt = getattr(torch, dtype.name)
+        vA = torch.from_numpy(A_loc.data).to(device=device, dtype=tdt)
+        vP = torch.from_numpy(P_ext.data).to(device=device, dtype=tdt)
+        data = spgemm.galerkin_numeric(plan, vA, vP).cpu().numpy()
+        with self._lock:
+            self.numeric_runs += 1
+            self.dist_runs += 1
+        Ac = sp.csr_matrix((data.astype(dtype), plan.Ac_indices.copy(),
+                            plan.Ac_indptr.copy()), shape=plan.Ac_shape)
+        # the full symbolic pattern: pruning would make the coarse
+        # pattern depend on the values, as upstream
+        Ac.sort_indices()
         return Ac
 
     def cached_galerkin_plan(self, A, P, dtype):

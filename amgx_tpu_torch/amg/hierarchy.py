@@ -53,8 +53,16 @@ scalar aggregation and the serial classical parts of
   onto one replicated level: the legacy
   ``matrix_consolidation_lower/upper_threshold`` or the
   ``dist_agglomerate_min_rows`` planner (:mod:`..distributed.agglomerate`).
-  CLASSICAL and ENERGYMIN, ``amg_host_levels_rows`` and a resetup on a
-  distributed matrix are ROADMAP item 8b of the port.
+  Classical AMG on a distributed matrix coarsens per rank too
+  (``_coarsen_classical_dist`` upstream, :mod:`.classical.distributed`):
+  strength and PMIS on each rank's extended rows with exchanged halo C/F
+  states, D1/D2 interpolation through the ring-2 extended blocks, the
+  per-rank Galerkin partials through the engine's shard-local form
+  (``galerkin_dist``) summed by their owners, and sharded rectangular
+  P/R packs.  Other selectors (HMIS, RS, the CR of ENERGYMIN…), other
+  interpolators and a strength that is not row-local take the JAX
+  package's global fallback: P and R embedded into the padded spaces.
+  A resetup of a distributed matrix is a fresh setup, as upstream.
 
 Values-only resetup (``structure_reuse_levels`` ≠ 0; reference
 ``amg.cu:260-290``): each level records its coarsening decision in
@@ -194,15 +202,21 @@ def _no_dia_structure():
 def _on_device(v, dev: torch.device):
     """``v`` (a tensor, a device pack or ``Matrix``, or anything else,
     returned as is) on ``dev``: a ``Matrix`` becomes a shallow copy that
-    shares its host data, with its cached packs and inverted diagonal
-    copied over; a pack dataclass is rebuilt field by field."""
+    shares its host data, with its cached packs, inverted diagonal and
+    mesh copied over; a pack dataclass (a sharded pack and its mesh
+    included) is rebuilt field by field."""
     import copy
     import dataclasses
     if isinstance(v, torch.Tensor):
         return v.to(dev)
+    if isinstance(v, torch.device):
+        # a distributed level's mesh moves with its shards
+        return dev
     if isinstance(v, Matrix):
         m = copy.copy(v)
         m.placement = dev
+        if v.dist is not None:
+            m.dist = (_on_device(v.dist[0], dev),) + tuple(v.dist[1:])
         for k in ("_device", "_setup_wide"):
             if getattr(v, k, None) is not None:
                 setattr(m, k, _on_device(getattr(v, k), dev))
@@ -281,6 +295,10 @@ class AMGHierarchy:
         #: how the last setup built the levels: "fresh", "dia_device",
         #: "classical_device" or "host_replay"
         self.last_resetup: Optional[str] = None
+        #: host seconds of the per-rank distributed classical setup's
+        #: steps (extend, strength, pmis, interpolation, rap, pack),
+        #: summed over the levels of the last setup
+        self.dist_timings: dict = {}
 
     # ------------------------------------------------------------------ setup
     def setup(self, A: Matrix):
@@ -308,18 +326,8 @@ class AMGHierarchy:
         return self
 
     def _check_distributed(self, A: Matrix):
-        """The paths a distributed hierarchy does not take in this slice
-        of the port raise (ROADMAP item 8b); the precision policy skips
-        its sharded levels, as upstream, with a warning."""
-        from ..errors import NotImplementedError_
-        if self.algorithm in ("CLASSICAL", "ENERGYMIN"):
-            raise NotImplementedError_(
-                f"{self.algorithm} AMG on a distributed matrix is ROADMAP "
-                "item 8b of the port")
-        if self.host_levels_rows > 0:
-            raise NotImplementedError_(
-                "amg_host_levels_rows on a distributed matrix is ROADMAP "
-                "item 8b of the port")
+        """The precision policy skips the sharded levels of a distributed
+        hierarchy, as upstream, with a warning."""
         if self.hierarchy_dtype is not None:
             amgx_output(f"WARNING: hierarchy_dtype={self.hierarchy_dtype} "
                         "skips the sharded levels of a distributed "
@@ -328,6 +336,7 @@ class AMGHierarchy:
     def _setup_fresh(self, A: Matrix):
         if A.dist is not None:
             self._check_distributed(A)
+        self.dist_timings = {}
         self.levels = []
         self._structure = []
         self._cla_plans = None
@@ -706,7 +715,7 @@ class AMGHierarchy:
         ``(offsets, dvals)`` inputs or None (host path)."""
         if os.environ.get("AMGX_NO_DEVICE_PIPELINE") == "1":
             return None
-        if cur.block_dim != 1:
+        if cur.dist is not None or cur.block_dim != 1:
             return None
         if self.structure_reuse_levels != 0 or self.aggressive_levels:
             # a reuse-configured setup takes the host loop, whose levels
@@ -1119,8 +1128,6 @@ class AMGHierarchy:
         if self.algorithm not in ("CLASSICAL", "ENERGYMIN"):
             raise BadConfigurationError(
                 f"unknown AMG algorithm {self.algorithm!r}")
-        if cur.dist is not None:
-            self._check_distributed(cur)
         if cur.block_dim != 1:
             raise BadConfigurationError(
                 "classical AMG requires block_dim=1 (use AGGREGATION for "
@@ -1144,7 +1151,14 @@ class AMGHierarchy:
                     else "AGGRESSIVE_" + sel_name
             sel_name = asel
             interp_name = str(self._param("aggressive_interpolator"))
-        if self.algorithm == "CLASSICAL":
+        if cur.dist is not None:
+            # per-rank distributed classical setup: no global matrix
+            # (classical_amg_level.cu:240-340)
+            out = self._coarsen_classical_dist(cur, idx, strength,
+                                               sel_name, interp_name)
+            if out is not None:
+                return out
+        elif self.algorithm == "CLASSICAL":
             # a DIA level runs strength, PMIS and interpolation on the
             # device when its effective names allow it
             out = self._coarsen_classical_device_fine(
@@ -1161,6 +1175,9 @@ class AMGHierarchy:
         interp = create_interpolator(interp_name, self.cfg, self.scope)
         P_host = interp.compute(Asc, S, cf_map).astype(Asc.dtype)
         R_host = sp.csr_matrix(P_host.T)
+        if cur.dist is not None:
+            return self._classical_dist_fallback(cur, idx, Asc, P_host,
+                                                 R_host)
         Ac_host = self._galerkin_classical(
             cur, Asc, R_host, P_host,
             keep_pattern=self.algorithm == "CLASSICAL"
@@ -1168,6 +1185,129 @@ class AMGHierarchy:
         level = ClassicalLevel(cur, idx, _child_matrix(cur, P_host),
                                _child_matrix(cur, R_host), cf_map)
         return level, _child_matrix(cur, Ac_host), ("classical", (P_host,))
+
+    def _classical_dist_fallback(self, cur: Matrix, idx: int, Asc, P_host,
+                                 R_host):
+        """The JAX package's global fallback of a distributed classical
+        level (a selector other than PMIS, an interpolator other than
+        D1/D2, a strength that is not row-local; ``hierarchy.py:
+        1086-1110`` upstream): the scipy triple product, the coarse
+        matrix distributed over equal row blocks, P and R embedded into
+        the padded vector spaces (:func:`~..distributed.matrix.
+        embed_padded`) as one-device packs."""
+        from ..distributed.matrix import embed_padded
+        mesh, axis, _, _ = cur.dist
+        Ac_host = sp.csr_matrix(R_host @ Asc @ P_host).astype(Asc.dtype)
+        Ac_host.sum_duplicates()
+        Ac_host.sort_indices()
+        curd = cur.device()
+        f_off = np.asarray(curd.offsets)
+        nc = P_host.shape[1]
+        n_parts = curd.n_parts
+        c_nloc = -(-nc // n_parts)
+        c_off = np.minimum(np.arange(n_parts + 1) * c_nloc, nc)
+        P_pad = embed_padded(P_host, f_off, curd.n_loc, c_off, c_nloc)
+        R_pad = sp.csr_matrix(P_pad.T)
+        Ac = _child_matrix(cur, Ac_host)
+        Ac.set_distribution(mesh, axis, c_off, n_loc=c_nloc)
+        level = ClassicalLevel(cur, idx, _child_matrix(cur, P_pad).device(),
+                               _child_matrix(cur, R_pad).device(), None)
+        return level, Ac, ("classical", (P_host,))
+
+    def _coarsen_classical_dist(self, cur: Matrix, idx: int, strength,
+                                sel_name: str, interp_name: str):
+        """Per-rank distributed classical coarsening
+        (``_coarsen_classical_dist`` upstream, ``hierarchy.py:1119-1212``;
+        :mod:`.classical.distributed`): per-rank strength and PMIS with
+        exchanged halo C/F states (the device pipeline's tie-break seed),
+        per-rank P rows through the ring-2 extended blocks, per-rank RAP
+        partials summed by their owners, the agglomeration planner, and
+        sharded rectangular P/R packs.  None when the configuration needs
+        the global fallback (a strength that is not row-local, a selector
+        other than PMIS, an interpolator other than D1/D2).  The host
+        seconds of each step accumulate in ``dist_timings``."""
+        if sel_name != "PMIS" or interp_name not in ("D1", "D2"):
+            return None
+        if getattr(type(strength), "config_name", "") not in ("AHAT",
+                                                              "ALL"):
+            return None
+        from ..distributed.agglomerate import (active_parts, plan_for,
+                                               redistribute_blocks)
+        from ..distributed.matrix import shard_matrix_from_blocks
+        from ..distributed.partition import build_partition_from_blocks
+        from .classical.distributed import (RankExtended,
+                                            coarse_numbering_distributed,
+                                            interpolate_distributed,
+                                            pmis_distributed,
+                                            rap_distributed,
+                                            strength_distributed)
+        from .classical.interpolators import create_interpolator
+        tm = self.dist_timings
+        t0 = time.perf_counter()
+        mesh, axis, _, _ = cur.dist
+        curd = cur.device()
+        offsets = np.asarray(curd.offsets)
+        n_parts = curd.n_parts
+        n = int(offsets[-1])
+        blocks = cur.rank_blocks()
+        part = build_partition_from_blocks(blocks, offsets, n_rings=2)
+        exts = [RankExtended(p, blocks, part) for p in range(n_parts)]
+        t1 = time.perf_counter()
+        S_U = strength_distributed(exts, [strength] * n_parts)
+        t2 = time.perf_counter()
+        cf_loc, ex = pmis_distributed(exts, S_U, n, _TIEBREAK_SEED)
+        t3 = time.perf_counter()
+        tm["extend"] = tm.get("extend", 0.0) + t1 - t0
+        tm["strength"] = tm.get("strength", 0.0) + t2 - t1
+        tm["pmis"] = tm.get("pmis", 0.0) + t3 - t2
+        nc = int(sum(int(c.sum()) for c in cf_loc))
+        if nc == 0 or nc >= n:
+            return None, None, None
+        c_off, cf_U, cnum_U = coarse_numbering_distributed(exts, cf_loc,
+                                                           n, ex)
+        interp = create_interpolator(interp_name, self.cfg, self.scope)
+        P_blocks = interpolate_distributed(exts, interp, cf_U, cnum_U,
+                                           S_U, nc)
+        dtype = np.dtype(blocks[0].dtype)
+        P_blocks = [sp.csr_matrix(Pb.astype(dtype)) for Pb in P_blocks]
+        t4 = time.perf_counter()
+        tm["interpolation"] = tm.get("interpolation", 0.0) + t4 - t3
+        args = self._engine_args(cur)
+        c_blocks, r_blocks = rap_distributed(
+            blocks, P_blocks, part, c_off, engine=self._engine(),
+            dtype=dtype, device=args["device"], min_rows=args["min_rows"],
+            budget_bytes=args["budget_bytes"])
+        c_blocks = [sp.csr_matrix(cb.astype(dtype)) for cb in c_blocks]
+        t5 = time.perf_counter()
+        tm["rap"] = tm.get("rap", 0.0) + t5 - t4
+        # coarse-level agglomeration: below dist_agglomerate_min_rows
+        # rows per active rank the coarse level moves onto a sub-mesh
+        submesh = None
+        if self.dist_agglomerate_min_rows > 0:
+            plan = plan_for(c_off, self.dist_agglomerate_min_rows,
+                            self.dist_agglomerate_factor, level=idx)
+            if plan is not None:
+                c_blocks = redistribute_blocks(c_blocks, plan)
+                r_blocks = redistribute_blocks(r_blocks, plan)
+                c_off = np.asarray(plan.dst_offsets)
+                submesh = plan.p_active
+        nc_loc = max(int(np.max(np.diff(c_off))), 1)
+        Ac = Matrix(device=cur.placement)
+        Ac.set_distributed_blocks(c_blocks, c_off, mesh, axis=axis)
+        Ac.set_distribution(mesh, axis, c_off, n_loc=nc_loc)
+        Ac.device_dtype = cur.device_dtype
+        ddtype = np.dtype(cur.device_dtype or cur.dtype)
+        Pd = shard_matrix_from_blocks(
+            P_blocks, offsets, mesh, axis=axis, dtype=ddtype,
+            n_loc=curd.n_loc, col_offsets=c_off, n_loc_cols=nc_loc)
+        Rd = shard_matrix_from_blocks(
+            r_blocks, c_off, mesh, axis=axis, dtype=ddtype,
+            n_loc=nc_loc, col_offsets=offsets, n_loc_cols=curd.n_loc)
+        tm["pack"] = tm.get("pack", 0.0) + time.perf_counter() - t5
+        level = ClassicalLevel(cur, idx, Pd, Rd, None)
+        level.submesh_parts = submesh if submesh is not None else \
+            active_parts(c_off)
+        return level, Ac, ("classical-dist", (nc,))
 
     # ------------------------------------------------ device setup engine
     def _engine(self):

@@ -478,15 +478,21 @@ def color_matrix(matrix, cfg, scope) -> MatrixColoring:
     scheme = str(cfg.get("matrix_coloring_scheme", scope))
     algo = create_coloring(scheme, cfg, scope)
     if getattr(matrix, "blocks", None) is not None \
-            and getattr(matrix, "host", 1) is None:
+            and getattr(matrix, "_host", 1) is None:
         # block-distributed matrix: color each rank's diagonal block
         # independently (the reference also colors per-rank; cross-rank
-        # edges are relaxed Jacobi-style by the masked sharded sweep)
+        # edges are relaxed Jacobi-style by the masked sharded sweep); a
+        # b×b upload colors its block graph
         offs = matrix.block_offsets
         parts = []
         num = 1
         for p, blk in enumerate(matrix.blocks):
             lo, hi = offs[p], offs[p + 1]
+            if matrix.block_dim > 1:
+                blk = sp.csr_matrix(
+                    (np.ones(len(blk.indices)), blk.indices, blk.indptr),
+                    shape=(len(blk.indptr) - 1,
+                           blk.shape[1] // matrix.block_dim))
             sub = sp.csr_matrix(blk[:, lo:hi])
             cp = algo.color(sub)
             parts.append(cp.colors)

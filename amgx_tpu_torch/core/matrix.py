@@ -666,21 +666,25 @@ class Matrix:
         return self
 
     def set_distributed_blocks(self, blocks, offsets, mesh,
-                               axis: str = "p"):
+                               axis: str = "p", block_dim: int = 1):
         """Upload per-rank row blocks (global column ids): the global
         matrix is never assembled, and the setup (the partition maps, the
         per-rank coarsening and Galerkin products) reads the blocks
-        (``distributed_arranger.h:85-231``)."""
-        blocks = [sp.csr_matrix(b) for b in blocks]
+        (``distributed_arranger.h:85-231``).  With ``block_dim`` b > 1
+        the blocks are b×b (BSR) row blocks and ``offsets`` count block
+        rows."""
+        bd = int(block_dim)
+        blocks = [sp.csr_matrix(b) if bd == 1 else _bsr_from_any(b, bd)
+                  for b in blocks]
         offsets = np.asarray(offsets)
         if len(blocks) != len(offsets) - 1:
             raise BadParametersError("one row block per partition required")
         for p, b in enumerate(blocks):
-            if b.shape[0] != offsets[p + 1] - offsets[p]:
+            if b.shape[0] != (offsets[p + 1] - offsets[p]) * bd:
                 raise BadParametersError(
                     f"block {p} has {b.shape[0]} rows, offsets say "
-                    f"{offsets[p + 1] - offsets[p]}")
-        self.block_dim = 1
+                    f"{(offsets[p + 1] - offsets[p]) * bd}")
+        self.block_dim = bd
         self.dtype = np.dtype(blocks[0].dtype)
         self._host = None
         self._dia = None
@@ -698,7 +702,8 @@ class Matrix:
         it on a fine level)."""
         if self._host is not None:
             return sp.csr_matrix(self._host)
-        return sp.csr_matrix(sp.vstack(self.blocks))
+        return sp.csr_matrix(sp.vstack([sp.csr_matrix(b)
+                                        for b in self.blocks]))
 
     def set(self, a, block_dim: int = 1):
         """Upload a scipy/dense matrix: a CSR for ``block_dim`` 1, else a
@@ -901,7 +906,7 @@ class Matrix:
     @property
     def n_block_cols(self) -> int:
         if self._host is None and self.blocks is not None:
-            return int(self.blocks[0].shape[1])
+            return int(self.blocks[0].shape[1]) // self.block_dim
         if self._host is None and hasattr(self, "_n_dia"):
             return self._n_dia[1]
         if self._host is None and self._dia is not None:
@@ -913,17 +918,22 @@ class Matrix:
         """The scalar shape (rows × block_dim, cols × block_dim)."""
         if self._host is not None:
             return self._host.shape
-        return (self.n_block_rows, self.n_block_cols)
+        return (self.n_block_rows * self.block_dim,
+                self.n_block_cols * self.block_dim)
 
     def rank_blocks(self):
         """Per-rank row blocks of a distributed matrix: the uploaded
-        blocks, or the host matrix split at the distribution's
-        offsets."""
+        blocks, or the host matrix split at the distribution's offsets
+        (b×b BSR row blocks for a block matrix)."""
         if self._host is None and self.blocks is not None:
             return self.blocks
+        offsets = np.asarray(self.device().offsets)
+        if self.block_dim > 1:
+            from ..distributed.matrix import split_bsr_rows
+            return split_bsr_rows(_bsr_from_any(self.host, self.block_dim),
+                                  offsets)
         from ..distributed.partition import split_row_blocks
-        return split_row_blocks(self.scalar_csr(),
-                                np.asarray(self.device().offsets))
+        return split_row_blocks(self.scalar_csr(), offsets)
 
     @property
     def nnz(self) -> int:
@@ -966,30 +976,38 @@ class Matrix:
         return self._device
 
     def _build_sharded(self, dtype):
-        """The sharded ELL pack of a distributed matrix (the
-        ``self.dist`` branch of ``Matrix.device`` upstream): from the
-        uploaded row blocks, else from the host matrix split at the
-        distribution's offsets.  A complex, bf16 or b×b distributed
-        matrix is ROADMAP item 8b of the port."""
+        """The sharded pack of a distributed matrix (the ``self.dist``
+        branch of ``Matrix.device`` upstream): from the uploaded row
+        blocks, else from the host matrix split at the distribution's
+        offsets; a b×b matrix packs its blocks
+        (:func:`~..distributed.matrix.shard_block_matrix`).  A complex or
+        bf16 distributed matrix is ROADMAP item 7c of the port."""
         from ..errors import NotImplementedError_
-        from ..distributed.matrix import (shard_matrix,
+        from ..distributed.matrix import (shard_block_matrix,
+                                          shard_block_matrix_from_blocks,
+                                          shard_matrix,
                                           shard_matrix_from_blocks)
-        if self.block_dim != 1:
-            raise NotImplementedError_(
-                "a distributed matrix of b×b blocks is ROADMAP item 8b of "
-                "the port")
         name = "bfloat16" if dtype == torch.bfloat16 else \
             np.dtype(dtype).name
         if name == "bfloat16" or "complex" in name or \
                 np.issubdtype(self.dtype, np.complexfloating):
             raise NotImplementedError_(
                 f"a distributed matrix in {name} (host {self.dtype}) is "
-                "ROADMAP item 8b of the port")
+                "ROADMAP item 7c of the port")
         mesh, axis, offsets, n_loc = self.dist
+        b = self.block_dim
         if self._host is None and self.blocks is not None:
+            if b > 1:
+                return shard_block_matrix_from_blocks(
+                    self.blocks, self.block_offsets, mesh, axis=axis,
+                    dtype=dtype, n_loc=n_loc)
             return shard_matrix_from_blocks(
                 self.blocks, self.block_offsets, mesh, axis=axis,
                 dtype=dtype, n_loc=n_loc)
+        if b > 1:
+            return shard_block_matrix(self.host, b, mesh, axis=axis,
+                                      dtype=dtype, offsets=offsets,
+                                      n_loc=n_loc)
         return shard_matrix(self.scalar_csr(), mesh, axis=axis,
                             dtype=dtype, offsets=offsets, n_loc=n_loc)
 

@@ -31,12 +31,25 @@ and its dots and norms are the port's ordered flat ones.
   row by row — each boundary row appears once, so no atomic scatter and
   no trash slot.
 
+A b×b block pack (:func:`shard_block_matrix`, b ∈ {2..5} on the card)
+keeps the JAX package's arrays — ``cols`` (P·n_loc, K) over the
+[local | halo] block space, ``vals`` (P·n_loc, K, b, b), ``diag``
+(P·n_loc, b, b) — and its interior runs as kernel B5 in one launch over
+a stacked (P·n_loc)-block-row compact pack of every shard's local blocks
+(:class:`BlockInterior`; halo blocks are left out of it).  The pack's
+plan sees shard p's local block column c at p·stride + c, ``stride`` =
+n_loc rounded up to the plan's 1024-column segment, so every row is cut
+into the chunks its shard's own pack would give it and sums in the same
+order; the codes the kernel gathers by are then rebased to p·n_loc + c.
+The boundary rows' halo blocks are added after it in slot order, as in
+the scalar pack.
+
 Padding invariant (as upstream): shards are equal-sized; padding rows
 are identity rows whose right-hand side and solution entries stay
 exactly zero through every cycle operation.
 
-Block (b > 1) and complex sharded packs are ROADMAP item 8b of the port;
-shards on several cards are item 8c.
+Complex and bf16 sharded packs are ROADMAP item 7c of the port; shards
+on several cards are item 8c.
 """
 from __future__ import annotations
 
@@ -49,6 +62,7 @@ import torch
 
 from ..device import resolve_device, torch_dtype
 from ..errors import BadParametersError, NotImplementedError_
+from ..ops import binned_spmv
 from ..ops.ell_spmv import ell_row_len, ell_spmv
 from ..ops.ordered import sum_along
 from .partition import Partition, build_partition_from_blocks, \
@@ -111,11 +125,16 @@ class ShardedMatrix:
     (square packs only).  ``bnd_rows`` (Nb,) are the flat boundary rows
     of every shard, ``bnd_vals``/``bnd_hidx`` (Nb, Kb) their halo
     entries in slot order and each entry's index into the flat (P·H)
-    halo (a zero slot at P·H pads short rows)."""
+    halo (a zero slot at P·H pads short rows).  A b×b pack
+    (``block_dim`` > 1) holds ``vals`` (P·n_loc, K, b, b), ``diag``
+    (P·n_loc, b, b), ``bnd_vals`` (Nb, Kb, b, b), no ``row_len``, and
+    its interior as the compact pack of kernel B5 (``interior``).
+    ``host_cols`` keeps the host (P, n_loc, K) [local | halo] columns
+    (the colored smoothers' per-shard slabs read them)."""
 
     cols: torch.Tensor
     vals: torch.Tensor
-    row_len: torch.Tensor
+    row_len: Optional[torch.Tensor]
     diag: torch.Tensor
     send_idx: torch.Tensor
     halo_src: torch.Tensor
@@ -146,13 +165,16 @@ class ShardedMatrix:
     halo_counts2: tuple = ()
     bnd_counts: tuple = ()
     block_dim: int = 1
+    interior: Optional["BlockInterior"] = None
+    host_cols: Optional[np.ndarray] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     fmt = "sharded-ell"
 
     @property
     def n(self) -> int:
-        """Padded global size (P·n_loc): the vector length."""
-        return self.n_parts * self.n_loc
+        """Padded global scalar size (P·n_loc·b): the vector length."""
+        return self.n_parts * self.n_loc * self.block_dim
 
     @property
     def n_rows(self) -> int:
@@ -180,9 +202,29 @@ class ShardedMatrix:
 
     def astype(self, dtype) -> "ShardedMatrix":
         dt = torch_dtype(dtype)
-        return dataclasses.replace(self, vals=self.vals.to(dt),
-                                   diag=self.diag.to(dt),
-                                   bnd_vals=self.bnd_vals.to(dt))
+        return dataclasses.replace(
+            self, vals=self.vals.to(dt), diag=self.diag.to(dt),
+            bnd_vals=self.bnd_vals.to(dt),
+            interior=None if self.interior is None
+            else self.interior.astype(dt))
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockInterior:
+    """The stacked block interior of a b×b sharded pack, as kernel B5
+    reads it: the compact pack (:class:`~..ops.binned_spmv.CompactPack`)
+    of the binned plan of every shard's local blocks, its bin
+    permutation (``pos``, None for the identity), the kernel's inverse
+    of it (``row_of_pos``) and the plan's dims (``dims[8]`` the P·n_loc
+    block columns the codes index)."""
+
+    compact: binned_spmv.CompactPack
+    pos: Optional[torch.Tensor]
+    row_of_pos: Optional[torch.Tensor]
+    dims: tuple
+
+    def astype(self, dtype) -> "BlockInterior":
+        return dataclasses.replace(self, compact=self.compact.astype(dtype))
 
 
 def pad_map(offsets: np.ndarray, n_loc: int) -> np.ndarray:
@@ -270,8 +312,9 @@ def stacked_interior(cols: np.ndarray, nlc: int) -> np.ndarray:
 def _boundary_terms(cols: np.ndarray, vals: np.ndarray, part: Partition,
                     nlc: int):
     """The boundary correction's tables: flat boundary rows (Nb,), their
-    halo entries' values and flat halo indices (Nb, Kb), in slot order
-    (a short row pads with value 0 at the zero slot P·H)."""
+    halo entries' values (Nb, Kb[, b, b]) and flat halo indices (Nb, Kb),
+    in slot order (a short row pads with value 0 at the zero slot
+    P·H)."""
     n_parts, n_loc, _ = cols.shape
     H = part.H
     rows, vs, hs = [], [], []
@@ -285,12 +328,13 @@ def _boundary_terms(cols: np.ndarray, vals: np.ndarray, part: Partition,
         rows.append(p * n_loc + br)
         vs.append((vals[p, br], is_h))
         hs.append(np.where(is_h, p * H + (c.astype(np.int64) - nlc), -1))
+    trail = vals.shape[3:]
     if not rows:
-        return (np.zeros(0, np.int64), np.zeros((0, 1), vals.dtype),
+        return (np.zeros(0, np.int64), np.zeros((0, 1) + trail, vals.dtype),
                 np.zeros((0, 1), np.int64))
     bnd = np.concatenate(rows)
     kb = max(int(m.sum(axis=1).max()) for _, m in vs)
-    bv = np.zeros((len(bnd), kb), dtype=vals.dtype)
+    bv = np.zeros((len(bnd), kb) + trail, dtype=vals.dtype)
     bh = np.full((len(bnd), kb), n_parts * H, dtype=np.int64)
     at = 0
     for (v, m), h in zip(vs, hs):
@@ -344,10 +388,7 @@ def shard_matrix_from_blocks(blocks, offsets, mesh: DeviceMesh,
     mesh = check_mesh(mesh, axis)
     rect = col_offsets is not None
     dtype = np.dtype(dtype or blocks[0].dtype)
-    if np.issubdtype(dtype, np.complexfloating) or \
-            not np.issubdtype(dtype, np.floating):
-        raise NotImplementedError_(
-            f"a {dtype} sharded pack is ROADMAP item 8b of the port")
+    _check_pack_dtype(dtype)
     n_parts = mesh.n_parts
     if len(blocks) != n_parts:
         raise BadParametersError(
@@ -399,13 +440,264 @@ def shard_matrix_from_blocks(blocks, offsets, mesh: DeviceMesh,
         halo_counts=tuple(int(c) for c in part.halo_count),
         halo_counts2=() if r2 is None else
         tuple(int(c) for c in r2.halo_count),
-        bnd_counts=tuple(int(c) for c in part.bnd_count))
+        bnd_counts=tuple(int(c) for c in part.bnd_count),
+        host_cols=cols)
 
 
-def shard_block_matrix(*_args, **_kw):
-    """Block (b×b) sharded packs: ROADMAP item 8b of the port."""
-    raise NotImplementedError_(
-        "a sharded pack of b×b blocks is ROADMAP item 8b of the port")
+def _check_pack_dtype(dtype) -> None:
+    """A sharded pack holds real f32/f64 values; a complex pack is ROADMAP
+    item 7c of the port."""
+    if np.issubdtype(dtype, np.complexfloating) or \
+            not np.issubdtype(dtype, np.floating):
+        raise NotImplementedError_(
+            f"a {dtype} sharded pack is ROADMAP item 7c of the port")
+
+
+def split_bsr_rows(bsr: sp.bsr_matrix, offsets) -> list:
+    """Per-rank BSR row blocks of a b×b matrix (block-row ``offsets``;
+    global block columns kept)."""
+    b = bsr.blocksize[0]
+    out = []
+    for lo, hi in zip(offsets[:-1], offsets[1:]):
+        s0, s1 = bsr.indptr[lo], bsr.indptr[hi]
+        out.append(sp.bsr_matrix(
+            (bsr.data[s0:s1], bsr.indices[s0:s1],
+             bsr.indptr[lo:hi + 1] - s0),
+            shape=((hi - lo) * b, bsr.shape[1]), blocksize=(b, b)))
+    return out
+
+
+def _index_blocks(bsr_blocks, nb_cols: int) -> list:
+    """The block graph of each rank's BSR row block as an index CSR
+    whose entry (I, J) holds its block's position + 1 (the halo
+    machinery then runs on the block graph, as upstream)."""
+    out = []
+    for blk in bsr_blocks:
+        out.append(sp.csr_matrix(
+            (np.arange(len(blk.indices), dtype=np.int64) + 1, blk.indices,
+             blk.indptr), shape=(len(blk.indptr) - 1, nb_cols)))
+    return out
+
+
+def shard_block_arrays(bsr_blocks, ind_blocks, part: Partition, dtype):
+    """The JAX package's block arrays ``(cols, vals, diag)`` of shape
+    (P, n_loc, K), (P, n_loc, K, b, b) and (P, n_loc, b, b), on the host:
+    block columns index the shard's extended block vector
+    ``[x_local (n_loc) | halo (H)]``; padding rows are identity rows
+    (``shard_block_matrix`` upstream, ``matrix.py:368-430``)."""
+    n_parts, n_loc = part.n_parts, part.n_loc
+    b = bsr_blocks[0].blocksize[0]
+    K = max((int(np.diff(blk.indptr).max()) if blk.nnz else 1
+             for blk in ind_blocks), default=1)
+    cols = np.zeros((n_parts, n_loc, K), dtype=np.int32)
+    vals = np.zeros((n_parts, n_loc, K, b, b), dtype=dtype)
+    diag = np.zeros((n_parts, n_loc, b, b), dtype=dtype)
+    eye = np.eye(b, dtype=dtype)
+    for p in range(n_parts):
+        lo, hi = part.offsets[p], part.offsets[p + 1]
+        nl = hi - lo
+        sub = ind_blocks[p]
+        sub.sort_indices()
+        data = bsr_blocks[p].data
+        ext = part.halo_global[p]
+        gcols = sub.indices.astype(np.int64)
+        local = (gcols >= lo) & (gcols < hi)
+        lcols = np.where(local, gcols - lo, 0)
+        if len(ext):
+            halo_slot = np.minimum(np.searchsorted(ext, gcols),
+                                   len(ext) - 1)
+            lcols = np.where(local, lcols, n_loc + halo_slot)
+        deg = np.diff(sub.indptr)
+        rr = np.repeat(np.arange(nl), deg)
+        pos = np.arange(len(gcols)) - np.repeat(sub.indptr[:-1], deg)
+        cols[p, rr, pos] = lcols
+        vals[p, rr, pos] = data[sub.data - 1]
+        on_diag = gcols == rr + lo
+        np.add.at(diag[p], rr[on_diag], data[sub.data[on_diag] - 1])
+        r = np.arange(nl, n_loc)
+        cols[p, r, 0] = r
+        vals[p, r, 0] = eye
+        diag[p, r] = eye
+    return cols, vals, diag
+
+
+#: the column segment of the binned plan (``_SB``·``_T`` columns)
+_SEGMENT = binned_spmv._SB * binned_spmv._T
+
+
+def local_block_csr(bsr_blocks, part: Partition, dtype, p: int
+                    ) -> sp.bsr_matrix:
+    """Shard ``p``'s local (n_loc × n_loc) block matrix in local block
+    columns, identity blocks on its padding rows: the rows kernel B5
+    runs for the shard in the stacked interior."""
+    b = bsr_blocks[0].blocksize[0]
+    n_loc = part.n_loc
+    lo, hi = int(part.offsets[p]), int(part.offsets[p + 1])
+    blk = bsr_blocks[p]
+    deg = np.diff(blk.indptr)
+    rows = np.repeat(np.arange(hi - lo), deg)
+    keep = (blk.indices >= lo) & (blk.indices < hi)
+    pad = np.arange(hi - lo, n_loc)
+    rows = np.concatenate([rows[keep], pad])
+    cols = np.concatenate([blk.indices[keep] - lo, pad])
+    data = np.concatenate([blk.data[keep].astype(dtype),
+                           np.broadcast_to(np.eye(b, dtype=dtype),
+                                           (len(pad), b, b))])
+    order = np.lexsort((cols, rows))
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(
+        rows, minlength=n_loc))]).astype(np.int64)
+    return sp.bsr_matrix((data[order], cols[order], indptr),
+                         shape=(n_loc * b, n_loc * b), blocksize=(b, b))
+
+
+def binned_interior(bsr: sp.bsr_matrix, n_cols: int, dtype, device,
+                    remap=None) -> BlockInterior:
+    """The compact B5 pack of a block matrix (``n_cols`` block columns of
+    the plan), derived on ``device``; ``remap`` rebases the plan's
+    column codes to the columns the kernel gathers by (their count
+    replaces ``dims[8]``)."""
+    b = bsr.blocksize[0]
+    out = binned_spmv.csr_binned_pack(bsr.indptr, bsr.indices, bsr.data,
+                                      n_cols, dtype, block_dim=b)
+    if out is None:
+        raise BadParametersError(
+            "a sharded b×b interior outside the binned pack's padding "
+            "budget")
+    arrays, dims = out
+    codes = arrays["bn_codes"]
+    if remap is not None:
+        codes, n_x = remap(codes)
+        dims = dims[:8] + (int(n_x),) + dims[9:]
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    pos = arrays.get("bn_pos")
+    pos_t = None if pos is None else up(pos)
+    cp = binned_spmv.compact_pack(up(codes), up(arrays["bn_vals"]),
+                                  up(arrays["bn_meta"]), dims)
+    return BlockInterior(compact=cp, pos=pos_t,
+                         row_of_pos=binned_spmv.kernel_aux(pos_t, dims),
+                         dims=dims)
+
+
+def stacked_block_interior(bsr_blocks, part: Partition, dtype, device
+                           ) -> BlockInterior:
+    """One B5 pack over every shard's local blocks: shard p's block row l
+    is row p·n_loc + l; its plan column p·stride + c (``stride`` = n_loc
+    rounded up to a 1024-column segment, so each row is chunked as in
+    its shard's own pack), its gather column p·n_loc + c."""
+    n_parts, n_loc = part.n_parts, part.n_loc
+    b = bsr_blocks[0].blocksize[0]
+    stride = -(-n_loc // _SEGMENT) * _SEGMENT
+    if n_parts * stride >= 2**31:
+        raise BadParametersError(
+            f"{n_parts}·{stride} block columns exceed the kernel's int32 "
+            "codes")
+    locs = [local_block_csr(bsr_blocks, part, dtype, p)
+            for p in range(n_parts)]
+    start = np.cumsum([0] + [loc.indptr[-1] for loc in locs])
+    indptr = np.concatenate(
+        [[0]] + [loc.indptr[1:] + start[p] for p, loc in enumerate(locs)]
+    ).astype(np.int64)
+    indices = np.concatenate([loc.indices.astype(np.int64) + p * stride
+                              for p, loc in enumerate(locs)])
+    data = np.concatenate([loc.data for loc in locs])
+    stacked = sp.bsr_matrix((data, indices, indptr),
+                            shape=(n_parts * n_loc * b, n_parts * stride * b),
+                            blocksize=(b, b))
+
+    def remap(codes):
+        c = codes.astype(np.int64)
+        return ((c // stride) * n_loc + c % stride).astype(np.int32), \
+            n_parts * n_loc
+
+    return binned_interior(stacked, n_parts * stride, dtype, device,
+                           remap=remap)
+
+
+def shard_block_matrix(host, block_dim: int, mesh: DeviceMesh,
+                       axis: str = "p", dtype=None, offsets=None,
+                       n_loc: Optional[int] = None) -> ShardedMatrix:
+    """Pack a b×b block matrix (a BSR, or anything scipy converts) into a
+    :class:`ShardedMatrix` over ``mesh``: block-row partition (equal
+    unless ``offsets`` gives it), flat (P·n_loc·b) vectors — the
+    reference's uniform block-CSR distribution (``matrix.h:87-220``)."""
+    b = int(block_dim)
+    bsr = host if isinstance(host, sp.bsr_matrix) and \
+        host.blocksize == (b, b) else sp.bsr_matrix(host, blocksize=(b, b))
+    bsr.sort_indices()
+    mesh = check_mesh(mesh, axis)
+    nb = bsr.shape[0] // b
+    if offsets is None:
+        nl = -(-nb // mesh.n_parts)
+        offsets = np.minimum(np.arange(mesh.n_parts + 1) * nl, nb)
+    offsets = np.asarray(offsets)
+    return shard_block_matrix_from_blocks(
+        split_bsr_rows(bsr, offsets), offsets, mesh, axis=axis,
+        dtype=dtype, n_loc=n_loc)
+
+
+def shard_block_matrix_from_blocks(bsr_blocks, offsets, mesh: DeviceMesh,
+                                   axis: str = "p", dtype=None,
+                                   n_loc: Optional[int] = None
+                                   ) -> ShardedMatrix:
+    """Pack per-rank b×b row blocks (BSR, global block columns) into a
+    :class:`ShardedMatrix`: the halo maps of the block graph, the JAX
+    package's arrays (:func:`shard_block_arrays`), the stacked interior
+    of kernel B5 (:func:`stacked_block_interior`) and the boundary
+    tables of the halo blocks."""
+    offsets = np.asarray(offsets)
+    mesh = check_mesh(mesh, axis)
+    b = int(bsr_blocks[0].blocksize[0])
+    for blk in bsr_blocks:
+        blk.sort_indices()
+    dtype = np.dtype(dtype or bsr_blocks[0].dtype)
+    _check_pack_dtype(dtype)
+    n_parts = mesh.n_parts
+    if len(bsr_blocks) != n_parts:
+        raise BadParametersError(
+            f"{len(bsr_blocks)} row blocks for a {n_parts}-way mesh axis")
+    nb_cols = bsr_blocks[0].shape[1] // b
+    ind_blocks = _index_blocks(bsr_blocks, nb_cols)
+    part = build_partition_from_blocks(ind_blocks, offsets, n_rings=2)
+    if n_loc is not None and n_loc > part.n_loc:
+        part = dataclasses.replace(part, n_loc=int(n_loc))
+    n_loc = part.n_loc
+    cols, vals, diag = shard_block_arrays(bsr_blocks, ind_blocks, part,
+                                          dtype)
+    bnd, bv, bh = _boundary_terms(cols, vals, part, n_loc)
+    dev = mesh.device
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    r1, r2 = part.rings[0], part.rings[1]
+    base = np.arange(n_parts, dtype=np.int64)[:, None] * n_loc
+    order1 = _gather_order(part.dists, n_parts)
+    order2 = _gather_order(r2.dists, n_parts)
+    pm = pad_map(part.offsets, n_loc)
+    return ShardedMatrix(
+        cols=up(stacked_interior(cols, n_loc)),
+        vals=up(vals.reshape((-1,) + vals.shape[2:])), row_len=None,
+        diag=up(diag.reshape(-1, b, b)),
+        send_idx=up(r1.send_idx.astype(np.int64) + base),
+        halo_src=up(r1.halo_src.astype(np.int64)),
+        send_idx2=up(r2.send_idx.astype(np.int64) + base),
+        halo_src2=up(r2.halo_src.astype(np.int64)),
+        bnd_rows=up(bnd), bnd_vals=up(bv), bnd_hidx=up(bh),
+        pad_idx=up((pm[:, None] * b + np.arange(b)).reshape(-1)),
+        gather_order=None if order1 is None else up(order1),
+        gather_order2=None if order2 is None else up(order2),
+        n_global=part.n_global, n_parts=n_parts, n_loc=n_loc,
+        ell_width=int(cols.shape[2]), axis=axis, dists=part.dists,
+        dists2=r2.dists, offsets=tuple(int(o) for o in part.offsets),
+        mesh=mesh, send_counts=tuple(int(c) for c in part.send_count),
+        halo_counts=tuple(int(c) for c in part.halo_count),
+        halo_counts2=tuple(int(c) for c in r2.halo_count),
+        bnd_counts=tuple(int(c) for c in part.bnd_count), block_dim=b,
+        interior=stacked_block_interior(bsr_blocks, part, dtype, dev),
+        host_cols=cols)
 
 
 # --------------------------------------------------------------------------
@@ -437,15 +729,16 @@ def _exchange(buf: torch.Tensor, dists: tuple, n_parts: int,
     if n_parts == 1:
         return buf
     if order is not None:
-        return buf[order].reshape(n_parts, -1)
+        # b×b packs send (B, b) buffers: keep the trailing components
+        return buf[order].reshape((n_parts, -1) + buf.shape[2:])
     return torch.cat([torch.roll(buf, -d, 0) for d in dists], dim=1)
 
 
 def exchange_halo(A: ShardedMatrix, x: torch.Tensor, ring: int = 1
                   ) -> torch.Tensor:
     """The ring-``ring`` halo values of the sharded ``x``: a (P, H_ring)
-    tensor whose row p holds the values of
-    ``partition.rings[ring-1].halo_global[p]``."""
+    tensor — (P, H_ring, b) for a b×b pack — whose row p holds the
+    values of ``partition.rings[ring-1].halo_global[p]``."""
     if ring not in (1, 2):
         raise BadParametersError(f"halo ring must be 1 or 2, got {ring}")
     if ring == 2 and A.send_idx2 is None:
@@ -454,8 +747,13 @@ def exchange_halo(A: ShardedMatrix, x: torch.Tensor, ring: int = 1
     halo_src = A.halo_src if ring == 1 else A.halo_src2
     dists = A.dists if ring == 1 else A.dists2
     order = A.gather_order if ring == 1 else A.gather_order2
-    got = _exchange(x[send_idx], dists, A.n_parts, order)
-    return torch.gather(got, 1, halo_src)
+    b = A.block_dim
+    if b == 1:
+        got = _exchange(x[send_idx], dists, A.n_parts, order)
+        return torch.gather(got, 1, halo_src)
+    got = _exchange(x.reshape(-1, b)[send_idx], dists, A.n_parts, order)
+    rank = torch.arange(A.n_parts, device=got.device)[:, None]
+    return got[rank, halo_src]
 
 
 def dist_spmv(A: ShardedMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -467,6 +765,8 @@ def dist_spmv(A: ShardedMatrix, x: torch.Tensor) -> torch.Tensor:
         raise BadParametersError(
             f"dist_spmv: a {A.dtype} pack takes a {A.dtype} vector, got "
             f"{x.dtype}")
+    if A.block_dim > 1:
+        return _dist_spmv_block(A, x)
     halo = exchange_halo(A, x, 1)
     y = ell_spmv(A.cols, A.vals, x, A.row_len)
     if A.bnd_rows.numel():
@@ -476,9 +776,31 @@ def dist_spmv(A: ShardedMatrix, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _dist_spmv_block(A: ShardedMatrix, x: torch.Tensor) -> torch.Tensor:
+    """The b×b distributed SpMV (``_dist_spmv_block`` upstream): the halo
+    exchange of (B, b) block values, every shard's interior in one call
+    of kernel B5 over the stacked compact pack (its plain version on a
+    CPU tensor), then each boundary row's halo blocks — per slot the b×b
+    block times its halo block, component c added in order, then the
+    slots in slot order — added row by row."""
+    b = A.block_dim
+    halo = exchange_halo(A, x, 1)
+    I = A.interior
+    y = binned_spmv.compact_spmv(I.compact, I.pos, I.row_of_pos, I.dims, x)
+    if A.bnd_rows.numel():
+        hz = torch.cat([halo.reshape(-1, b), halo.new_zeros((1, b))])
+        g = hz[A.bnd_hidx]                                # (Nb, Kb, b)
+        p = A.bnd_vals * g[:, :, None, :]                 # (Nb, Kb, b, b)
+        corr = sum_along(sum_along(p, 3), 1)              # (Nb, b)
+        yb = y.reshape(-1, b)
+        yb[A.bnd_rows] = yb[A.bnd_rows] + corr
+    return y
+
+
 def shard_vector(A: ShardedMatrix, v) -> torch.Tensor:
-    """A real-sized global vector padded to P·n_loc on the pack's device
-    in its dtype (rank p's rows at [p·n_loc, p·n_loc + count_p)); a
+    """A real-sized global vector padded to P·n_loc·b on the pack's device
+    in its dtype (rank p's rows at [p·n_loc, p·n_loc + count_p), ×b
+    scalar entries each); a
     vector already of the padded length is taken as is.  The
     ``halo_exchange`` fault point fails here, at the distributed solve's
     host seam, with the device-error code."""

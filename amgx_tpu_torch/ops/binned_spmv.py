@@ -79,10 +79,13 @@ SUPPORTED_BLOCK = ((torch.float32, torch.float32),
 
 #: kernel launches per kernel and (vals, x) type pair, e.g.
 #: ``LAUNCHES["B5"]["f32.f32"]`` — counted where a kernel is launched and
-#: nowhere else
+#: nowhere else; ``"B5-stacked"`` counts B5 over the stacked interior of
+#: a b×b sharded pack (:func:`compact_spmv`)
 LAUNCHES: Dict[str, Dict[str, int]] = {
     "B4": {f"{_SHORT[v]}.{_SHORT[x]}": 0 for v, x in SUPPORTED_SCALAR},
     "B5": {f"{_SHORT[v]}.{_SHORT[x]}": 0 for v, x in SUPPORTED_BLOCK},
+    "B5-stacked": {f"{_SHORT[v]}.{_SHORT[x]}": 0
+                   for v, x in SUPPORTED_BLOCK},
 }
 
 _fn = None
@@ -546,23 +549,51 @@ def binned_spmv(Ad, x: torch.Tensor) -> torch.Tensor:
                                             Ad.bn_dims, x)
         return binned_spmv_reference(Ad.bn_codes, Ad.bn_vals, Ad.bn_meta,
                                      Ad.bn_pos, Ad.bn_dims, x)
+    return _launch(Ad.bn_compact, Ad.bn_row_of_pos, Ad.bn_dims, x,
+                   "B4" if b == 1 else "B5")
+
+
+def compact_spmv(cp: CompactPack, bn_pos, row_of_pos, dims,
+                 x: torch.Tensor) -> torch.Tensor:
+    """y = A·x over a block compact pack held without its planes (the
+    stacked interior of a b×b sharded pack): kernel B5 on a CUDA tensor
+    (it launches or raises), :func:`binned_compact_reference` on a CPU
+    tensor.  ``x`` is the flat (dims[8]·b,) vector."""
+    b = cp.dims[4]
+    if (cp.vals.dtype, x.dtype) not in SUPPORTED_BLOCK or not 2 <= b <= 5:
+        raise BadParametersError(
+            f"compact_spmv: unsupported (vals, x) dtypes "
+            f"({cp.vals.dtype}, {x.dtype}) or b = {b} (2..5 supported)")
+    m = int(dims[8]) * b
+    if x.dim() != 1 or x.shape[0] != m:
+        raise BadParametersError(
+            f"compact_spmv: x must be ({m},), got {tuple(x.shape)}")
+    if cp.vals.device != x.device:
+        raise BadParametersError(
+            f"compact_spmv: pack on {cp.vals.device}, x on {x.device}")
+    if not x.is_cuda:
+        return binned_compact_reference(cp, bn_pos, dims, x)
+    return _launch(cp, row_of_pos, dims, x, "B5-stacked")
+
+
+def _launch(cp: CompactPack, row_of_pos, dims, x: torch.Tensor,
+            kern: str) -> torch.Tensor:
+    """One launch of B4 (b = 1) or B5 over a compact pack, counted under
+    ``kern``."""
     x = x.contiguous()
-    cp = Ad.bn_compact
     S, n_slices, _slots, _widest, b = cp.dims
-    n = int(Ad.bn_dims[7])
-    n_pos = int(Ad.bn_dims[1]) * int(Ad.bn_dims[3])
+    n = int(dims[7])
+    n_pos = int(dims[1]) * int(dims[3])
     if not (cp.vals.is_contiguous() and cp.vals.data_ptr() % 16 == 0):
         raise BadParametersError("binned_spmv: the compact values must be "
                                  "contiguous and 16-byte aligned")
     out = torch.empty(n * b, dtype=x.dtype, device=x.device)
-    row_of_pos = Ad.bn_row_of_pos
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _kernel()(
         _TYPE_CODE[cp.vals.dtype], _TYPE_CODE[x.dtype], b,
         cp.codes.data_ptr(), cp.vals.data_ptr(), cp.slice_ptr.data_ptr(),
         None if row_of_pos is None else row_of_pos.data_ptr(),
         n, n_pos, n_slices, x.data_ptr(), out.data_ptr(), stream)
-    kern = "B4" if b == 1 else "B5"
     if rc != 0:
         raise DeviceError(f"binned_spmv ({kern}) kernel launch failed "
                           f"(code {rc})")

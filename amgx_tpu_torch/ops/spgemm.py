@@ -509,17 +509,25 @@ class GalerkinPlan(_DevicePlan):
 
 
 def build_galerkin_plan(A: sp.csr_matrix, P: sp.csr_matrix,
-                        device="cpu", max_bytes: Optional[int] = None
+                        device="cpu", max_bytes: Optional[int] = None,
+                        P_left: Optional[sp.csr_matrix] = None
                         ) -> Optional[GalerkinPlan]:
     """Symbolic pass of the product ``R·(A·P)`` on ``device``.  ``A`` and
     ``P`` must have sorted indices; only the patterns are read.  None,
     before the second product's symbolic pass, when the two schedules'
-    index pairs alone would pass ``max_bytes``."""
+    index pairs alone would pass ``max_bytes``.
+
+    ``P_left``: the left factor when it differs from ``P`` (R =
+    P_leftᵀ) — the distributed shard-local partial
+    ``P_locᵀ·(A_loc·P_ext)``, ``P_ext`` = [P_loc | halo'd P rows]; its
+    rows must be the leading rows of ``P``, so ``P_left.data`` is a
+    prefix of ``P.data`` and the recorded permutation indexes P's
+    values (``build_galerkin_plan`` upstream)."""
     n_out = A.shape[0]
     nc = P.shape[1]
     tA, tP, to1, APptr, APind = spgemm_symbolic(
         A.indptr, A.indices, P.indptr, P.indices, n_out, nc, device)
-    perm_RP, R = transpose_perm(P)
+    perm_RP, R = transpose_perm(P if P_left is None else P_left)
     Rind = as_index(R.indices, APptr.device)
     if max_bytes is not None and 8 * (len(tA) + int(
             (APptr[1:] - APptr[:-1])[Rind].sum())) > max_bytes:

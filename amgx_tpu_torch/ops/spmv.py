@@ -44,7 +44,10 @@ kernel wrappers themselves keep refusing a complex tensor.
 every shard's interior in one launch of kernel B3, and the boundary
 correction (:func:`~amgx_tpu_torch.distributed.matrix.dist_spmv`);
 ``sharded/gather`` the same apply on a CPU tensor, the interior through
-B3's plain version.
+B3's plain version.  A b×b sharded pack counts ``sharded/block-binned``
+on a CUDA tensor (its interior one launch of kernel B5 over the stacked
+compact pack) and ``sharded/block-plain`` on a CPU tensor (B5's plain
+version).
 
 ``dense`` counts the applies of an fmt ``dense`` pack (built with
 ``AMGX_DENSE_PACK=1``): kernel B3 over dense rows on a CUDA tensor, its
@@ -67,7 +70,8 @@ DISPATCH = {k: 0 for k in (
     "ell/shift", "ell/window", "ell/gather", "ell/binned", "ell/binned-block",
     "csr/binned", "csr/binned-block", "ell/block-gather", "csr/segsum",
     "csr/segsum-lean", "csr/block-segsum", "dense", "dense/lanes", "op",
-    "sharded/window", "sharded/gather")}
+    "sharded/window", "sharded/gather", "sharded/block-binned",
+    "sharded/block-plain")}
 #: plain-path labels that are a decline only on a CUDA tensor (complex
 #: packs): their CUDA applies, counted apart from the CPU's
 ON_CUDA = {k: 0 for k in ("dia/slices", "ell/gather", "dense/lanes")}
@@ -127,7 +131,12 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
         # the halo exchange, the shards' interior in one B3 call and the
         # boundary correction (``spmv.py:107-110`` upstream)
         from ..distributed.matrix import dist_spmv
-        DISPATCH["sharded/window" if x.is_cuda else "sharded/gather"] += 1
+        if A.block_dim > 1:
+            DISPATCH["sharded/block-binned" if x.is_cuda
+                     else "sharded/block-plain"] += 1
+        else:
+            DISPATCH["sharded/window" if x.is_cuda
+                     else "sharded/gather"] += 1
         return dist_spmv(A, x)
     if A.fmt == "op":
         # an implicit operator (operators.ImplicitOperator, the
@@ -274,6 +283,11 @@ def abs_rowsum(A) -> torch.Tensor:
         return A.l1row
     if A.fmt == "sharded-ell":
         # halo entries belong to their row; padding rows sum to 1
+        if A.block_dim > 1:
+            # (N, K, b, b) -> (K·b, N, b): slot k's columns c in turn
+            v = A.vals.abs()
+            return sum_along(v.permute(1, 3, 0, 2).reshape(
+                -1, v.shape[0], A.block_dim)).reshape(-1)
         return sum_along(A.vals.abs(), 1)
     if A.fmt == "dense":
         v = A.vals.abs()

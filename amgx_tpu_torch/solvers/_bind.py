@@ -201,11 +201,16 @@ def normalize_placement(root, mesh) -> None:
     normalize_placement`` upstream, which re-places a level held on a
     subset of the mesh's devices across the mesh): a mesh of the port
     holds every shard on one device, so there is nothing to move; the
-    walk checks that every tensor of the solver tree is on that device.
+    walk checks that every tensor of the solver tree is on that device,
+    or on the CPU for the levels of a host tail (``amg_host_levels_rows``).
     One shard per card is ROADMAP item 8c of the port."""
     from ..errors import BadParametersError
+    allowed = {mesh.device}
+    h = getattr(root, "hierarchy", None)
+    if h is not None and h.host_from < h.num_levels():
+        allowed.add(torch.device("cpu"))
     for slot in collect(root):
-        if slot.kind == "t" and slot.value.device != mesh.device:
+        if slot.kind == "t" and slot.value.device not in allowed:
             raise BadParametersError(
                 f"{slot.path} lives on {slot.value.device}, the mesh on "
                 f"{mesh.device}")

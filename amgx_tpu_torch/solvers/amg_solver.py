@@ -13,7 +13,8 @@ into a host tail (``amg_host_levels_rows``); ``setup`` drops them.  A
 ``structure_reuse_levels`` applies) and keeps the graphs when the
 refreshed tree pairs with the one they read (:mod:`._bind`);
 ``rebind`` counts the graphs kept and dropped and the reason of each
-drop.  CPU tensors run the cycle eagerly, and so does an AMG nested in a
+drop; a distributed matrix's resetup is a fresh setup and drops them.
+CPU tensors run the cycle eagerly, and so does an AMG nested in a
 graphed AMG (its coarse solver or smoother) while the outer graph is
 warmed up or captured: its kernels become nodes of the outer graph.
 """
@@ -31,7 +32,6 @@ from .base import Solver, register_solver
 class AMGSolver(Solver):
     is_smoother = True
     complex_ok = True
-    sharded_ok = True
 
     def _check_complex(self):
         """Complex systems run aggregation AMG (GEO or SIZE_2 selectors)
@@ -59,11 +59,22 @@ class AMGSolver(Solver):
                                last=None)
         graphs = getattr(self, "graphs", {})
         if getattr(self, "_numeric_resetup", False) and \
+                self.A.dist is not None and graphs:
+            # a distributed resetup is a fresh setup (as upstream): the
+            # graphs read the old hierarchy and are captured anew
+            self.rebind["graphs_dropped"] += len(graphs)
+            self.rebind["drops"].append(
+                "resetup of a distributed matrix: a fresh setup")
+            self.graphs, self._bound = {}, None
+            graphs = {}
+        if getattr(self, "_numeric_resetup", False) and \
                 getattr(self, "hierarchy", None) is not None:
             self.hierarchy.setup(self.A)
             self._cycle = build_cycle(self.hierarchy)
             if graphs:
                 self._keep_or_drop(graphs)
+            if self.A.dist is not None:
+                _bind.normalize_placement(self, self.A.dist[0])
             return
         if graphs:
             self.rebind["graphs_dropped"] += len(graphs)

@@ -26,9 +26,9 @@ recovery ladder (:mod:`.recovery`) after a failed solve.
 A distributed matrix (``Matrix.set_distribution``) packs a sharded ELL
 pack (:mod:`..distributed`): the solve shards b and the guess at its
 entry and unshards x at its exit; the precision knobs, ``scaling`` and
-``matrix_reorder`` are skipped there, as upstream, with a warning; the
-pack is structurally unrefinable; and only the solvers marked
-``sharded_ok`` set up on it (the others are ROADMAP item 8b).
+``matrix_reorder`` are skipped there, as upstream, with a warning; and
+the pack is structurally unrefinable.  Every solver name sets up on it
+as in the JAX package (MULTICOLOR_ILU refuses it, as upstream).
 """
 from __future__ import annotations
 
@@ -162,9 +162,6 @@ class Solver:
     #: True for the solvers held against the JAX package on complex
     #: operators; the others raise on a complex pack (ROADMAP item 7c)
     complex_ok = False
-    #: True for the solvers held against the JAX package on a sharded
-    #: pack; the others raise on one (ROADMAP item 8b)
-    sharded_ok = False
 
     def __init__(self, cfg: AMGConfig, scope: str = "default"):
         self.cfg = cfg
@@ -258,8 +255,6 @@ class Solver:
             self.Ad = A
         if self.Ad.dtype.is_complex:
             self._check_complex()
-        if self.Ad.fmt == "sharded-ell":
-            self._check_sharded()
         self.solver_setup()
         # a bf16 view's wide pack served this setup; drop it
         precision.release_setup_wide(self.A)
@@ -350,11 +345,8 @@ class Solver:
         structure (with ``structure_reuse_levels`` ≠ 0) and the AMG's
         CUDA graphs (where every tensor they read keeps its shape, dtype
         and device, :mod:`._bind`) survive; :meth:`setup` stays a full
-        rebuild."""
-        if isinstance(A, Matrix) and A.dist is not None:
-            raise NotImplementedError_(
-                "resetup of a distributed matrix is ROADMAP item 8b of the "
-                "port")
+        rebuild.  A distributed matrix's resetup is a fresh setup (as
+        upstream: no structure reuse there), its graphs captured anew."""
         self._numeric_resetup = True
         try:
             return self.setup(A)
@@ -376,20 +368,6 @@ class Solver:
                 why = f"krylov_comm={comm} on a complex operator"
         if why is not None:
             raise NotImplementedError_(f"{why} is ROADMAP item 7c of the "
-                                       "port")
-
-    def _check_sharded(self):
-        """Raise for a sharded pack unless this solver (and its reduction
-        layout) is one the port holds against the JAX package there."""
-        why = None
-        if not self.sharded_ok:
-            why = f"{self.config_name} on a sharded pack"
-        else:
-            comm = getattr(self, "forced_comm", None) or self.krylov_comm
-            if comm != "CLASSIC" and not self.is_smoother:
-                why = f"krylov_comm={comm} on a sharded pack"
-        if why is not None:
-            raise NotImplementedError_(f"{why} is ROADMAP item 8b of the "
                                        "port")
 
     # -------------------------------------------------------- the protocol

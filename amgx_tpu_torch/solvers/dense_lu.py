@@ -73,7 +73,6 @@ def sharded_dense(A, Ad) -> np.ndarray:
 class DenseLUSolver(Solver):
     is_smoother = False
     complex_ok = True
-    sharded_ok = True
 
     def solver_setup(self):
         if self.Ad.fmt == "sharded-ell":

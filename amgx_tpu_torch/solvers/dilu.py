@@ -1,6 +1,6 @@
 """Multicolor DILU smoother (port of ``amgx_tpu/solvers/dilu.py``:
-the scalar and b×b factorisations, the device block factorisation and
-the per-color slab sweeps; the distributed slabs are a later slice).
+the scalar and b×b factorisations, the device block factorisation, the
+per-color slab sweeps and the distributed slabs).
 
 Reference: ``core/src/solvers/multicolor_dilu_solver.cu``.  DILU
 preconditioner M = (E + L)·E⁻¹·(E + U), where L/U are the strict
@@ -31,6 +31,16 @@ The solve is two color-ordered sweeps over per-color row slabs:
 
 Rows within a color are unique, so the indexed writes are deterministic
 on any device.
+
+On a sharded pack (``_setup_dist_slabs`` upstream) each rank factors its
+local block alone (scalar or b×b; the cross-rank couplings relax through
+the outer residual, as the reference's distributed smoother does,
+``multicolor_dilu_solver.cu:4167-4209``) and every rank's slabs of a
+color join one slab over the flat padded vector, rows and columns
+rebased to p·n_loc + l: the sweeps are the single-device sweeps, and
+they make no halo exchange at all.  Padding rows belong to no color, so
+M⁻¹r is 0 there.  MULTICOLOR_ILU refuses a sharded pack, as upstream
+(``solvers/ilu.py``).
 """
 from __future__ import annotations
 
@@ -44,8 +54,8 @@ from ..errors import BadConfigurationError
 from ..ops.ordered import guarded_block_inv
 from ..ops.spmv import spmv
 from .base import Solver, register_solver
-from .gs import (build_color_slabs, build_color_slabs_block, host_bsr,
-                 slab_times)
+from .gs import (ColorSlab, build_color_slabs, build_color_slabs_block,
+                 host_bsr, slab_times)
 from .jacobi import apply_dinv
 
 
@@ -254,6 +264,43 @@ def _bmm(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _local_bsr(blk: sp.bsr_matrix, lo: int, hi: int, b: int
+               ) -> sp.bsr_matrix:
+    """Rank block ``blk`` (b×b, global block columns) restricted to its
+    local block columns [lo, hi), renumbered from 0."""
+    blk = sp.bsr_matrix(blk, blocksize=(b, b))
+    blk.sort_indices()
+    deg = np.diff(blk.indptr)
+    rows = np.repeat(np.arange(hi - lo), deg)
+    keep = (blk.indices >= lo) & (blk.indices < hi)
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(
+        rows[keep], minlength=hi - lo))])
+    return sp.bsr_matrix((blk.data[keep], blk.indices[keep] - lo, indptr),
+                         shape=((hi - lo) * b, (hi - lo) * b),
+                         blocksize=(b, b))
+
+
+def _joined_slab(per_rank, c: int, n_loc: int, dev) -> ColorSlab:
+    """Color ``c``'s slabs of every rank as one slab of the flat padded
+    vector: rows and columns rebased to p·n_loc + l, every rank's rows
+    padded to the widest (column 0, value 0)."""
+    K = max(int(s[c].cols.shape[1]) for s in per_rank)
+    rows, cols, vals = [], [], []
+    for p, slabs in enumerate(per_rank):
+        sc = slabs[c]
+        k = int(sc.cols.shape[1])
+        base = p * n_loc
+        rows.append(sc.rows.long() + base)
+        cc = torch.zeros((sc.cols.shape[0], K), dtype=torch.int64)
+        cc[:, :k] = sc.cols.long() + base
+        cols.append(cc)
+        vv = sc.vals.new_zeros((sc.vals.shape[0], K) + sc.vals.shape[2:])
+        vv[:, :k] = sc.vals
+        vals.append(vv)
+    return ColorSlab(torch.cat(rows).to(dev), torch.cat(cols).to(dev),
+                     torch.cat(vals).to(dev))
+
+
 @register_solver("MULTICOLOR_DILU")
 class MulticolorDILUSolver(Solver):
     is_smoother = True
@@ -267,6 +314,9 @@ class MulticolorDILUSolver(Solver):
         self.num_colors = coloring.num_colors
         b = self.A.block_dim
         dev, dt = self.Ad.device, self.Ad.dtype
+        if self.Ad.fmt == "sharded-ell":
+            self._setup_dist_slabs(colors)
+            return
         if b == 1:
             csr = self.A.scalar_csr()
             csr.sort_indices()
@@ -288,6 +338,53 @@ class MulticolorDILUSolver(Solver):
             Einv,
             build_color_slabs_block(Lb, colors, self.num_colors, dt, b, dev),
             build_color_slabs_block(Ub, colors, self.num_colors, dt, b, dev))
+
+    def _setup_dist_slabs(self, colors: np.ndarray):
+        """Distributed DILU (``_setup_dist_slabs`` and
+        ``_setup_dist_slabs_block`` upstream): each rank's local block
+        factored alone (a b×b block at or above 8192 block rows by the
+        device factorisation, as on one device), its slabs built, and
+        each color's slabs of every rank joined into one slab over the
+        flat padded vector."""
+        Ad = self.Ad
+        offs = np.asarray(Ad.offsets)
+        P, n_loc, b = Ad.n_parts, Ad.n_loc, Ad.block_dim
+        dev, dt = Ad.device, Ad.dtype
+        host = torch.device("cpu")
+        per_L, per_U, einv = [], [], []
+        for p, blk in enumerate(self.A.rank_blocks()):
+            lo, hi = int(offs[p]), int(offs[p + 1])
+            cp = colors[lo:hi]
+            if b == 1:
+                sub = sp.csr_matrix(sp.csr_matrix(blk)[:, lo:hi])
+                Lp, Up, Ep = _scalar_dilu_factor(sub, cp)
+                Ep = torch.from_numpy(Ep).to(dev, dt)
+                pad = torch.ones(n_loc - (hi - lo), dtype=dt, device=dev)
+                per_L.append(build_color_slabs(Lp, cp, self.num_colors, dt,
+                                               host))
+                per_U.append(build_color_slabs(Up, cp, self.num_colors, dt,
+                                               host))
+            else:
+                sub = _local_bsr(blk, lo, hi, b)
+                if hi - lo >= _DILU_DEVICE_MIN_ROWS:
+                    Lp, Up, Ep = _block_dilu_factor_device(sub, cp, b, dev)
+                    Ep = Ep.to(dt)
+                else:
+                    Lp, Up, Ep = _block_dilu_factor(sub, cp, b)
+                    Ep = torch.from_numpy(Ep).to(dev, dt)
+                pad = torch.eye(b, dtype=dt, device=dev).expand(
+                    n_loc - (hi - lo), b, b)
+                per_L.append(build_color_slabs_block(
+                    Lp, cp, self.num_colors, dt, b, host))
+                per_U.append(build_color_slabs_block(
+                    Up, cp, self.num_colors, dt, b, host))
+            einv += [Ep, pad]
+        self.set_state(
+            torch.cat(einv),
+            [_joined_slab(per_L, c, n_loc, dev)
+             for c in range(self.num_colors)],
+            [_joined_slab(per_U, c, n_loc, dev)
+             for c in range(self.num_colors)])
 
     def set_state(self, Einv: torch.Tensor, L_slabs, U_slabs):
         """Install E⁻¹ ((n,) or (n, b, b)) and the per-color slabs.  Each

@@ -117,6 +117,11 @@ class MulticolorILUSolver(Solver):
         if self.A is None:
             raise BadConfigurationError(
                 "MULTICOLOR_ILU setup requires the host matrix")
+        if self.Ad.fmt == "sharded-ell":
+            # refused as upstream (``ilu.py:117-120``)
+            raise BadConfigurationError(
+                "distributed MULTICOLOR_ILU not supported yet — use "
+                "MULTICOLOR_DILU (the reference default) instead")
         csr = self.A.scalar_csr().astype(np.float64)
         csr.sort_indices()
         pattern = _symbolic_fill(csr, self.sparsity_level)

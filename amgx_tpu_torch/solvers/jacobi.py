@@ -77,7 +77,6 @@ class BlockJacobiSolver(Solver):
     :func:`apply_dinv` (scalar or b×b blocks)."""
 
     complex_ok = True
-    sharded_ok = True
 
     is_smoother = True
 
@@ -112,7 +111,6 @@ class JacobiL1Solver(Solver):
     their row, its padding rows sum to 1)."""
 
     is_smoother = True
-    sharded_ok = True
 
     def solver_setup(self):
         absrow = abs_rowsum(setup_source(self))

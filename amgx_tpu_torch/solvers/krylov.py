@@ -162,7 +162,6 @@ class CGSolver(Solver):
     reduction layout of ``krylov_comm`` (or ``forced_comm``)."""
 
     complex_ok = True
-    sharded_ok = True
 
     use_preconditioner = False
     forced_comm: Optional[str] = None
@@ -497,7 +496,6 @@ class PCGCASolver(PCGSolver):
     ``krylov_comm=CA`` baked in."""
 
     forced_comm = "CA"
-    sharded_ok = False
 
 
 @register_solver("PCG_PIPE")
@@ -506,7 +504,6 @@ class PCGPipeSolver(PCGSolver):
     ``krylov_comm=PIPELINED`` baked in."""
 
     forced_comm = "PIPELINED"
-    sharded_ok = False
 
 
 @dataclasses.dataclass
@@ -556,7 +553,6 @@ class GMRESSolver(_PrecondMixin, _GMRESBase):
     """Restarted right-preconditioned GMRES (reference
     ``gmres_solver.cu``)."""
 
-    sharded_ok = True
 
 
 @register_solver("FGMRES")
@@ -564,7 +560,6 @@ class FGMRESSolver(_PrecondMixin, _GMRESBase):
     """Flexible GMRES: stores the preconditioned vectors Z so the
     preconditioner (an AMG cycle) may change every iteration."""
 
-    sharded_ok = True
 
     flexible = True
 
@@ -640,14 +635,12 @@ class _BiCGStabBase(Solver):
 class BiCGStabSolver(_BiCGStabBase):
     """Reference ``bicgstab_solver.cu``."""
 
-    sharded_ok = True
 
 
 @register_solver("PBICGSTAB")
 class PBiCGStabSolver(_PrecondMixin, _BiCGStabBase):
     """Right-preconditioned BiCGStab (reference ``pbicgstab_solver.cu``)."""
 
-    sharded_ok = True
 
     def solver_setup(self):
         self._setup_preconditioner(True)

@@ -131,12 +131,13 @@ exits non-zero (no phase is caught):
     the AMG graph (:func:`graph_check`), B3 bit for bit on the ELL
     levels from phase 19's dense coarsest level down;
 23. the same stack at ny = 320 (544,649 rows, 67 shift tiles), cut at
-    ``DFG_SMALL_LEVELS`` (8) levels, on the card against the CPU, f32
+    ``DFG_SMALL_LEVELS`` (9) levels, on the card against the CPU, f32
     pack and f64 pack: equal
     iterations, x bit-equal with the f32 pack.  The CPU solves run in
-    two child processes (one per pack dtype) started at phase 22, after
-    the last kernel timing, so phase 22 (whose replays keep the device
-    busy) runs beside them and no kernel timing does.
+    two child processes (one per pack dtype, the f64 one given the odd
+    core) started at phase 22, after the last kernel timing but phase
+    40's and 41d's, so phase 22 (whose replays keep the device busy)
+    runs beside them and no kernel timing does.
 
 24. the solver family on the classical 128³ stack (``CFG_CLA``, f32
     pack, f64 refinement): the outer solver replaced by GMRES, PCGF,
@@ -245,8 +246,9 @@ exits non-zero (no phase is caught):
 36.-39. the modes and complex solves, the implicit operators and
     ``solve_multi``, the eigensolvers, binary IO and fmt ``dense``
     (each function's docstring says what it checks);
-40. distribution on one card: (40a) the 128³ Poisson of
-    ``generate_distributed_poisson_7pt(64, 64, 64, 2, 2, 2)`` in 8
+40. distribution on one card: (40a) the 96³ Poisson of
+    ``generate_distributed_poisson_7pt(48, 48, 48, 2, 2, 2)`` (cut from
+    128³ for time) in 8
     shards on the card, f64 pack, under ``DIST_CFG`` (FGMRES(20) +
     SIZE_2 aggregation, BLOCK_JACOBI 1+2, DENSE_LU) to 1e-8, its counts
     set to 0 just before the first solve and read just after: every
@@ -254,16 +256,38 @@ exits non-zero (no phase is caught):
     one B3 launch over the stacked interior), none ``sharded/gather``;
     setup, first and warm solve, the busy share of a warm solve, the
     levels with their active ranks, level 0's halo entries a SpMV, the
-    AMG graph (:func:`graph_check`); B3 on the stacked 128³ interior bit
+    AMG graph (:func:`graph_check`); B3 on the stacked 96³ interior bit
     for bit against its plain version in f32 and f64 and timed, with a
     copy-rate bound beside the datasheet one; (40b) the same stack at
     64³ under the legacy consolidation thresholds and under the
     agglomeration planner (sub-meshes, then a replicated level); (40c)
     16³ card against CPU (f32: equal counts, x bit-equal; f64: x to
-    1e-9) and sharded PCG against one unsharded card (x to 1e-8).
+    1e-9) and sharded PCG against one unsharded card (x to 1e-8);
+41. item 8b: (41a) BASELINE config 4 on phase 13's SPE10-grid system
+    (reused) in 8 equal block-row shards, an f64 pack of 4×4 blocks,
+    ``CFG4`` to 1e-8, counts set to 0 just before the first solve and
+    read just after: every SpMV ``sharded/block-binned`` (the halo
+    exchange of block values, one B5 launch over the stacked block
+    interior, the boundary blocks), no DILU apply making a halo
+    exchange, iterations beside phase 13's, setup, first and warm
+    solve, busy share, peak memory, halo blocks a SpMV; (41d) B5 over
+    that stacked interior bit for bit against
+    ``binned_compact_reference`` in f32 and f64 and timed against its
+    bound, the copy-rate bound and cuSPARSE BSR of the same blocks;
+    (41b) BASELINE config 2 (``CFG_CLA``) on the 96³ Poisson in 8
+    shards, f64 pack: every level ``classical-dist`` (per-rank
+    strength, PMIS, D2, RAP through the engine's shard-local form), no
+    global assembly above n/4 rows, the setup's split, the AMG graph,
+    B3 launches; (41c) card against CPU at small size in 8 shards:
+    classical-dist D1 and D2 at 16³ (f32 x bit-equal, f64 to 1e-9),
+    config 4 on a 12³ SPE10 grid (and within 8 iterations of one
+    unsharded pack), MULTICOLOR_GS, GS, FIXCOLOR_GS, KACZMARZ and
+    MULTICOLOR_DILU in sharded aggregation AMG, every solver name new
+    on a sharded pack, a resetup (a fresh setup, graphs captured anew)
+    and ``amg_host_levels_rows`` on a distributed classical hierarchy.
 
-Phases 11, 28, 30, 31, 33 and 40 hold the card's x bit-equal to the
-CPU's (IDRMSYNC on config 4 excepted: its s × s solves are library
+Phases 11, 28, 30, 31, 33, 40 and 41 hold the card's x bit-equal to the
+CPU's (IDR and IDRMSYNC excepted: their s × s solves are library
 calls).
 
 Then one JSON line of the paths' kernels and, last, the contract line
@@ -331,9 +355,11 @@ NESTED_CFG = HEADLINE_CFG.replace(
 #: its iterations at 16³ with the f32 pack, in the JAX package on the CPU
 #: (tests/test_torch_nested_amg.py)
 NESTED_ITERS = 16
-#: the mid-size masked grid of the card-against-CPU check (the JAX
-#: package takes 26 iterations on it on the CPU)
-MID_GRID = (30, 110, 43)
+#: the mid-size masked grid of the card-against-CPU checks of phases 13b
+#: and 18 (cut for time from 30 × 110 × 43, on which the JAX package
+#: takes 26 iterations on the CPU: the CPU solves were most of these two
+#: phases)
+MID_GRID = (20, 70, 30)
 #: config 4 on the block-native planes against the scalar expansion:
 #: each scalar row sums its products in another order (per scalar entry,
 #: not per 4×4 block), so the f32 SpMVs differ in the last bits and
@@ -362,10 +388,11 @@ DFG_CFG = HEADLINE_CFG.replace("amg:max_levels=20",
 DFG_DEEP_LEVELS = 13
 DFG_DEEP_CFG = HEADLINE_CFG.replace("amg:max_levels=20",
                                     f"amg:max_levels={DFG_DEEP_LEVELS}")
-#: phase 23's depth at ny = 320 on the card and in the CPU children (cut
-#: from DFG_LEVELS for time: the children are the smoke's critical
-#: path)
-DFG_SMALL_LEVELS = 8
+#: phase 23's depth at ny = 320 on the card and in the CPU children
+#: (short of DFG_LEVELS for time: the children are the smoke's critical
+#: path; on the CPU 9 levels solve faster than 8, whose 2,743-row dense
+#: coarse solve costs more than the deeper level's visits)
+DFG_SMALL_LEVELS = 9
 DFG_SMALL_CFG = HEADLINE_CFG.replace("amg:max_levels=20",
                                      f"amg:max_levels={DFG_SMALL_LEVELS}")
 DFG_NY, DFG_SMALL_NY = 512, 320
@@ -756,7 +783,8 @@ def read_counts() -> dict:
                 declines=smod.declines(),
                 B1=dict(dmod.LAUNCHES), B2=dict(shmod.LAUNCHES),
                 B3=dict(emod.LAUNCHES), B4=dict(bmod.LAUNCHES["B4"]),
-                B5=dict(bmod.LAUNCHES["B5"]))
+                B5=dict(bmod.LAUNCHES["B5"]),
+                B5s=dict(bmod.LAUNCHES["B5-stacked"]))
 
 
 def graph_check(pre, dev, gen, eager=True, declines=False) -> dict:
@@ -1161,8 +1189,10 @@ def config4_phases(amgx, dev, smi, gen, b1_errs) -> dict:
         (data, base.indices, base.indptr), shape=(9000, 9000)), 3))
     # built as CSR (its LIL build took most of this phase's time in an
     # H100 run), row 17 replaced by a wide row
-    wide = sp.random(20000, 20000, density=0.002, random_state=SEED,
-                     format="csr")
+    # a Generator draws the pattern without a permutation of all n²
+    # positions (a RandomState seed made this draw 31 s of the phase)
+    wide = sp.random(20000, 20000, density=0.002,
+                     random_state=np.random.default_rng(SEED), format="csr")
     row17 = rng.standard_normal(20000) * (rng.random(20000) < 0.15)
     wide = sp.csr_matrix(sp.vstack([wide[:17], sp.csr_matrix(row17),
                                     wide[18:]]))
@@ -1259,7 +1289,8 @@ def config4_phases(amgx, dev, smi, gen, b1_errs) -> dict:
                              "library_ms")}))
     return dict(kernels=kernels, b1_launches=c16["B1"],
                 b1_block_dia_errs=bdia_errs,
-                bf16_launches=bf16["counts"])
+                bf16_launches=bf16["counts"], system=A,
+                iterations=facts["iterations"])
 
 
 def check_shift(dev, gen, name, Ad, errs):
@@ -1404,9 +1435,12 @@ def cpu_reference(out_dir: str, name: str) -> int:
     import amgx_tpu_torch as amgx
     from amgx_tpu_torch.io import dfg_cylinder_pressure
     assert not torch.cuda.is_available()
-    # the cores, shared by the children; one left to the card process
-    torch.set_num_threads(max(1, ((os.cpu_count() or 2) - 1)
-                              // len(DFG_CPU_DTYPES)))
+    # the cores, shared by the children (the f64 solve, the longer, takes
+    # the odd one); one left to the card process
+    cores = (os.cpu_count() or 2) - 1
+    n_ch = len(DFG_CPU_DTYPES)
+    torch.set_num_threads(max(1, cores // n_ch + (
+        name == DFG_CPU_DTYPES[-1] and cores % n_ch > 0)))
     A3 = dfg_cylinder_pressure(DFG_SMALL_NY)
     t0 = time.perf_counter()
     it, x, relres = dfg_solve(amgx, A3, "cpu", np.dtype(name).type)
@@ -3726,9 +3760,10 @@ DIST_PCG_CFG = (
     "s:preconditioner(p)=BLOCK_JACOBI, p:max_iters=3")
 #: shards of every distributed run (a 2×2×2 processor grid)
 DIST_PARTS = 8
-#: the brick a rank owns: 64³ gives the 128³ headline grid (40a), 32³
-#: the 64³ consolidation runs (40b), 8³ the 16³ card-against-CPU runs
-DIST_BRICK = 64
+#: the brick a rank owns: 48³ gives 40a's 96³ grid (cut from 128³ for
+#: time), 32³ the 64³ consolidation runs (40b), 8³ the 16³
+#: card-against-CPU runs
+DIST_BRICK = 48
 DIST_CONS_BRICK = 32
 DIST_SMALL_BRICK = 8
 #: 40b's two consolidation triggers.  The legacy pair: with an upper
@@ -3828,7 +3863,7 @@ def copy_gbs(dev) -> float:
 
 
 def sharded_interior_kernel(dev, gen, smi, Ad, errs) -> dict:
-    """B3 on the stacked sharded interior of the 128³ level 0: held bit
+    """B3 on the stacked sharded interior of 40a's level 0: held bit
     for bit against ``ell_spmv_reference`` in f32 and f64
     (:func:`check_ell`), then timed: kernel, plain version, cuSPARSE
     CSR of the interior entries, the bound over the pack's slots
@@ -3836,8 +3871,8 @@ def sharded_interior_kernel(dev, gen, smi, Ad, errs) -> dict:
     rate and at the copy rate measured in this run."""
     import torch
     from amgx_tpu_torch.ops import ell_spmv as emod
-    check_ell(dev, gen, "sharded_interior_128^3", Ad.cols, Ad.vals.double(),
-              Ad.n_cols, errs, row_len=Ad.row_len)
+    check_ell(dev, gen, "sharded_interior_level0", Ad.cols,
+              Ad.vals.double(), Ad.n_cols, errs, row_len=Ad.row_len)
     gbs = copy_gbs(dev)
     n, K = Ad.cols.shape
     out = {}
@@ -3864,11 +3899,12 @@ def sharded_interior_kernel(dev, gen, smi, Ad, errs) -> dict:
 
 
 def dist_headline_phase(amgx, dev, smi, gen) -> dict:
-    """40a: the distributed headline at full width — the 128³ Poisson
-    (``generate_distributed_poisson_7pt(64, 64, 64, 2, 2, 2)``) in 8
-    shards on the card, f64 pack, ``DIST_CFG`` to 1e-8, its counts set
-    to 0 just before the first solve and read just after; B3 on the
-    stacked interior bit for bit and timed."""
+    """40a: the distributed headline — the 96³ Poisson
+    (``generate_distributed_poisson_7pt(48, 48, 48, 2, 2, 2)``,
+    ``DIST_BRICK``; cut from 128³ for time) in 8 shards on the card, f64
+    pack, ``DIST_CFG`` to 1e-8, its counts set to 0 just before the
+    first solve and read just after; B3 on the stacked interior bit for
+    bit and timed."""
     import torch
     t_phase = time.perf_counter()
     A, offsets = dist_system(DIST_BRICK)
@@ -4022,10 +4058,415 @@ def item8a_phases(amgx, dev, smi, gen) -> dict:
     """Phase 40 (40a, 40b, 40c); returns the launches by path and the
     sharded interior's kernel facts."""
     head = dist_headline_phase(amgx, dev, smi, gen)
-    paths = {"dist_headline_128": head["counts"]}
+    paths = {"dist_headline": head["counts"]}
     paths.update(dist_consolidation_phase(amgx, dev, smi))
     paths.update(dist_card_cpu_phase(amgx, dev, smi))
     return dict(paths=paths, head=head)
+
+
+# --------------------------------------------------------------------------
+# phase 41: distributed classical AMG, colored smoothers and b×b sharded
+# packs (ROADMAP item 8b)
+# --------------------------------------------------------------------------
+#: BASELINE config 4 on the mesh: the SPE10-grid system in 8 shards
+#: (equal block-row offsets, the JAX package's default)
+DIST4_PARTS = 8
+#: 41b's per-rank brick: 48, the 96³ grid (its per-rank host setup at
+#: 128³, 61 s on the card's host, would push the smoke past its budget)
+DIST_CLA_BRICK = 48
+#: the JAX package's distributed classical stack
+#: (tests/test_distributed.py:372-380)
+CLA_DIST_CFG = (
+    "config_version=2, solver(out)=PCG, out:max_iters=60, "
+    "out:monitor_residual=1, out:tolerance=1e-10, "
+    "out:convergence=RELATIVE_INI, out:preconditioner(amg)=AMG, "
+    "amg:algorithm=CLASSICAL, amg:selector=PMIS, "
+    "amg:interpolator={interp}, "
+    "amg:max_iters=1, amg:interp_max_elements=4, amg:max_row_sum=0.9, "
+    "amg:max_levels=6, amg:smoother(sm)=JACOBI_L1, sm:max_iters=1, "
+    "amg:presweeps=1, amg:postsweeps=1, amg:min_coarse_rows=8, "
+    "amg:coarse_solver=DENSE_LU_SOLVER, determinism_flag=1")
+#: 41c's sharded aggregation AMG with a colored smoother
+#: (tests/test_distributed.py:345-370)
+DIST_SMOOTHER_CFG = (
+    "config_version=2, solver(out)=FGMRES, out:max_iters=100, "
+    "out:monitor_residual=1, out:tolerance=1e-5, "
+    "out:convergence=RELATIVE_INI, out:preconditioner(amg)=AMG, "
+    "amg:algorithm=AGGREGATION, amg:selector=SIZE_2, amg:max_iters=1, "
+    "amg:smoother(sm)={sm}, sm:max_iters=1, amg:presweeps=1, "
+    "amg:postsweeps=1, amg:min_coarse_rows=16, "
+    "amg:coarse_solver=DENSE_LU_SOLVER")
+#: 41c's solver names on a sharded pack: PCG + a smoother, or the name
+#: as the outer solver (tolerance 1e-5: the f32 pack is unrefinable)
+DIST_NAME_BASE = ("config_version=2, solver(s)={s}, s:max_iters=100, "
+                  "s:monitor_residual=1, s:tolerance=1e-5, "
+                  "s:convergence=RELATIVE_INI{extra}")
+DIST_NAMES = {
+    "PCGF": ("PCGF", ""), "PCG_CA": ("PCG_CA", ""),
+    "PCG_PIPE": ("PCG_PIPE", ""), "IDR": ("IDR", ""),
+    "IDRMSYNC": ("IDRMSYNC", ""), "NOSOLVER": ("NOSOLVER", ""),
+    "krylov_comm_CA": ("PCG", ", s:krylov_comm=CA"),
+    "krylov_comm_PIPELINED": ("PCG", ", s:krylov_comm=PIPELINED"),
+}
+for _p in ("CHEBYSHEV", "CHEBYSHEV_POLY", "POLYNOMIAL", "KPZ_POLYNOMIAL",
+           "CF_JACOBI", "NOSOLVER"):
+    DIST_NAMES[f"pre_{_p}"] = (
+        "PCG", f", s:preconditioner(p)={_p}, p:max_iters=2")
+#: the IDR solves' s × s systems are library calls: they run on an f64
+#: pack, counts equal and x to 1e-9, not bit-equal (in f32 IDRMSYNC's
+#: 16³ solve stops on a breakdown with x parted by 5e-4)
+DIST_NOT_BITWISE = ("IDR", "IDRMSYNC")
+
+
+def dist4_matrix(amgx, A, where, pdt):
+    """The config-4 system uploaded on ``where`` as 4×4 blocks and
+    distributed over ``DIST4_PARTS`` equal block-row shards there."""
+    from amgx_tpu_torch.distributed import make_mesh
+    m = amgx.Matrix(A, block_dim=4, device=where)
+    m.device_dtype = pdt
+    m.set_distribution(make_mesh(DIST4_PARTS, device=where))
+    return m
+
+
+def count_exchanges(fn) -> int:
+    """Calls of the halo exchange (``distributed.matrix._exchange``)
+    that ``fn()`` makes."""
+    from amgx_tpu_torch.distributed import matrix as tdm
+    orig = tdm._exchange
+    calls = [0]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return orig(*a, **k)
+
+    tdm._exchange = counted
+    try:
+        fn()
+    finally:
+        tdm._exchange = orig
+    return calls[0]
+
+
+def dist_config4_phase(amgx, dev, smi, gen, A, single_iters,
+                       grid=(60, 220, 85)) -> dict:
+    """41a: BASELINE config 4 on the mesh at full size — phase 13's
+    SPE10-grid system (reused) in 8 shards, an f64 sharded pack of 4×4
+    blocks (unrefinable), ``CFG4`` to 1e-8: every SpMV
+    ``sharded/block-binned`` (the halo exchange, one B5 launch over the
+    stacked block interior, the boundary blocks), the DILU applies with
+    no halo exchange; counts set to 0 just before the first solve and
+    read just after."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.empty(1, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    m = dist4_matrix(amgx, A, "cuda", np.float64)
+    Ad = m.device()
+    pack_s = time.perf_counter() - t0
+    slv = amgx.create_solver(CFG4)
+    slv.setup(m)
+    setup_s = time.perf_counter() - t0
+    b = np.ones(A.shape[0])
+    torch.cuda.synchronize(dev)
+    reset_counts()
+    res = slv.solve(b)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    res2 = slv.solve(b)
+    x = res.x.cpu().numpy()
+    relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+    assert res.status == amgx.SolveStatus.SUCCESS, res.status
+    assert res2.iterations == res.iterations
+    assert relres <= 1e-8, relres
+    assert Ad.fmt == "sharded-ell" and Ad.block_dim == 4
+    disp = counts["dispatch"]
+    assert disp.get("sharded/block-binned", 0) > 0 and \
+        disp.get("sharded/block-plain", 0) == 0, disp
+    assert counts["B5s"]["f64.f64"] == disp["sharded/block-binned"], counts
+    assert not any(counts["declines"].values()), counts
+    pre = slv.preconditioner
+    r = torch.randn(Ad.n, dtype=torch.float64, device=dev, generator=gen)
+    exchanges = count_exchanges(lambda: pre._apply_dilu(r))
+    assert exchanges == 0, exchanges
+    from amgx_tpu_torch.ops.spmv import spmv
+    spmv_exchanges = count_exchanges(lambda: spmv(Ad, r))
+    assert spmv_exchanges == 1, spmv_exchanges
+    wall, dev_s, kern, top = profile_window(lambda: slv.solve(b))
+    emit("dist_config4", grid=list(grid), unknowns=A.shape[0],
+         block_rows=A.shape[0] // 4, stored_blocks=A.nnz // 16,
+         shards=DIST4_PARTS, n_loc=Ad.n_loc, iterations=res.iterations,
+         single_card_iterations_phase13=single_iters,
+         status=int(res.status), relres_f64=relres, pack_s=pack_s,
+         setup_s=setup_s, solve_s=res.solve_time,
+         solve_warm_s=res2.solve_time, colors=pre.num_colors,
+         busy_share_of_unprofiled=dev_s / res2.solve_time,
+         device_busy_s=dev_s, profiled_wall_s=wall, device_kernels=kern,
+         top=top, halo_block_entries=Ad.halo_entries,
+         halo_dists=list(Ad.dists), boundary_rows=int(Ad.bnd_rows.numel()),
+         b5_launches_stacked=counts["B5s"], b5_launches_single_pack=counts[
+             "B5"], exchanges_per_dilu_apply=exchanges,
+         exchanges_per_spmv=spmv_exchanges, amg_graphs=0, counts=counts,
+         peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, card=smi,
+         elapsed_phase_s=time.perf_counter() - t_phase)
+    iterations = res.iterations
+    del slv, res, res2, pre
+    return dict(counts=counts, Ad=Ad, m=m, iterations=iterations)
+
+
+def stacked_interior_bsr(Ad):
+    """The stacked block interior's blocks (halo blocks and zero blocks
+    dropped) as a host BSR over the flat P·n_loc block columns — the
+    cuSPARSE yardstick's operand — and its stored block count."""
+    import scipy.sparse as sp
+    cols = Ad.cols.cpu().numpy()
+    vals = Ad.vals.double().cpu().numpy()
+    n, K = cols.shape
+    keep = (cols >= 0) & (np.abs(vals).reshape(n, K, -1).max(axis=2) != 0)
+    rows = np.repeat(np.arange(n), K).reshape(n, K)[keep]
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows,
+                                                        minlength=n))])
+    b = Ad.block_dim
+    return sp.bsr_matrix((vals[keep], cols[keep], indptr),
+                         shape=(n * b, n * b)), int(keep.sum())
+
+
+def stacked_b5_kernel(dev, gen, smi, Ad) -> dict:
+    """41d: B5 over 41a's stacked level-0 interior held bit for bit
+    against ``binned_compact_reference`` in f32 and f64, then timed
+    (median of 30): kernel, plain version, cuSPARSE BSR of the same
+    interior blocks, the bound over the interior's stored blocks at the
+    datasheet rate and at the copy rate measured in this run."""
+    import torch
+    from amgx_tpu_torch.ops import binned_spmv as bmod
+    I = Ad.interior
+    bsr, nnzb = stacked_interior_bsr(Ad)
+    b = Ad.block_dim
+    n = Ad.n_rows
+    gbs = copy_gbs(dev)
+    out, errs = {}, {}
+    for dt in (torch.float32, torch.float64):
+        cp = I.compact.astype(dt)
+        x = torch.randn(n * b, dtype=dt, device=dev, generator=gen)
+        before = bmod.launch_count("B5-stacked")
+        y = bmod.compact_spmv(cp, I.pos, I.row_of_pos, I.dims, x)
+        torch.cuda.synchronize(dev)
+        assert bmod.launch_count("B5-stacked") == before + 1
+        ref = bmod.binned_compact_reference(cp, I.pos, I.dims, x)
+        assert torch.isfinite(y).all().item()
+        bit_equal = bool(torch.equal(y, ref))
+        assert bit_equal, short(dt)
+        diff = (y - ref).abs().max().item()
+        record(errs, f"{short(dt)}.{short(dt)}", diff, 0.0)
+        lib = bsr_of_pack(bsr, dt, dev)
+        ms = time_ms(lambda: bmod.compact_spmv(cp, I.pos, I.row_of_pos,
+                                               I.dims, x), dev)
+        plain_ms = time_ms(lambda: bmod.binned_compact_reference(
+            cp, I.pos, I.dims, x), dev)
+        try:
+            library_ms = time_ms(lambda: lib @ x, dev)
+        except (RuntimeError, NotImplementedError):
+            library_ms = None
+        bound_ms, bound_by = binned_bound(nnzb, b, n, n, dt, dt)
+        nbytes = nnzb * (4 + b * b * dt.itemsize) + 2 * n * b * dt.itemsize
+        key = f"{short(dt)}.{short(dt)}"
+        out[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        bound_copy_ms=nbytes / (gbs * 1e9) * 1e3)
+        emit("stacked_b5_timing", block_rows=n, stored_blocks=nnzb,
+             compact_slots=int(cp.codes.numel()), type=short(dt),
+             bit_equal=bit_equal, least_bytes=nbytes, copy_gbs=gbs,
+             card=smi, **out[key])
+        del lib, cp
+    return dict(timing=out, errs=errs)
+
+
+def dist_classical_phase(amgx, dev, smi, gen) -> dict:
+    """41b: BASELINE config 2 on the mesh — the 96³ Poisson of
+    ``generate_distributed_poisson_7pt(48, 48, 48, 2, 2, 2)`` in 8 shards
+    (``DIST_CLA_BRICK``, cut from 128³ for time),
+    f64 pack, ``CFG_CLA`` word for word: every level ``classical-dist``
+    (per-rank strength, PMIS, D2 and RAP), no global assembly above n/4
+    rows (``Matrix.assemble_global`` spied), counts set to 0 just before
+    the first solve and read just after."""
+    import torch
+    from amgx_tpu_torch.amg.device_setup import engine_stats, reset_engine
+    t_phase = time.perf_counter()
+    A, offsets = dist_system(DIST_CLA_BRICK)
+    n = A.shape[0]
+    assembled = []
+    orig = amgx.Matrix.assemble_global
+
+    def spy(self):
+        assembled.append(self.shape[0])
+        return orig(self)
+
+    amgx.Matrix.assemble_global = spy
+    try:
+        reset_engine()
+        torch.cuda.reset_peak_memory_stats(dev)
+        r = dist_solve(amgx, dev, A, offsets, "cuda", np.float64, CFG_CLA)
+    finally:
+        amgx.Matrix.assemble_global = orig
+    slv, res, res2, counts = r["slv"], r["res"], r["res2"], r["counts"]
+    h = slv.preconditioner.hierarchy
+    kinds = [s_[0] for s_ in h._structure]
+    assert kinds and all(k == "classical-dist" for k in kinds), kinds
+    assert not assembled or max(assembled) <= n // 4, assembled
+    assert res.status == amgx.SolveStatus.SUCCESS, res.status
+    assert res2.iterations == res.iterations
+    assert r["relres"] <= 1e-8, r["relres"]
+    disp = counts["dispatch"]
+    assert disp.get("sharded/window", 0) > 0 and \
+        disp.get("sharded/gather", 0) == 0, disp
+    assert not any(counts["declines"].values()), counts
+    graph = graph_check(slv.preconditioner, dev, gen)
+    wall, dev_s, kern, top = profile_window(lambda: slv.solve(np.ones(n)))
+    eng = engine_stats() or {}
+    Ad0 = h.levels[0].Ad
+    emit("dist_classical", n=n, shards=DIST_PARTS, config="CFG_CLA",
+         iterations=res.iterations, status=int(res.status),
+         relres=r["relres"], setup_s=r["setup_s"],
+         setup_split_s=dict(h.dist_timings),
+         engine=dict(dist_runs=eng.get("dist_runs"), hits=eng.get("hits"),
+                     builds=eng.get("builds"),
+                     declines=eng.get("declines")),
+         solve_s=res.solve_time, solve_warm_s=res2.solve_time,
+         busy_share_of_unprofiled=dev_s / res2.solve_time,
+         device_busy_s=dev_s, profiled_wall_s=wall, device_kernels=kern,
+         top=top, levels=dist_levels(h), structure=kinds,
+         assembled_rows=assembled, b3_launches=counts["B3"],
+         counts=counts, amg_graph=graph,
+         peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, card=smi,
+         elapsed_phase_s=time.perf_counter() - t_phase)
+    del slv, r, h, Ad0
+    torch.cuda.empty_cache()
+    return dict(counts=counts)
+
+
+def dist_item8b_card_cpu_phase(amgx, dev, smi) -> dict:
+    """41c: card against CPU at small size, 8 shards: classical-dist D1
+    and D2 at 16³ (f32: equal counts, x bit-equal; f64: x to 1e-9);
+    config 4 on a 12×12×12 SPE10 grid (f32 and f64, and against one
+    unsharded pack in f64: counts within 8, as the JAX package's test
+    allows); the colored smoothers and Kaczmarz in sharded aggregation
+    AMG at 16³; every newly distributed solver name at 16³; a resetup
+    and ``amg_host_levels_rows`` on a distributed classical hierarchy."""
+    import torch
+    from amgx_tpu_torch.io import spe10_block_system
+    t_phase = time.perf_counter()
+    A, offsets = dist_system(DIST_SMALL_BRICK)
+    n = A.shape[0]
+    out, facts = {}, {}
+
+    def pair(label, cfg, pdt, bitwise, make=None, rhs=n, post=None):
+        runs = {}
+        for w in ("cuda", "cpu"):
+            m = make(w) if make else dist_matrix(amgx, A, offsets, w, pdt)
+            s_ = amgx.create_solver(cfg)
+            s_.setup(m)
+            if post is not None:
+                post(s_, m)
+            if w == "cuda":
+                torch.cuda.synchronize(dev)
+                reset_counts()
+            rr = s_.solve(np.ones(rhs))
+            if w == "cuda":
+                torch.cuda.synchronize(dev)
+                out[label] = read_counts()
+            runs[w] = (rr, s_)
+        (g, sg), (c, sc) = runs["cuda"], runs["cpu"]
+        xg, xc = g.x.cpu().double(), c.x.double()
+        diff = ((xg - xc).norm() / xc.norm()).item()
+        be = bool(torch.equal(g.x.cpu(), c.x))
+        f = dict(iterations_card=g.iterations, iterations_cpu=c.iterations,
+                 status=int(g.status), x_rel_diff=diff, x_bit_equal=be)
+        facts[label] = f
+        assert g.iterations == c.iterations, (label, f)
+        assert g.status == c.status, (label, f)
+        if bitwise:
+            assert be, (label, f)
+        else:
+            assert diff <= (1e-9 if pdt == np.float64 else SMALL_X_RTOL), \
+                (label, f)
+        return sg, sc
+
+    for interp in ("D1", "D2"):
+        cfg = CLA_DIST_CFG.format(interp=interp)
+        for label, pdt, tol in (("f32", np.float32, "1e-5"),
+                                ("f64", np.float64, "1e-10")):
+            sg, _ = pair(f"classical_dist_{interp}_{label}",
+                         cfg.replace("out:tolerance=1e-10",
+                                     f"out:tolerance={tol}"),
+                         pdt, label == "f32")
+            kinds = [k[0] for k in sg.preconditioner.hierarchy._structure]
+            assert all(k == "classical-dist" for k in kinds), kinds
+    # config 4 on a 12×12×12 SPE10 grid in 8 shards
+    A4 = spe10_block_system(12, 12, 12)
+    for label, pdt, tol in (("f32", np.float32, "1e-5"),
+                            ("f64", np.float64, "1e-8")):
+        pair(f"config4_12_{label}", CFG4.replace(
+            "out:tolerance=1e-8", f"out:tolerance={tol}"), pdt,
+            label == "f32",
+            make=lambda w, pdt=pdt: dist4_matrix(amgx, A4, w, pdt),
+            rhs=A4.shape[0])
+    one = amgx.Matrix(A4, block_dim=4, device="cuda")
+    one.device_dtype = np.float64
+    s1 = amgx.create_solver(CFG4)
+    s1.setup(one)
+    it1 = s1.solve(np.ones(A4.shape[0])).iterations
+    itd = facts["config4_12_f64"]["iterations_card"]
+    facts["config4_12_one_pack_f64"] = dict(iterations=it1,
+                                            sharded_iterations=itd)
+    assert itd <= it1 + 8, (itd, it1)
+    # the colored smoothers in sharded aggregation AMG
+    for sm in ("MULTICOLOR_GS", "GS", "FIXCOLOR_GS", "KACZMARZ",
+               "MULTICOLOR_DILU"):
+        pair(f"smoother_{sm}", DIST_SMOOTHER_CFG.format(sm=sm), np.float32,
+             True)
+    # every newly distributed solver name
+    for label, (solver, extra) in DIST_NAMES.items():
+        bitwise = label not in DIST_NOT_BITWISE
+        pair(f"name_{label}", DIST_NAME_BASE.format(s=solver, extra=extra),
+             np.float32 if bitwise else np.float64, bitwise)
+    # a resetup (a fresh setup; the graphs captured anew) and host levels
+    cla = CLA_DIST_CFG.format(interp="D2").replace(
+        "out:tolerance=1e-10", "out:tolerance=1e-5")
+
+    def resetup(s_, m):
+        s_.solve(np.ones(n))
+        s_.resetup(m)
+        assert s_.preconditioner.hierarchy.last_resetup == "fresh"
+
+    sg, _ = pair("resetup_classical_dist", cla, np.float32, True,
+                 post=resetup)
+    facts["resetup_classical_dist"]["rebind"] = dict(
+        kept=sg.preconditioner.rebind["graphs_kept"],
+        dropped=sg.preconditioner.rebind["graphs_dropped"])
+    assert sg.preconditioner.rebind["graphs_dropped"] >= 1
+    sg, _ = pair("host_levels_classical_dist",
+                 cla + ", amg:amg_host_levels_rows=256", np.float32, True)
+    h = sg.preconditioner.hierarchy
+    facts["host_levels_classical_dist"]["host_from"] = h.host_from
+    assert h.host_from < h.num_levels(), h.host_from
+    emit("dist_item8b_card_vs_cpu", n=n, shards=DIST_PARTS, cases=facts,
+         card=smi, elapsed_phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+def item8b_phases(amgx, dev, smi, gen, A4, single_iters) -> dict:
+    """Phase 41 (41a, 41d, 41b, 41c); returns the launches by path and
+    the stacked B5 kernel's facts."""
+    import torch
+    head = dist_config4_phase(amgx, dev, smi, gen, A4, single_iters)
+    b5 = stacked_b5_kernel(dev, gen, smi, head.pop("Ad"))
+    del head["m"]
+    torch.cuda.empty_cache()
+    paths = {"dist_config4": head["counts"]}
+    cla = dist_classical_phase(amgx, dev, smi, gen)
+    paths["dist_classical"] = cla["counts"]
+    paths.update(dist_item8b_card_cpu_phase(amgx, dev, smi))
+    return dict(paths=paths, b5=b5)
 
 
 def main() -> int:
@@ -4455,10 +4896,17 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     # eigensolvers, binary IO and fmt dense
     setup_paths.update(item7b_phases(amgx, dev, smi, gen))
 
-    # ---- 40. distribution on one card: the 128³ headline in 8 shards,
+    # ---- 40. distribution on one card: the 96³ headline in 8 shards,
     # consolidation, card against CPU
     dist = item8a_phases(amgx, dev, smi, gen)
     setup_paths.update(dist["paths"])
+
+    # ---- 41. item 8b: config 4 on phase 13's system in 8 shards of 4×4
+    # blocks (B5 on the stacked block interior), the distributed
+    # classical stack, card against CPU
+    d8b = item8b_phases(amgx, dev, smi, gen, c4.pop("system"),
+                        c4["iterations"])
+    setup_paths.update(d8b["paths"])
 
     # ---- the kernels of the paths
     kernels = []
@@ -4542,7 +4990,7 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     for key in ("f32.f32", "f64.f64"):
         v, xx = key.split(".")
         t = dist["head"]["timing"][key]
-        path = "dist_16_f32" if key == "f32.f32" else "dist_headline_128"
+        path = "dist_16_f32" if key == "f32.f32" else "dist_headline"
         n_ = dist["paths"][path]["dispatch"].get("sharded/window", 0)
         kernels.append(dict(
             name=f"ell_spmv<{v},{xx},sharded_interior>", route="cuda",
@@ -4551,6 +4999,22 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
             launches_by_path={path: n_},
             max_abs_err=dist["head"]["errs"][key]["abs"],
             max_row_rel_err=dist["head"]["errs"][key]["rel"],
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "bound_copy_ms")}))
+    # B5 on the stacked block interior of phase 41 (its launches: 41a's
+    # config-4 solve in f64, 41c's 12³ f32 one in f32)
+    for key in ("f32.f32", "f64.f64"):
+        v, xx = key.split(".")
+        t = d8b["b5"]["timing"][key]
+        path = "config4_12_f32" if key == "f32.f32" else "dist_config4"
+        n_ = d8b["paths"][path]["B5s"][key]
+        kernels.append(dict(
+            name=f"binned_spmv_B5<{v},{xx},b=4,stacked_interior>",
+            route="cuda", source="amgx_tpu_torch/csrc/binned_spmv.cu",
+            replaces="amgx_tpu/ops/pallas_csr.py:497", launches=n_,
+            launches_by_path={path: n_},
+            max_abs_err=d8b["b5"]["errs"][key]["abs"],
+            max_row_rel_err=d8b["b5"]["errs"][key]["rel"],
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "bound_copy_ms")}))
     print(json.dumps({"kernels": kernels}), flush=True)

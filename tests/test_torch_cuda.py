@@ -1124,3 +1124,92 @@ def test_distributed_solve_on_card_matches_cpu(card):
     assert out["cuda"][2]["sharded/window"] > 0
     assert out["cuda"][2]["sharded/gather"] == 0
     assert len(out["cuda"][3].preconditioner.graphs) == 1
+
+
+def _dist_block(where, pdt, grid=(10, 10, 10)):
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.distributed import make_mesh
+    from amgx_tpu_torch.io import spe10_block_system
+    A = spe10_block_system(*grid)
+    m = amgx.Matrix(A, block_dim=4, device=where)
+    m.device_dtype = pdt
+    m.set_distribution(make_mesh(8, device=where))
+    return A, m
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_stacked_block_interior_b5_bit_equal(card, dt):
+    """B5 over the stacked block interior of a 4×4 sharded pack is its
+    plain version bit for bit; the block distributed SpMV on the card
+    counts ``sharded/block-binned`` and one stacked launch, no plain
+    path, and equals the CPU's bit for bit."""
+    from amgx_tpu_torch.distributed import dist_spmv, shard_vector
+    from amgx_tpu_torch.ops import binned_spmv as bmod
+    from amgx_tpu_torch.ops import spmv as smod
+    npdt = np.dtype(str(dt).split(".")[1])
+    A, m = _dist_block("cuda", npdt)
+    Ad = m.device()
+    I = Ad.interior
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn(Ad.n, dtype=torch.float64, device=card,
+                    generator=g).to(dt)
+    before = bmod.launch_count("B5-stacked")
+    y = bmod.compact_spmv(I.compact, I.pos, I.row_of_pos, I.dims, x)
+    torch.cuda.synchronize(card)
+    assert bmod.launch_count("B5-stacked") == before + 1
+    assert torch.equal(y, bmod.binned_compact_reference(I.compact, I.pos,
+                                                        I.dims, x))
+    _, mc = _dist_block("cpu", npdt)
+    Acd = mc.device()
+    xv = np.random.default_rng(1).standard_normal(A.shape[0])
+    smod.reset_dispatch()
+    yg = smod.spmv(Ad, shard_vector(Ad, xv))
+    assert smod.DISPATCH["sharded/block-binned"] == 1
+    assert smod.DISPATCH["sharded/block-plain"] == 0
+    assert torch.equal(yg.cpu(), dist_spmv(Acd, shard_vector(Acd, xv)))
+
+
+def test_distributed_config4_and_classical_on_card_match_cpu(card):
+    """Config 4 in 8 shards of 4×4 blocks and the distributed classical
+    stack at 16³, f32 packs: the card takes the CPU's counts with x
+    bit-equal; the DILU applies make no halo exchange."""
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.distributed import matrix as tdm
+    cfg4 = ("config_version=2, solver(out)=PBICGSTAB, out:max_iters=200, "
+            "out:monitor_residual=1, out:tolerance=1e-5, "
+            "out:convergence=RELATIVE_INI, "
+            "out:preconditioner(pre)=MULTICOLOR_DILU, pre:max_iters=1")
+    cla = ("config_version=2, solver(out)=PCG, out:max_iters=60, "
+           "out:monitor_residual=1, out:tolerance=1e-5, "
+           "out:convergence=RELATIVE_INI, out:preconditioner(amg)=AMG, "
+           "amg:algorithm=CLASSICAL, amg:selector=PMIS, "
+           "amg:interpolator=D2, amg:max_iters=1, "
+           "amg:interp_max_elements=4, amg:max_row_sum=0.9, "
+           "amg:max_levels=6, amg:smoother(sm)=JACOBI_L1, sm:max_iters=1, "
+           "amg:presweeps=1, amg:postsweeps=1, amg:min_coarse_rows=8, "
+           "amg:coarse_solver=DENSE_LU_SOLVER, determinism_flag=1")
+    for cfg, make in ((cfg4, lambda w: _dist_block(w, np.float32)),
+                      (cla, lambda w: _dist_poisson(8, w, np.float32))):
+        out = {}
+        for where in ("cuda", "cpu"):
+            A, m = make(where)
+            s = amgx.create_solver(cfg)
+            s.setup(m)
+            r = s.solve(np.ones(A.shape[0]))
+            out[where] = (r.iterations, r.x.cpu(), s)
+        assert out["cuda"][0] == out["cpu"][0]
+        assert torch.equal(out["cuda"][1], out["cpu"][1])
+    pre = out["cuda"][2].preconditioner
+    calls = []
+    orig = tdm._exchange
+    tdm._exchange = lambda *a: calls.append(1) or orig(*a)
+    try:
+        s4 = amgx.create_solver(cfg4)
+        A, m = _dist_block("cuda", np.float32)
+        s4.setup(m)
+        s4.preconditioner._apply_dilu(torch.ones(m.device().n,
+                                                 device=card))
+    finally:
+        tdm._exchange = orig
+    assert calls == []
+    assert pre.hierarchy._structure[0][0] == "classical-dist"

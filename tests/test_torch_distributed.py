@@ -447,6 +447,10 @@ def test_halo_exchange_fault_gives_jax_rc(jmesh, tmesh):
     assert rcs[0] == rcs[1] == int(RC.CUDA_FAILURE)
 
 
+#: the solver names and algorithms that joined the sharded pack in ROADMAP
+#: item 8b (they raised until then), each held against the JAX package:
+#: the same count and x (or, for MULTICOLOR_ILU, the JAX package's
+#: refusal with its error class and code)
 LATER = {
     "classical": ("AMG_CLA", "8b"), "energymin": ("AMG_EM", "8b"),
     "MULTICOLOR_DILU": ("MULTICOLOR_DILU", "8b"),
@@ -459,43 +463,113 @@ LATER = {
 
 
 @pytest.mark.parametrize("case", sorted(LATER))
-def test_later_item_solvers_raise(case, tmesh):
-    name, item = LATER[case]
+def test_later_item_solvers_raise(case, jmesh, tmesh):
+    """Each name of ROADMAP item 8b on a sharded pack at 6³ against the
+    JAX package: PCG (PCGF for the nonsymmetric sweeps) preconditioned by
+    it (FGMRES for KACZMARZ), or the name as the outer solver — equal
+    counts and x to 1e-10 of its largest entry; MULTICOLOR_ILU refuses
+    the pack as upstream, with the JAX package's error class, message
+    and code."""
+    name, _item = LATER[case]
+    tail = (", s:max_iters=60, s:monitor_residual=1, s:tolerance=1e-8, "
+            "s:convergence=RELATIVE_INI")
     if name in ("AMG_CLA", "AMG_EM"):
         alg = "CLASSICAL" if name == "AMG_CLA" else "ENERGYMIN"
-        cfg = ("config_version=2, solver(s)=PCG, s:max_iters=10, "
-               "s:preconditioner(amg)=AMG, amg:algorithm=" + alg)
+        cfg = ("config_version=2, solver(s)=PCG" + tail +
+               ", s:preconditioner(amg)=AMG, amg:algorithm=" + alg +
+               ", amg:max_iters=1, amg:min_coarse_rows=8, "
+               "amg:coarse_solver=DENSE_LU_SOLVER, determinism_flag=1")
     elif name in ("PCG_CA", "IDR"):
-        cfg = f"config_version=2, solver(s)={name}, s:max_iters=10"
+        cfg = f"config_version=2, solver(s)={name}" + tail
     else:
-        cfg = ("config_version=2, solver(s)=PCG, s:max_iters=10, "
-               f"s:preconditioner(p)={name}")
-    s = amgx.create_solver(cfg)
-    with pytest.raises(NotImplementedError_, match=f"item {item}"):
-        s.setup(_port_matrix(poisson7pt(6, 6, 6), tmesh))
+        outer = {"CHEBYSHEV": "PCG", "KACZMARZ": "FGMRES"}.get(name, "PCGF")
+        cfg = (f"config_version=2, solver(s)={outer}" + tail +
+               f", s:preconditioner(p)={name}, p:max_iters=2")
+    # Kaczmarz colors A·Aᵀ: the JAX package compiles one program per
+    # color, fewer on a 2-D stencil
+    A = poisson5pt(8, 8) if name == "KACZMARZ" else poisson7pt(6, 6, 6)
+    if name == "MULTICOLOR_ILU":
+        from amgx_tpu.errors import AMGXError as JAMGXError
+        from amgx_tpu_torch.errors import AMGXError
+        with pytest.raises(JAMGXError) as ej:
+            jx.create_solver(jx.AMGConfig(cfg)).setup(_jax_matrix(A, jmesh))
+        with pytest.raises(AMGXError) as et:
+            amgx.create_solver(cfg).setup(_port_matrix(A, tmesh))
+        assert type(et.value).__name__ == type(ej.value).__name__
+        assert str(et.value) == str(ej.value)
+        assert int(et.value.rc) == int(ej.value.rc)
+        return
+    sj, rj, st, rt = _both(cfg, A, jmesh, tmesh)
+    _same(rj, rt, A)
+    assert st.Ad.fmt == "sharded-ell"
 
 
 def test_later_item_paths_raise(tmesh):
+    """What stays for later items raises naming it: a mesh over several
+    cards (8c), complex and bf16 sharded packs (7c).  The paths of item
+    8b now run: a b×b sharded pack, a resetup of a distributed matrix (a
+    fresh setup, as upstream) and ``amg_host_levels_rows`` on a
+    distributed hierarchy."""
     A = poisson7pt(6, 6, 6)
     with pytest.raises(NotImplementedError_, match="item 8c"):
         tdm.make_mesh(8, device=["cuda:0", "cuda:1"])
-    with pytest.raises(NotImplementedError_, match="item 8b"):
-        tdm.shard_block_matrix(A, 2, tmesh)
+    assert tdm.shard_block_matrix(sp.kron(A, np.eye(2)).tocsr(), 2,
+                                  tmesh).block_dim == 2
     mb = amgx.Matrix(sp.kron(A, np.eye(2)).tocsr(), block_dim=2,
                      device="cpu")
     mb.set_distribution(tmesh)
-    with pytest.raises(NotImplementedError_, match="item 8b"):
-        mb.device()
+    assert mb.device().fmt == "sharded-ell"
     mc = amgx.Matrix(A.astype(np.complex128), device="cpu")
     mc.set_distribution(tmesh)
-    with pytest.raises(NotImplementedError_, match="item 8b"):
+    with pytest.raises(NotImplementedError_, match="item 7c"):
         mc.device()
+    mh = _port_matrix(A, tmesh)
+    mh.device_dtype = torch.bfloat16
+    with pytest.raises(NotImplementedError_, match="item 7c"):
+        mh.device()
     m = _port_matrix(A, tmesh)
     cfg = FGMRES_AGG.format(sel="SIZE_2")
     s = amgx.create_solver(cfg)
     s.setup(m)
-    with pytest.raises(NotImplementedError_, match="item 8b"):
-        s.resetup(m)
+    x0 = s.solve(np.ones(A.shape[0])).x
+    s.resetup(m)
+    assert s.preconditioner.hierarchy.last_resetup == "fresh"
+    assert torch.equal(s.solve(np.ones(A.shape[0])).x, x0)
     host = amgx.create_solver(cfg + ", amg:amg_host_levels_rows=64")
-    with pytest.raises(NotImplementedError_, match="item 8b"):
-        host.setup(_port_matrix(A, tmesh))
+    host.setup(_port_matrix(A, tmesh))
+    assert torch.equal(host.solve(np.ones(A.shape[0])).x, x0)
+
+
+#: the other names that joined the sharded pack in ROADMAP item 8b: the
+#: outer solver (or its reduction layout), or PCG's preconditioner
+NAMES_8B = {
+    "PCGF": ("PCGF", ""), "PCG_PIPE": ("PCG_PIPE", ""),
+    "IDRMSYNC": ("IDRMSYNC", ""),
+    "krylov_comm_CA": ("PCG", ", s:krylov_comm=CA"),
+    "krylov_comm_PIPELINED": ("PCG", ", s:krylov_comm=PIPELINED"),
+    "NOSOLVER": ("NOSOLVER", ""),
+}
+for _p in ("CHEBYSHEV_POLY", "POLYNOMIAL", "KPZ_POLYNOMIAL", "CF_JACOBI",
+           "NOSOLVER"):
+    NAMES_8B[f"pre_{_p}"] = (
+        "PCG", f", s:preconditioner(p)={_p}, p:max_iters=2")
+
+
+@pytest.mark.parametrize("case", sorted(NAMES_8B))
+def test_item8b_names_on_sharded_pack_match_jax(case, jmesh, tmesh):
+    """PCGF, PCG_PIPE, IDRMSYNC, ``krylov_comm`` CA and PIPELINED,
+    NOSOLVER, and the polynomial smoothers and CF_JACOBI as PCG's
+    preconditioner, on a sharded pack at 6³: the JAX package's count,
+    status and x (to 1e-10 of its largest entry; NOSOLVER runs its
+    budget out on both)."""
+    solver, extra = NAMES_8B[case]
+    cfg = (f"config_version=2, solver(s)={solver}, s:max_iters=60, "
+           "s:monitor_residual=1, s:tolerance=1e-8, "
+           "s:convergence=RELATIVE_INI" + extra)
+    A = poisson7pt(6, 6, 6)
+    sj, rj, st, rt = _both(cfg, A, jmesh, tmesh)
+    assert rt.iterations == rj.iterations
+    assert int(rt.status) == int(rj.status)
+    xj = np.asarray(rj.x)
+    np.testing.assert_allclose(rt.x.numpy(), xj, rtol=0,
+                               atol=1e-10 * np.abs(xj).max())

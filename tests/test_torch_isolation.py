@@ -22,7 +22,8 @@ PORT_FILES = sorted((ROOT / "amgx_tpu_torch").rglob("*.py")) + \
      ROOT / "scripts" / "torch_setup_engine.py",
      ROOT / "scripts" / "torch_boundary_phases.py",
      ROOT / "scripts" / "torch_item7b_phases.py",
-     ROOT / "scripts" / "torch_item8a_phases.py"]
+     ROOT / "scripts" / "torch_item8a_phases.py",
+     ROOT / "scripts" / "torch_item8b_phases.py"]
 
 
 def test_import_leaves_jax_out_of_sys_modules():
