@@ -20,13 +20,26 @@ zero guess go down to the CPU, the tail's cycle (or K-cycle) runs there
 on the tail's CPU tensors, and the correction comes back up.  The
 recursion reads the hierarchy's levels at each call, so a cycle built
 before a values-only resetup serves the refreshed levels.
+
+Telemetry: each component of a level runs inside its scope
+(``amgx/cycle/level<N>/{pre_smooth,restrict,prolong,post_smooth}``,
+``amgx/cycle/coarse_solve``, ``amgx/cycle/kcycle<N>``;
+``telemetry/scopes.py``), which a CUDA graph's capture records for its
+replays.  With ``forensics`` the hierarchy carries a tape
+(``telemetry/forensics.py::Tape``): every visit of a device level
+computes the residual norm at the four cut points (entry, after
+pre-smooth, after the coarse-grid correction, after post-smooth) and
+writes them to its slot — device work only, so the graph holds it —
+and the coarsest solve its entry and exit norms.  The extra products
+only read the cycle's vectors: x is the same with the tape and without.
 """
 from __future__ import annotations
 
 import torch
 
-from ..ops.ordered import div, mul, wdot
+from ..ops.ordered import div, mul, wdot, wnrm2
 from ..ops.spmv import spmv
+from ..telemetry.scopes import scope
 from ..utils.cuda_graph import host_step
 
 
@@ -68,6 +81,21 @@ def build_cycle(hierarchy, cycle_type: str = None):
             return cs.apply(b, x0=x, n_iters=h.coarsest_sweeps)
         return cs.apply(b, x0=x)
 
+    def taped(i, b):
+        # the host tail's levels stay uninstrumented, as upstream
+        return h.tape is not None and i < h.host_from
+
+    def coarse_visit(b, x):
+        with scope("cycle", "coarse_solve"):
+            Adc = getattr(h.coarse_solver, "Ad", None)
+            if not taped(len(h.levels), b) or Adc is None:
+                return coarse_solve(b, x)
+            n_in = wnrm2(b - spmv(Adc, x))
+            x = coarse_solve(b, x)
+            h.tape.record_coarse(len(h.levels), n_in,
+                                 wnrm2(b - spmv(Adc, x)))
+            return x
+
     def presweeps_at(i):
         if i == 0 and h.finest_sweeps >= 0:
             return h.finest_sweeps
@@ -84,11 +112,18 @@ def build_cycle(hierarchy, cycle_type: str = None):
             return host_step(lambda b_, x_: cycle(i, b_, x_, flavor), b, x)
         levels = h.levels
         if i == len(levels):
-            return coarse_solve(b, x)
+            return coarse_visit(b, x)
         lvl = levels[i]
-        x = smooth(lvl, b, x, presweeps_at(i))
-        r = b - spmv(lvl.Ad, x)
-        bc = lvl.restrict_residual(r)
+        inst = taped(i, b)
+        if inst:
+            n_entry = wnrm2(b - spmv(lvl.Ad, x))
+        with scope("cycle", f"level{i}/pre_smooth"):
+            x = smooth(lvl, b, x, presweeps_at(i))
+        with scope("cycle", f"level{i}/restrict"):
+            r = b - spmv(lvl.Ad, x)
+            if inst:
+                n_pre = wnrm2(r)
+            bc = lvl.restrict_residual(r)
         xc = torch.zeros_like(bc)
         if flavor == "V":
             xc = cycle(i + 1, bc, xc, "V")
@@ -104,16 +139,25 @@ def build_cycle(hierarchy, cycle_type: str = None):
             xc = kcycle(i + 1, bc, xc, flavor)
         else:
             raise ValueError(f"unknown cycle {flavor!r}")
-        if h.error_scaling in (2, 3) and lvl.kind != "classical":
-            # the prolongated (optionally smoothed) error, applied with
-            # the λ of the configured norm
-            e = lvl.prolongate_and_correct(torch.zeros_like(x), xc)
-            e = smooth(lvl, r, e, h.scaling_smoother_steps)
-            lam = _scaling_lambda(r, e, spmv(lvl.Ad, e), h.error_scaling)
-            x = x + lam * e
-        else:
-            x = lvl.prolongate_and_correct(x, xc)
-        return smooth(lvl, b, x, postsweeps_at(i))
+        with scope("cycle", f"level{i}/prolong"):
+            if h.error_scaling in (2, 3) and lvl.kind != "classical":
+                # the prolongated (optionally smoothed) error, applied
+                # with the λ of the configured norm
+                e = lvl.prolongate_and_correct(torch.zeros_like(x), xc)
+                e = smooth(lvl, r, e, h.scaling_smoother_steps)
+                lam = _scaling_lambda(r, e, spmv(lvl.Ad, e),
+                                      h.error_scaling)
+                x = x + lam * e
+            else:
+                x = lvl.prolongate_and_correct(x, xc)
+            if inst:
+                n_coarse = wnrm2(b - spmv(lvl.Ad, x))
+        with scope("cycle", f"level{i}/post_smooth"):
+            x = smooth(lvl, b, x, postsweeps_at(i))
+        if inst:
+            h.tape.record_level(i, flavor, (n_entry, n_pre, n_coarse,
+                                            wnrm2(b - spmv(lvl.Ad, x))))
+        return x
 
     def kcycle(i, b, x, flavor):
         """K-cycle: accelerate the level-i solve with ``cycle_iters``
@@ -123,26 +167,27 @@ def build_cycle(hierarchy, cycle_type: str = None):
             return host_step(lambda b_, x_: kcycle(i, b_, x_, flavor), b, x)
         levels = h.levels
         if i == len(levels):
-            return coarse_solve(b, x)
+            return coarse_visit(b, x)
         inner_flavor = "V" if flavor == "CGF" else flavor
         Ad = levels[i].Ad
-        r = b - spmv(Ad, x)
-        p = z_prev = r_prev = None
-        for _ in range(max(h.cycle_iters, 1)):
-            z = cycle(i, r, torch.zeros_like(r), inner_flavor)
-            if p is None:
-                p = z
-            else:
-                # flexible (Notay) beta
-                beta = _guarded_div(wdot(r, z) - wdot(r_prev, z),
-                                    wdot(r_prev, z_prev))
-                p = z + mul(beta, p)
-            q = spmv(Ad, p)
-            alpha = _guarded_div(wdot(r, z), wdot(p, q))
-            x = x + mul(alpha, p)
-            r_prev, z_prev = r, z
-            r = r - mul(alpha, q)
-        return x
+        with scope("cycle", f"kcycle{i}"):
+            r = b - spmv(Ad, x)
+            p = z_prev = r_prev = None
+            for _ in range(max(h.cycle_iters, 1)):
+                z = cycle(i, r, torch.zeros_like(r), inner_flavor)
+                if p is None:
+                    p = z
+                else:
+                    # flexible (Notay) beta
+                    beta = _guarded_div(wdot(r, z) - wdot(r_prev, z),
+                                        wdot(r_prev, z_prev))
+                    p = z + mul(beta, p)
+                q = spmv(Ad, p)
+                alpha = _guarded_div(wdot(r, z), wdot(p, q))
+                x = x + mul(alpha, p)
+                r_prev, z_prev = r, z
+                r = r - mul(alpha, q)
+            return x
 
     def cycle_fn(b, x):
         return cycle(0, b, x, ct)

@@ -31,8 +31,10 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ... import telemetry
 from ...core.matrix import csr_structure_fingerprint
 from ...ops import spgemm
+from ...telemetry import setup_profile
 
 #: default schedule-byte budget of the plan cache (LRU evicts past it);
 #: a call's ``budget_bytes`` (the ``device_setup_cache_mb`` knob) takes
@@ -130,7 +132,8 @@ class DeviceSetupEngine:
             if min_bytes > budget:
                 self._reject(key, min_bytes)
                 return self._decline("budget")
-            plan = build()
+            with setup_profile.phase("spgemm"):
+                plan = build()
             with self._lock:
                 self.builds += 1
             if plan is None or plan.nbytes > budget:
@@ -138,6 +141,10 @@ class DeviceSetupEngine:
                              else plan.nbytes)
                 return self._decline("budget")
             plan = self._put(key, plan, budget)
+            if telemetry.is_enabled():
+                telemetry.gauge_set("amgx_spgemm_plan_cache",
+                                    len(self._plans))
+                telemetry.gauge_set("amgx_spgemm_plan_bytes", self._bytes)
         return plan
 
     def stats(self) -> dict:
@@ -159,7 +166,22 @@ class DeviceSetupEngine:
         host product)."""
         with self._lock:
             self.declines[reason] = self.declines.get(reason, 0) + 1
+        if telemetry.is_enabled():
+            telemetry.event("device_setup_fallback", component="rap",
+                            reason=reason, level=None)
+            telemetry.counter_inc("amgx_device_setup_fallback_total",
+                                  reason=reason)
+            telemetry.counter_inc("amgx_device_rap_total", path="host")
         return None
+
+    @staticmethod
+    def _ran(op: str):
+        """Telemetry of one numeric pass that ran on the device path."""
+        if telemetry.is_enabled():
+            telemetry.counter_inc("amgx_device_rap_total",
+                                  path="dist" if op == "rap_dist"
+                                  else "device")
+            telemetry.counter_inc("amgx_spgemm_total", op=op)
 
     @staticmethod
     def _dtype_gate(dtype) -> Optional[str]:
@@ -206,11 +228,13 @@ class DeviceSetupEngine:
         if plan is None:
             return None
         tdt = getattr(torch, dtype.name)
-        vA = torch.from_numpy(A.data).to(device=device, dtype=tdt)
-        vP = torch.from_numpy(P.data).to(device=device, dtype=tdt)
-        data = spgemm.galerkin_numeric(plan, vA, vP).cpu().numpy()
+        with setup_profile.phase("device_rap", kind="device"):
+            vA = torch.from_numpy(A.data).to(device=device, dtype=tdt)
+            vP = torch.from_numpy(P.data).to(device=device, dtype=tdt)
+            data = spgemm.galerkin_numeric(plan, vA, vP).cpu().numpy()
         with self._lock:
             self.numeric_runs += 1
+        self._ran("rap")
         Ac = sp.csr_matrix((data.astype(dtype), plan.Ac_indices.copy(),
                             plan.Ac_indptr.copy()), shape=plan.Ac_shape)
         if not keep_pattern:
@@ -254,12 +278,14 @@ class DeviceSetupEngine:
         if plan is None:
             return None
         tdt = getattr(torch, dtype.name)
-        vA = torch.from_numpy(A_loc.data).to(device=device, dtype=tdt)
-        vP = torch.from_numpy(P_ext.data).to(device=device, dtype=tdt)
-        data = spgemm.galerkin_numeric(plan, vA, vP).cpu().numpy()
+        with setup_profile.phase("device_rap", kind="device"):
+            vA = torch.from_numpy(A_loc.data).to(device=device, dtype=tdt)
+            vP = torch.from_numpy(P_ext.data).to(device=device, dtype=tdt)
+            data = spgemm.galerkin_numeric(plan, vA, vP).cpu().numpy()
         with self._lock:
             self.numeric_runs += 1
             self.dist_runs += 1
+        self._ran("rap_dist")
         Ac = sp.csr_matrix((data.astype(dtype), plan.Ac_indices.copy(),
                             plan.Ac_indptr.copy()), shape=plan.Ac_shape)
         # the full symbolic pattern: pruning would make the coarse
@@ -333,13 +359,15 @@ class DeviceSetupEngine:
             return None
         tdt = getattr(torch, dtype.name)
         vals = M.data if b == 1 else M.data.reshape(-1, b, b)
-        out = spgemm.run_schedule(
-            plan.sched, plan._device_arrays(device),
-            torch.from_numpy(np.ascontiguousarray(vals)).to(
-                device=device, dtype=tdt))
-        data = out.cpu().numpy().astype(dtype)
+        with setup_profile.phase("device_rap", kind="device"):
+            out = spgemm.run_schedule(
+                plan.sched, plan._device_arrays(device),
+                torch.from_numpy(np.ascontiguousarray(vals)).to(
+                    device=device, dtype=tdt))
+            data = out.cpu().numpy().astype(dtype)
         with self._lock:
             self.numeric_runs += 1
+        self._ran("agg")
         if b == 1:
             Ac = sp.csr_matrix((data, plan.C_indices.copy(),
                                 plan.C_indptr.copy()), shape=(nc, nc_cols))

@@ -97,7 +97,10 @@ from ..device import host_scalar, storage_dtype
 from ..errors import BadConfigurationError
 from ..ops.spgemm import pad_to_symbolic
 from ..solvers.base import SolverFactory
+from .. import telemetry
+from ..telemetry import setup_profile
 from ..utils.logging import amgx_output
+from ..utils.profiler import cpu_profiler
 from .aggregation.galerkin import galerkin_coarse
 from .dia_device import derive_hierarchy_device, plan_dia_hierarchy
 from .level import (AggregationLevel, AMGLevel, ClassicalLevel,
@@ -284,6 +287,13 @@ class AMGHierarchy:
         self.host_from = 0
         self.mixed_from_level = int(g("mixed_precision_from_level"))
         self.print_grid_stats = bool(g("print_grid_stats"))
+        #: convergence forensics (telemetry/forensics.py): the cycle
+        #: writes its cut-point norms to this device tape
+        self.forensics = int(g("forensics"))
+        self.tape = None
+        if self.forensics:
+            from ..telemetry.forensics import Tape
+            self.tape = Tape()
         self.levels: List[AMGLevel] = []
         self.coarsest: Optional[Matrix] = None
         self.coarse_solver = None
@@ -309,10 +319,12 @@ class AMGHierarchy:
         reuse = self._structure is not None and \
             self.structure_reuse_levels != 0 and A.dist is None
         try:
-            if reuse:
-                self._setup_reuse(A)
-            else:
-                self._setup_fresh(A)
+            with cpu_profiler("amg_setup_reuse" if reuse
+                              else "amg_setup"):
+                if reuse:
+                    self._setup_reuse(A)
+                else:
+                    self._setup_fresh(A)
         except BaseException:
             # a partial structure must never feed a later reuse pass
             self._structure = None
@@ -320,6 +332,14 @@ class AMGHierarchy:
             self.levels = []
             raise
         self.setup_time = time.perf_counter() - t0
+        self._register_memledger()
+        if telemetry.is_enabled():
+            self._emit_telemetry()
+            if self.forensics:
+                # hierarchy quality probes (telemetry/forensics.py)
+                with cpu_profiler("forensics_probes"), \
+                        setup_profile.phase("probes"):
+                    telemetry.forensics.probe_hierarchy(self)
         if self.print_grid_stats:
             # an informational table: verbosity level 2, as upstream
             amgx_output(self.grid_stats(), level=2)
@@ -343,7 +363,9 @@ class AMGHierarchy:
         cur = self._build_levels(A)
         self._setup_smoothers_and_coarse(cur)
         if self.structure_reuse_levels != 0:
-            self._build_classical_plans(A, cur)
+            with cpu_profiler("classical_resetup_plans"), \
+                    setup_profile.phase("resetup_plan"):
+                self._build_classical_plans(A, cur)
         self.last_resetup = "fresh"
 
     def _build_levels(self, cur: Matrix) -> Matrix:
@@ -359,7 +381,10 @@ class AMGHierarchy:
             if len(self.levels) + 1 >= self.max_levels or \
                     n <= self.min_coarse_rows:
                 break
-            level, Ac, struct = self._coarsen_once(cur, len(self.levels))
+            with cpu_profiler(f"coarsen_level_{len(self.levels)}"), \
+                    setup_profile.phase("coarsen", level=len(self.levels)):
+                level, Ac, struct = self._coarsen_once(cur,
+                                                       len(self.levels))
             if level is None:
                 break
             nc = Ac.n_block_rows
@@ -429,8 +454,10 @@ class AMGHierarchy:
             existing_levels=len(self.levels))
         if not steps:
             return cur
-        outs = derive_hierarchy_device(steps, offs,
-                                       _kept_rows(cur.device().vals, keep))
+        with cpu_profiler("dia_device_derive"), \
+                setup_profile.phase("dia_derive", kind="device"):
+            outs = derive_hierarchy_device(
+                steps, offs, _kept_rows(cur.device().vals, keep))
         return self._append_dia_levels(cur, steps, outs)
 
     def _append_dia_levels(self, cur: Matrix, steps, outs) -> Matrix:
@@ -931,11 +958,13 @@ class AMGHierarchy:
             # attached per-row coordinates feed the GEO selector
             # (AMGX_matrix_attach_geometry → geo_selector.cu)
             Asc._amgx_geometry = geom
-        agg = selector.select(Asc)
+        with setup_profile.phase("selector", level=idx):
+            agg = selector.select(Asc)
         nc = int(agg.max()) + 1 if len(agg) else 0
         if nc == 0:
             return None, None, None
-        Ac_host = self._galerkin_agg(cur, agg)
+        with setup_profile.phase("rap", level=idx):
+            Ac_host = self._galerkin_agg(cur, agg)
         level = AggregationLevel(cur, idx, agg, nc)
         Ac = _child_matrix(cur, Ac_host, block_dim=cur.block_dim)
         if geom is not None:
@@ -1166,22 +1195,26 @@ class AMGHierarchy:
             if out is not None:
                 return out
         Asc = cur.scalar_csr()
-        S = strength.compute(Asc)
-        cf_map = create_cf_selector(sel_name, self.cfg, self.scope) \
-            .select(S)
+        with setup_profile.phase("strength", level=idx):
+            S = strength.compute(Asc)
+        with setup_profile.phase("selector", level=idx):
+            cf_map = create_cf_selector(sel_name, self.cfg, self.scope) \
+                .select(S)
         nc = int(cf_map.sum())
         if nc == 0 or nc >= Asc.shape[0]:
             return None, None, None
         interp = create_interpolator(interp_name, self.cfg, self.scope)
-        P_host = interp.compute(Asc, S, cf_map).astype(Asc.dtype)
+        with setup_profile.phase("interpolation", level=idx):
+            P_host = interp.compute(Asc, S, cf_map).astype(Asc.dtype)
         R_host = sp.csr_matrix(P_host.T)
         if cur.dist is not None:
             return self._classical_dist_fallback(cur, idx, Asc, P_host,
                                                  R_host)
-        Ac_host = self._galerkin_classical(
-            cur, Asc, R_host, P_host,
-            keep_pattern=self.algorithm == "CLASSICAL"
-            and self.structure_reuse_levels != 0)
+        with setup_profile.phase("rap", level=idx):
+            Ac_host = self._galerkin_classical(
+                cur, Asc, R_host, P_host,
+                keep_pattern=self.algorithm == "CLASSICAL"
+                and self.structure_reuse_levels != 0)
         level = ClassicalLevel(cur, idx, _child_matrix(cur, P_host),
                                _child_matrix(cur, R_host), cf_map)
         return level, _child_matrix(cur, Ac_host), ("classical", (P_host,))
@@ -1435,16 +1468,27 @@ class AMGHierarchy:
         return _on_device(coarsest, host)
 
     def _setup_smoothers_and_coarse(self, coarsest: Matrix):
-        self._apply_precision_policy()
-        coarsest = self._place_host_tail(coarsest)
-        for lvl in self.levels:
-            lvl.smoother = SolverFactory.allocate(self.cfg, self.scope,
-                                                  "smoother")
-            lvl.smoother.setup(lvl.A)
+        # the levels' packs were made on the device as they were built;
+        # what stays of the JAX package's batched upload is their
+        # placement: the precision policy's casts and the host tail
+        with cpu_profiler("hierarchy_upload"), \
+                setup_profile.phase("upload", kind="device"):
+            self._apply_precision_policy()
+            coarsest = self._place_host_tail(coarsest)
+        with cpu_profiler("setup_smoothers"), \
+                setup_profile.phase("smoother_setup"):
+            for lvl in self.levels:
+                with setup_profile.phase("smoother_setup",
+                                         level=lvl.level_index):
+                    lvl.smoother = SolverFactory.allocate(
+                        self.cfg, self.scope, "smoother")
+                    lvl.smoother.setup(lvl.A)
         self.coarsest = coarsest
-        self.coarse_solver = SolverFactory.allocate(self.cfg, self.scope,
-                                                    "coarse_solver")
-        self.coarse_solver.setup(coarsest)
+        with cpu_profiler("setup_coarse_solver"), \
+                setup_profile.phase("coarse_solver"):
+            self.coarse_solver = SolverFactory.allocate(
+                self.cfg, self.scope, "coarse_solver")
+            self.coarse_solver.setup(coarsest)
         self.coarse_solver_is_smoother = self.coarse_solver.is_smoother
 
     # ------------------------------------------------------------------ info
@@ -1456,6 +1500,106 @@ class AMGHierarchy:
         sizes = [lvl.level_stats() for lvl in self.levels]
         sizes.append((self.coarsest.n_block_rows, self.coarsest.nnz))
         return sizes
+
+    def _emit_telemetry(self):
+        """Hierarchy gauges (per-level rows/nnz, operator and grid
+        complexity), the per-level cost descriptors and the distributed
+        levels' overlap audit — the structured twin of the grid-stats
+        table (``_emit_telemetry`` upstream)."""
+        sizes = self.level_sizes()
+        tot_rows = sum(n for n, _ in sizes)
+        tot_nnz = sum(z for _, z in sizes)
+        op_cmpl = tot_nnz / max(sizes[0][1], 1)
+        grid_cmpl = tot_rows / max(sizes[0][0], 1)
+        telemetry.gauge_set("amgx_hierarchy_levels", len(sizes))
+        reg = telemetry.registry()
+        for name in ("amgx_level_rows", "amgx_level_nnz",
+                     "amgx_level_spmv_bytes", "amgx_level_spmv_flops",
+                     "amgx_level_padding_waste",
+                     "amgx_dist_overlap_fraction",
+                     "amgx_dist_submesh_parts"):
+            reg.gauge_clear(name)
+        for i, (n, nnz) in enumerate(sizes):
+            telemetry.gauge_set("amgx_level_rows", n, level=i)
+            telemetry.gauge_set("amgx_level_nnz", nnz, level=i)
+        telemetry.gauge_set("amgx_operator_complexity", op_cmpl)
+        telemetry.gauge_set("amgx_grid_complexity", grid_cmpl)
+        packs = self._materialized_packs()
+        for i, Ad in enumerate(packs):
+            if Ad is None or getattr(Ad, "fmt", "") != "sharded-ell":
+                continue
+            d = telemetry.costmodel.dist_overlap(Ad, nnz=sizes[i][1],
+                                                 level=i)
+            d["submesh_parts"] = d["active_parts"]
+            telemetry.gauge_set("amgx_dist_overlap_fraction",
+                                d["overlap_fraction"], level=i)
+            telemetry.gauge_set("amgx_dist_submesh_parts",
+                                d["submesh_parts"], level=i)
+            telemetry.event("dist_overlap", **d)
+        for i, Ad in enumerate(packs):
+            if Ad is None:
+                continue
+            cost = telemetry.costmodel.spmv_cost(Ad, nnz=sizes[i][1])
+            if cost.get("bytes_per_apply") is not None:
+                dt = str(cost.get("dtype", "?"))
+                telemetry.gauge_set("amgx_level_spmv_bytes",
+                                    cost["bytes_per_apply"], level=i,
+                                    dtype=dt)
+                telemetry.gauge_set("amgx_level_spmv_flops",
+                                    cost["flops_per_apply"], level=i,
+                                    dtype=dt)
+                telemetry.gauge_set("amgx_level_padding_waste",
+                                    cost["padding_waste"], level=i,
+                                    dtype=dt)
+            telemetry.event("level_cost", level=i, **cost)
+        telemetry.event("hierarchy", levels=len(sizes),
+                        operator_complexity=round(op_cmpl, 6),
+                        grid_complexity=round(grid_cmpl, 6),
+                        setup_s=round(self.setup_time, 6))
+
+    def _materialized_packs(self) -> list:
+        """Per-level device packs where they already exist (never an
+        upload as a side effect), fine to coarsest."""
+        packs = [getattr(lvl.A, "_device", None) for lvl in self.levels]
+        packs.append(getattr(self.coarsest, "_device", None)
+                     if self.coarsest is not None else None)
+        return packs
+
+    def _register_memledger(self):
+        """Device-memory ledger ownership (telemetry/memledger.py): each
+        level's pack (``amgx/hierarchy/level<N>``, the coarsest
+        ``amgx/hierarchy/coarse``), its P/R transfer data
+        (``amgx/transfer/level<N>``), its smoother's device state
+        (``amgx/smoother/level<N>``) and the coarse solver's
+        (``amgx/coarse/solver``).  A new setup releases the previous
+        tokens first, so registrations balance across setup, resetup
+        and teardown.  One attribute check when the ledger is off."""
+        ml = telemetry.memledger
+        if not ml.is_enabled():
+            return
+        self.release_memledger()
+        toks = self._ml_tokens = []
+
+        def reg(owner, name, tree):
+            if tree is not None:
+                toks.append(ml.register(ml.owner_name(owner, name), tree))
+
+        packs = self._materialized_packs()
+        for i, Ad in enumerate(packs[:-1]):
+            reg("hierarchy", f"level{i}", Ad)
+        reg("hierarchy", "coarse", packs[-1])
+        for i, lvl in enumerate(self.levels):
+            tr = {k: v for k, v in vars(lvl).items()
+                  if k not in ("A", "smoother") and k != "_ml_tokens"}
+            reg("transfer", f"level{i}", tr)
+            reg("smoother", f"level{i}", lvl.smoother)
+        reg("coarse", "solver", self.coarse_solver)
+
+    def release_memledger(self):
+        """Drop this hierarchy's ledger registrations (teardown)."""
+        for tok in getattr(self, "_ml_tokens", ()):
+            telemetry.memledger.release(tok)
+        self._ml_tokens = []
 
     def grid_stats(self) -> str:
         """The grid-stats table of the reference README sample output

@@ -47,6 +47,12 @@ class AMGLevel:
         return (getattr(self.A, "logical_rows", None) or self.Ad.n_rows,
                 self.A.nnz)
 
+    def probe_handles(self) -> dict:
+        """Host-side handles for the forensics hierarchy-quality probes
+        (``telemetry/forensics.py``): the operator handle, plus explicit
+        P/R and the C/F split where the level kind has them."""
+        return {"A": self.A}
+
 
 def member_table(aggregates: np.ndarray, n_coarse: int) -> np.ndarray:
     """The (max aggregate size, n_coarse) int64 table of every
@@ -213,6 +219,15 @@ class ClassicalLevel(AMGLevel):
     @property
     def R(self):
         return self._R.device() if isinstance(self._R, Matrix) else self._R
+
+    def probe_handles(self) -> dict:
+        """Host P/R (when the level was built on the host) enable the
+        sampled Galerkin check; device-born levels offer the operator
+        and the C/F split only."""
+        return {"A": self.A,
+                "P": self._P if isinstance(self._P, Matrix) else None,
+                "R": self._R if isinstance(self._R, Matrix) else None,
+                "cf_map": self.cf_map}
 
     def restrict_residual(self, r):
         return spmv(self.R, r)

@@ -527,7 +527,17 @@ def pack_host_arrays(host, block_dim: int, dtype,
 def assemble_device_matrix(arrays, meta, device) -> DeviceMatrix:
     """Upload host ``(arrays, meta)`` (:func:`pack_host_arrays`) onto
     ``device`` as a :class:`DeviceMatrix`; the binned and shift kernels'
-    auxiliary arrays are derived there."""
+    auxiliary arrays are derived there.  The upload's bytes and seconds
+    go to the setup profile's innermost phase (``setup_profile.transfer``,
+    one attribute check when it is off)."""
+    from ..telemetry import setup_profile
+    nb = sum(int(a.nbytes) for a in arrays.values()
+             if isinstance(a, np.ndarray))
+    with setup_profile.transfer(nb, len(arrays), "upload"):
+        return _assemble(arrays, meta, device)
+
+
+def _assemble(arrays, meta, device) -> DeviceMatrix:
     dev = resolve_device(device)
 
     def up(key):

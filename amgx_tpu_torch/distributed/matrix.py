@@ -734,15 +734,60 @@ def _exchange(buf: torch.Tensor, dists: tuple, n_parts: int,
     return torch.cat([torch.roll(buf, -d, 0) for d in dists], dim=1)
 
 
-def exchange_halo(A: ShardedMatrix, x: torch.Tensor, ring: int = 1
-                  ) -> torch.Tensor:
+def _tel_exchange(A: ShardedMatrix, ring: int, op: str) -> None:
+    """Halo-exchange telemetry (``_tel_exchange`` upstream; one attribute
+    check when off): the exchange, its bytes (the padded send buffers,
+    once per rank distance or P − 1 times on the gather of every
+    buffer) and its useful entries, counted per call — a graph's capture
+    counts its exchanges once."""
+    from ..telemetry import costmodel, metrics, recorder
+    if not recorder.is_enabled():
+        return
+    dists = A.dists if ring == 1 else A.dists2
+    path = "all_gather" if uses_all_gather(dists, A.n_parts) \
+        else "ppermute"
+    wire = costmodel.halo_wire_bytes(A, ring)
+    entries = costmodel.halo_entries(A, ring)
+    send_idx = A.send_idx if ring == 1 else A.send_idx2
+    n_coll = 1 if path == "all_gather" else len(dists)
+    metrics.counter_inc("amgx_halo_exchange_total", ring=ring, op=op,
+                        path=path)
+    metrics.counter_inc("amgx_halo_bytes_total", wire, ring=ring, op=op)
+    metrics.counter_inc("amgx_halo_entries_total", entries, ring=ring,
+                        op=op)
+    metrics.gauge_set("amgx_dist_ring_hops", n_coll, ring=ring)
+    counts = A.halo_counts if ring == 1 else A.halo_counts2
+    recorder.event(
+        "halo_exchange", op=op, ring=ring, path=path, n_parts=A.n_parts,
+        hops=n_coll, send_buf=int(send_idx.shape[1]),
+        wire_bytes=int(wire), entries=int(entries),
+        per_rank_entries=list(counts) if counts else None)
+
+
+def exchange_halo(A: ShardedMatrix, x: torch.Tensor, ring: int = 1,
+                  op: str = "exchange_halo") -> torch.Tensor:
     """The ring-``ring`` halo values of the sharded ``x``: a (P, H_ring)
     tensor — (P, H_ring, b) for a b×b pack — whose row p holds the
-    values of ``partition.rings[ring-1].halo_global[p]``."""
+    values of ``partition.rings[ring-1].halo_global[p]``.  Its device
+    work runs in the ``amgx/dist/halo_exchange`` scope."""
     if ring not in (1, 2):
         raise BadParametersError(f"halo ring must be 1 or 2, got {ring}")
     if ring == 2 and A.send_idx2 is None:
         raise BadParametersError("a rectangular pack carries no ring 2")
+    from ..telemetry import recorder
+    from ..telemetry.scopes import scope
+    _tel_exchange(A, ring, op)
+    sid = recorder.span_begin("exchange_halo",
+                              {"ring": ring, "n_parts": A.n_parts})
+    try:
+        with scope("dist", "halo_exchange"):
+            return _exchange_halo(A, x, ring)
+    finally:
+        recorder.span_end(sid, "exchange_halo")
+
+
+def _exchange_halo(A: ShardedMatrix, x: torch.Tensor, ring: int
+                   ) -> torch.Tensor:
     send_idx = A.send_idx if ring == 1 else A.send_idx2
     halo_src = A.halo_src if ring == 1 else A.halo_src2
     dists = A.dists if ring == 1 else A.dists2
@@ -767,7 +812,7 @@ def dist_spmv(A: ShardedMatrix, x: torch.Tensor) -> torch.Tensor:
             f"{x.dtype}")
     if A.block_dim > 1:
         return _dist_spmv_block(A, x)
-    halo = exchange_halo(A, x, 1)
+    halo = exchange_halo(A, x, 1, op="dist_spmv")
     y = ell_spmv(A.cols, A.vals, x, A.row_len)
     if A.bnd_rows.numel():
         hz = torch.cat([halo.reshape(-1), halo.new_zeros(1)])
@@ -784,7 +829,7 @@ def _dist_spmv_block(A: ShardedMatrix, x: torch.Tensor) -> torch.Tensor:
     block times its halo block, component c added in order, then the
     slots in slot order — added row by row."""
     b = A.block_dim
-    halo = exchange_halo(A, x, 1)
+    halo = exchange_halo(A, x, 1, op="dist_spmv")
     I = A.interior
     y = binned_spmv.compact_spmv(I.compact, I.pos, I.row_of_pos, I.dims, x)
     if A.bnd_rows.numel():

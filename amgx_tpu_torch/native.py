@@ -28,6 +28,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: per kernel source: {"seconds": build wall time, "log": nvcc output}
 BUILD_LOG: Dict[str, dict] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: library lookups that found the source built (hits) or ran nvcc
+#: (misses): the kernel build directory's cache counters
+_BUILDS = {"hits": 0, "misses": 0}
+
+
+def build_stats() -> Dict[str, int]:
+    """Hits and misses of the kernel build directory in this process."""
+    return dict(_BUILDS)
 
 
 def find_nvcc() -> str:
@@ -56,6 +64,8 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
     names = list(names)
     outs = {n: _target(n) for n in names}
     todo = [n for n in names if not outs[n].exists()]
+    _BUILDS["hits"] += len(names) - len(todo)
+    _BUILDS["misses"] += len(todo)
     if not todo:
         return outs
     nvcc = find_nvcc()
@@ -78,6 +88,13 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
         os.replace(tmp, outs[n])
     if failed:
         raise DeviceError("CUDA kernel build failed:\n" + "\n".join(failed))
+    # a kernel build is what a backend compile is to the JAX package:
+    # amgx_jit_compile_total and the setup profile's compile bucket
+    from .telemetry import metrics, setup_profile
+    dt = time.perf_counter() - t0
+    metrics.counter_inc("amgx_jit_compile_total", float(len(todo)))
+    metrics.hist_observe("amgx_jit_compile_seconds", dt)
+    setup_profile.note_duration(True, dt)
     return outs
 
 

@@ -1,5 +1,5 @@
 """BLAS-1 vector operations, norms and the fused reductions (port of
-``amgx_tpu/ops/blas.py`` without its trace-time collective ledger;
+``amgx_tpu/ops/blas.py``;
 reference ``base/include/blas.h:40-104``, ``base/src/norm.cu``).
 Results of reductions stay device tensors: nothing here synchronises
 with the host.
@@ -14,12 +14,71 @@ operand in f64 and round once.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 NORM_L1 = "L1"
 NORM_L2 = "L2"
 NORM_LMAX = "LMAX"
 NORM_L1_SCALED = "L1_SCALED"
+
+
+class CollectiveLedger:
+    """Counts the reductions issued while a :func:`count_collectives`
+    scope is active, by op label ("dot", "norm", "fused", "gram"); the
+    ``replace`` bucket holds those of a residual replacement.  The JAX
+    package counts while it traces one iteration body; the port counts
+    while it runs one (the solve loop's first iteration, with telemetry
+    on): the per-iteration profile of the ``krylov_comm`` event.  The
+    reductions of a preconditioner application are not counted
+    (:func:`uncounted`)."""
+
+    def __init__(self):
+        self.counts: dict = {}
+        self.replace: dict = {}
+
+    def reset(self):
+        self.counts.clear()
+        self.replace.clear()
+
+    def total(self) -> int:
+        return int(sum(self.counts.values()))
+
+
+_LEDGER = None
+_BUCKET = "counts"
+
+
+def record(op: str) -> None:
+    """Count one reduction of kind ``op`` (one check when no ledger)."""
+    if _LEDGER is not None:
+        d = getattr(_LEDGER, _BUCKET)
+        d[op] = d.get(op, 0) + 1
+
+
+@contextlib.contextmanager
+def count_collectives(ledger: CollectiveLedger):
+    """Route reduction records into ``ledger`` for the duration."""
+    global _LEDGER, _BUCKET
+    prev, prev_bucket = _LEDGER, _BUCKET
+    _LEDGER, _BUCKET = ledger, "counts"
+    try:
+        yield ledger
+    finally:
+        _LEDGER, _BUCKET = prev, prev_bucket
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Suppress ledger recording (a preconditioner application)."""
+    global _LEDGER
+    prev = _LEDGER
+    _LEDGER = None
+    try:
+        yield
+    finally:
+        _LEDGER = prev
 
 
 def axpy(y, x, alpha):
@@ -62,6 +121,7 @@ def norm(v, norm_type: str = NORM_L2, block_dim: int = 1,
     (or block_dim 1), else the per-block-component norms, shape
     (block_dim,), as the reference's block norms (``norm.cu``;
     ``use_scalar_norm``, core.cu:542)."""
+    record("norm")
     if use_scalar_norm or block_dim == 1:
         if norm_type in (NORM_L1, NORM_L1_SCALED):
             r = nrm1(v)
@@ -87,6 +147,7 @@ def gram_dots(V, w):
 def fused_reduce(terms):
     """The sums of several same-length term vectors (e.g. ``conj(r)*u``)
     in one stacked (k, n) → (k,) reduction."""
+    record("fused")
     return torch.sum(torch.stack(list(terms)), dim=-1)
 
 

@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import torch
 
-from .blas import dot, gram_dots, gram_dots_with_norm
+from .blas import dot, gram_dots, gram_dots_with_norm, record
 from .ell_spmv import ell_spmv, ell_spmv_reference
 
 __all__ = ["widen", "wdot", "wnrm2", "wgram_dots", "wgram_dots_with_norm",
@@ -112,11 +112,13 @@ def recip(d):
 
 def wdot(x, y):
     """x·y, an f32 pair summed in f64 and rounded once."""
+    record("dot")
     return dot(widen(x), widen(y)).to(x.dtype)
 
 
 def wnrm2(x):
     """‖x‖₂, an f32 vector's squares summed in f64 and rounded once."""
+    record("norm")
     w = widen(x)
     return torch.sqrt(dot(w, w).real).to(x.real.dtype)
 
@@ -124,12 +126,14 @@ def wnrm2(x):
 def wgram_dots(V, w):
     """Gram–Schmidt projections ``V @ w`` onto the rows of V, an f32 basis
     summed in f64 and rounded once."""
+    record("gram")
     return gram_dots(widen(V), widen(w)).to(V.dtype)
 
 
 def wgram_dots_with_norm(V, w):
     """:func:`~.blas.gram_dots_with_norm` of an f32 basis summed in f64
     and rounded once."""
+    record("fused")
     h, ww = gram_dots_with_norm(widen(V), widen(w))
     return h.to(V.dtype), ww.to(w.real.dtype)
 

@@ -54,11 +54,27 @@ version).
 plain version on a CPU tensor; ``op`` the applies of an implicit
 operator (:mod:`amgx_tpu_torch.operators`), whose base pack's apply is
 counted under its own label.
+
+Telemetry (one attribute check when off): every apply runs inside its
+label's ``amgx/spmv/<label>`` scope (``telemetry/scopes.py``; a ``dia3``
+apply inside ``amgx/spmv/dia3`` too) and adds one to
+``amgx_spmv_dispatch_total{pack=label}`` — per apply, where the JAX
+package counts once per traced program; a CUDA graph replay adds the
+applies its capture recorded (``utils/cuda_graph.py::credit``).  The
+first apply of each operator emits its ``op_cost`` descriptor
+(``telemetry/costmodel.py``), and ``MODEL_BYTES[label]`` sums the
+modelled bytes of the label's applies (credited under replay as the
+launch counters are), which the device-time anatomy divides by the
+label's measured seconds.
 """
 from __future__ import annotations
 
+import weakref
+
 import torch
 
+from ..telemetry import recorder as _trecorder
+from ..telemetry.scopes import _NULL as _NO_SCOPE
 from .binned_spmv import (binned_abs_rowsum, binned_entries_view,
                           binned_spmv, binned_supported, bn_block_dim)
 from .dia_spmv import dia_spmv, dia_spmv_reference
@@ -81,11 +97,52 @@ DECLINES = ("ell/block-gather", "csr/segsum", "csr/segsum-lean",
             "csr/block-segsum", "dia/slices", "ell/gather", "dense/lanes")
 
 
+#: modelled bytes of each label's applies while telemetry was on
+MODEL_BYTES = {k: 0 for k in DISPATCH}
+#: id(operator) → (weak reference, its cost descriptor), computed at its
+#: first apply under telemetry (when its ``op_cost`` event is emitted);
+#: a dead operator's entry goes with it
+_COSTS: dict = {}
+
+
+def _cost_of(A):
+    got = _COSTS.get(id(A))
+    return got[1] if got is not None and got[0]() is A else None
+
+
 def reset_dispatch() -> None:
     for k in DISPATCH:
         DISPATCH[k] = 0
+        MODEL_BYTES[k] = 0
     for k in ON_CUDA:
         ON_CUDA[k] = 0
+
+
+def _tel(label: str, A=None):
+    """The apply's telemetry: its scope, its dispatch count and, for an
+    operator ``A``, its cost (see the module docstring)."""
+    if not _trecorder._STATE.enabled:
+        return _NO_SCOPE
+    from ..telemetry import metrics, scopes
+    from ..utils import cuda_graph
+    capturing = cuda_graph._segments is not None
+    if not capturing:
+        # a capture's applies are counted by each replay instead
+        metrics.counter_inc("amgx_spmv_dispatch_total", pack=label)
+    if A is not None and label in MODEL_BYTES:
+        cost = _cost_of(A)
+        if cost is None and not capturing:
+            # computed outside any capture (it may read the pack on
+            # the host); the first, eager application comes first
+            from ..telemetry import costmodel
+            cost = costmodel.spmv_cost(A)
+            key = id(A)
+            _COSTS[key] = (weakref.ref(A, lambda _r: _COSTS.pop(key, None)),
+                           cost)
+            _trecorder.event("op_cost", **cost)
+        if cost is not None and cost.get("bytes_per_apply"):
+            MODEL_BYTES[label] += int(cost["bytes_per_apply"])
+    return scopes.scope("spmv", label)
 
 
 def declines() -> dict:
@@ -126,23 +183,26 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
     if A.fmt == "dia3":
         # Galerkin composition R·(A·(P·x)) — three DIA streams instead of
         # one low-fill embedded matrix
-        return spmv(A.R, spmv(A.A, spmv(A.P, x)))
+        with _tel("dia3"):
+            return spmv(A.R, spmv(A.A, spmv(A.P, x)))
     if A.fmt == "sharded-ell":
         # the halo exchange, the shards' interior in one B3 call and the
         # boundary correction (``spmv.py:107-110`` upstream)
         from ..distributed.matrix import dist_spmv
         if A.block_dim > 1:
-            DISPATCH["sharded/block-binned" if x.is_cuda
-                     else "sharded/block-plain"] += 1
+            label = "sharded/block-binned" if x.is_cuda \
+                else "sharded/block-plain"
         else:
-            DISPATCH["sharded/window" if x.is_cuda
-                     else "sharded/gather"] += 1
-        return dist_spmv(A, x)
+            label = "sharded/window" if x.is_cuda else "sharded/gather"
+        DISPATCH[label] += 1
+        with _tel(label, A):
+            return dist_spmv(A, x)
     if A.fmt == "op":
         # an implicit operator (operators.ImplicitOperator, the
         # reference's Operator::apply); its base pack dispatches as any
         DISPATCH["op"] += 1
-        return A.apply(x)
+        with _tel("op"):
+            return A.apply(x)
     if x.dtype == torch.bfloat16:
         # an all-bf16 apply (a bf16 Krylov pack): the kernels take an f32
         # x, accumulate in f32, and the result rounds once at the end
@@ -158,9 +218,12 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
             return _bdia_spmv(A, x)
         if cplx:
             count_plain("dia/slices", x)
-            return dia_spmv_reference(A.vals, x, A.dia_offsets)
-        DISPATCH["dia/kernel" if x.is_cuda else "dia/slices"] += 1
-        return dia_spmv(A.vals, x, A.dia_offsets)
+            with _tel("dia/slices", A):
+                return dia_spmv_reference(A.vals, x, A.dia_offsets)
+        label = "dia/kernel" if x.is_cuda else "dia/slices"
+        DISPATCH[label] += 1
+        with _tel(label, A):
+            return dia_spmv(A.vals, x, A.dia_offsets)
     if A.fmt == "dense":
         # one dense matrix-vector product (``spmv.py:150-156`` upstream):
         # B3 over dense rows, in its lane order (ordered.dense_matvec)
@@ -170,44 +233,56 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
             DISPATCH["dense"] += 1
         keep = A.vals.dtype == pet or (A.vals.dtype == torch.bfloat16
                                        and pet == torch.float32)
-        M = A.vals if keep else A.vals.to(pet)
-        return dense_matvec(M, x.to(pet).contiguous()).to(_out_dtype(A, x))
+        with _tel("dense" if not cplx else "dense/lanes", A):
+            M = A.vals if keep else A.vals.to(pet)
+            return dense_matvec(M, x.to(pet).contiguous()).to(
+                _out_dtype(A, x))
     b = A.block_dim
     if cplx and A.fmt == "ell" and A.cols is not None:
         count_plain("ell/gather", x)
-        return ell_spmv_reference(A.cols, A.vals, x)
+        with _tel("ell/gather", A):
+            return ell_spmv_reference(A.cols, A.vals, x)
     if A.fmt == "ell" and shift_supported(A):
         DISPATCH["ell/shift"] += 1
-        return shift_spmv(A, x)
+        with _tel("ell/shift", A):
+            return shift_spmv(A, x)
     if binned_supported(A):
         native = bn_block_dim(A.bn_dims) > 1
-        DISPATCH[f"{A.fmt}/binned" + ("-block" if native else "")] += 1
-        return binned_spmv(A, x).to(_out_dtype(A, x))
+        label = f"{A.fmt}/binned" + ("-block" if native else "")
+        DISPATCH[label] += 1
+        with _tel(label, A):
+            return binned_spmv(A, x).to(_out_dtype(A, x))
     if A.fmt == "ell":
         if b == 1:
-            DISPATCH["ell/window" if x.is_cuda else "ell/gather"] += 1
-            return ell_spmv(A.cols, A.vals, x, A.row_len)
+            label = "ell/window" if x.is_cuda else "ell/gather"
+            DISPATCH[label] += 1
+            with _tel(label, A):
+                return ell_spmv(A.cols, A.vals, x, A.row_len)
         DISPATCH["ell/block-gather"] += 1
-        return _block_gather_spmv(A, x)
+        with _tel("ell/block-gather", A):
+            return _block_gather_spmv(A, x)
     if b == 1:
         pet = torch.promote_types(_acc(A.dtype), x.dtype)
-        if A.vals is None:
-            # lean binned pack whose planes the gate refused
-            DISPATCH["csr/segsum-lean"] += 1
-            rows, cols, vals = binned_entries_view(A)
-        else:
-            DISPATCH["csr/segsum"] += 1
-            rows, cols, vals = A.row_ids, A.cols, A.vals
-        y = torch.zeros(A.n_rows, dtype=pet, device=x.device)
-        y.index_add_(0, rows.long(), vals.to(pet) * x.to(pet)[cols.long()])
-        return y.to(_out_dtype(A, x))
+        label = "csr/segsum-lean" if A.vals is None else "csr/segsum"
+        DISPATCH[label] += 1
+        with _tel(label, A):
+            if A.vals is None:
+                # lean binned pack whose planes the gate refused
+                rows, cols, vals = binned_entries_view(A)
+            else:
+                rows, cols, vals = A.row_ids, A.cols, A.vals
+            y = torch.zeros(A.n_rows, dtype=pet, device=x.device)
+            y.index_add_(0, rows.long(),
+                         vals.to(pet) * x.to(pet)[cols.long()])
+            return y.to(_out_dtype(A, x))
     DISPATCH["csr/block-segsum"] += 1
-    pet = torch.promote_types(_acc(A.dtype), x.dtype)
-    xg = x.to(pet).reshape(A.n_cols, b)[A.cols.long()]
-    prod = torch.einsum("eab,eb->ea", A.vals.to(pet), xg)
-    y = torch.zeros((A.n_rows, b), dtype=pet, device=x.device)
-    y.index_add_(0, A.row_ids.long(), prod)
-    return y.reshape(-1).to(_out_dtype(A, x))
+    with _tel("csr/block-segsum", A):
+        pet = torch.promote_types(_acc(A.dtype), x.dtype)
+        xg = x.to(pet).reshape(A.n_cols, b)[A.cols.long()]
+        prod = torch.einsum("eab,eb->ea", A.vals.to(pet), xg)
+        y = torch.zeros((A.n_rows, b), dtype=pet, device=x.device)
+        y.index_add_(0, A.row_ids.long(), prod)
+        return y.reshape(-1).to(_out_dtype(A, x))
 
 
 #: element budget of one materialised (n, Kc, b) x-gather in the block
@@ -245,16 +320,18 @@ def _bdia_spmv(A, x: torch.Tensor) -> torch.Tensor:
     the same order, and round alike."""
     b = A.block_dim
     pet = torch.promote_types(_acc(A.dtype), x.dtype)
-    DISPATCH["dia/block-kernel" if x.is_cuda else "dia/block-slices"] += 1
-    xt = x.to(pet).reshape(A.n_cols, b).T.contiguous()     # (b, n_cols)
-    cols = []
-    for a in range(b):
-        acc = None
-        for c in range(b):
-            ya = dia_spmv(A.vals[:, :, a, c], xt[c], A.dia_offsets)
-            acc = ya if acc is None else acc + ya
-        cols.append(acc)
-    return torch.stack(cols, dim=1).reshape(-1).to(_out_dtype(A, x))
+    label = "dia/block-kernel" if x.is_cuda else "dia/block-slices"
+    DISPATCH[label] += 1
+    with _tel(label, A):
+        xt = x.to(pet).reshape(A.n_cols, b).T.contiguous()  # (b, n_cols)
+        cols = []
+        for a in range(b):
+            acc = None
+            for c in range(b):
+                ya = dia_spmv(A.vals[:, :, a, c], xt[c], A.dia_offsets)
+                acc = ya if acc is None else acc + ya
+            cols.append(acc)
+        return torch.stack(cols, dim=1).reshape(-1).to(_out_dtype(A, x))
 
 
 def spmm(A, X: torch.Tensor) -> torch.Tensor:

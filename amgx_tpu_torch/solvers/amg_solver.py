@@ -20,6 +20,7 @@ warmed up or captured: its kernels become nodes of the outer graph.
 """
 from __future__ import annotations
 
+from .. import telemetry
 from ..amg.cycles import build_cycle
 from ..amg.hierarchy import AMGHierarchy
 from ..errors import BadConfigurationError, NotImplementedError_
@@ -109,7 +110,15 @@ class AMGSolver(Solver):
         self._bound = _bind.collect(self)
 
     def solve_iteration(self, b, x, state, iter_idx):
-        return self._cycle(b, x), state
+        tape = self.hierarchy.tape
+        if tape is None or getattr(self, "_in_apply", False):
+            return self._cycle(b, x), state
+        # AMG as the solver: one cycle an iteration, each its own
+        # application of the forensics tape
+        tape.begin()
+        x = self._cycle(b, x)
+        tape.snap()
+        return x, state
 
     def apply(self, b, x0=None, n_iters=None):
         """One application as a preconditioner or smoother: on a CUDA
@@ -118,8 +127,12 @@ class AMGSolver(Solver):
         fresh tensor; on a CPU tensor, inside another graph's warm-up or
         capture, or when every level runs on the CPU (no device work
         to capture), the eager cycle."""
+        tape = self.hierarchy.tape
         if not b.is_cuda or building() or self.hierarchy.host_from == 0:
-            return self._apply_eager(b, x0, n_iters)
+            out = self._apply_eager(b, x0, n_iters)
+            if tape is not None and not building():
+                tape.snap()
+            return out
         n = self.max_iters if n_iters is None else n_iters
         key = (b.shape[0], b.dtype, n, x0 is None)
         args = (b,) if x0 is None else (b, x0)
@@ -132,13 +145,36 @@ class AMGSolver(Solver):
                 *args)
             self.graphs[key] = graph
             self._bind_snapshot()
+            if tape is not None:
+                # the warm-up's norms (the capture ran no kernel)
+                tape.snap()
+            if telemetry.memledger.is_enabled():
+                # the tensors the graph holds in its private pool
+                self._ml_graph_toks = getattr(self, "_ml_graph_toks", [])
+                self._ml_graph_toks.append(telemetry.memledger.register(
+                    telemetry.memledger.owner_name(
+                        "solve", f"graph_{graph.number}"),
+                    [graph.static_in, graph.static_out,
+                     graph.segments.steps]))
             return graph.take_first()
-        return graph(*args)
+        out = graph(*args)
+        if tape is not None:
+            tape.snap()
+        return out
 
     def _apply_eager(self, b, x0=None, n_iters=None):
         """The application without a graph (the capture runs it; the card
         tests hold a replay against it)."""
-        return super().apply(b, x0, n_iters)
+        tape = self.hierarchy.tape
+        if tape is None:
+            return super().apply(b, x0, n_iters)
+        # one application: its cycles take the tape's slots in order
+        tape.begin()
+        self._in_apply = True
+        try:
+            return super().apply(b, x0, n_iters)
+        finally:
+            self._in_apply = False
 
     def grid_stats(self) -> str:
         return self.hierarchy.grid_stats()

@@ -56,8 +56,10 @@ from ..ops.binned_spmv import bn_block_dim, compact_pack
 from ..ops.ell_spmv import ell_row_len
 from ..ops.shift_spmv import shift_compact, shift_planes_like
 from ..ops.spmv import spmv
+from .. import telemetry
 from ..utils import faultinject
 from ..utils.logging import amgx_output, set_verbosity
+from ..utils.profiler import cpu_profiler
 
 
 def check_convergence(criterion: str, nrm, nrm_ini, nrm_max, tolerance,
@@ -146,10 +148,9 @@ class SolverFactory:
 
 
 #: knobs whose non-default values select a feature of a later slice of
-#: the port (telemetry) — they raise rather than silently taking
-#: another path
-_LATER_SLICE = (("telemetry", 0), ("forensics", 0), ("setup_profile", 0),
-                ("memledger", 0))
+#: the port (the store of CUDA graphs and built kernels, ROADMAP item
+#: 9b) — they raise rather than being accepted and ignored
+_LATER_SLICE = (("compile_cache_dir", ""), ("aot_store_dir", ""))
 
 
 class Solver:
@@ -170,7 +171,8 @@ class Solver:
         for name, default in _LATER_SLICE:
             if g(name) != default:
                 raise NotImplementedError_(
-                    f"{name}={g(name)!r} is a later slice of the port")
+                    f"{name}={g(name)!r}: the store of CUDA graphs and "
+                    "built kernels is ROADMAP item 9b of the port")
         for name in ("krylov_dtype", "tpu_matrix_dtype"):
             precision.resolve_dtype(str(g(name)))   # a typo raises
         self.max_iters = int(g("max_iters"))
@@ -188,6 +190,29 @@ class Solver:
         #: PIPELINED (``solvers/krylov.py``)
         self.krylov_comm = str(g("krylov_comm"))
         self.ca_residual_replace = int(g("ca_residual_replace"))
+        # the reductions one iteration issues (the krylov_comm event)
+        self._collective_ledger = blas.CollectiveLedger()
+        # structured telemetry (amgx_tpu_torch/telemetry/): the knob
+        # enables the process-wide recorder; keeping the residual
+        # history is what gives the per-iteration residual records
+        self.telemetry_path = str(g("telemetry_path"))
+        if int(g("telemetry")):
+            telemetry.enable(int(g("telemetry_ring_size")))
+            self.store_res_history = True
+        # convergence forensics (telemetry/forensics.py): the hierarchy
+        # reads the same knob for the cycle anatomy; here it keeps the
+        # history for the asymptotic-rate estimate
+        self.forensics = bool(int(g("forensics")))
+        if self.forensics:
+            self.store_res_history = True
+        # per-phase setup attribution (telemetry/setup_profile.py)
+        if int(g("setup_profile")):
+            telemetry.setup_profile.enable()
+        # device-memory ownership and OOM post-mortems
+        # (telemetry/memledger.py)
+        if int(g("memledger")):
+            telemetry.memledger.enable(
+                sample_s=float(g("memledger_sample_s")))
         # the recovery ladder (recovery_policy=AUTO) and the
         # fault-injection plan (a non-empty spec arms it, once per spec)
         self.recovery_policy = str(g("recovery_policy"))
@@ -210,8 +235,55 @@ class Solver:
         """Setup (reference ``Solver::setup``, solver.cu:380-556): a full
         rebuild, unless :meth:`resetup` called it.  A top-level solver
         first applies the precision knobs, the equation scaling (a scaled
-        copy; the reference scales in place and unscales) and RCM."""
+        copy; the reference scales in place and unscales) and RCM.
+
+        Telemetry: a ``setup``/``resetup`` span (nested solvers' spans
+        nest in it), the top-level setup's profile scope
+        (``setup_profile``), a device-memory post-mortem on an
+        out-of-memory failure, and for the top-level setup its seconds,
+        the operator's cost descriptor and the setup engine's stats."""
+        phase = "resetup" if getattr(self, "_numeric_resetup", False) \
+            else "setup"
+        toplevel = bool(getattr(self, "_toplevel", False))
         t0 = time.perf_counter()
+        _sp = telemetry.setup_profile
+        prof = _sp.profile_setup(self.config_name) if toplevel \
+            else _sp.null()
+        try:
+            with telemetry.span(phase, solver=self.config_name,
+                                scope=self.scope, toplevel=toplevel), \
+                    prof:
+                self._setup_impl(A)
+        except Exception as e:
+            if telemetry.memledger.is_oom_error(e):
+                telemetry.memledger.emit_postmortem(
+                    e, "setup", in_recovery=bool(
+                        getattr(self, "_in_recovery", False)))
+            raise
+        self.setup_time = time.perf_counter() - t0
+        if toplevel:
+            telemetry.memledger.maybe_sample(phase=phase)
+        if toplevel and telemetry.is_enabled():
+            self._emit_setup_telemetry(phase)
+        return self
+
+    def _emit_setup_telemetry(self, phase: str):
+        telemetry.hist_observe(f"amgx_{phase}_seconds", self.setup_time)
+        telemetry.gauge_set("amgx_last_setup_seconds", self.setup_time)
+        if self.Ad is not None:
+            telemetry.event(
+                "operator_cost", solver=self.config_name,
+                **telemetry.costmodel.spmv_cost(
+                    self.Ad, nnz=self.A.nnz if self.A is not None
+                    else None))
+        from ..amg.device_setup import engine_stats
+        st = engine_stats()
+        if st is not None:
+            telemetry.event("device_setup_cache", **st)
+        if self.telemetry_path:
+            telemetry.flush_jsonl(self.telemetry_path)
+
+    def _setup_impl(self, A: "Matrix | DeviceMatrix"):
         # the matrix as the caller passed it: the ladder's rebuild rungs
         # set up from it (a scaled copy would be scaled twice)
         if self.recovery_policy not in ("", "NONE"):
@@ -232,16 +304,23 @@ class Solver:
                 A = self._apply_precision_knobs(A)
             if scaling != "NONE" and A.block_dim == 1:
                 from .scalers import create_scaler
-                self.scaler = create_scaler(scaling, self.cfg, self.scope)
-                csr = A.scalar_csr()
-                self.scaler.setup(csr)
-                dd = A.device_dtype
-                A = Matrix(self.scaler.scale_matrix(csr), device=A.placement)
-                # the scaled copy keeps the precision knobs' pack dtype
-                A.device_dtype = dd
-            if top:
+                with cpu_profiler("setup_scaling"), \
+                        telemetry.setup_profile.phase("scaling"):
+                    self.scaler = create_scaler(scaling, self.cfg,
+                                                self.scope)
+                    csr = A.scalar_csr()
+                    self.scaler.setup(csr)
+                    dd = A.device_dtype
+                    A = Matrix(self.scaler.scale_matrix(csr),
+                               device=A.placement)
+                    # the scaled copy keeps the precision knobs' pack
+                    # dtype
+                    A.device_dtype = dd
+            if getattr(self, "_toplevel", False):
                 # only the outermost solver has the permute boundary
-                A = self._maybe_reorder(A) or A
+                with telemetry.setup_profile.phase("reorder"):
+                    if top:
+                        A = self._maybe_reorder(A) or A
             self.A = A
             faultinject.maybe_raise(
                 "upload_error", AMGXError("injected transfer/upload failure",
@@ -249,13 +328,24 @@ class Solver:
             faultinject.maybe_raise(
                 "oom", AMGXError("injected device out-of-memory",
                                  RC.NO_MEMORY))
-            self.Ad = A.device()
+            with cpu_profiler("matrix_pack_device"), \
+                    telemetry.setup_profile.phase("pack", kind="device"):
+                self.Ad = A.device()
         else:
             self.A = None
             self.Ad = A
+        ml = telemetry.memledger
+        if ml.is_enabled() and getattr(self, "_toplevel", False) \
+                and self.Ad is not None:
+            # the top-level operator pack; the hierarchy's packs claim
+            # their storages ahead of this owner
+            ml.release(getattr(self, "_ml_matrix_tok", None))
+            self._ml_matrix_tok = ml.register(
+                ml.owner_name("matrix", self.config_name), self.Ad)
         if self.Ad.dtype.is_complex:
             self._check_complex()
-        self.solver_setup()
+        with cpu_profiler(f"setup:{self.config_name}"):
+            self.solver_setup()
         # a bf16 view's wide pack served this setup; drop it
         precision.release_setup_wide(self.A)
         # new matrix values, also on a resetup (a new rounding residue):
@@ -263,8 +353,25 @@ class Solver:
         self.__dict__.pop("_wide", None)
         if self.Ad.device.type == "cuda":
             torch.cuda.synchronize(self.Ad.device)
-        self.setup_time = time.perf_counter() - t0
-        return self
+
+    def release_memledger(self):
+        """Drop this solver's device-memory ledger registrations: the
+        operator pack and, down the preconditioner chain, each AMG
+        hierarchy's entries."""
+        ml = telemetry.memledger
+        for name in ("_ml_matrix_tok", "_ml_wide_tok"):
+            ml.release(getattr(self, name, None))
+            setattr(self, name, None)
+        obj, seen = self, set()
+        while obj is not None and id(obj) not in seen:
+            seen.add(id(obj))
+            h = getattr(obj, "hierarchy", None)
+            if h is not None and hasattr(h, "release_memledger"):
+                h.release_memledger()
+            for tok in getattr(obj, "_ml_graph_toks", ()):
+                ml.release(tok)
+            obj._ml_graph_toks = []
+            obj = getattr(obj, "preconditioner", None)
 
     def _warn_skipped_on_distributed(self, scaling: str) -> None:
         """Name the solve-boundary knobs a distributed matrix skips."""
@@ -395,9 +502,13 @@ class Solver:
         iterations, no monitoring, no host sync."""
         n = self.max_iters if n_iters is None else n_iters
         x = torch.zeros_like(b) if x0 is None else x0
-        state = self.solve_init(b, x)
-        for i in range(n):
-            x, state = self.solve_iteration(b, x, state, i)
+        # a smoother's application carries the amgx/smoother/<name>
+        # scope (telemetry/scopes.py; a no-op context with telemetry off)
+        with telemetry.scopes.scope("smoother", self.config_name) \
+                if self.is_smoother else telemetry.scopes._NULL:
+            state = self.solve_init(b, x)
+            for i in range(n):
+                x, state = self.solve_iteration(b, x, state, i)
         return x
 
     def norm(self, v):
@@ -507,20 +618,37 @@ class Solver:
             if x0 is not None:
                 x0 = shard_vector(self.Ad, x0)
         t0 = time.perf_counter()
-        if refine:
-            x, iters, nrm, nrm_ini, history, fail = \
-                self._solve_refined(b, x0, wide, fault)
-        else:
-            b = _as_device(b, dtype, dev)
-            x0 = torch.zeros_like(b) if x0 is None \
-                else _as_device(x0, dtype, dev)
-            x, iters, nrm, nrm_ini, history, fail = \
-                self._solve_loop(b, x0, self.tolerance, self.max_iters,
-                                 fault=fault)
+        try:
+            with telemetry.span("solve", solver=self.config_name,
+                                scope=self.scope, refined=bool(refine)), \
+                    cpu_profiler(f"solve:{self.config_name}"):
+                if refine:
+                    x, iters, nrm, nrm_ini, history, fail = \
+                        self._solve_refined(b, x0, wide, fault)
+                else:
+                    b = _as_device(b, dtype, dev)
+                    x0 = torch.zeros_like(b) if x0 is None \
+                        else _as_device(x0, dtype, dev)
+                    x, iters, nrm, nrm_ini, history, fail = \
+                        self._solve_loop(b, x0, self.tolerance,
+                                         self.max_iters, fault=fault)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                if telemetry.is_enabled():
+                    # the cycle anatomy the graphs wrote on the device,
+                    # read once (telemetry/forensics.py Tape)
+                    _emit_forensics(self)
+        except Exception as e:
+            # a device OOM mid-solve: the ledger post-mortem is the only
+            # record of what was resident when the allocator gave up
+            if telemetry.memledger.is_oom_error(e):
+                telemetry.memledger.emit_postmortem(
+                    e, "solve", in_recovery=bool(
+                        getattr(self, "_in_recovery", False)))
+            raise
         brk_code, first_bad = fail
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
         solve_time = time.perf_counter() - t0
+        telemetry.memledger.maybe_sample(phase="solve")
         # an injection is recorded only when it provoked something
         if fault is not None and (bool(brk_code) if self.monitor_residual
                                   else iters > fault[1]):
@@ -541,7 +669,7 @@ class Solver:
             if self.convergence in ("RELATIVE_MAX", "RELATIVE_MAX_CORE") \
                     and history is not None:
                 h = np.atleast_2d(history)[:iters + 1]
-                h = h[np.isfinite(h).all(axis=1)]
+                h = self._finite_history(h, context="nrm_max")
                 if h.size:
                     nrm_max = np.maximum(nrm_ini, h.max(axis=0))
             conv = check_convergence(self.convergence, nrm, nrm_ini, nrm_max,
@@ -568,6 +696,10 @@ class Solver:
                         f"    solve: {solve_time:10.6f} s\n"
                         f"    solve(per iteration): "
                         f"{solve_time / max(iters, 1):10.6f} s\n")
+        if telemetry.is_enabled():
+            self._emit_solve_telemetry(iters, nrm, nrm_ini, status,
+                                       history, solve_time,
+                                       failure=failure)
         res = SolveResult(x=x, iterations=iters, status=status,
                           residual_norm=nrm, residual_history=history,
                           setup_time=self.setup_time,
@@ -610,12 +742,106 @@ class Solver:
         if suppress:
             self._suppress_recovery = True
         try:
-            return [self.solve(bj, x0=None if X0 is None else X0[j],
-                               zero_initial_guess=zero_initial_guess)
-                    for j, bj in enumerate(B)]
+            with telemetry.span("solve_multi", solver=self.config_name,
+                                scope=self.scope, k=len(B)), \
+                    cpu_profiler(f"solve_multi:{self.config_name}"):
+                return [self.solve(bj, x0=None if X0 is None else X0[j],
+                                   zero_initial_guess=zero_initial_guess)
+                        for j, bj in enumerate(B)]
         finally:
             if suppress:
                 self._suppress_recovery = False
+
+    def _finite_history(self, h: np.ndarray,
+                        context: str = "") -> np.ndarray:
+        """The finite rows of a residual-history slab; a dropped row is
+        said (``history_truncated``), not silently filtered."""
+        if h.size == 0:
+            return h
+        mask = np.isfinite(h).all(axis=1)
+        if mask.all():
+            return h
+        if telemetry.is_enabled():
+            telemetry.counter_inc("amgx_history_truncated_total")
+            telemetry.event("history_truncated",
+                            first_bad_iteration=int(np.argmin(mask)),
+                            dropped=int((~mask).sum()), context=context,
+                            solver=self.config_name)
+        return h[mask]
+
+    def _emit_solve_telemetry(self, iters, nrm, nrm_ini, status,
+                              history, solve_time, failure=None):
+        """Per-solve telemetry (``_emit_solve_telemetry`` upstream):
+        duration, iteration count, final relative residual,
+        convergence-rate estimate, divergence and breakdown events and
+        the per-iteration residual trajectory (iteration 0 = the initial
+        residual)."""
+        telemetry.hist_observe("amgx_solve_seconds", solve_time)
+        telemetry.gauge_set("amgx_last_solve_seconds", solve_time)
+        telemetry.gauge_set("amgx_solve_iterations", iters)
+        diverged = bool(np.any(~np.isfinite(np.asarray(nrm))))
+        label = ("SUCCESS" if status == SolveStatus.SUCCESS else
+                 ("DIVERGED" if diverged else "NOT_CONVERGED"))
+        telemetry.counter_inc("amgx_solves_total", status=label)
+        if self.monitor_residual:
+            nrm_m = float(np.max(nrm))
+            ini_m = float(np.max(nrm_ini))
+            relres = nrm_m / ini_m if ini_m > 0 else nrm_m
+            telemetry.gauge_set("amgx_solve_final_relres", relres)
+            if iters > 0 and np.isfinite(relres) and relres > 0:
+                telemetry.gauge_set("amgx_solve_convergence_rate",
+                                    relres ** (1.0 / iters))
+            if self.forensics and history is not None:
+                rate = telemetry.forensics.asymptotic_rate(
+                    [float(np.max(row))
+                     for row in np.atleast_2d(history)])
+                if rate is not None:
+                    telemetry.gauge_set(
+                        "amgx_forensics_asymptotic_rate", rate)
+                    telemetry.event("solve_forensics",
+                                    solver=self.config_name,
+                                    iterations=iters,
+                                    asymptotic_rate=rate)
+            if diverged:
+                telemetry.counter_inc("amgx_solve_diverged_total")
+                telemetry.event("divergence", solver=self.config_name,
+                                iteration=iters, norm=nrm_m)
+            if failure is not None:
+                telemetry.counter_inc("amgx_solve_failures_total",
+                                      kind=failure.kind.value)
+                telemetry.event("breakdown", solver=self.config_name,
+                                kind=failure.kind.value,
+                                iteration=failure.iteration)
+            if history is not None:
+                for i, row in enumerate(np.atleast_2d(history)):
+                    telemetry.event("residual", iteration=i,
+                                    norm=float(np.max(row)))
+        self._emit_krylov_comm_telemetry(iters)
+        if self.telemetry_path:
+            telemetry.flush_jsonl(self.telemetry_path)
+
+    def _emit_krylov_comm_telemetry(self, iters: int):
+        """The reductions of one iteration (counted while the first ran,
+        :class:`~..ops.blas.CollectiveLedger`) times the iterations run;
+        silent when no iteration was counted."""
+        led = self._collective_ledger
+        if not led.counts:
+            return
+        prof = {op: int(c) for op, c in led.counts.items()}
+        iters = max(int(iters), 0)
+        if iters > 0:
+            for op, c in prof.items():
+                telemetry.counter_inc("amgx_krylov_collectives_total",
+                                      float(c * iters), op=op)
+        mode = (self._comm_mode() if hasattr(self, "_comm_mode")
+                else "CLASSIC")
+        # one card: a sharded pack's reductions are no collectives, so
+        # no reduction latency is modelled beside the counts
+        telemetry.event("krylov_comm", solver=self.config_name, mode=mode,
+                        iterations=iters, per_iter=prof,
+                        collectives_per_iter=int(sum(prof.values())),
+                        fused=bool("fused" in prof),
+                        n_parts=int(getattr(self.Ad, "n_parts", 1) or 1))
 
     def _solve_loop(self, b, x0, tolerance, it_limit,
                     final_residual: bool = True, fault=None):
@@ -639,14 +865,26 @@ class Solver:
                                              nrm_ini, tolerance, alt)
         x, it, brk, bad_it = x0, 0, 0, -1
         limit = min(int(it_limit), self.max_iters)
+        ledger = self._collective_ledger if (
+            it == 0 and telemetry.is_enabled()) else None
         while not done and it < limit:
-            x, state = self.solve_iteration(b, x, state, it)
+            if ledger is not None:
+                # the first iteration's reductions: the per-iteration
+                # profile of the krylov_comm event
+                ledger.reset()
+                with blas.count_collectives(ledger):
+                    x, state = self.solve_iteration(b, x, state, it)
+            else:
+                x, state = self.solve_iteration(b, x, state, it)
             if fault is not None and it == fault[1]:
                 x, state = _inject_fault(fault[0], x, state)
             if monitor:
-                est = self.residual_norm_estimate(b, x, state)
-                if est is None:
-                    est = self.compute_residual_norm(b, x)
+                with blas.count_collectives(ledger) \
+                        if ledger is not None else telemetry.scopes._NULL:
+                    est = self.residual_norm_estimate(b, x, state)
+                    if est is None:
+                        est = self.compute_residual_norm(b, x)
+                ledger = None
                 code_t = self.breakdown_code(state)
                 if code_t is None:
                     nrm, code = host_norm(est), 0
@@ -750,6 +988,12 @@ class Solver:
                 vals=vals64, row_len=None if Ad.row_len is None
                 else ell_row_len(vals64))
         self._wide = (wide, Ad64)
+        ml = telemetry.memledger
+        if ml.is_enabled():
+            # the refinement's wide operator, beside the narrow pack
+            ml.release(getattr(self, "_ml_wide_tok", None))
+            self._ml_wide_tok = ml.register(ml.owner_name(
+                "matrix", f"{self.config_name}_wide"), Ad64)
         return Ad64
 
     def _host_pack_vals64(self) -> np.ndarray:
@@ -854,6 +1098,19 @@ class Solver:
             it_tot += it
             k += 1
         return x64, it_tot, nrm, nrm_ini, hist, fail
+
+
+def _emit_forensics(solver) -> None:
+    """Emit the cycle anatomy of every AMG application of the solve (the
+    tapes of the AMG solvers down the preconditioner chain)."""
+    obj, seen = solver, set()
+    while obj is not None and id(obj) not in seen:
+        seen.add(id(obj))
+        h = getattr(obj, "hierarchy", None)
+        tape = getattr(h, "tape", None)
+        if tape is not None:
+            tape.emit()
+        obj = getattr(obj, "preconditioner", None)
 
 
 def _representable(vals64: np.ndarray, pdt, via=None) -> bool:

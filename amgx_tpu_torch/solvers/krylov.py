@@ -53,6 +53,7 @@ from ..device import numpy_dtype
 from ..errors import BREAKDOWN_INDEFINITE, BREAKDOWN_KRYLOV
 from ..ops import blas, ordered
 from ..ops.spmv import spmv
+from ..telemetry import scopes as _tscopes
 from .base import Solver, SolverFactory, register_solver
 
 
@@ -82,7 +83,8 @@ class _PrecondMixin:
     def _apply_M(self, r):
         if self.preconditioner is None:
             return r
-        return self.preconditioner.apply(r)
+        with _tscopes.scope("krylov", "precond"), blas.uncounted():
+            return self.preconditioner.apply(r)
 
 
 def _guarded_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -187,12 +189,14 @@ class CGSolver(Solver):
         accumulators of r, from one stacked reduction; f32 operands are
         widened first, so the products are exact and the sums f64,
         rounded once."""
-        rw, uw, ww = ordered.widen(r), ordered.widen(u), ordered.widen(w)
-        terms = [rw.conj() * uw, ww.conj() * uw]
-        terms += blas.norm_terms(rw, self.norm_type, self.Ad.block_dim,
-                                 self.use_scalar_norm)
-        acc = blas.fused_reduce(terms).to(r.dtype)
-        return acc[0], acc[1], acc[2:].real
+        with _tscopes.scope("krylov", "reduce"):
+            rw, uw, ww = ordered.widen(r), ordered.widen(u), \
+                ordered.widen(w)
+            terms = [rw.conj() * uw, ww.conj() * uw]
+            terms += blas.norm_terms(rw, self.norm_type, self.Ad.block_dim,
+                                     self.use_scalar_norm)
+            acc = blas.fused_reduce(terms).to(r.dtype)
+            return acc[0], acc[1], acc[2:].real
 
     def solve_init(self, b, x):
         mode = self._comm_mode()
@@ -373,20 +377,23 @@ class _GMRESBase(Solver):
                                           check_finite=False)
         if not np.any(y):
             return st.x_base
-        y = torch.from_numpy(np.ascontiguousarray(y, st.g.dtype)).to(
-            st.V.device)
-        if self.flexible:
-            return st.x_base + ordered.lincomb(st.Z[:j + 1], y)
-        return st.x_base + self._apply_M(ordered.lincomb(st.V[:j + 1], y))
+        with _tscopes.scope("krylov", "update"):
+            y = torch.from_numpy(np.ascontiguousarray(y, st.g.dtype)).to(
+                st.V.device)
+            if self.flexible:
+                return st.x_base + ordered.lincomb(st.Z[:j + 1], y)
+            u = ordered.lincomb(st.V[:j + 1], y)
+        return st.x_base + self._apply_M(u)
 
     def solve_iteration(self, b, x, st: _GMRESState, iter_idx: int):
         m = self.restart
         j = iter_idx % m
         if j == 0 and iter_idx > 0:
             # restart: the true residual seeds a fresh basis
-            r = b - spmv(self.Ad, x)
-            st.beta = ordered.wnrm2(r)
-            st.V[0] = _normalized(r, st.beta)
+            with _tscopes.scope("krylov", "update"):
+                r = b - spmv(self.Ad, x)
+                st.beta = ordered.wnrm2(r)
+                st.V[0] = _normalized(r, st.beta)
             st.x_base = x
             st.g[:] = 0
             st.cs[:] = 0
@@ -394,37 +401,42 @@ class _GMRESBase(Solver):
 
         # Arnoldi step with CGS2 against the live rows 0..j
         z_j = self._apply_M(st.V[j])
-        w = spmv(self.Ad, z_j)
-        Vj = st.V[:j + 1]
-        h1 = ordered.wgram_dots(Vj, w)
-        w = w - ordered.lincomb(Vj, h1)
-        if self._comm_mode() != "CLASSIC":
-            # fused Arnoldi: the second pass and ‖w‖² share one stacked
-            # product; ‖w − V·h2‖² = ‖w‖² − ‖h2‖² (h2 is O(ε)·‖w‖)
-            h2, ww = ordered.wgram_dots_with_norm(Vj, w)
-            w = w - ordered.lincomb(Vj, h2)
-            h_next = torch.sqrt(torch.clamp(ww - ordered.wdot(h2, h2),
-                                            min=0.0))
-        else:
-            h2 = ordered.wgram_dots(Vj, w)
-            w = w - ordered.lincomb(Vj, h2)
-            h_next = ordered.wnrm2(w)
-        st.V[j + 1] = _normalized(w, h_next)
-        if self.flexible:
-            st.Z[j] = z_j
+        with _tscopes.scope("krylov", "arnoldi"):
+            w = spmv(self.Ad, z_j)
+            Vj = st.V[:j + 1]
+            h1 = ordered.wgram_dots(Vj, w)
+            w = w - ordered.lincomb(Vj, h1)
+            if self._comm_mode() != "CLASSIC":
+                # fused Arnoldi: the second pass and ‖w‖² share one
+                # stacked product; ‖w − V·h2‖² = ‖w‖² − ‖h2‖² (h2 is
+                # O(ε)·‖w‖)
+                h2, ww = ordered.wgram_dots_with_norm(Vj, w)
+                w = w - ordered.lincomb(Vj, h2)
+                h_next = torch.sqrt(torch.clamp(
+                    ww - ordered.wdot(h2, h2), min=0.0))
+            else:
+                h2 = ordered.wgram_dots(Vj, w)
+                w = w - ordered.lincomb(Vj, h2)
+                h_next = ordered.wnrm2(w)
+            st.V[j + 1] = _normalized(w, h_next)
+            if self.flexible:
+                st.Z[j] = z_j
 
-        # the iteration's one host fetch: the Hessenberg column (+ ‖r‖)
-        parts = [h1 + h2, h_next.reshape(1)]
-        if st.beta is not None:
-            parts.append(st.beta.reshape(1))
-        got = torch.cat(parts).cpu().numpy()
+            # the iteration's one host fetch: the Hessenberg column
+            # (+ ‖r‖)
+            parts = [h1 + h2, h_next.reshape(1)]
+            if st.beta is not None:
+                parts.append(st.beta.reshape(1))
+            got = torch.cat(parts).cpu().numpy()
         if st.beta is not None:
             st.g[0] = abs(got[j + 2])
             st.beta = None
         hcol = np.zeros(m + 1, st.g.dtype)
         hcol[:j + 2] = got[:j + 2]
 
-        # previous Givens rotations, then the new one zeroing h[j+1]; a
+        # previous Givens rotations (host arithmetic: the "givens"
+        # stage has no device work here), then the new one zeroing
+        # h[j+1]; a
         # complex column takes the unitary form G = [[c̄, s̄], [−s, c]]
         # with c = a/r, s = b/r, r = √(|a|² + |b|²) (``krylov.py:612-640``
         # upstream)

@@ -40,6 +40,7 @@ import time
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..errors import FailureInfo, FailureKind, SolveStatus
 
 #: ladder rungs, cheapest first — the vocabulary of the audit's
@@ -223,14 +224,31 @@ _ACTION_FN = {"krylov_classic": _act_krylov_classic,
 
 
 def _audit(log: list, kind: FailureKind, action: str, attempt: int,
-           outcome: str, wall_s: float, detail: str = ""):
-    """One rung's record (the JAX package's ``recovery_attempt`` event
-    fields)."""
+           outcome: str, wall_s: float, detail: str = "", solver=None,
+           oom: bool = False):
+    """One rung's record (the ``recovery_attempt`` event's fields), also
+    counted (``amgx_recovery_total``) and, with telemetry on, emitted as
+    the event and flushed to the solver's ``telemetry_path``."""
     entry = {"kind": kind.value, "action": action, "attempt": int(attempt),
              "outcome": outcome, "wall_s": wall_s}
     if detail:
         entry["detail"] = detail[:200]
     log.append(entry)
+    telemetry.counter_inc("amgx_recovery_total", kind=kind.value,
+                          action=action, outcome=outcome)
+    if telemetry.is_enabled():
+        extra = {"detail": detail[:200]} if detail else {}
+        if oom:
+            # this rung died on a device OOM: its oom_postmortem event
+            # (in_recovery=true) holds the resident ledger
+            extra["oom"] = True
+        telemetry.event("recovery_attempt", kind=kind.value,
+                        action=action, attempt=int(attempt),
+                        outcome=outcome,
+                        solver=getattr(solver, "config_name", "?"),
+                        wall_s=round(wall_s, 6), **extra)
+        if getattr(solver, "telemetry_path", ""):
+            telemetry.flush_jsonl(solver.telemetry_path)
 
 
 def maybe_recover(solver, b, x0, zero_initial_guess: bool, result):
@@ -262,7 +280,8 @@ def maybe_recover(solver, b, x0, zero_initial_guess: bool, result):
                 # for this solver, which skips silently)
                 if getattr(sk, "audit", True):
                     _audit(log, kind, action, attempt, "skipped",
-                           time.perf_counter() - t0, detail=str(sk))
+                           time.perf_counter() - t0, detail=str(sk),
+                           solver=solver)
                 continue
             except Exception as e:  # noqa: BLE001 — the ladder must
                 # never raise past the solve that invoked it; the
@@ -270,7 +289,8 @@ def maybe_recover(solver, b, x0, zero_initial_guess: bool, result):
                 attempt += 1
                 _audit(log, kind, action, attempt, "error",
                        time.perf_counter() - t0,
-                       detail=f"{type(e).__name__}: {e}")
+                       detail=f"{type(e).__name__}: {e}", solver=solver,
+                       oom=telemetry.memledger.is_oom_error(e))
                 last_action = action
                 continue
             attempt += 1
@@ -278,7 +298,7 @@ def maybe_recover(solver, b, x0, zero_initial_guess: bool, result):
             ok = cand is not None and cand.status == SolveStatus.SUCCESS
             _audit(log, kind, action, attempt,
                    "recovered" if ok else "failed",
-                   time.perf_counter() - t0)
+                   time.perf_counter() - t0, solver=solver)
             if cand is not None:
                 last = cand
             if ok:
@@ -287,7 +307,9 @@ def maybe_recover(solver, b, x0, zero_initial_guess: bool, result):
                                  "outcome": "recovered"}
                 return cand
         # ladder exhausted: hand back the best failing result with the
-        # audit attached
+        # audit attached (and one terminal counter sample)
+        telemetry.counter_inc("amgx_recovery_total", kind=kind.value,
+                              action="ladder", outcome="exhausted")
         last.recovery = {"kind": kind.value, "action": last_action,
                          "attempts": attempt, "outcome": "exhausted"}
         if last.failure is None:

@@ -143,7 +143,8 @@ exits non-zero (no phase is caught):
     pack, f64 refinement): the outer solver replaced by GMRES, PCGF,
     PCG_PIPE and PCG_CA (these two on an f64 pack, ``FAMILY_PACK``,
     their f32 runs printed beside), then PCG with the smoother
-    CF_JACOBI (the C/F split of the classical levels); each through the
+    CF_JACOBI (the C/F split of the classical levels) at 96³
+    (``CF_JACOBI_SIDE``: its setup runs the host loop); each through the
     public API with
     every count set to 0 just before the first solve and read just
     after: iterations, the true relres in f64, setup, first and warm
@@ -285,6 +286,22 @@ exits non-zero (no phase is caught):
     MULTICOLOR_DILU in sharded aggregation AMG, every solver name new
     on a sharded pack, a resetup (a fresh setup, graphs captured anew)
     and ``amg_host_levels_rows`` on a distributed classical hierarchy.
+42. telemetry on the card: the headline 128³ with ``telemetry``,
+    ``setup_profile`` and ``memledger`` on (``telemetry_path`` a
+    temporary file) against the same solve with them off — phase 5's
+    count, x bit-equal, the graph's node count unchanged, both warm
+    solve times; the device anatomy of a graphed warm solve under
+    ``torch.profiler`` (``telemetry/deviceprof.py``: attributed +
+    unattributed ≡ total, ≥ 90 % attributed to ``amgx/`` scopes, the
+    levels plus the coarse solve within 10 % of the AMG application's
+    device time, B1's time under ``amgx/spmv/dia/kernel`` within 5 % of
+    its kernel sum, the top scopes with their measured GB/s); the
+    memory ledger's invariant at setup and after the solve with its top
+    owners; the setup profile by level; the JSONL validated, its Chrome
+    trace validated, the doctor run on it; ``forensics=1`` at 64³ (one
+    ``cycle_level`` event per level visit of every application, x
+    bit-equal to forensics off); the ``dist/halo_exchange`` scope's
+    device time on 40c's 16³ stack in 8 shards.
 
 Phases 11, 28, 30, 31, 33, 40 and 41 hold the card's x bit-equal to the
 CPU's (IDR and IDRMSYNC excepted: their s × s solves are library
@@ -305,9 +322,26 @@ import time
 
 import numpy as np
 
-#: H100 SXM datasheet: HBM3 bandwidth and vector (non-tensor) peaks
-PEAK_BYTES_PER_S = 3.35e12
+#: H100 SXM datasheet: vector (non-tensor) peaks; the memory rate is
+#: the port's cost model's (``telemetry/costmodel.py``:
+#: ``PUBLISHED_PEAK_BYTES_PER_S``, 3.35 TB/s), the one yardstick of the
+#: bounds here and of the telemetry's
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
+
+
+def peak_bytes_per_s() -> float:
+    from amgx_tpu_torch.telemetry import costmodel
+    return costmodel.PUBLISHED_PEAK_BYTES_PER_S
+
+
+def bound_of(nbytes, ops, dt) -> tuple:
+    """(bound_ms, bound_by) of ``nbytes`` moved and ``ops`` operations in
+    ``dt`` arithmetic (:func:`~amgx_tpu_torch.telemetry.costmodel.bound`
+    at the datasheet rates)."""
+    from amgx_tpu_torch.telemetry import costmodel
+    t, by = costmodel.bound(nbytes, ops, peak_bytes_per_s(),
+                            PEAK_FLOPS[dt])
+    return t * 1e3, by
 
 HEADLINE_CFG = (
     "config_version=2, solver(out)=FGMRES, out:max_iters=100, "
@@ -404,6 +438,9 @@ SHIFT_TOL = {"f32": 1e-5, "f64": 1e-12}
 #: phases 24-25: the classical and headline 128³ systems, phase 26:
 #: config 4's full SPE10 grid
 FAMILY_SIDE = 128
+#: phase 24's CF_JACOBI stack (its classical setup runs the host loop:
+#: 21.5 s at 128³ in the first full run, so cut to 96³ for time)
+CF_JACOBI_SIDE = 96
 FAMILY_C4_GRID = (60, 220, 85)
 #: phase 24: the classical stack's outer solver replaced (the
 #: GMRES_AMG_D2 / PCGF_CLASSICAL_V_JACOBI shapes), then its smoother
@@ -645,12 +682,10 @@ def csr_of_dia(vals, offsets, n_cols=None):
 def bound(nd, n, vdt, xdt, n_cols=None):
     """(bound_ms, bound_by) of one SpMV: bytes each input read once and
     the output written once, vs 2·nd·n operations at the peak rate."""
+    from amgx_tpu_torch.telemetry import costmodel
     n_cols = n if n_cols is None else n_cols
-    nbytes = nd * n * vdt.itemsize + (n + n_cols) * xdt.itemsize
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = 2 * nd * n / PEAK_FLOPS[short(xdt)]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    nbytes = costmodel.dia_bytes(nd, n, n_cols, vdt.itemsize, xdt.itemsize)
+    return bound_of(nbytes, 2 * nd * n, short(xdt))
 
 
 def check_ell(dev, gen, name, cols, vals64, n_cols, errs, row_len=None,
@@ -719,11 +754,10 @@ def ell_bound(entries, n, n_cols, dt):
     """(bound_ms, bound_by) of one ELL SpMV over ``entries`` stored
     entries: their column and value read once, x read once, y written
     once, vs 2·entries operations at the peak rate."""
-    nbytes = entries * (4 + dt.itemsize) + (n_cols + n) * dt.itemsize
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = 2 * entries / PEAK_FLOPS[short(dt)]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    from amgx_tpu_torch.telemetry import costmodel
+    nbytes = costmodel.ell_bytes(entries, n, n_cols, dt.itemsize,
+                                 dt.itemsize)
+    return bound_of(nbytes, 2 * entries, short(dt))
 
 
 def level_table(h):
@@ -734,12 +768,14 @@ def level_table(h):
     return out + [(c.device().fmt, c.n_block_rows, c.n_block_rows)]
 
 
-def profile_window(fn):
+def profile_window(fn, trace_path=None, by_name=None):
     """Device time by kernel of ``fn()`` under ``torch.profiler``:
     (wall_s, device_s, device kernels, top rows).  The device events are
     summed straight from the trace: ``key_averages()`` gives the same
     sums but first builds an event object for every kernel and op, which
-    takes some ten times as long."""
+    takes some ten times as long.  ``trace_path`` also writes the
+    profile's chrome trace there; a dict ``by_name`` receives the
+    per-kernel (device ns, calls)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -747,11 +783,13 @@ def profile_window(fn):
         t0 = time.perf_counter()
         fn()
         wall = time.perf_counter() - t0
-    by_name = {}
+    by_name = {} if by_name is None else by_name
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
             ns, calls = by_name.get(e.name(), (0, 0))
             by_name[e.name()] = (ns + e.duration_ns(), calls + 1)
+    if trace_path is not None:
+        prof.export_chrome_trace(trace_path)
     top = [dict(name=k[:90], device_ms=ns / 1e6, calls=c)
            for k, (ns, c) in sorted(by_name.items(),
                                     key=lambda r: -r[1][0])[:8]]
@@ -835,12 +873,10 @@ def binned_bound(entries, b, n, n_cols, vdt, xdt):
     """(bound_ms, bound_by) of one binned SpMV over ``entries`` lanes (or
     stored blocks): a code and b² values read once per entry, x read
     once, y written once, vs 2·b²·entries operations at the peak rate."""
-    nbytes = entries * (4 + b * b * vdt.itemsize) \
-        + (n_cols + n) * b * xdt.itemsize
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = 2 * b * b * entries / PEAK_FLOPS[short(xdt)]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    from amgx_tpu_torch.telemetry import costmodel
+    nbytes = costmodel.binned_bytes(entries, b, n, n_cols, vdt.itemsize,
+                                    xdt.itemsize)
+    return bound_of(nbytes, 2 * b * b * entries, short(xdt))
 
 
 def check_binned(dev, gen, name, Ad, vdt, errs):
@@ -1345,21 +1381,21 @@ def shift_bounds(Ad, nnz, dt):
     ``planes_bound_ms`` over the class planes (planes, diff table, x,
     y), which the planes' plain version reads; and each layout's
     bytes."""
+    from amgx_tpu_torch.telemetry import costmodel
     T, n_tiles, Dpad = (int(v) for v in Ad.sh_dims[:3])
     S, n_slices, slots, _ = Ad.sh_compact.dims
     n = Ad.n_rows
     xy = 2 * n * dt.itemsize
-    t_ops = 2 * nnz / PEAK_FLOPS[short(dt)]
+    ops = 2 * nnz
     nnz_bytes = nnz * dt.itemsize + xy
-    compact_bytes = slots * S * dt.itemsize + 4 * (2 * n_slices + 1) \
-        + 4 * n_tiles * Dpad + xy
+    compact_bytes = costmodel.shift_compact_bytes(
+        int(slots), int(S), int(n_slices), n_tiles, Dpad, n, dt.itemsize)
     planes_bytes = n_tiles * Dpad * (T * dt.itemsize + 4) + xy
-    t_nnz = nnz_bytes / PEAK_BYTES_PER_S
+    bound_ms, bound_by = bound_of(nnz_bytes, ops, short(dt))
     return dict(
-        bound_ms=max(t_nnz, t_ops) * 1e3,
-        bound_by="bytes" if t_nnz >= t_ops else "operations",
-        compact_bound_ms=max(compact_bytes / PEAK_BYTES_PER_S, t_ops) * 1e3,
-        planes_bound_ms=max(planes_bytes / PEAK_BYTES_PER_S, t_ops) * 1e3,
+        bound_ms=bound_ms, bound_by=bound_by,
+        compact_bound_ms=bound_of(compact_bytes, ops, short(dt))[0],
+        planes_bound_ms=bound_of(planes_bytes, ops, short(dt))[0],
         nnz_bytes=nnz_bytes, compact_bytes=compact_bytes,
         planes_bytes=planes_bytes)
 
@@ -1500,6 +1536,8 @@ def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs) -> dict:
     assert not any(d.get(k, 0) for k in ("ell/gather", "dia/slices",
                                          "dia/kernel")), counts
     x = res.x
+    # phase 42 holds its telemetry-on solve to this x
+    head_x = x
     assert x.dtype == torch.float64 and x.shape == (n,) and x.is_cuda
     assert torch.isfinite(x).all().item()
     xh = x.cpu().numpy()
@@ -1961,18 +1999,24 @@ def family_phases(amgx, dev, smi, gen) -> dict:
                CFG_CLA.replace("solver(out)=PCG", f"solver(out)={name}"),
                FAMILY_PACK.get(name, np.float32))
               for name in FAMILY_KRYLOV]
-    stacks.append(("family_classical_CF_JACOBI",
-                   CFG_CLA.replace("JACOBI_L1", "CF_JACOBI"), np.float32))
     stacks += [(f"family_classical_{name}_f32",
                 CFG_CLA.replace("solver(out)=PCG", f"solver(out)={name}"),
                 np.float32) for name in FAMILY_PACK]
+    # CF_JACOBI leaves the device pipeline for the host loop: its stack
+    # runs CF_JACOBI_SIDE³ (cut from 128³ for time)
+    stacks.append(("family_classical_CF_JACOBI",
+                   CFG_CLA.replace("JACOBI_L1", "CF_JACOBI"), np.float32))
     for label, cfg, pdt in stacks:
-        m = amgx.Matrix(Ahost, device="cuda")
+        side_, A_ = side, Ahost
+        if label == "family_classical_CF_JACOBI":
+            side_ = CF_JACOBI_SIDE
+            A_ = poisson7pt(side_, side_, side_)
+        m = amgx.Matrix(A_, device="cuda")
         m.device_dtype = pdt
         counts = family_solve(amgx, dev, smi, gen, label, cfg, m,
-                              host_relres(Ahost),
+                              host_relres(A_),
                               converge=not label.endswith("_f32"),
-                              n=side ** 3, pack=np.dtype(pdt).name)
+                              n=side_ ** 3, pack=np.dtype(pdt).name)
         merge_counts(total, counts)
         assert sum(counts["B1"].values()) > 0 and \
             sum(counts["B3"].values()) > 0, (label, counts)
@@ -2835,13 +2879,12 @@ def precision_phase(amgx, dev, smi, gen, b1_errs, b3_errs) -> dict:
         library_ms = library_ms_of(csr, x.to(torch.bfloat16), dev)
         nnz = int((M.vals != 0).sum().item())
         nb, K = M.cols.shape
-        nbytes = nnz * (4 + 2) + (M.n_cols + nb) * 4
-        t_bytes = nbytes / PEAK_BYTES_PER_S
-        t_ops = 2 * nnz / PEAK_FLOPS["f32"]
+        from amgx_tpu_torch.telemetry import costmodel
+        nbytes = costmodel.ell_bytes(nnz, nb, M.n_cols, 2, 4)
+        bound_ms, bound_by = bound_of(nbytes, 2 * nnz, "f32")
         timing["B3"] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bound_ms=bound_ms, bound_by=bound_by,
             operator=f"classical {side}³ {name} ({nb} × {K}, {nnz} "
             "nonzeros, bf16)")
         del csr
@@ -4469,6 +4512,268 @@ def item8b_phases(amgx, dev, smi, gen, A4, single_iters) -> dict:
     return dict(paths=paths, b5=b5)
 
 
+# --------------------------------------------------------------------------
+# phase 42: telemetry on the card
+#: the knobs phase 42 turns on (unscoped: every solver of the stack reads
+#: them); ``telemetry_path`` is added per run
+TELEMETRY_KNOBS = ", telemetry=1, setup_profile=1, memledger=1, " \
+    "memledger_sample_s=0"
+#: the side of phase 42's forensics run (the headline stack)
+FORENSICS_SIDE = 64
+#: warm solves with the recorder off and on, alternated, in phase 42
+TELEMETRY_AB_ROUNDS = 5
+
+
+def graph_of(slv):
+    """The preconditioner's one CUDA graph."""
+    (g,), = [list(slv.preconditioner.graphs.values())]
+    return g
+
+
+def telemetry_headline(amgx, dev, smi, side, extra):
+    """The headline stack at ``side``³ (f32 pack, f64 refinement) with
+    the config suffix ``extra``: the solver, the first solve's result
+    (its first application captures the graph) and a warm solve's."""
+    import torch
+    from amgx_tpu_torch.io import poisson7pt_device
+    A = poisson7pt_device(side, side, side, device_dtype=np.float32,
+                          device="cuda")
+    t0 = time.perf_counter()
+    slv = amgx.create_solver(HEADLINE_CFG + extra)
+    slv.setup(A)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    b = torch.ones(side ** 3, dtype=torch.float64, device=dev)
+    res = slv.solve(b)
+    warm = slv.solve(b)
+    return dict(slv=slv, A=A, b=b, res=res, warm=warm, setup_s=setup_s)
+
+
+def kcycle_visits(h) -> int:
+    """Level visits of one application of the CG K-cycle: level 0 once,
+    level i ≥ 1 cycle_iters^i times."""
+    return sum(max(h.cycle_iters, 1) ** i for i in range(len(h.levels)))
+
+
+def telemetry_phase(amgx, dev, smi, head_iters, head_x=None,
+                    head_nodes=None) -> dict:
+    """Phase 42: the headline 128³ with ``telemetry``, ``setup_profile``
+    and ``memledger`` on against the same solve with them off (equal
+    counts, x bit-equal, the graph's node count unchanged); the device
+    anatomy of a graphed warm solve (identity, ≥ 90 % attributed, the
+    levels' sum against the AMG application's time, B1 under
+    ``spmv/dia_kernel`` against its kernel sum); the memory ledger's
+    invariant; the setup profile by level; the JSONL, Chrome trace and
+    doctor; ``forensics`` at 64³; ``dist/halo_exchange`` on 40c's
+    sharded stack.  ``head_x`` / ``head_nodes``: phase 5's x and graph
+    node count (the same solve with telemetry off); without them the
+    phase runs that solve itself.  Returns the launches of its
+    solves."""
+    import tempfile
+    import torch
+    from amgx_tpu_torch import telemetry
+    from amgx_tpu_torch.ops import spmv as smod
+    from amgx_tpu_torch.telemetry import (costmodel, deviceprof,
+                                          memledger, setup_profile)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="amgx_tel_")
+    out = {}
+
+    # ---- telemetry off: the reference solve (phase 5's in the smoke)
+    if head_x is None:
+        off = telemetry_headline(amgx, dev, smi, 128, "")
+        head_nodes = graph_of(off["slv"]).stats["nodes"]
+        head_x = off["res"].x.clone()
+        del off
+        torch.cuda.empty_cache()
+    nodes_off, x_off = head_nodes, head_x
+
+    # ---- telemetry on
+    telemetry.reset()
+    path = os.path.join(tmp, "headline.jsonl")
+    reset_counts()
+    on = telemetry_headline(amgx, dev, smi, 128, TELEMETRY_KNOBS
+                            + f", telemetry_path={path}")
+    out["telemetry_headline"] = read_counts()
+    slv, res = on["slv"], on["res"]
+    assert res.iterations == head_iters, (res.iterations, head_iters)
+    assert torch.equal(res.x, x_off), "telemetry changed x"
+    nodes_on = graph_of(slv).stats["nodes"]
+    assert nodes_on == nodes_off, (nodes_on, nodes_off)
+    recs = telemetry.records()
+    # the setup profile: phases by level against the setup's wall time
+    prof = telemetry.setup_profile.analyze(recs)
+    by_level = {}
+    for ph in prof["phases"]:
+        key = f"L{ph['level']}" if ph["level"] is not None else "-"
+        by_level.setdefault(key, {})[ph["component"]] = ph["self_s"]
+    ledger_setup = [r["attrs"] for r in recs if r["kind"] == "event"
+                    and r["name"] == "hbm_snapshot"
+                    and r["attrs"]["phase"] == "setup"][-1]
+
+    # ---- the anatomy of one graphed warm solve
+    trace = os.path.join(tmp, "warm_solve.trace.json")
+    names = {}
+    bytes0 = dict(smod.MODEL_BYTES)
+    wall, busy_s, n_kern, top = profile_window(
+        lambda: slv.solve(on["b"]), trace_path=trace, by_name=names)
+    model_bytes = {k: v - bytes0.get(k, 0)
+                   for k, v in smod.MODEL_BYTES.items() if v != bytes0[k]}
+    peak = costmodel.measured_peak_gbs(dev)
+    an = deviceprof.measure_anatomy(trace, pack_bytes_total=model_bytes,
+                                    peak_gbs=peak)
+    deviceprof.emit(an)
+    emit("telemetry_anatomy_graphs", graphs=an["graphs"])
+    total, attr = an["total_device_s"], an["attributed_s"]
+    assert abs(attr + an["unattributed_s"] - total) <= 1e-6 * max(total,
+                                                                  1e-9)
+    # every graph launch maps onto its capture's nodes (one the profile
+    # caught mid-launch, on the nodes its recorded kernels match)
+    assert an["graphs"]["graph_launches"] > 0 and \
+        an["graphs"]["graph_launches_mapped"] == \
+        an["graphs"]["graph_launches"], an["graphs"]
+    assert attr >= 0.9 * total, (attr, total)
+    precond = an["scopes"].get("amgx/krylov/precond", 0.0)
+    level_sum = sum(lv.get("total_s", 0.0) for lv in an["levels"].values()) \
+        + an["coarse_s"]
+    assert abs(level_sum - precond) <= 0.10 * precond, (level_sum, precond)
+    b1_sum = sum(ns for k, (ns, _) in names.items() if "dia_spmv" in k) / 1e9
+    b1_scoped = an["spmv"].get("dia/kernel", {}).get("device_s", 0.0)
+    assert abs(b1_scoped - b1_sum) <= 0.05 * b1_sum, (b1_scoped, b1_sum)
+    top_scopes = []
+    for s_, sec in deviceprof.top_scopes(an, 8):
+        row = dict(scope=s_, device_s=sec)
+        if s_.startswith("amgx/spmv/"):
+            d = an["spmv"][s_[len("amgx/spmv/"):]]
+            row.update({k: d[k] for k in ("modelled_bytes", "measured_gbs",
+                                          "roofline_fraction") if k in d})
+            if "modelled_bytes" in d:
+                row["published_fraction"] = d["measured_gbs"] * 1e9 \
+                    / peak_bytes_per_s()
+        top_scopes.append(row)
+    # telemetry's cost: warm solves of this solver (its graph captured
+    # under telemetry) with the recorder off and on, alternated
+    warm = {"off": [], "on": []}
+    for _ in range(TELEMETRY_AB_ROUNDS):
+        for state in ("off", "on"):
+            (telemetry.disable if state == "off" else telemetry.enable)()
+            warm[state].append(slv.solve(on["b"]).solve_time)
+    med = {k: sorted(v)[len(v) // 2] for k, v in warm.items()}
+
+    # ---- the memory ledger after the solve
+    snap = memledger.snapshot()
+    for snp in (ledger_setup, snap):
+        for dname, d in snp["devices"].items():
+            assert d["accounted_bytes"] + d["unaccounted_bytes"] \
+                == d["bytes_in_use"], (dname, d)
+    assert snap["measured"] and snap["devices"]["cuda:0"]["accounted_bytes"] \
+        > 0, snap["devices"]
+    telemetry.flush_jsonl(path)
+
+    # ---- the exporters and the doctor
+    with open(path) as f:
+        n_jsonl = telemetry.validate_jsonl(f)
+    ctrace = os.path.join(tmp, "headline.chrome.json")
+    n_ev = telemetry.write_chrome_trace(ctrace, path)
+    with open(ctrace) as f:
+        telemetry.validate_chrome_trace(json.load(f))
+    import contextlib
+    import io
+    from amgx_tpu_torch.telemetry import doctor
+    doc_out = io.StringIO()
+    with contextlib.redirect_stdout(doc_out):
+        doc_rc = doctor.main([path])
+    assert doc_rc == 0, doc_rc
+    emit("telemetry_headline", n=128 ** 3, iterations=res.iterations,
+         x_bit_equal_off=True, graph_nodes=nodes_on,
+         graph_nodes_off=nodes_off, setup_s=on["setup_s"],
+         warm_solve_s_off=med["off"], warm_solve_s_on=med["on"],
+         telemetry_cost_s=med["on"] - med["off"], warm_rounds=warm,
+         anatomy=dict(total_device_s=total, attributed_s=attr,
+                      attributed_share=attr / total,
+                      precond_s=precond, levels_plus_coarse_s=level_sum,
+                      levels={k: v.get("total_s") for k, v in
+                              an["levels"].items()},
+                      coarse_s=an["coarse_s"], b1_scoped_s=b1_scoped,
+                      b1_kernel_sum_s=b1_sum, graphs=an["graphs"],
+                      krylov=an["krylov"], smoothers=an["smoothers"],
+                      copy_peak_gbs=peak),
+         top_scopes=top_scopes, profiled_wall_s=wall, device_busy_s=busy_s,
+         device_kernels=n_kern,
+         ledger=dict(setup=ledger_setup["devices"],
+                     solve={k: {kk: vv for kk, vv in v.items()
+                                if kk != "owners"}
+                            for k, v in snap["devices"].items()},
+                     top_owners=memledger.top_owners(snap, 6),
+                     max_memory_allocated=torch.cuda.max_memory_allocated(
+                         dev)),
+         setup_profile=dict(wall_s=prof["total_s"], by_level=by_level,
+                            summary=prof["summary"]),
+         jsonl_records=n_jsonl, chrome_events=n_ev,
+         doctor_lines=len(doc_out.getvalue().splitlines()), card=smi)
+    del on, slv, res
+    torch.cuda.empty_cache()
+    telemetry.reset()
+
+    # ---- forensics at 64³: off, then on (x bit-equal)
+    side = FORENSICS_SIDE
+    f_off = telemetry_headline(amgx, dev, smi, side, "")
+    telemetry.reset()
+    reset_counts()
+    with telemetry.capture(ring_size=1 << 20) as cap:
+        f_on = telemetry_headline(amgx, dev, smi, side,
+                                  ", telemetry=1, forensics=1")
+    out["telemetry_forensics"] = read_counts()
+    assert f_on["res"].iterations == f_off["res"].iterations
+    assert torch.equal(f_on["res"].x, f_off["res"].x), \
+        "forensics changed x"
+    h = f_on["slv"].preconditioner.hierarchy
+    n_apps = f_on["res"].iterations + f_on["warm"].iterations
+    per_app = kcycle_visits(h)
+    n_level = len(cap.events("cycle_level"))
+    assert n_level == n_apps * per_app, (n_level, n_apps, per_app)
+    anat = telemetry.forensics.cycle_anatomy(cap.records)
+    emit("telemetry_forensics", n=side ** 3,
+         iterations=f_on["res"].iterations, cycle_level_events=n_level,
+         applications=n_apps, visits_per_application=per_app,
+         cycle_coarse_events=len(cap.events("cycle_coarse")),
+         x_bit_equal_off=True, reduction_factors=anat,
+         graph_nodes_off=graph_of(f_off["slv"]).stats["nodes"],
+         graph_nodes_on=graph_of(f_on["slv"]).stats["nodes"], card=smi)
+    del f_on, f_off, h
+    telemetry.disable()
+    torch.cuda.empty_cache()
+
+    # ---- dist/halo_exchange on 40c's sharded stack (16³, 8 shards)
+    A, offsets = dist_system(DIST_SMALL_BRICK)
+    telemetry.reset()
+    cfg = DIST_CFG.replace("out:tolerance=1e-8", "out:tolerance=1e-5") \
+        + ", telemetry=1"
+    d = dist_solve(amgx, dev, A, offsets, "cuda", np.float32, cfg,
+                   warm=False)
+    trace2 = os.path.join(tmp, "dist.trace.json")
+    profile_window(lambda: d["slv"].solve(np.ones(A.shape[0])),
+                   trace_path=trace2)
+    an2 = deviceprof.measure_anatomy(trace2, peak_gbs=peak)
+    halo_s = an2["dist"].get("halo_exchange", 0.0)
+    assert halo_s > 0, an2["dist"]
+    out["telemetry_dist_16"] = d["counts"]
+    emit("telemetry_dist", n=A.shape[0], shards=DIST_PARTS,
+         iterations=d["res"].iterations, halo_exchange_s=halo_s,
+         total_device_s=an2["total_device_s"],
+         attributed_share=an2["attributed_s"]
+         / max(an2["total_device_s"], 1e-12), card=smi)
+    del d
+    telemetry.disable()
+    setup_profile.disable()
+    memledger.disable()
+    telemetry.reset()
+    torch.cuda.empty_cache()
+    emit("telemetry_phase", elapsed_phase_s=time.perf_counter() - t_phase,
+         card=smi)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4601,12 +4906,15 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     # a second, warm solve for the steady-state time (not counted)
     res2 = slv.solve(b)
     head_graph = graph_check(slv.preconditioner, dev, gen)
+    head_iters = res.iterations
     assert res.status == amgx.SolveStatus.SUCCESS, res.status
     assert res2.iterations == res.iterations
     assert dispatch["dia/kernel"] > 0 and dispatch["dia/slices"] == 0, \
         dispatch
     assert all(launches[k] > 0 for k in ("f32.f32", "f64.f64")), launches
     x = res.x
+    # phase 42 holds its telemetry-on solve to this x
+    head_x = x
     assert x.dtype == torch.float64 and x.shape == (n,) and x.is_cuda
     assert torch.isfinite(x).all().item()
     Ad64 = A.device().astype(torch.float64)
@@ -4907,6 +5215,11 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     d8b = item8b_phases(amgx, dev, smi, gen, c4.pop("system"),
                         c4["iterations"])
     setup_paths.update(d8b["paths"])
+
+    # ---- 42. telemetry on the card: the headline with the knobs on,
+    # the device anatomy through the graph, the ledger, forensics
+    setup_paths.update(telemetry_phase(amgx, dev, smi, head_iters, head_x,
+                                       head_graph["nodes"]))
 
     # ---- the kernels of the paths
     kernels = []

@@ -23,13 +23,16 @@ PORT_FILES = sorted((ROOT / "amgx_tpu_torch").rglob("*.py")) + \
      ROOT / "scripts" / "torch_boundary_phases.py",
      ROOT / "scripts" / "torch_item7b_phases.py",
      ROOT / "scripts" / "torch_item8a_phases.py",
-     ROOT / "scripts" / "torch_item8b_phases.py"]
+     ROOT / "scripts" / "torch_item8b_phases.py",
+     ROOT / "scripts" / "torch_telemetry_phase.py"]
 
 
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, amgx_tpu_torch, amgx_tpu_torch.interop, "
             "amgx_tpu_torch.eigen, amgx_tpu_torch.operators, "
-            "amgx_tpu_torch.modes\n"
+            "amgx_tpu_torch.modes, amgx_tpu_torch.telemetry, "
+            "amgx_tpu_torch.telemetry.doctor, "
+            "amgx_tpu_torch.utils.profiler\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'amgx_tpu' or "
             "m.startswith('amgx_tpu.')]\n"

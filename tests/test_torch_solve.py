@@ -148,17 +148,20 @@ def test_interop_matrix_solves():
 
 
 @pytest.mark.parametrize("cfg", [
-    CFG + ", telemetry=1",
-    CFG + ", forensics=1",
-    CFG + ", memledger=1",
-    CFG + ", setup_profile=1",
+    CFG + ", compile_cache_dir=cache",
+    CFG + ", aot_store_dir=store",
+    CFG + ", out:compile_cache_dir=cache",
+    CFG + ", amg:aot_store_dir=store",
 ])
 def test_later_slice_features_raise(cfg):
-    """The telemetry knobs (slice 5) raise instead of silently taking
-    another path.  ``matrix_reorder=RCM``, ``scaling`` and
-    ``amg_host_levels_rows`` are ported: their parity cases are
-    :func:`test_solve_boundary_knobs_match_jax`."""
-    with pytest.raises(NotImplementedError):
+    """The store of CUDA graphs and built kernels (ROADMAP item 9b):
+    ``compile_cache_dir`` and ``aot_store_dir`` raise, naming the item,
+    instead of being accepted and ignored (C9), on the top-level solver
+    and in a nested scope.  The telemetry knobs are ported
+    (``tests/test_torch_telemetry*.py``); ``matrix_reorder=RCM``,
+    ``scaling`` and ``amg_host_levels_rows`` too: their parity cases
+    are :func:`test_solve_boundary_knobs_match_jax`."""
+    with pytest.raises(NotImplementedError, match="9b"):
         slv = amgx_tpu_torch.create_solver(cfg)
         slv.setup(poisson7pt_device(8, 8, 8, device_dtype=np.float64,
                                     device="cpu"))
