@@ -26,15 +26,39 @@ from .core import DeviceMatrix, Matrix, pack_kind
 from .errors import RC, AMGXError, SolveStatus
 from .modes import MODE_IDS, PUBLIC_MODES, Mode, default_mode, parse_mode
 from .ops import blas
-from .ops.spmv import spmv
+from .ops.spmv import spmm, spmv
 from .solvers import Solver, SolverFactory, SolveResult
+from .utils import amgx_output, register_print_callback
 
 __version__ = "0.1.0"
 
+_initialized = False
 
-def create_solver(config) -> Solver:
+
+def initialize():
+    """Library init (reference ``AMGX_initialize``, core.cu:739)."""
+    global _initialized
+    _initialized = True
+    return RC.OK
+
+
+def finalize():
+    global _initialized
+    _initialized = False
+    return RC.OK
+
+
+def get_api_version():
+    return (2, 0)
+
+
+def create_solver(config, mode: str = "dDDI") -> Solver:
     """Build the outer solver described by a config (JSON dict/string or
-    ``key=value`` string, or an :class:`AMGConfig`)."""
+    ``key=value`` string, or an :class:`AMGConfig`).  ``mode`` is checked
+    (an unknown mode raises); as in the JAX package the matrix, not the
+    solver, carries the placement and the precision
+    (:func:`parse_mode` gives them)."""
+    parse_mode(mode)
     cfg = config if isinstance(config, AMGConfig) else AMGConfig(config)
     slv = SolverFactory.allocate(cfg, "default", "solver")
     # the outermost solver owns the solve boundary (precision knobs,
@@ -44,7 +68,8 @@ def create_solver(config) -> Solver:
 
 
 __all__ = [
-    "create_solver", "AMGConfig", "Matrix", "DeviceMatrix", "Solver",
+    "initialize", "finalize", "get_api_version", "spmm",
+    "register_print_callback", "amgx_output", "create_solver", "AMGConfig", "Matrix", "DeviceMatrix", "Solver",
     "SolverFactory", "SolveResult", "RC", "SolveStatus", "AMGXError",
     "blas", "spmv", "io", "errors", "pack_kind", "Mode", "parse_mode",
     "default_mode", "PUBLIC_MODES", "MODE_IDS",

@@ -120,11 +120,13 @@ class DeviceSetupEngine:
                 self.evictions += 1
             return plan
 
-    def _plan(self, key, build, budget: int, min_bytes: int = 0):
-        """The cached plan of ``key``, or a new one from ``build()``;
-        None (a "budget" decline) when it does not fit ``budget`` —
-        known before the build when ``min_bytes`` already exceeds it,
-        during it when ``build()`` returns None."""
+    def _plan(self, key, build, budget: int, min_bytes: int = 0,
+              device="cpu"):
+        """The cached plan of ``key``, or one from the warm-start store
+        (``serve/aot.py``, when ``aot_store_dir`` configured one), or a
+        new one from ``build()``; None (a "budget" decline) when it does
+        not fit ``budget`` — known before the build when ``min_bytes``
+        already exceeds it, during it when ``build()`` returns None."""
         if self._budget_rejected(key, budget):
             return self._decline("budget")
         plan = self._get(key)
@@ -132,10 +134,16 @@ class DeviceSetupEngine:
             if min_bytes > budget:
                 self._reject(key, min_bytes)
                 return self._decline("budget")
-            with setup_profile.phase("spgemm"):
-                plan = build()
-            with self._lock:
-                self.builds += 1
+            from ...serve import aot
+
+            def counted_build():
+                with setup_profile.phase("spgemm"):
+                    out = build()
+                with self._lock:
+                    self.builds += 1
+                return out
+
+            plan = aot.stored_plan(key[0], key[1:], counted_build, device)
             if plan is None or plan.nbytes > budget:
                 self._reject(key, budget + 1 if plan is None
                              else plan.nbytes)
@@ -224,7 +232,7 @@ class DeviceSetupEngine:
         plan = self._plan(
             key, lambda: spgemm.build_galerkin_plan(
                 A, P, device=device, max_bytes=budget),
-            budget, min_bytes=8 * n_ap)
+            budget, min_bytes=8 * n_ap, device=device)
         if plan is None:
             return None
         tdt = getattr(torch, dtype.name)
@@ -274,7 +282,7 @@ class DeviceSetupEngine:
         plan = self._plan(
             key, lambda: spgemm.build_galerkin_plan(
                 A_loc, P_ext, device=device, max_bytes=budget,
-                P_left=P_loc), budget, min_bytes=8 * n_ap)
+                P_left=P_loc), budget, min_bytes=8 * n_ap, device=device)
         if plan is None:
             return None
         tdt = getattr(torch, dtype.name)
@@ -354,7 +362,8 @@ class DeviceSetupEngine:
         plan = self._plan(
             key, lambda: _build_agg_plan(M, agg, nc, b, device,
                                          agg_cols=agg_cols,
-                                         nc_cols=nc_cols), budget)
+                                         nc_cols=nc_cols), budget,
+            device=device)
         if plan is None:
             return None
         tdt = getattr(torch, dtype.name)

@@ -48,6 +48,7 @@ not carried over: on the card the ELL kernel gathers x directly.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 from typing import Optional
 
@@ -598,6 +599,11 @@ def pack_device(host, block_dim: int, dtype,
     return assemble_device_matrix(arrays, meta, device)
 
 
+#: process-unique identity tokens of matrices with no host bytes to
+#: fingerprint (never reused, unlike ``id()``)
+_FP_TOKENS = itertools.count(1)
+
+
 def csr_structure_fingerprint(M) -> str:
     """Stable hex digest of a scipy CSR/BSR sparsity structure (shape,
     indptr and indices, never values) — the pattern key of the device
@@ -645,6 +651,10 @@ class Matrix:
         #: row offsets
         self.blocks = None
         self.block_offsets = None
+        #: the serving keys (:meth:`pattern_fingerprint`,
+        #: :meth:`values_fingerprint`), computed once
+        self._pattern_fp = None
+        self._values_fp = None
         if a is not None:
             self.set(a, block_dim=block_dim)
 
@@ -703,6 +713,8 @@ class Matrix:
         self._drop_generator_state()
         self.blocks = blocks
         self.block_offsets = offsets
+        self._pattern_fp = None
+        self._values_fp = None
         self.set_distribution(mesh, axis, offsets)
         return self
 
@@ -732,6 +744,8 @@ class Matrix:
         self._dia = None
         self._dia_checked_max = 0
         self._dinv_dev = None
+        self._pattern_fp = None      # new structure, new fingerprints
+        self._values_fp = None
         self._drop_generator_state()
         dia = getattr(a, "_amgx_dia", None)
         if dia is not None and b == 1 and \
@@ -791,6 +805,112 @@ class Matrix:
             m.logical_rows = int(logical_rows)
         return m
 
+    @classmethod
+    def from_csr(cls, indptr, indices, data, n_cols=None, block_dim=1,
+                 device="cuda") -> "Matrix":
+        """AMGX-style upload of block-CSR arrays
+        (``AMGX_matrix_upload_all``): ``data`` is (nnz,), (nnz, b*b) or
+        (nnz, b, b).  The arrays are copied (the caller keeps its own,
+        ``amgx_c.h:288-296``)."""
+        indptr = np.asarray(indptr)
+        indices = np.asarray(indices)
+        data = np.asarray(data)
+        n_rows = len(indptr) - 1
+        b = int(block_dim)
+        if n_cols is None:
+            n_cols = n_rows
+        m = cls(device=device)
+        m.block_dim = b
+        m.dtype = np.dtype(data.dtype)
+        if b == 1:
+            m._host = sp.csr_matrix(
+                (data.ravel().copy(), indices.copy(), indptr.copy()),
+                shape=(n_rows, n_cols))
+        else:
+            blocks = data.reshape(-1, b, b).copy()
+            m._host = sp.bsr_matrix((blocks, indices.copy(), indptr.copy()),
+                                    shape=(n_rows * b, n_cols * b))
+        m._host.sort_indices()
+        return m
+
+    # -------------------------------------------------------- fingerprints
+    def pattern_fingerprint(self) -> str:
+        """Stable hex digest of the sparsity structure — shape, block
+        dim, device pack dtype, indptr/indices (never values); the
+        setup-cache key of the serving layer (``serve/session.py``), and
+        the JAX package's digest of the same matrix
+        (``amgx_tpu/core/matrix.py:721``).  ``replace_coefficients``
+        keeps it; ``set`` resets it.  A matrix with no host-side
+        structure (a device-born pack) fingerprints by a process-unique
+        token: never falsely shared, at worst set up again."""
+        fp = self._pattern_fp
+        if fp is not None:
+            return fp
+        import hashlib
+        h = hashlib.blake2b(digest_size=16)
+        # the pack dtype is part of the identity (a bf16 and an f32 pack
+        # cannot share a hierarchy); spelt as numpy spells it
+        dd = self.device_dtype
+        name = "" if dd is None else (
+            "bfloat16" if dd == torch.bfloat16 else np.dtype(dd).name)
+        shape = (int(self.block_offsets[-1]), self.blocks[0].shape[1]) \
+            if self._host is None and self.blocks is not None \
+            else tuple(self.shape)
+        h.update(repr((tuple(shape), self.block_dim, name)).encode())
+        if self._host is not None:
+            h.update(b"csr")
+            # the device setup engine's plan key too
+            h.update(csr_structure_fingerprint(self._host).encode())
+        elif self.blocks is not None:
+            h.update(b"blocks")
+            for blk in self.blocks:
+                h.update(np.ascontiguousarray(blk.indptr).tobytes())
+                h.update(np.ascontiguousarray(blk.indices).tobytes())
+        elif self._dia is not None or self._dia_thunk is not None or \
+                (self._device is not None and self._device.fmt == "dia"
+                 and self._device.block_dim == 1):
+            offs, _ = self.dia_cache()
+            h.update(b"dia")
+            h.update(repr(tuple(int(o) for o in offs)).encode())
+        else:
+            h.update(b"obj")
+            h.update(str(self._fp_token()).encode())
+        fp = h.hexdigest()
+        self._pattern_fp = fp
+        return fp
+
+    def _fp_token(self) -> int:
+        tok = getattr(self, "_fp_token_v", None)
+        if tok is None:
+            tok = self._fp_token_v = next(_FP_TOKENS)
+        return tok
+
+    def values_fingerprint(self) -> str:
+        """Digest of the stored values (structure excluded): with
+        :meth:`pattern_fingerprint` it decides between reusing a prepared
+        solver (equal), a values-only ``resetup`` (pattern equal) and a
+        full setup.  Cached; ``set`` and ``replace_coefficients``
+        invalidate it.  Device-only values fingerprint by a token (a new
+        handle counts as new values: an extra resetup, never a stale
+        hierarchy)."""
+        fp = self._values_fp
+        if fp is not None:
+            return fp
+        import hashlib
+        h = hashlib.blake2b(digest_size=16)
+        if self._host is not None:
+            h.update(np.ascontiguousarray(self._host.data).tobytes())
+        elif self.blocks is not None:
+            for blk in self.blocks:
+                h.update(np.ascontiguousarray(blk.data).tobytes())
+        elif self._dia is not None:
+            h.update(np.ascontiguousarray(self._dia[1]).tobytes())
+        else:
+            h.update(str(self._fp_token()).encode())
+        fp = h.hexdigest()
+        self._values_fp = fp
+        return fp
+
     def replace_coefficients(self, data) -> "Matrix":
         """Keep the structure, replace the values
         (``AMGX_matrix_replace_coefficients``, ``amgx_c.h:304-309``):
@@ -812,6 +932,7 @@ class Matrix:
         self._dia = None
         self._dia_checked_max = 0
         self._dinv_dev = None
+        self._values_fp = None       # new values; the pattern stays
         self._drop_generator_state()
         return self
 
@@ -957,12 +1078,15 @@ class Matrix:
             return int(np.count_nonzero(arrs[1]))
         return self._host.nnz       # a BSR counts scalars: blocks × b²
 
-    def device(self, dtype=None) -> DeviceMatrix:
+    def device(self, dtype=None,
+               ell_max_width: int = ELL_MAX_WIDTH) -> DeviceMatrix:
         """The device pack in ``dtype`` (default: ``device_dtype``, else
         the host dtype), built once and cached.  A bf16 pack is the f32
         pack cast on the device (where its kind may narrow,
         :func:`~.precision.device_cast`; else it stays f32), so its
-        values hold bf16(f32(v)), as ``_pack_cast_via`` records."""
+        values hold bf16(f32(v)), as ``_pack_cast_via`` records.
+        ``ell_max_width`` bounds the row width of a scalar ELL pack
+        (wider matrices pack as CSR)."""
         dtype = storage_dtype(dtype or self.device_dtype or self.dtype)
         if self._device is not None and self._device_dtype == dtype:
             return self._device
@@ -972,7 +1096,7 @@ class Matrix:
             return self._device
         if dtype == torch.bfloat16:
             from .precision import device_cast
-            wide = self._build_pack(np.dtype(np.float32))
+            wide = self._build_pack(np.dtype(np.float32), ell_max_width)
             self._device = device_cast(wide, dtype)
             self._device_dtype = dtype
             self._pack_cast_via = np.dtype(np.float32)
@@ -981,7 +1105,7 @@ class Matrix:
                 # them (precision.release_setup_wide)
                 self._setup_wide = wide
             return self._device
-        self._device = self._build_pack(dtype)
+        self._device = self._build_pack(dtype, ell_max_width)
         self._device_dtype = dtype
         return self._device
 
@@ -1021,7 +1145,8 @@ class Matrix:
         return shard_matrix(self.scalar_csr(), mesh, axis=axis,
                             dtype=dtype, offsets=offsets, n_loc=n_loc)
 
-    def _build_pack(self, dtype: np.dtype) -> DeviceMatrix:
+    def _build_pack(self, dtype: np.dtype,
+                    ell_max_width: int = ELL_MAX_WIDTH) -> DeviceMatrix:
         """A fresh device pack of the host values in ``dtype``."""
         dia = self.dia_cache(DIA_MAX_DIAGS) if self.block_dim == 1 \
             else None
@@ -1037,6 +1162,6 @@ class Matrix:
         # the scalar cache above already proved the matrix non-DIA;
         # block matrices try block-DIA in the pack
         arrays, meta = pack_host_arrays(
-            self.host, self.block_dim, dtype,
+            self.host, self.block_dim, dtype, ell_max_width,
             dia_max_diags=0 if self.block_dim == 1 else DIA_MAX_DIAGS)
         return assemble_device_matrix(arrays, meta, self.placement)

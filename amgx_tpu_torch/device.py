@@ -6,6 +6,8 @@ present: a solve never carries on on the CPU unless the caller asked for
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -97,3 +99,24 @@ def storage_dtype(dtype):
     if isinstance(dtype, torch.dtype):
         return numpy_dtype(dtype)
     return np.dtype(dtype)
+
+
+#: one lock per card: the work one thread runs there (a serving
+#: session's setup and solves) excludes every other thread's, because a
+#: CUDA graph's capture is invalidated by another thread's launch and a
+#: replay writes fixed buffers
+_DEVICE_LOCKS: dict = {}
+_DEVICE_LOCKS_GUARD = threading.Lock()
+
+
+def device_lock(device) -> threading.RLock:
+    """The re-entrant lock of the card ``device`` (index None: the
+    current card)."""
+    dev = torch.device(device)
+    idx = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    with _DEVICE_LOCKS_GUARD:
+        lock = _DEVICE_LOCKS.get(idx)
+        if lock is None:
+            lock = _DEVICE_LOCKS[idx] = threading.RLock()
+        return lock

@@ -59,6 +59,8 @@ class FailureKind(str, enum.Enum):
     SETUP_ERROR = "setup_error"
     #: a device-side failure (transfer/upload error, out of memory)
     DEVICE_ERROR = "device_error"
+    #: the serving deadline expired before the request executed
+    DEADLINE = "deadline"
 
 
 #: breakdown codes carried by a solver's iteration state (0 = healthy;
@@ -132,3 +134,27 @@ class DeviceError(AMGXError):
 
     def __init__(self, message: str):
         super().__init__(message, RC.CUDA_FAILURE)
+
+
+def exception_rc(exc: BaseException) -> RC:
+    """The RC of a raised exception: an :class:`AMGXError`'s own code,
+    ``NO_MEMORY`` for the card's out-of-memory error
+    (``torch.cuda.OutOfMemoryError``), else ``UNKNOWN``."""
+    if isinstance(exc, AMGXError):
+        return exc.rc
+    if type(exc).__name__ == "OutOfMemoryError":
+        return RC.NO_MEMORY
+    return RC.UNKNOWN
+
+
+def classify_exception(exc: BaseException,
+                       during_setup: bool = False) -> FailureKind:
+    """Map a raised exception onto the taxonomy: RC-carrying errors
+    classify by their code (device/memory codes → ``device_error``; the
+    card's out-of-memory error counts as ``NO_MEMORY``), everything
+    else by the phase it was raised in."""
+    if exception_rc(exc) in (RC.CUDA_FAILURE, RC.THRUST_FAILURE,
+                             RC.NO_MEMORY):
+        return FailureKind.DEVICE_ERROR
+    return FailureKind.SETUP_ERROR if during_setup \
+        else FailureKind.DEVICE_ERROR

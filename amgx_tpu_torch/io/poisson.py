@@ -1,5 +1,5 @@
 """Poisson problem generators (port of the scalar part of
-``amgx_tpu/io/poisson.py``): the CUSP gallery's 5/7-point Laplacians
+``amgx_tpu/io/poisson.py``): the CUSP gallery's 5/7/9/27-point Laplacians
 (``base/include/cusp/gallery/poisson.h``) as host scipy CSR, and the
 canonical analytic DIA arrays of the 7-point operator.
 """
@@ -63,6 +63,48 @@ def poisson7pt(nx: int, ny: int, nz: int) -> sp.csr_matrix:
     A._amgx_dia = (offsets, vals)
     A._amgx_grid_dims = (nz, ny, nx)
     return A
+
+
+def poisson9pt(nx: int, ny: int) -> sp.csr_matrix:
+    """2D 9-point stencil (8 neighbours + center)."""
+    n = nx * ny
+    ii, jj, vv = [], [], []
+    idx = lambda x, y: y * nx + x
+    for y in range(ny):
+        for x in range(nx):
+            r = idx(x, y)
+            for dy in (-1, 0, 1):
+                for dx in (-1, 0, 1):
+                    X, Y = x + dx, y + dy
+                    if 0 <= X < nx and 0 <= Y < ny:
+                        ii.append(r)
+                        jj.append(idx(X, Y))
+                        vv.append(8.0 if (dx == 0 and dy == 0) else -1.0)
+    return sp.csr_matrix((vv, (ii, jj)), shape=(n, n))
+
+
+def poisson27pt(nx: int, ny: int, nz: int) -> sp.csr_matrix:
+    """3D 27-point stencil."""
+    n = nx * ny * nz
+    idx3 = lambda x, y, z: (z * ny + y) * nx + x
+    ii, jj, vv = [], [], []
+    X, Y, Z = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz),
+                          indexing="ij")
+    X, Y, Z = X.ravel(), Y.ravel(), Z.ravel()
+    rows = idx3(X, Y, Z)
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                Xn, Yn, Zn = X + dx, Y + dy, Z + dz
+                ok = ((0 <= Xn) & (Xn < nx) & (0 <= Yn) & (Yn < ny) &
+                      (0 <= Zn) & (Zn < nz))
+                ii.append(rows[ok])
+                jj.append(idx3(Xn[ok], Yn[ok], Zn[ok]))
+                center = (dx == 0 and dy == 0 and dz == 0)
+                vv.append(np.full(ok.sum(), 26.0 if center else -1.0))
+    return sp.csr_matrix(
+        (np.concatenate(vv), (np.concatenate(ii), np.concatenate(jj))),
+        shape=(n, n))
 
 
 def generate_distributed_poisson_7pt(nx: int, ny: int, nz: int,

@@ -6,6 +6,13 @@ use (the digest covers the source and the flags, so an edited source is
 rebuilt), then loaded with :mod:`ctypes`.  Nothing is built when the
 package is imported: the CPU path never needs ``nvcc``.  A missing
 ``nvcc`` or a failed build raises.
+
+The build directory is the port's persistent compile cache: the
+``compile_cache_dir`` knob points it elsewhere (:func:`set_build_dir`),
+and a later process that finds a source's library there builds nothing.
+Builds are safe across threads (one lock around lookup, build and load)
+and across processes (each ``nvcc`` writes a name of its own, renamed
+into place once complete).
 """
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
@@ -31,6 +39,20 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 #: library lookups that found the source built (hits) or ran nvcc
 #: (misses): the kernel build directory's cache counters
 _BUILDS = {"hits": 0, "misses": 0}
+#: serialises lookups, builds and loads between threads (two lanes that
+#: first touch one kernel build it once)
+_LOCK = threading.RLock()
+_DEFAULT_BUILD_DIR = BUILD_DIR
+
+
+def set_build_dir(path) -> Path:
+    """Build and find the kernels under ``path`` (the
+    ``compile_cache_dir`` knob; empty restores ``_build/``).  Libraries
+    already loaded stay loaded."""
+    global BUILD_DIR
+    with _LOCK:
+        BUILD_DIR = Path(path).resolve() if path else _DEFAULT_BUILD_DIR
+        return BUILD_DIR
 
 
 def build_stats() -> Dict[str, int]:
@@ -61,7 +83,11 @@ def _target(name: str) -> Path:
 def build_all(names: Iterable[str]) -> Dict[str, Path]:
     """Build every named source that is not built yet, one ``nvcc`` per
     source, all started together; returns the library paths."""
-    names = list(names)
+    with _LOCK:
+        return _build_all(list(names))
+
+
+def _build_all(names) -> Dict[str, Path]:
     outs = {n: _target(n) for n in names}
     todo = [n for n in names if not outs[n].exists()]
     _BUILDS["hits"] += len(names) - len(todo)
@@ -73,7 +99,8 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
     procs = {}
     t0 = time.perf_counter()
     for n in todo:
-        tmp = outs[n].with_name(f"{outs[n].stem}.{os.getpid()}.tmp.so")
+        tmp = outs[n].with_name(
+            f"{outs[n].stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT,
@@ -102,6 +129,9 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build_all([name])[name]))
-        _LIBS[name] = lib
+        with _LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(build_all([name])[name]))
+                _LIBS[name] = lib
     return lib

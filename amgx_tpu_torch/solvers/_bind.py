@@ -53,7 +53,8 @@ _SKIP_MATRIX = frozenset({
     "blocks", "block_offsets",
     "_dia_thunk",
     "_nnz_hint", "_csr_pattern", "_csr_vals_dev", "cf_map", "grid_dims",
-    "_dia_offsets_hint", "_stencil_consistent", "_vals_f32_exact"})
+    "_dia_offsets_hint", "_stencil_consistent", "_vals_f32_exact",
+    "_pattern_fp", "_values_fp", "_fp_token_v"})
 _SCALARS = (type(None), bool, int, float, complex, str, torch.dtype,
             torch.device, np.dtype, np.generic, enum.Enum)
 

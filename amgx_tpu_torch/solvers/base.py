@@ -147,12 +147,6 @@ class SolverFactory:
         return dict(_solver_registry)
 
 
-#: knobs whose non-default values select a feature of a later slice of
-#: the port (the store of CUDA graphs and built kernels, ROADMAP item
-#: 9b) — they raise rather than being accepted and ignored
-_LATER_SLICE = (("compile_cache_dir", ""), ("aot_store_dir", ""))
-
-
 class Solver:
     """Base solver: parameters, the generic solve loop, and the
     preconditioner protocol (:meth:`apply`)."""
@@ -168,11 +162,20 @@ class Solver:
         self.cfg = cfg
         self.scope = scope
         g = lambda name: cfg.get(name, scope)
-        for name, default in _LATER_SLICE:
-            if g(name) != default:
-                raise NotImplementedError_(
-                    f"{name}={g(name)!r}: the store of CUDA graphs and "
-                    "built kernels is ROADMAP item 9b of the port")
+        # the warm start (serve/aot.py): compile_cache_dir is where the
+        # kernels build and are found (native.py), aot_store_dir keeps
+        # the device setup engine's plans across processes; the
+        # cumulative cache counters ride next to them
+        cache_dir = str(g("compile_cache_dir"))
+        if cache_dir:
+            from .. import native
+            native.set_build_dir(cache_dir)
+        aot_dir = str(g("aot_store_dir"))
+        if aot_dir:
+            from ..serve import aot as _aot
+            _aot.configure(aot_dir)
+        if cache_dir or aot_dir:
+            telemetry.runstate.configure_default(aot_dir or cache_dir)
         for name in ("krylov_dtype", "tpu_matrix_dtype"):
             precision.resolve_dtype(str(g(name)))   # a typo raises
         self.max_iters = int(g("max_iters"))

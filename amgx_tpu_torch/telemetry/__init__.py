@@ -37,8 +37,14 @@ the grid-stats table:
   attribution with kernel-build / graph-capture / transfer splits — the
   ``setup_profile`` knob.
 
-The serving pieces (``slo``, ``httpd``, ``meshtrace``, ``overlap``) are
-ROADMAP item 9b of the port.
+* **live serving observability**: :mod:`.slo` (time-windowed latency
+  percentiles, SLO attainment and burn rate, overload detection) and
+  :mod:`.httpd` (the in-process ``/metrics`` ``/healthz`` ``/statusz``
+  ``/debug/*`` endpoint of the ``metrics_port`` knob);
+* **mesh flight recorder**: :mod:`.meshtrace` (clock-aligned
+  cross-session rendezvous join; a one-card trace is one rank) and
+  :mod:`.overlap` (measured interior/halo overlap from a
+  ``torch.profiler`` trace).
 
 Everything is **off by default** and costs one attribute check per
 instrument; enable globally with :func:`enable`, per config with the
@@ -48,8 +54,8 @@ or scoped with :func:`capture` in tests.
 from __future__ import annotations
 
 from . import (costmodel, deviceprof, export, forensics, memledger,
-               metrics, proftrace, recorder, runstate, scopes,
-               setup_profile, tracefile)
+               meshtrace, metrics, overlap, proftrace, recorder,
+               runstate, scopes, setup_profile, slo, tracefile)
 from .export import (aggregate_sessions, dump_jsonl, flush_jsonl,
                      prometheus_text, read_sessions, validate_jsonl,
                      validate_record)
@@ -71,9 +77,24 @@ __all__ = [
     "read_sessions", "aggregate_sessions",
     "chrome_trace", "write_chrome_trace", "validate_chrome_trace",
     "costmodel", "forensics", "setup_profile", "runstate",
-    "proftrace", "scopes", "deviceprof", "memledger",
+    "slo", "httpd",
+    "proftrace", "scopes", "deviceprof", "overlap", "memledger",
+    "meshtrace",
     "reset",
 ]
+
+
+def __getattr__(name):
+    # httpd is bound lazily: it pulls the stdlib http.server chain,
+    # which a process without an endpoint never needs
+    if name == "httpd":
+        # importlib, not `from . import`: the fromlist resolution calls
+        # getattr on this package and would re-enter this hook forever
+        import importlib
+        mod = importlib.import_module(".httpd", __name__)
+        globals()["httpd"] = mod
+        return mod
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def reset():

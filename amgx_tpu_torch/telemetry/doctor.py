@@ -827,9 +827,12 @@ def diagnose(paths: List[str]) -> dict:
     # ---- mesh flight recorder (telemetry/meshtrace.py) -------
     # cross-rank rendezvous join; single-rank traces stay silent (the
     # per-rank sections above already cover them)
-    # the mesh flight recorder (cross-rank rendezvous join) is ROADMAP
-    # item 9b of the port: a multi-session trace gets no mesh section
     mesh = None
+    if agg["n_sessions"] >= 2:
+        from . import meshtrace
+        m = meshtrace.analyze_sessions(agg["sessions"])
+        if m["n_ranks"] >= 2:
+            mesh = m
     if mesh and mesh.get("measured"):
         _mesh_noun = {"halo": "halo exchanges",
                       "krylov": "Krylov reductions",
@@ -1056,13 +1059,16 @@ def _setup_hints(setup: Optional[dict],
                       + (s.get("worker_compile_s") or 0.0)) / total, 1.0)
         if cshare >= COMPILE_HINT:
             # the port's compile bucket is kernel builds (nvcc, kept in
-            # amgx_tpu_torch/_build/ for the next process) and graph
-            # captures (at an application's first call); the persistent
-            # store of both is ROADMAP item 9b
+            # the build directory for the next process) and graph
+            # captures (at an application's first call; a graph cannot
+            # be stored, SolveService.warmup captures it off the request
+            # path)
             hints.append(
-                f"compile is {cshare:.0%} of setup → kernel builds run "
-                "once per source and flag set (a later process loads "
-                "amgx_tpu_torch/_build/); build them before timing")
+                f"compile is {cshare:.0%} of setup → point "
+                "compile_cache_dir at a shared directory (kernel builds "
+                "run once per source and flag set) + aot_store_dir (the "
+                "setup plans), then warm up (SolveService.warmup) so the "
+                "graph captures leave the request path")
         tshare = (s.get("transfer_s") or 0.0) / total
         if tshare >= TRANSFER_HINT:
             hints.append(
@@ -1279,8 +1285,9 @@ def render(d: dict) -> str:
                 L.append(f"  measured overlap [level {lvl}]: "
                          f"{float(f or 0):.2f} (profiler trace)")
         else:
-            L.append("  overlap fractions above are MODELLED (a measured "
-                     "overlap is ROADMAP item 9b of the port)")
+            L.append("  overlap fractions above are MODELLED — supply "
+                     "a torch.profiler trace (telemetry/overlap.py) for "
+                     "measured ones")
 
     dev = d.get("device")
     if dev:

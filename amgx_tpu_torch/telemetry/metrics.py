@@ -26,12 +26,20 @@ port they count its counterpart on the card:
   package counts a dispatch once per traced program, the port once per
   apply, a graph replay crediting the applies its capture recorded
   (``cuda_graph.credit``);
-* the zero cold-start block (``amgx_compile_cache_*``,
-  ``amgx_aot_store_*``, ``amgx_serve_warmup_seconds``) and every
-  ``amgx_serve_*`` / ``amgx_slo_*`` / ``amgx_mesh_*`` name stay 0 until
-  ROADMAP item 9b ports the store, the serving layer and the mesh
-  flight recorder; ``amgx_halo_bytes_total`` counts device bytes moved
-  by the one-card exchange (there is no interconnect wire).
+* the zero cold-start block: ``amgx_compile_cache_*{layer="aot"}`` and
+  ``amgx_aot_store_*`` count the warm-start store's setup plans
+  (``serve/aot.py``; a CUDA graph is not stored, and a kernel build
+  counts in ``amgx_jit_compile_total``); ``amgx_serve_warmup_seconds``
+  includes the warmup solve that captures the graphs;
+* ``amgx_serve_*`` / ``amgx_slo_*`` are the serving layer's
+  (``serve/``, :mod:`.slo`): a request's ``solve`` phase is its share of
+  a micro-batch that runs its right-hand sides one after another, and
+  on the card every session's device work holds the card's lock, so
+  ``queue_wait`` includes waiting for another session's solve;
+* ``amgx_mesh_*`` (:mod:`.meshtrace`) read a multi-session trace; the
+  port's shards live on one card in one process, so a one-card trace is
+  one rank; ``amgx_halo_bytes_total`` counts device bytes moved by the
+  one-card exchange (there is no interconnect wire).
 """
 from __future__ import annotations
 
@@ -121,7 +129,7 @@ METRICS: Dict[str, Tuple[str, str]] = {
         ("counter", "reduction collectives executed by Krylov solve "
                     "loops: trace-time per-iteration profile x executed "
                     "iterations {op=dot|norm|gram|fused|replace}"),
-    # ---- mesh flight recorder (telemetry/meshtrace.py, item 9b):
+    # ---- mesh flight recorder (telemetry/meshtrace.py):
     # cross-rank rendezvous reconstruction over clock-aligned
     # per-rank traces ------------------------------------------------
     "amgx_mesh_wait_seconds_total":
@@ -210,7 +218,7 @@ METRICS: Dict[str, Tuple[str, str]] = {
         ("histogram", "solve wall seconds"),
     "amgx_jit_compile_seconds":
         ("histogram", "kernel build (nvcc) wall seconds"),
-    # ---- serving subsystem (ROADMAP item 9b; 0 until it lands) -------
+    # ---- serving subsystem (serve/) -----------------------------------
     "amgx_serve_requests_total":
         ("counter", "serving requests completed by outcome {status}"),
     "amgx_serve_rejected_total":
@@ -234,24 +242,24 @@ METRICS: Dict[str, Tuple[str, str]] = {
                     "{kind=full|resetup|reuse}"),
     "amgx_worker_task_failures_total":
         ("counter", "worker-pool tasks that raised (pool survives)"),
-    # ---- zero cold-start (ROADMAP item 9b; 0 until it lands) ---------
+    # ---- zero cold-start (serve/aot.py, native.py) -------------------
     "amgx_compile_cache_hits_total":
-        ("counter", "executable loads that skipped compilation "
-                    "{layer=xla|aot}"),
+        ("counter", "setup plans loaded from the warm-start store "
+                    "instead of built {layer=aot}"),
     "amgx_compile_cache_misses_total":
-        ("counter", "executable lookups that had to compile "
-                    "{layer=xla|aot}"),
+        ("counter", "setup-plan lookups the store could not serve "
+                    "{layer=aot}"),
     "amgx_compile_cache_fallbacks_total":
-        ("counter", "AOT-store entries unusable at load (version "
+        ("counter", "store entries unusable at load (version "
                     "mismatch, corruption, serialize failure) {reason}"),
     "amgx_aot_store_bytes":
-        ("gauge", "serialized-executable bytes resident in the AOT "
-                  "store directory"),
+        ("gauge", "bytes of the stored setup plans in the store "
+                  "directory"),
     "amgx_aot_store_entries":
-        ("gauge", "executables resident in the AOT store directory"),
+        ("gauge", "setup plans in the store directory"),
     "amgx_serve_warmup_seconds":
         ("histogram", "wall seconds of one SolveService.warmup "
-                      "prefetch"),
+                      "(setups and the graph-capturing solve)"),
     # ---- live serving observability (telemetry/slo.py + httpd.py +
     # ---- request-lifecycle tracing in serve/) -----------------------
     "amgx_serve_phase_seconds":

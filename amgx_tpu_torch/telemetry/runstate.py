@@ -2,9 +2,10 @@
 
 The in-process caches that make warm starts cheap — the
 :class:`~amgx_tpu_torch.amg.device_setup.DeviceSetupEngine` plan cache
-and the kernel build directory (``amgx_tpu_torch/_build/``, one ``.so``
-per kernel source and flag digest; the serving layer's setup cache and
-the store of CUDA graphs are ROADMAP item 9b) — keep their hit/miss
+the kernel build directory (``native.py``: one ``.so`` per kernel
+source and flag digest, under ``compile_cache_dir`` when set), the
+warm-start store of setup plans (``serve/aot.py``) and the serving
+layer's setup cache — keep their hit/miss
 counters in process memory, so every restart reported a
 fresh-looking cache even when the warm-start layer did its job.  This
 module folds those counters into a small JSON state file
@@ -86,12 +87,30 @@ def _live_counters() -> Dict[str, float]:
     except Exception:
         pass
     try:
+        from ..serve import aot
+        st = aot.store_stats()
+        if st:
+            out["aot_loads"] = st["loads"]
+            out["aot_saves"] = st["saves"]
+            out["aot_misses"] = st["misses"]
+            out["aot_fallbacks"] = st["fallbacks"]
+    except Exception:
+        pass
+    try:
         from ..amg.device_setup import engine_stats
         st = engine_stats()
         if st:
             out["device_plan_hits"] = st["hits"]
             out["device_plan_misses"] = st["misses"]
             out["device_plan_fallbacks"] = st["fallbacks"]
+    except Exception:
+        pass
+    try:
+        from ..serve.cache import cache_totals
+        st = cache_totals()
+        out["serve_cache_hits"] = st["hits"]
+        out["serve_cache_misses"] = st["misses"]
+        out["serve_cache_evictions"] = st["evictions"]
     except Exception:
         pass
     return out

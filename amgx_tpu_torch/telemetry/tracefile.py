@@ -221,22 +221,17 @@ def chrome_trace(source: Union[None, str, List[str], List[dict]] = None
     return {"traceEvents": events, "displayTimeUnit": "ms"}
 
 
-#: the mesh flight recorder (``meshtrace``, the cross-rank rendezvous
-#: join) is ROADMAP item 9b of the port: until it lands a multi-session
-#: trace draws no rendezvous arrows
-_meshtrace = None
-
-
 def _rendezvous_flows(sessions: List[dict], pids: List[int],
                       offsets: List[float]) -> List[dict]:
     """Flow arrows of a multi-rank trace: for every reconstructed
     collective rendezvous (meshtrace join), one ``s`` → ``f`` arrow
     from each early rank's arrival to the last rank's — Perfetto draws
     who the mesh waited on.  Empty on single-session traces."""
-    if len(sessions) < 2 or _meshtrace is None:
+    if len(sessions) < 2:
         return []
+    from . import meshtrace
     out: List[dict] = []
-    for n, rv in enumerate(_meshtrace.rendezvous_from_sessions(sessions)):
+    for n, rv in enumerate(meshtrace.rendezvous_from_sessions(sessions)):
         arr = sorted(rv["arrivals"],
                      key=lambda a: a["t"] + offsets[a["session"]])
         last = arr[-1]

@@ -61,6 +61,7 @@ from __future__ import annotations
 import ctypes
 import gc
 import itertools
+import threading
 import time
 import weakref
 from typing import Callable, Dict, List, Optional
@@ -77,6 +78,10 @@ _segments = None
 #: graphs captured since the last reset (a kept graph is not captured
 #: again after a resetup)
 CAPTURES = {"count": 0}
+#: held through every warm-up and capture: a process-wide change that
+#: must not land inside a capture (starting or stopping the profiler,
+#: ``telemetry/httpd.py``) takes it too
+CAPTURE_LOCK = threading.RLock()
 
 
 #: live graphs by their number (the ``amgx_graph:<n>.<k>`` ranges)
@@ -351,6 +356,10 @@ class CudaGraphCall:
     host-step counts (1 and 0 without a host tail)."""
 
     def __init__(self, fn: Callable, *args: torch.Tensor):
+        with CAPTURE_LOCK:
+            self._build(fn, *args)
+
+    def _build(self, fn: Callable, *args: torch.Tensor):
         from ..telemetry import metrics, recorder, setup_profile
         dev = args[0].device
         if dev.type != "cuda":

@@ -7,8 +7,7 @@ here every failure path is *provable on demand*): a process-global plan
 of named **injection points**, armed by the ``fault_inject`` config
 knob (or :func:`configure` directly), each with a **count** and/or
 **probability** trigger.  Every firing is counted on its trigger
-(:func:`stats`); the telemetry event of the JAX package belongs to a
-later slice of the port.
+(:func:`stats`).
 
 Injection points (wired at the existing seams):
 
@@ -27,7 +26,7 @@ Injection points (wired at the existing seams):
 ``upload_error`` raises from the device pack upload (``device_error``)
 ``oom``          raises ``RC.NO_MEMORY`` from the pack phase
 ``worker_death`` a worker-pool task dies (``utils/thread_manager.py``)
-``aot_corrupt``  the AOT store treats the next entry as corrupt
+``aot_corrupt``  the warm-start store treats the next entry as corrupt
 ``halo_exchange`` raises from the distributed vector shard/halo seam
 ===============  ==========================================================
 
@@ -52,10 +51,10 @@ eager Krylov loop (``Solver._solve_loop``) at iteration ``iter``: the
 poison hits the Krylov state, never a tensor an AMG's CUDA graph
 captured.  ``halo_exchange`` raises from
 :func:`~..distributed.matrix.shard_vector`, where a distributed solve
-places its right-hand side and guess.  ``worker_death`` and
-``aot_corrupt`` stay in the vocabulary (a misspelt point still fails
-loudly), but their seams belong to a later slice of the port: arming one
-raises :class:`~..errors.NotImplementedError_`.
+places its right-hand side and guess.  ``worker_death`` fires in
+``ThreadManager``'s task guard (a serving lane's batch task dies before
+its body runs), ``aot_corrupt`` in ``AOTStore.load`` (the next stored
+plan reads as corrupt: a fallback event and a rebuild).
 
 **Zero overhead when off**: the plan is a single module global that is
 ``None`` until armed — every seam's guard is one ``is None`` check.
@@ -74,10 +73,6 @@ POINTS = ("values_nan", "krylov_zero", "setup_error", "upload_error",
 #: points whose injection mutates the iteration state of the solve loop
 #: at a target iteration rather than raising at a seam
 TRACED_POINTS = ("values_nan", "krylov_zero")
-
-#: points whose seams belong to later slices of the port
-LATER_SLICE_POINTS = ("worker_death", "aot_corrupt")
-
 
 class InjectedFault(Exception):
     """Raised by an armed seam-style injection point."""
@@ -148,11 +143,6 @@ def parse_spec(spec: str) -> Dict[str, _Trigger]:
                 kw[k] = float(v)
             else:
                 kw[k] = int(float(v))
-        if point in LATER_SLICE_POINTS:
-            from ..errors import NotImplementedError_
-            raise NotImplementedError_(
-                f"fault-injection point {point!r}: its seam is a later "
-                "slice of the port")
         if point in TRACED_POINTS and "prob" in kw:
             # the JAX package compiles these points into its loop, where
             # a probability coin cannot gate them; the port keeps its
@@ -177,7 +167,7 @@ def configure(spec: "str | dict | None"):
         _PLAN = parse_spec(spec)
         return
     plan = dict(spec)
-    bad = [k for k in plan if k not in POINTS or k in LATER_SLICE_POINTS]
+    bad = [k for k in plan if k not in POINTS]
     if bad:
         parse_spec(" ".join(bad))       # raises for the first one
     _PLAN = {k: (v if isinstance(v, _Trigger) else _Trigger(k, **v))

@@ -16,6 +16,7 @@ and the exportable trace).
 from __future__ import annotations
 
 import contextlib
+import warnings
 import time
 from typing import Dict, Optional
 
@@ -136,3 +137,42 @@ def profiler_tree() -> ProfilerTree:
 def cpu_profiler(name: str):
     """RAII marker (reference AMGX_CPU_PROFILER, amgx_timer.h:269)."""
     return profiler_tree().scope(name)
+
+
+#: warn-once latch for TimerMap.toc-without-tic (module-wide: the
+#: mistake is a call-site bug, not per-instance state)
+_TOC_WARNED = False
+
+
+class TimerMap:
+    """Named wall-clock timers (reference TimerMap, amgx_timer.h:435)."""
+
+    def __init__(self):
+        self._timers: Dict[str, float] = {}
+        self._starts: Dict[str, float] = {}
+
+    def tic(self, name):
+        self._starts[name] = time.perf_counter()
+
+    def toc(self, name) -> float:
+        t0 = self._starts.pop(name, None)
+        if t0 is None:
+            # toc without tic: 0.0 without an entry in the map, and a
+            # warning once per process
+            global _TOC_WARNED
+            if not _TOC_WARNED:
+                _TOC_WARNED = True
+                warnings.warn(
+                    f"TimerMap.toc({name!r}) called without a matching "
+                    "tic(); returning 0.0", RuntimeWarning, stacklevel=2)
+            return 0.0
+        dt = time.perf_counter() - t0
+        self._timers[name] = self._timers.get(name, 0.0) + dt
+        return dt
+
+    def get(self, name) -> float:
+        return self._timers.get(name, 0.0)
+
+    def report(self) -> str:
+        return "\n".join(f"{k:<30s} {v:10.6f}s"
+                         for k, v in sorted(self._timers.items()))

@@ -154,8 +154,9 @@ exits non-zero (no phase is caught):
     iteration at setup through B1, the graph replaying the smoother),
     and CHEBYSHEV without a preconditioner at 128³ for ``CHEB_ITERS``
     iterations, with the relres it reaches;
-26. config 4's full SPE10 system, uploaded once: IDR + MULTICOLOR_DILU
-    and PBICGSTAB + MULTICOLOR_GS (4×4 block slabs), both on B5;
+26. config 4's SPE10 system cut to ``FAMILY_C4_GRID`` (30 × 110 × 43,
+    for time), uploaded once: IDR + MULTICOLOR_DILU and PBICGSTAB +
+    MULTICOLOR_GS (4×4 block slabs), both on B5;
 27. PBICGSTAB + MULTICOLOR_ILU(0) on the DFG operator at ``ILU_NY``;
 28. the card against the CPU for every solver name of this slice (and
     PCG with ``krylov_comm`` CA and PIPELINED) on small systems: equal
@@ -302,6 +303,18 @@ exits non-zero (no phase is caught):
     ``cycle_level`` event per level visit of every application, x
     bit-equal to forensics off); the ``dist/halo_exchange`` scope's
     device time on 40c's 16³ stack in 8 shards.
+43. serving on the card: a ``SolveService`` (two workers, ``metrics_port``
+    on a free port, telemetry on) serving the headline 128³: ``warmup``,
+    then 22 requests from 4 client threads (16 right-hand sides of the
+    matrix, 4 of its drifted values, 2 of a 64³ pattern) with every
+    count set to 0 just before and read just after; each answer's count
+    and x equal to a direct solve's (bit-equal), the same wave under one
+    worker bit-equal, the cache's decisions, no capture for the warmed
+    pattern, the endpoint (``/debug/profile`` finds B1's kernels), an
+    SLO window and a load-generator report, the session's bytes against
+    its setup's allocation; then the warm start across three child
+    processes (``--serve-child``): no kernel build and no plan build in
+    the warm one, the same count and x, a corrupt entry's fallback.
 
 Phases 11, 28, 30, 31, 33, 40 and 41 hold the card's x bit-equal to the
 CPU's (IDR and IDRMSYNC excepted: their s × s solves are library
@@ -435,13 +448,15 @@ DFG_WINDOW_ITERS = 2
 #: per-row limits of B2 against its plain version (it is bit-equal by
 #: construction; the limits are those of the other kernels)
 SHIFT_TOL = {"f32": 1e-5, "f64": 1e-12}
-#: phases 24-25: the classical and headline 128³ systems, phase 26:
-#: config 4's full SPE10 grid
+#: phases 24-25: the classical and headline 128³ systems
 FAMILY_SIDE = 128
 #: phase 24's CF_JACOBI stack (its classical setup runs the host loop:
 #: 21.5 s at 128³ in the first full run, so cut to 96³ for time)
 CF_JACOBI_SIDE = 96
-FAMILY_C4_GRID = (60, 220, 85)
+#: phase 26: config 4's SPE10 grid cut to an eighth (30 × 110 × 43, the
+#: masked system of phase 18) for time: on the full grid its DILU setup
+#: took 19.5 s and the phase 44 s (H100 80GB HBM3, 700 W)
+FAMILY_C4_GRID = (30, 110, 43)
 #: phase 24: the classical stack's outer solver replaced (the
 #: GMRES_AMG_D2 / PCGF_CLASSICAL_V_JACOBI shapes), then its smoother
 FAMILY_KRYLOV = ("GMRES", "PCGF", "PCG_PIPE", "PCG_CA")
@@ -2045,7 +2060,8 @@ def family_phases(amgx, dev, smi, gen) -> dict:
     emit("family_chebyshev_phase", elapsed_phase_s=time.perf_counter()
          - t_phase)
 
-    # ---- 26. config 4's full SPE10 system, uploaded once
+    # ---- 26. config 4's SPE10 system (cut to FAMILY_C4_GRID), uploaded
+    # once
     t_phase = time.perf_counter()
     total = launches.setdefault("config4_family", {})
     A4 = spe10_block_system(*FAMILY_C4_GRID)
@@ -4774,6 +4790,451 @@ def telemetry_phase(amgx, dev, smi, head_iters, head_x=None,
     return out
 
 
+# phase 43: serving on the card
+#: the service's knobs on top of the headline stack (metrics_port is
+#: added per run: a free port)
+SERVE_KNOBS = (", telemetry=1, serve_batch_window_ms=20, "
+               "serve_max_batch=16, serve_queue_depth=64")
+#: the served wave: right-hand sides of the 128³ headline matrix, of
+#: its drifted values (one drift, ``drift_values`` k = 1) and of a second
+#: pattern (64³), submitted from ``SERVE_CLIENTS`` threads
+SERVE_SAME, SERVE_DRIFT, SERVE_OTHER = 16, 4, 2
+SERVE_CLIENTS = 4
+SERVE_SIDE, SERVE_OTHER_SIDE = 128, 64
+#: the warm-start children: the DFG at this ny under the headline
+#: config with SIZE_2 named (its 3 levels of 4096 rows and more take the
+#: setup engine's aggregation plans; GEO takes no engine plan on it), cut
+#: at 5 levels (a K-cycle of 16 deepest visits: a short capture)
+SERVE_STORE_NY = 64
+SERVE_STORE_CFG = HEADLINE_CFG.replace(
+    "amg:selector=GEO", "amg:selector=SIZE_2").replace(
+    "amg:max_levels=20", "amg:max_levels=5")
+SERVE_WAIT_S = 120.0
+
+
+def serve_child(cache_dir: str, store_dir: str, fault: str,
+                out_path: str) -> int:
+    """One warm-start child (``python3 chip_smoke.py --serve-child CACHE
+    STORE FAULT OUT``): the DFG at ``SERVE_STORE_NY`` (``SERVE_STORE_CFG``,
+    f32 pack) set up and solved
+    on the card with ``compile_cache_dir`` / ``aot_store_dir`` (and the
+    fault plan ``fault``, or ``-``), telemetry on; writes its kernel
+    builds, store traffic, fallbacks, setup seconds, count and x."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch import native, telemetry
+    from amgx_tpu_torch.amg.device_setup import engine_stats
+    from amgx_tpu_torch.serve import aot
+    t_start = time.perf_counter()
+    A = amgx.io.dfg_cylinder_pressure(SERVE_STORE_NY)
+    knobs = f", compile_cache_dir={cache_dir}, aot_store_dir={store_dir}"
+    if fault != "-":
+        knobs += f", fault_inject={fault}"
+    telemetry.reset()
+    with telemetry.capture(ring_size=1 << 20) as cap:
+        m = amgx.Matrix(A, device="cuda")
+        m.device_dtype = np.float32
+        t0 = time.perf_counter()
+        slv = amgx.create_solver(SERVE_STORE_CFG + knobs)
+        slv.setup(m)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        res = slv.solve(np.ones(A.shape[0]))
+    assert res.status == amgx.SolveStatus.SUCCESS, res.status
+    np.save(out_path + ".npy", res.x.cpu().numpy())
+    with open(out_path, "w") as f:
+        json.dump(dict(
+            builds=native.build_stats(), store=aot.store_stats(),
+            engine=engine_stats(), setup_s=setup_s,
+            process_s=time.perf_counter() - t_start,
+            iterations=res.iterations,
+            aot_misses=telemetry.registry().get_counter(
+                "amgx_compile_cache_misses_total", layer="aot"),
+            aot_hits=telemetry.registry().get_counter(
+                "amgx_compile_cache_hits_total", layer="aot"),
+            fallbacks=[e["attrs"]["reason"] for e in
+                       cap.events("compile_cache_fallback")]), f)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(url: str, timeout: float = 60.0):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def serve_hosts():
+    """The served wave's host systems: the headline 128³ CSR with its
+    DIA attach, its drifted values (``drift_values`` k = 1, the same
+    pattern) and the 64³ second pattern."""
+    from amgx_tpu_torch.io import poisson7pt
+    host = poisson7pt(SERVE_SIDE, SERVE_SIDE, SERVE_SIDE)
+    return host, drift_values(host, 1), poisson7pt(
+        SERVE_OTHER_SIDE, SERVE_OTHER_SIDE, SERVE_OTHER_SIDE)
+
+
+def serve_matrices(amgx, hosts):
+    """Fresh matrix handles (f32 packs on the card) of ``serve_hosts``:
+    the headline, its drifted values, the second pattern."""
+    host, drift, other = hosts
+    m = amgx.Matrix(host, device="cuda")
+    md = amgx.Matrix(host, device="cuda")
+    md.replace_coefficients(drift)
+    mo = amgx.Matrix(other, device="cuda")
+    for x in (m, md, mo):
+        x.device_dtype = np.float32
+    return m, md, mo
+
+
+class ServeChildren:
+    """The warm-start children (``--serve-child``) on empty
+    ``compile_cache_dir`` / ``aot_store_dir`` directories under
+    ``_build/``: ``cold`` (started beside the parent's direct solves: it
+    builds the kernels and stores the plans), then ``warm`` and
+    ``corrupt`` (``aot_corrupt`` armed) side by side."""
+
+    RUNS = (("cold", "-"), ("warm", "-"), ("corrupt", "aot_corrupt:count:1"))
+
+    def __init__(self):
+        self.here = os.path.dirname(os.path.abspath(__file__))
+        self.work = os.path.join(self.here, "amgx_tpu_torch", "_build",
+                                 f"serve_{os.getpid()}")
+        self.dirs = [os.path.join(self.work, d) for d in ("cache", "store")]
+        for d in self.dirs:
+            os.makedirs(d, exist_ok=True)
+        self.procs = {}
+        self.out = {}
+
+    def start(self, name: str) -> None:
+        fault = dict(self.RUNS)[name]
+        path = os.path.join(self.work, f"{name}.json")
+        self.procs[name] = (time.perf_counter(), path, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--serve-child",
+             *self.dirs, fault, path], cwd=self.here))
+
+    def finish(self, name: str) -> dict:
+        t0, path, proc = self.procs.pop(name)
+        rc = proc.wait(timeout=SERVE_WAIT_S)
+        assert rc == 0, f"serve child {name} exited {rc}"
+        with open(path) as f:
+            res = json.load(f)
+        res["wall_s"] = time.perf_counter() - t0
+        res["x"] = np.load(path + ".npy")
+        self.out[name] = res
+        return res
+
+    def stop(self) -> None:
+        for _, _, proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        import shutil
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def serve_jobs():
+    """(matrix index, right-hand side) of every request of the wave, in
+    submission order (the clients take every SERVE_CLIENTS-th)."""
+    rng = np.random.default_rng(SEED)
+    n, no = SERVE_SIDE ** 3, SERVE_OTHER_SIDE ** 3
+    jobs = [(0, rng.standard_normal(n)) for _ in range(SERVE_SAME)]
+    jobs += [(1, rng.standard_normal(n)) for _ in range(SERVE_DRIFT)]
+    jobs += [(2, rng.standard_normal(no)) for _ in range(SERVE_OTHER)]
+    order = np.random.default_rng(SEED + 1).permutation(len(jobs))
+    return [jobs[i] for i in order]
+
+
+def serve_wave(amgx, svc, mats, jobs):
+    """Submit ``jobs`` from SERVE_CLIENTS threads and wait: the results
+    in job order."""
+    import threading
+    out = [None] * len(jobs)
+    errors = []
+
+    def client(c):
+        try:
+            for k in range(c, len(jobs), SERVE_CLIENTS):
+                mi, b = jobs[k]
+                out[k] = svc.solve(mats[mi], b, timeout=SERVE_WAIT_S)
+        except Exception as e:   # the phase fails on it below
+            errors.append(f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SERVE_WAIT_S)
+    assert not errors and all(r is not None for r in out), errors
+    return out
+
+
+def serve_phase(amgx, dev, smi) -> dict:
+    """Phase 43: a ``SolveService`` on the card serving the headline
+    stack (``serve_workers=2``, ``metrics_port`` on a free port,
+    ``telemetry=1``): ``warmup`` on the 128³ pattern, then 22 requests
+    from 4 client threads (16 right-hand sides of the matrix, 4 of its
+    drifted values, 2 of a 64³ second pattern), every launch count set
+    to 0 just before the wave and read just after.  Checks: each
+    answer's count and x equal a direct ``Solver.solve`` of the same
+    system (x bit-equal: f32 packs); the cache's decisions (one full
+    setup per pattern, resetups for the drift, no setup for a repeated
+    pattern) and no graph captured for the warmed pattern after warmup;
+    the same wave under ``serve_workers=1`` gives the same bits; the
+    endpoint's routes (``/debug/profile`` finds B1's kernel in its
+    trace); an SLO window event and a load-generator report; the
+    session's ``device_bytes`` within 10 % of the ``memory_allocated``
+    its setup added.  Then the warm start: three child processes
+    (``--serve-child``, :class:`ServeChildren`) on empty
+    ``compile_cache_dir`` / ``aot_store_dir`` directories: the second
+    builds no kernel and no plan, with the first's count and x; the
+    third reads a corrupt entry (``aot_corrupt``), records the fallback
+    and solves.  Returns the launches of the served wave."""
+    from amgx_tpu_torch import telemetry
+    t_phase = time.perf_counter()
+    out = {}
+    telemetry.reset()
+    port = _free_port()
+    cfg = HEADLINE_CFG + SERVE_KNOBS + f", metrics_port={port}"
+    jobs = serve_jobs()
+    hosts = serve_hosts()
+    children = ServeChildren()
+    try:
+        _serve_in_process(amgx, dev, smi, cfg, port, jobs, hosts,
+                          children, out)
+        warm_start(children, smi)
+    finally:
+        children.stop()
+    emit("serve_phase", elapsed_phase_s=time.perf_counter() - t_phase,
+         card=smi)
+    return out
+
+
+def _serve_in_process(amgx, dev, smi, cfg, port, jobs, hosts, children,
+                      out):
+    """Phase 43's service, endpoint, load and direct solves (the cold
+    warm-start child runs beside the direct solves)."""
+    import torch
+    from amgx_tpu_torch import telemetry
+    from amgx_tpu_torch.serve import SolveService, loadgen, session_key
+    from amgx_tpu_torch.telemetry import proftrace
+    from amgx_tpu_torch.utils import cuda_graph
+
+    # ---- serve_workers=2: warmup, the wave, the endpoint, the load
+    mats = serve_matrices(amgx, hosts)
+    torch.cuda.synchronize(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    svc = SolveService(amgx.AMGConfig(cfg + ", serve_workers=2"))
+    try:
+        assert svc.endpoint == f"http://127.0.0.1:{port}", svc.endpoint
+        # the session's setup alone, for its bytes against what the
+        # setup allocated; warmup then reuses it and captures
+        t0 = time.perf_counter()
+        sess, _ = svc.cache.get_or_create(svc.cfg, mats[0])
+        assert sess.prepare(mats[0]) == "full"
+        torch.cuda.synchronize(dev)
+        setup_s = time.perf_counter() - t0
+        mem_delta = torch.cuda.memory_allocated(dev) - mem0
+        sess_bytes = sess.device_bytes()
+        emit("serve_setup", setup_s=setup_s, session_bytes=sess_bytes,
+             memory_allocated_delta=mem_delta)
+        t0 = time.perf_counter()
+        warm = svc.warmup(mats[0])
+        torch.cuda.synchronize(dev)
+        warmup_s = time.perf_counter() - t0
+        assert sess is svc.cache.get(session_key(svc.cfg, mats[0]))
+        mem_warm = torch.cuda.memory_allocated(dev) - mem0
+        bytes_warm = sess.device_bytes()
+        emit("serve_warmup", warmup_s=warmup_s)
+        graphs0 = {k: g.number for k, g in
+                   sess.solver.preconditioner.graphs.items()}
+        captures0 = cuda_graph.CAPTURES["count"]
+        svc.reset_latency_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        served = serve_wave(amgx, svc, mats, jobs)
+        torch.cuda.synchronize(dev)
+        wave_s = time.perf_counter() - t0
+        out["serve_headline"] = read_counts()
+        captures = cuda_graph.CAPTURES["count"] - captures0
+        graphs1 = {k: g.number for k, g in
+                   sess.solver.preconditioner.graphs.items()}
+        st = svc.stats()
+        phases = svc.phase_split()
+        lat = st["latency_s"]
+        # the endpoint, with a client solving one request after another
+        # through the profile's 0.2 s window (the profiler starts and
+        # stops between two of them)
+        import threading
+        stop = threading.Event()
+
+        def busy():
+            while not stop.is_set():
+                svc.solve(mats[0], jobs[0][1], timeout=SERVE_WAIT_S)
+
+        bt = threading.Thread(target=busy, daemon=True)
+        bt.start()
+        time.sleep(0.1)
+        try:
+            code, body = _http(svc.endpoint
+                               + "/debug/profile?seconds=0.2")
+        finally:
+            stop.set()
+            bt.join(SERVE_WAIT_S)
+        assert code == 200, body[:300]
+        reply = json.loads(body)
+        kernels = [e for e in proftrace.trace_events(reply["trace"])
+                   if e.get("cat") == "kernel"]
+        b1 = [e for e in kernels if "dia_spmv" in e.get("name", "")]
+        assert b1, sorted({e.get("name") for e in kernels})[:20]
+        routes = {}
+        for route in ("/metrics", "/healthz", "/statusz",
+                      "/debug/memory"):
+            code, body = _http(svc.endpoint + route)
+            assert code == 200, (route, code, body[:200])
+            routes[route] = len(body)
+        assert b"amgx_serve_requests_total" in _http(
+            svc.endpoint + "/metrics")[1]
+        with telemetry.capture() as cap:
+            load = loadgen.run_load(svc, [mats[0]], rps=4.0,
+                                    duration_s=1.5, multi_rhs_frac=0.25,
+                                    max_rhs=3, seed=SEED,
+                                    wait_timeout_s=SERVE_WAIT_S)
+            svc.stats()
+        slo_events = cap.events("slo_window")
+        assert slo_events and load["failed"] == 0, load
+    finally:
+        assert svc.shutdown(SERVE_WAIT_S)
+    emit("serve_wave", workers=2, requests=len(jobs),
+         clients=SERVE_CLIENTS, setup_s=setup_s, warmup_s=warmup_s,
+         warmup_buckets=warm["buckets"], wave_s=wave_s,
+         latency_s=lat, phase_split=phases,
+         queue_share_of_latency=(phases["queue_wait"]["mean_s"]
+                                 / sum(v["mean_s"] for v in
+                                       phases.values())),
+         cache=st["cache"], captures_in_wave=captures,
+         endpoint_routes=routes,
+         profile_kernels=len(kernels), profile_b1_kernels=len(b1),
+         loadgen={k: load[k] for k in ("offered", "completed",
+                                       "rejected", "p50_ms", "p95_ms",
+                                       "p99_ms", "attainment",
+                                       "achieved_rps")},
+         slo_window=slo_events[-1]["attrs"], card=smi)
+    # one full setup per pattern; the drifted values ride resetups; no
+    # setup for a repeated pattern; no capture for the warmed pattern
+    by = {s["pattern"]: s for s in st["cache"]["by_session"]}
+    assert st["cache"]["misses"] == 2 and len(by) == 2, st["cache"]
+    head = by[mats[0].pattern_fingerprint()]
+    other = by[mats[2].pattern_fingerprint()]
+    assert head["full_setups"] == 1 and other["full_setups"] == 1, by
+    assert head["resetups"] >= 1, head
+    assert graphs1 == graphs0, (graphs0, graphs1)
+    assert captures <= 1, captures          # the 64³ session's one graph
+    # the session's bytes against what its setup allocated (the
+    # matrices' host data is not on the card); after the capturing
+    # warmup solve, printed beside
+    mem_ratio = sess_bytes / max(mem_delta, 1)
+    emit("serve_memory", session_bytes=sess_bytes,
+         memory_allocated_delta=mem_delta, ratio=mem_ratio,
+         after_warmup=dict(session_bytes=bytes_warm,
+                           memory_allocated_delta=mem_warm,
+                           ratio=bytes_warm / max(mem_warm, 1)),
+         card=smi)
+    assert abs(mem_ratio - 1.0) <= 0.10, (sess_bytes, mem_delta)
+    del svc, sess
+
+    # ---- the same wave under serve_workers=1: the same bits (the cold
+    # warm-start child builds its kernels and plans meanwhile)
+    children.start("cold")
+    svc1 = SolveService(amgx.AMGConfig(
+        HEADLINE_CFG + SERVE_KNOBS + ", serve_workers=1"))
+    try:
+        served1 = serve_wave(amgx, svc1, serve_matrices(amgx, hosts),
+                             jobs)
+    finally:
+        assert svc1.shutdown(SERVE_WAIT_S)
+    for a, b_ in zip(served, served1):
+        assert a.iterations == b_.iterations
+        assert torch.equal(a.x, b_.x), "serve_workers=2 x != workers=1 x"
+    del svc1, served1
+    torch.cuda.empty_cache()
+
+    # ---- each answer against a direct solve of the same system
+    direct_iters = {}
+    for mi in range(3):
+        fresh = serve_matrices(amgx, hosts)[mi]
+        slv = amgx.create_solver(HEADLINE_CFG + SERVE_KNOBS)
+        slv.setup(fresh)
+        for k, (mj, b) in enumerate(jobs):
+            if mj != mi:
+                continue
+            r = slv.solve(b)
+            assert r.iterations == served[k].iterations, \
+                (k, r.iterations, served[k].iterations)
+            assert torch.equal(r.x, served[k].x), f"request {k}: x"
+            direct_iters.setdefault(mi, set()).add(r.iterations)
+        del slv, fresh
+        torch.cuda.empty_cache()
+    emit("serve_direct", requests=len(jobs), bit_equal=True,
+         workers_2_equal_workers_1=True,
+         iterations={str(k): sorted(v) for k, v in direct_iters.items()})
+    del served, mats
+    telemetry.disable()
+    telemetry.reset()
+    torch.cuda.empty_cache()
+
+
+def warm_start(children, smi):
+    """Phase 43's warm start across processes: the cold child's builds
+    and stored plans, then the warm child (no kernel build, no plan
+    built, no store miss; the cold child's count and x) and the corrupt
+    child (one ``corrupt:injected`` fallback, the same answer)."""
+    children.finish("cold")
+    for name in ("warm", "corrupt"):
+        children.start(name)
+    for name in ("warm", "corrupt"):
+        children.finish(name)
+    children = children.out
+    cold, warm_c, bad = children["cold"], children["warm"], \
+        children["corrupt"]
+    assert cold["builds"]["misses"] >= 1, cold["builds"]
+    assert cold["store"]["saves"] > 0, cold["store"]
+    assert warm_c["builds"]["misses"] == 0, warm_c["builds"]
+    assert warm_c["builds"]["hits"] >= cold["builds"]["misses"], warm_c
+    assert warm_c["aot_misses"] == 0 and warm_c["store"]["misses"] == 0, \
+        warm_c
+    assert warm_c["store"]["loads"] == cold["store"]["saves"], warm_c
+    assert warm_c["engine"]["builds"] == 0, warm_c["engine"]
+    assert bad["fallbacks"] == ["corrupt:injected"], bad["fallbacks"]
+    for c in (warm_c, bad):
+        assert c["iterations"] == cold["iterations"]
+        assert np.array_equal(c["x"], cold["x"])
+    emit("serve_warm_start", ny=SERVE_STORE_NY,
+         **{name: dict(setup_s=c["setup_s"], process_s=c["process_s"],
+                       wall_s=c["wall_s"], builds=c["builds"],
+                       plans_built=c["engine"]["builds"],
+                       store={k: c["store"][k] for k in
+                              ("loads", "saves", "misses", "fallbacks",
+                               "entries", "bytes")},
+                       aot_hits=c["aot_hits"], aot_misses=c["aot_misses"],
+                       fallbacks=c["fallbacks"],
+                       iterations=c["iterations"])
+            for name, c in children.items()},
+         x_bit_equal=True, card=smi)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5221,6 +5682,10 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     setup_paths.update(telemetry_phase(amgx, dev, smi, head_iters, head_x,
                                        head_graph["nodes"]))
 
+    # ---- 43. serving on the card: the service, its endpoint, the warm
+    # start across processes
+    setup_paths.update(serve_phase(amgx, dev, smi))
+
     # ---- the kernels of the paths
     kernels = []
     for key in ("f32.f32", "f64.f64"):
@@ -5340,4 +5805,6 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--cpu-reference":
         sys.exit(cpu_reference(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) == 6 and sys.argv[1] == "--serve-child":
+        sys.exit(serve_child(*sys.argv[2:]))
     sys.exit(main())

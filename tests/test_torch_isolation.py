@@ -24,7 +24,8 @@ PORT_FILES = sorted((ROOT / "amgx_tpu_torch").rglob("*.py")) + \
      ROOT / "scripts" / "torch_item7b_phases.py",
      ROOT / "scripts" / "torch_item8a_phases.py",
      ROOT / "scripts" / "torch_item8b_phases.py",
-     ROOT / "scripts" / "torch_telemetry_phase.py"]
+     ROOT / "scripts" / "torch_telemetry_phase.py",
+     ROOT / "scripts" / "torch_serve_phase.py"]
 
 
 def test_import_leaves_jax_out_of_sys_modules():
@@ -32,7 +33,14 @@ def test_import_leaves_jax_out_of_sys_modules():
             "amgx_tpu_torch.eigen, amgx_tpu_torch.operators, "
             "amgx_tpu_torch.modes, amgx_tpu_torch.telemetry, "
             "amgx_tpu_torch.telemetry.doctor, "
-            "amgx_tpu_torch.utils.profiler\n"
+            "amgx_tpu_torch.utils.profiler, amgx_tpu_torch.serve, "
+            "amgx_tpu_torch.serve.loadgen, amgx_tpu_torch.telemetry.slo, "
+            "amgx_tpu_torch.telemetry.httpd, "
+            "amgx_tpu_torch.telemetry.meshtrace, "
+            "amgx_tpu_torch.telemetry.overlap, "
+            "amgx_tpu_torch.utils.memory, amgx_tpu_torch.utils.retry, "
+            "amgx_tpu_torch.utils.signals, "
+            "amgx_tpu_torch.utils.thread_manager\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'amgx_tpu' or "
             "m.startswith('amgx_tpu.')]\n"

@@ -16,8 +16,7 @@ from amgx_tpu.solvers import SolverFactory as JaxFactory
 from amgx_tpu.utils import faultinject as jfi
 
 import amgx_tpu_torch as amgx
-from amgx_tpu_torch.errors import (RC, AMGXError, FailureKind,
-                                   NotImplementedError_, SolveStatus)
+from amgx_tpu_torch.errors import RC, AMGXError, FailureKind, SolveStatus
 from amgx_tpu_torch.solvers import SolverFactory
 from amgx_tpu_torch.utils import faultinject
 
@@ -100,8 +99,9 @@ def test_spec_parsing_and_triggers():
 
 def test_unknown_and_later_slice_points():
     """A misspelt point fails loudly (ValueError, as upstream); the
-    points whose seams belong to later slices raise NotImplementedError_
-    when armed, and ``halo_exchange`` (its seam ported) arms."""
+    serving points (``worker_death`` in the worker pool's task guard,
+    ``aot_corrupt`` in the warm-start store) and ``halo_exchange`` arm,
+    from a spec string and from a dict."""
     with pytest.raises(ValueError, match="unknown fault-injection"):
         faultinject.configure("definitely_not_a_point:count=1")
     with pytest.raises(ValueError, match="unknown fault-injection"):
@@ -109,10 +109,13 @@ def test_unknown_and_later_slice_points():
             "config_version=2, solver(s)=CG, s:fault_inject=bogus"), "s")
     for point in ("worker_death", "aot_corrupt"):
         assert point in faultinject.POINTS
-        with pytest.raises(NotImplementedError_):
-            faultinject.configure(f"{point}:count=1")
-        with pytest.raises(NotImplementedError_):
-            faultinject.configure({point: {"count": 1}})
+        faultinject.configure(f"{point}:count=1")
+        assert faultinject.armed(point)
+        assert faultinject.should_fire(point)
+        assert not faultinject.should_fire(point)
+        faultinject.configure({point: {"count": 1}})
+        assert faultinject.armed(point)
+        faultinject.reset()
     assert not faultinject.active()
     # halo_exchange has its seam (distributed.matrix.shard_vector)
     faultinject.configure("halo_exchange:count=1")

@@ -153,18 +153,36 @@ def test_interop_matrix_solves():
     CFG + ", out:compile_cache_dir=cache",
     CFG + ", amg:aot_store_dir=store",
 ])
-def test_later_slice_features_raise(cfg):
-    """The store of CUDA graphs and built kernels (ROADMAP item 9b):
-    ``compile_cache_dir`` and ``aot_store_dir`` raise, naming the item,
-    instead of being accepted and ignored (C9), on the top-level solver
-    and in a nested scope.  The telemetry knobs are ported
-    (``tests/test_torch_telemetry*.py``); ``matrix_reorder=RCM``,
-    ``scaling`` and ``amg_host_levels_rows`` too: their parity cases
-    are :func:`test_solve_boundary_knobs_match_jax`."""
-    with pytest.raises(NotImplementedError, match="9b"):
+def test_later_slice_features_raise(cfg, tmp_path, monkeypatch):
+    """The warm-start knobs of the serving slice work, on the top-level
+    solver and in a nested scope: ``compile_cache_dir`` is where the
+    kernels build and are found (``native.BUILD_DIR``),
+    ``aot_store_dir`` the store of the setup engine's plans; the solve
+    is the one without them.  (They raised, naming their slice, until
+    it was ported.)"""
+    from amgx_tpu_torch import native
+    from amgx_tpu_torch.serve import aot
+    monkeypatch.chdir(tmp_path)
+    try:
         slv = amgx_tpu_torch.create_solver(cfg)
         slv.setup(poisson7pt_device(8, 8, 8, device_dtype=np.float64,
                                     device="cpu"))
+        r = slv.solve(np.ones(512))
+        if "compile_cache_dir" in cfg:
+            assert native.BUILD_DIR == (tmp_path / "cache").resolve()
+        else:
+            assert aot.get_store().root == str(tmp_path / "store")
+    finally:
+        native.set_build_dir("")
+        aot.reset_store()
+        amgx_tpu_torch.telemetry.runstate.reset()
+    ref = amgx_tpu_torch.create_solver(CFG)
+    ref.setup(poisson7pt_device(8, 8, 8, device_dtype=np.float64,
+                                device="cpu"))
+    want = ref.solve(np.ones(512))
+    assert r.status == SolveStatus.SUCCESS
+    assert r.iterations == want.iterations
+    assert torch.equal(r.x, want.x)
 
 
 @pytest.mark.parametrize("knob", [

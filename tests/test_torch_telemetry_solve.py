@@ -31,10 +31,18 @@ _CYCLE = ("cycle_level", "cycle_coarse")
 
 
 def _reset():
+    """Both packages' recorders off and empty, and both device setup
+    engines forgotten: a setup reports its engine's stats when one
+    exists, so an engine an earlier test left in one package only would
+    add an event to that package's setup."""
+    from amgx_tpu.amg.device_setup import reset_engine as jax_reset
+    from amgx_tpu_torch.amg.device_setup import reset_engine
     for t in (pt, jt):
         t.disable()
         t.setup_profile.disable()
         t.reset()
+    reset_engine()
+    jax_reset()
 
 
 def _run(pkg, tel, device_dtype, tmp):
