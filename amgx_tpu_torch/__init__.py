@@ -31,6 +31,9 @@ from .solvers import Solver, SolverFactory, SolveResult
 from .utils import amgx_output, register_print_callback
 
 __version__ = "0.1.0"
+#: the AmgX release the port answers to (``ReleaseVersion.txt:1``;
+#: ``AMGX_get_build_info_strings`` reports it)
+__reference_version__ = "2.1.0.131-opensource"
 
 _initialized = False
 

@@ -367,9 +367,10 @@ class ExecutorLane:
                     self.completed += done
                     self.rejected += shed
                 with svc._lat_lock:
-                    svc.completed += done
                     # deadline sheds happen here, past admission — they
                     # must show in stats() like any other rejection
+                    # (completions count as each request completes,
+                    # SolveService._finalize)
                     svc.rejected += shed
                 if profile:
                     svc._profile_batch(session, batch)

@@ -399,6 +399,10 @@ class SolveService:
         admitted = any(nm == "admitted" for nm, _ in req.marks)
         durs = req.phase_durations() if admitted else {}
         with self._lat_lock:
+            # a served answer counts before its waiter wakes (the
+            # router's accounting of the batch runs after all of it)
+            if req.rc == RC.OK:
+                self.completed += 1
             for phase, d in durs.items():
                 tot = self._phase_totals.setdefault(phase, [0, 0.0])
                 tot[0] += 1

@@ -1037,14 +1037,15 @@ class Solver:
         def split(v):
             if isinstance(v, torch.Tensor) and v.dtype == dtype:
                 return v.to(dev), None
-            v64 = torch.from_numpy(np.ascontiguousarray(
-                (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-                 else np.asarray(v)).astype(np.float64).ravel()))
+            # on the pack's device: a vector already there never goes
+            # through the host (the C API keeps its vectors on the card)
+            v64 = v.detach().to(dev, torch.float64).reshape(-1) \
+                if isinstance(v, torch.Tensor) else torch.from_numpy(
+                    np.ascontiguousarray(np.asarray(v).astype(np.float64)
+                                         .ravel())).to(dev)
             hi = v64.to(dtype)
             lo = v64 - hi.double()
-            return (hi.to(dev),
-                    lo.to(dev, lo_dt) if bool(torch.any(lo != 0))
-                    else None)
+            return hi, lo.to(lo_dt) if bool(torch.any(lo != 0)) else None
 
         def widen(hi, lo):
             w = hi.to(wdt)

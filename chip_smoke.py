@@ -137,7 +137,9 @@ exits non-zero (no phase is caught):
     two child processes (one per pack dtype, the f64 one given the odd
     core) started at phase 22, after the last kernel timing but phase
     40's and 41d's, so phase 22 (whose replays keep the device busy)
-    runs beside them and no kernel timing does.
+    runs beside them and no kernel timing does; phase 44 runs beside
+    them too, after phase 23's card solves, where the card process would
+    otherwise wait for them.
 
 24. the solver family on the classical 128³ stack (``CFG_CLA``, f32
     pack, f64 refinement): the outer solver replaced by GMRES, PCGF,
@@ -315,8 +317,22 @@ exits non-zero (no phase is caught):
     its setup's allocation; then the warm start across three child
     processes (``--serve-child``): no kernel build and no plan build in
     the warm one, the same count and x, a corrupt entry's fallback.
+44. the AMGX C API on the card (:func:`capi_phase`): the headline 128³
+    through ``amgx_tpu_torch.capi`` in dDDI (count and x bit-equal to
+    the direct path on the same uploaded matrix, relres ≤ 1e-8, B1 and
+    no plain label, ``AMGX_matrix_vector_multiply`` bit-equal to
+    ``ops.spmv``), the same through ``capi_headline.c`` linked against
+    ``libamgx_torch_c.so`` in a child process (equal count, x's bytes
+    and FNV-1a hash), ``native/test_capi.c`` unchanged against that
+    library, the distributed C API (48³ in 8 shards, B3 on the stacked
+    interior, count and x equal to the direct distributed path's) and
+    the C API on the card against the CPU at 16³ (x bit-equal).  The
+    shim and drivers build with the host compiler beside the kernels'
+    nvcc (``amgx_tpu_torch/capi_native/build.py``, no cmake); the phase
+    runs beside phase 23's CPU children (its child processes with
+    ``OMP_NUM_THREADS=1``).
 
-Phases 11, 28, 30, 31, 33, 40 and 41 hold the card's x bit-equal to the
+Phases 11, 28, 30, 31, 33, 40, 41 and 44 hold the card's x bit-equal to the
 CPU's (IDR and IDRMSYNC excepted: their s × s solves are library
 calls).
 
@@ -1502,11 +1518,14 @@ def cpu_reference(out_dir: str, name: str) -> int:
     return 0
 
 
-def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs) -> dict:
+def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs,
+               beside=None) -> dict:
     """Phases 19-23: the DFG cylinder path (aggregation AMG on an
     uploaded operator) and kernel B2; ``cpu_ref`` is the
     :class:`CpuReference` it starts at phase 22, ``ell_errs`` B3's
-    errors, which its checks here join."""
+    errors, which its checks here join.  ``beside()``, when given, runs
+    after phase 23's card solves while the CPU children still run (its
+    result is returned as ``beside``)."""
     import scipy.sparse as sp
     import torch
     from amgx_tpu_torch.core.matrix import pack_device, pack_kind
@@ -1684,6 +1703,7 @@ def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs) -> dict:
         t0 = time.perf_counter()
         card[name] = dfg_solve(amgx, A3, "cuda", np.dtype(name).type)
         card[name] += (time.perf_counter() - t0,)
+    beside_out = beside() if beside is not None else None
     cpu = cpu_ref.result()
     for name in DFG_CPU_DTYPES:
         ig, xg, rg, card_s = card[name]
@@ -1712,7 +1732,7 @@ def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs) -> dict:
             max_abs_err=errs[key]["abs"],
             max_row_rel_err=errs[key]["rel"], **timing[dt]))
     return dict(kernels=kernels, b3_launches=counts["B3"],
-                b3_launches_full_depth=full["B3"])
+                b3_launches_full_depth=full["B3"], beside=beside_out)
 
 
 def dfg_full_depth(amgx, dev, smi, gen, A, ell_errs) -> dict:
@@ -5235,6 +5255,547 @@ def warm_start(children, smi):
          x_bit_equal=True, card=smi)
 
 
+# --------------------------------------------------------------------------
+# phase 44: the AMGX C API on the card (ROADMAP item 9c)
+# --------------------------------------------------------------------------
+#: the headline grid of phase 44 (a) and (b): 2,097,152 rows
+CAPI_SIDE = 128
+#: (d)'s rank brick: generate_distributed_poisson_7pt(24, 24, 24, 2, 2, 2)
+#: gives the 48³ Poisson in 8 shards
+CAPI_DIST_BRICK = 24
+#: (e)'s card-against-CPU grid
+CAPI_SMALL_SIDE = 16
+#: the grid of the copy count's child (vector copies are 8·n bytes, the
+#: refinement's norm fetches 8 to 16)
+CAPI_COPIES_SIDE = 32
+#: rounds of (direct, C API, C API, direct) setups and warm solves
+CAPI_AB_ROUNDS = 3
+#: labels of plain versions: none may serve a C-API SpMV on the card
+PLAIN_LABELS = ("dia/slices", "dia/block-slices", "ell/gather",
+                "sharded/gather", "sharded/block-plain", "dense/lanes")
+CAPI_CHILD_TIMEOUT_S = 300
+
+
+def capi_python_probe() -> dict:
+    """What the port's C shim embeds on this machine: ``sysconfig``'s
+    include dir, shared flag and library, and whether Python.h and a
+    shared libpython are present."""
+    from amgx_tpu_torch.capi_native import build
+    info = build.python_build_info()
+    try:
+        lib = str(build.find_libpython(info))
+    except build.ShimBuildError as e:
+        lib = f"none: {e}"
+    return dict(INCLUDEPY=info["INCLUDEPY"],
+                Py_ENABLE_SHARED=info["Py_ENABLE_SHARED"],
+                LDLIBRARY=info["LDLIBRARY"], LIBDIR=info["LIBDIR"],
+                python_h=os.path.isfile(os.path.join(info["INCLUDEPY"],
+                                                     "Python.h")),
+                libpython=lib, executable=info["executable"],
+                version=info["version"])
+
+
+class ShimBuild:
+    """The port's C shim and its two C drivers, built in a thread beside
+    the kernels' nvcc (``capi_native/build.py``); :meth:`result` joins
+    and re-raises a failed build."""
+
+    def __init__(self):
+        import threading
+        self.out, self.err = {}, None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.t0 = time.perf_counter()
+        self.thread.start()
+
+    def _run(self):
+        from amgx_tpu_torch.capi_native import build
+        here = os.path.dirname(os.path.abspath(__file__))
+        try:
+            self.out["lib"] = build.build_shim()
+            self.out["headline"] = build.build_driver(os.path.join(
+                here, "amgx_tpu_torch", "capi_native", "capi_headline.c"))
+            self.out["test_capi"] = build.build_driver(os.path.join(
+                here, "native", "test_capi.c"))
+            self.out["seconds"] = time.perf_counter() - self.t0
+        except Exception as e:       # re-raised by result()
+            self.err = e
+
+    def result(self) -> dict:
+        self.thread.join()
+        if self.err is not None:
+            raise self.err
+        return self.out
+
+
+def capi_poisson(side: int):
+    """The 7-point Poisson CSR of a ``side``³ grid and its per-row
+    coordinates (x fastest), as ``capi_headline.c`` assembles them."""
+    from amgx_tpu_torch.io import poisson7pt
+    import scipy.sparse as sp
+    A = sp.csr_matrix(poisson7pt(side, side, side))
+    A.sort_indices()
+    z, y, x = np.meshgrid(*(np.arange(side, dtype=np.float64),) * 3,
+                          indexing="ij")
+    return A, (x.ravel(), y.ravel(), z.ravel())
+
+
+def capi_headline(capi, mode, A, geo, cfg_str, counts=False):
+    """Upload ``A`` with its geometry through the C API in ``mode``,
+    set up and solve (b = 1, x0 = 0), then a warm solve from x0 = 0.
+    Returns the handles, the wall seconds of upload, setup, first and
+    warm solve, the API's own setup and solve seconds, the first
+    solve's iterations and status, x (downloaded) and, with ``counts``,
+    the launch counts of the first solve (set to 0 just before it)."""
+    import torch
+    n = A.shape[0]
+    rc, cfg = capi.AMGX_config_create(cfg_str)
+    assert rc == 0, rc
+    rc, rsrc = capi.AMGX_resources_create_simple(cfg)
+    rc, M = capi.AMGX_matrix_create(rsrc, mode)
+    rc, b = capi.AMGX_vector_create(rsrc, mode)
+    rc, x = capi.AMGX_vector_create(rsrc, mode)
+    t0 = time.perf_counter()
+    assert capi.AMGX_matrix_upload_all(M, n, A.nnz, 1, 1, A.indptr,
+                                       A.indices, A.data) == 0
+    assert capi.AMGX_matrix_attach_geometry(M, *geo) == 0
+    assert capi.AMGX_vector_upload(b, n, 1, np.ones(n)) == 0
+    assert capi.AMGX_vector_set_zero(x, n, 1) == 0
+    upload_s = time.perf_counter() - t0
+    rc, slv = capi.AMGX_solver_create(rsrc, mode, cfg)
+    assert rc == 0, rc
+    t0 = time.perf_counter()
+    assert capi.AMGX_solver_setup(slv, M) == 0
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if counts:
+        reset_counts()
+    t0 = time.perf_counter()
+    assert capi.AMGX_solver_solve(slv, b, x) == 0
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    got = read_counts() if counts else None
+    rc, iters = capi.AMGX_solver_get_iterations_number(slv)
+    rc, status = capi.AMGX_solver_get_status(slv)
+    rc, api_setup_s = capi.AMGX_solver_get_setup_time(slv)
+    rc, api_first_s = capi.AMGX_solver_get_solve_time(slv)
+    t0 = time.perf_counter()
+    rc, xs = capi.AMGX_vector_download(x)
+    download_s = time.perf_counter() - t0
+    assert rc == 0
+    # a warm solve: the graph replays (x0 = 0 again)
+    assert capi.AMGX_vector_set_zero(x, n, 1) == 0
+    t0 = time.perf_counter()
+    assert capi.AMGX_solver_solve(slv, b, x) == 0
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    rc, api_warm_s = capi.AMGX_solver_get_solve_time(slv)
+    assert capi.AMGX_solver_get_iterations_number(slv)[1] == iters
+    return dict(M=M, b=b, x=x, slv=slv, rsrc=rsrc, cfg=cfg,
+                iterations=iters, status=int(status), x_host=xs,
+                counts=got, upload_s=upload_s, setup_s=setup_s,
+                first_solve_s=first_s, warm_solve_s=warm_s,
+                download_s=download_s, api_setup_s=api_setup_s,
+                api_first_solve_s=api_first_s, api_warm_solve_s=api_warm_s)
+
+
+def capi_direct(amgx, dev, A, geo) -> dict:
+    """The work of :func:`capi_headline` in dDDI through the port's
+    direct API: ``Matrix.from_csr`` on the card with an f32 pack, the
+    grid the C API would derive, ``create_solver``, a first and a warm
+    solve from x0 = 0 (and one with ``x0=None``), each timed."""
+    import torch
+    from amgx_tpu_torch.capi import _regular_grid_dims
+    n = A.shape[0]
+    t0 = time.perf_counter()
+    m = amgx.Matrix.from_csr(A.indptr, A.indices, A.data, device=dev)
+    m.device_dtype = np.float32
+    m.geometry = geo
+    m.grid_dims = _regular_grid_dims(geo)
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    x0 = torch.zeros(n, dtype=torch.float64, device=dev)
+    upload_s = time.perf_counter() - t0
+    slv = amgx.create_solver(HEADLINE_CFG)
+    times = {}
+    for name, fn in (("setup_s", lambda: slv.setup(m)),
+                     ("first_solve_s", lambda: slv.solve(b, x0=x0)),
+                     ("warm_solve_s", lambda: slv.solve(b, x0=x0)),
+                     ("warm_solve_x0_none_s", lambda: slv.solve(b))):
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize(dev)
+        times[name] = time.perf_counter() - t0
+        if name == "first_solve_s":
+            res = got
+    return dict(times, upload_s=upload_s, iterations=res.iterations,
+                x=res.x.cpu().numpy(), slv=slv, M=m, b=b)
+
+
+def capi_overhead(capi, dev, a, d, rounds=CAPI_AB_ROUNDS) -> dict:
+    """The C API's setup and warm solve against the direct path's on
+    the same card in turns (direct, C API, C API, direct), ``rounds``
+    times each: the medians in seconds.  Setups rebuild the hierarchy
+    from each matrix's cached pack; the warm solves start from x0 = 0
+    (after one solve each that captures the graph anew)."""
+    import torch
+    n = d["b"].numel()
+
+    def api_setup():
+        assert capi.AMGX_solver_setup(a["slv"], a["M"]) == 0
+
+    def api_solve():
+        assert capi.AMGX_vector_set_zero(a["x"], n, 1) == 0
+        assert capi.AMGX_solver_solve(a["slv"], a["b"], a["x"]) == 0
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
+    def solve_direct():
+        d["slv"].solve(d["b"], x0=torch.zeros_like(d["b"]))
+
+    out = {}
+    for name, fns in (("setup_s", (lambda: d["slv"].setup(d["M"]),
+                                   api_setup)),
+                      ("warm_solve_s", (solve_direct, api_solve))):
+        if name == "warm_solve_s":
+            fns[0]()
+            fns[1]()
+        ts = {"direct": [], "capi": []}
+        for _ in range(rounds):
+            for who in ("direct", "capi", "capi", "direct"):
+                ts[who].append(timed(fns[who == "capi"]))
+        out[name] = {k: float(np.median(v)) for k, v in ts.items()}
+        out[name]["overhead"] = out[name]["capi"] - out[name]["direct"]
+    return out
+
+
+def capi_copies(capi, a, n, trace_path) -> dict:
+    """Vector-sized copies (4·n bytes or more) between host and card of
+    one upload → solve → download through the C API on its set-up
+    solver, by direction, read from ``torch.profiler``'s Chrome trace:
+    the C API keeps its vectors on the card, so one each way."""
+    def run():
+        assert capi.AMGX_vector_upload(a["b"], n, 1, np.ones(n)) == 0
+        assert capi.AMGX_vector_set_zero(a["x"], n, 1) == 0
+        assert capi.AMGX_solver_solve(a["slv"], a["b"], a["x"]) == 0
+        assert capi.AMGX_vector_download(a["x"])[0] == 0
+
+    profile_window(run, trace_path=trace_path)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {"HtoD": 0, "DtoH": 0, "memcpy_events": 0}
+    for e in events:
+        if e.get("cat") != "gpu_memcpy":
+            continue
+        out["memcpy_events"] += 1
+        if e.get("args", {}).get("bytes", 0) >= 4 * n:
+            for k in ("HtoD", "DtoH"):
+                out[k] += k in e.get("name", "")
+    return out
+
+
+def capi_copies_child(side: str, out_path: str) -> int:
+    """``--capi-copies``: the C API's dDDI headline at ``side``³ set up
+    in this fresh process, then :func:`capi_copies` of one upload →
+    solve → download, written to ``out_path`` as JSON.  A fresh process:
+    once phases 42–43 have traced in the smoke's process, its tracer
+    has been seen to drop the first activities of a new window."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from amgx_tpu_torch import capi
+    A, geo = capi_poisson(int(side))
+    a = capi_headline(capi, "dDDI", A, geo, HEADLINE_CFG)
+    copies = capi_copies(capi, a, A.shape[0], out_path + ".trace.json")
+    os.unlink(out_path + ".trace.json")
+    with open(out_path, "w") as f:
+        json.dump(copies, f)
+    return 0
+
+
+def capi_child(exe, args):
+    """Start a child of phase 44 (a C driver's embedded interpreter finds
+    the port through the path its library was built with); one host
+    thread for its CPU ops, beside phase 23's CPU children."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env.pop("PYTHONPATH", None)
+    return time.perf_counter(), subprocess.Popen(
+        [str(exe), *map(str, args)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def capi_child_wait(child, what):
+    t0, proc = child
+    try:
+        out, err = proc.communicate(timeout=CAPI_CHILD_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, (what, proc.returncode, out[-3000:],
+                                  err[-3000:])
+    return out, err, wall
+
+
+def capi_phase(amgx, dev, smi, shim) -> dict:
+    """Phase 44: the AMGX C API on the card.  (a) The in-process C API
+    (``amgx_tpu_torch.capi``) in ``dDDI`` at 128³: the 7-point CSR
+    uploaded with ``AMGX_matrix_upload_all``, its grid attached
+    (``AMGX_matrix_attach_geometry``), the headline config through
+    ``AMGX_solver_*`` with every count set to 0 just before the first
+    solve and read just after (B1 launched, no plain label); its count
+    and x bit-equal to the port's direct ``create_solver`` path on the
+    same uploaded ``Matrix``; the true relres in f64 ≤ 1e-8; setup and
+    warm solve against the direct path's in turns; one vector-sized
+    copy each way an upload → solve → download (the profiler's trace,
+    in a fresh process: ``--capi-copies``);
+    ``AMGX_matrix_vector_multiply`` bit-equal to ``ops.spmv`` on the
+    same pack.  (b) ``capi_headline.c`` at 128³ in a child process
+    linked against ``libamgx_torch_c.so``: its count and x (FNV-1a hash
+    and dumped bytes) equal (a)'s, its relres ≤ 1e-8, its wall and
+    import seconds.  (c) ``native/test_capi.c`` unchanged against the
+    port's library (hDDI: the CPU, the ABI).  (d) The distributed C API:
+    ``AMGX_generate_distributed_poisson_7pt(24, 24, 24, 2, 2, 2)`` under
+    ``DIST_CFG`` in ``dDDI`` (8 shards of an f32 pack), counts set to 0
+    just before the solve and read just after (B3 on the stacked
+    interior, ``sharded/window``, no plain label), count and x equal to
+    the direct distributed path's.  (e) The C API in ``dDDI`` on the
+    card at 16³ against the port's direct solve with ``device="cpu"``
+    (f32 pack, refinement): equal counts, x bit-equal.  Returns the
+    launches of (a)'s and (d)'s solves."""
+    import shutil
+    t_phase = time.perf_counter()
+    built = shim.result()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "amgx_tpu_torch", "_build", f"capi_{os.getpid()}")
+    os.makedirs(work, exist_ok=True)
+    children = []
+    try:
+        return _capi_phase(amgx, dev, smi, built, work, children)
+    finally:
+        for _, proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+        emit("capi_phase", elapsed_phase_s=time.perf_counter() - t_phase,
+             card=smi)
+
+
+def _capi_phase(amgx, dev, smi, built, work, children) -> dict:
+    """Phase 44's steps (:func:`capi_phase`); every child process it
+    starts is put in ``children``."""
+    import torch
+    from amgx_tpu_torch import capi
+    from amgx_tpu_torch.capi_native import build
+    from amgx_tpu_torch.ops import spmv as smod
+    out = {}
+    # (c) the ABI driver on the CPU, beside (a)
+    abi = capi_child(built["test_capi"], ())
+    children.append(abi)
+    # the vector-sized copies of an upload → solve → download through the
+    # C API, counted in a fresh process beside (a) (a size-independent
+    # count: at 32³ its card work is a few milliseconds)
+    copies_path = os.path.join(work, "copies.json")
+    counter = capi_child(sys.executable, (
+        os.path.abspath(__file__), "--capi-copies", CAPI_COPIES_SIDE,
+        copies_path))
+    children.append(counter)
+
+    # ---- (a) the in-process C API at 128³, after the same work on the
+    # direct path (its own upload of the same CSR and grid: the API's
+    # overhead is the difference)
+    A, geo = capi_poisson(CAPI_SIDE)
+    n = A.shape[0]
+    d = capi_direct(amgx, dev, A, geo)
+    a = capi_headline(capi, "dDDI", A, geo, HEADLINE_CFG, counts=True)
+    m = a["M"].matrix
+    assert m.placement.type == "cuda" and a["b"].data.is_cuda
+    assert np.dtype(m.device_dtype) == np.float32 and \
+        np.dtype(m.dtype) == np.float64
+    assert m.grid_dims == (CAPI_SIDE,) * 3, m.grid_dims
+    assert a["status"] == 0, a["status"]
+    c = a["counts"]
+    assert c["dispatch"].get("dia/kernel", 0) > 0, c["dispatch"]
+    assert not any(c["dispatch"].get(k, 0) for k in PLAIN_LABELS), \
+        c["dispatch"]
+    assert not any(c["declines"].values()), c["declines"]
+    b1 = sum(c["B1"].values())
+    assert b1 > 0, c["B1"]
+    x_a = a["x_host"]
+    assert x_a.dtype == np.float64 and x_a.shape == (n,)
+    assert np.isfinite(x_a).all()
+    relres = float(np.linalg.norm(1.0 - A @ x_a) / np.sqrt(n))
+    assert relres <= 1e-8, relres
+    assert d["iterations"] == a["iterations"], (d["iterations"],
+                                                a["iterations"])
+    assert np.array_equal(d["x"], x_a), \
+        "C API x differs from the direct path's"
+    turns = capi_overhead(capi, dev, a, d)
+    direct = {k: d[k] for k in ("upload_s", "setup_s", "first_solve_s",
+                                "warm_solve_s", "warm_solve_x0_none_s")}
+    first_diff = {k: a[k] - d[k] for k in ("upload_s", "setup_s",
+                                           "first_solve_s", "warm_solve_s")}
+    # and the direct path on the very Matrix the C API uploaded
+    dslv = amgx.create_solver(HEADLINE_CFG)
+    dslv.setup(m)
+    dres = dslv.solve(torch.ones(n, dtype=torch.float64, device=dev))
+    assert dres.iterations == a["iterations"], dres.iterations
+    assert np.array_equal(dres.x.cpu().numpy(), x_a), \
+        "C API x differs from the direct path's on its own Matrix"
+    del dslv, dres, d
+    # AMGX_matrix_vector_multiply: the mode's f64 pack through B1
+    rc, v = capi.AMGX_vector_create(a["rsrc"], "dDDI")
+    rc, y = capi.AMGX_vector_create(a["rsrc"], "dDDI")
+    capi.AMGX_vector_upload(v, n, 1, np.random.default_rng(SEED)
+                            .standard_normal(n))
+    reset_counts()
+    assert capi.AMGX_matrix_vector_multiply(a["M"], v, y) == 0
+    torch.cuda.synchronize(dev)
+    mv = read_counts()
+    assert mv["B1"]["f64.f64"] == 1 and \
+        mv["dispatch"] == {"dia/kernel": 1}, mv
+    pack = m.device(dtype=np.float64)
+    assert torch.equal(y.data, smod.spmv(pack, v.data)), \
+        "AMGX_matrix_vector_multiply differs from ops.spmv"
+    x_hash = build.fnv1a64(x_a)
+    emit("capi_inprocess", n=n, nnz=int(A.nnz), mode="dDDI",
+         iterations=a["iterations"], relres=relres,
+         upload_s=a["upload_s"], setup_s=a["setup_s"],
+         first_solve_s=a["first_solve_s"], warm_solve_s=a["warm_solve_s"],
+         download_s=a["download_s"],
+         api_setup_time=a["api_setup_s"],
+         api_solve_time_first=a["api_first_solve_s"],
+         api_solve_time_warm=a["api_warm_solve_s"],
+         direct=direct, first_run_difference_s=first_diff,
+         in_turns=turns,
+         b1_launches_per_solve=b1, launches_by_type=c["B1"],
+         dispatch=c["dispatch"], x_bit_equal_direct=True,
+         spmv_bit_equal=True, x_fnv1a64=f"{x_hash:016x}", card=smi)
+    out["capi_headline"] = c
+    a_iters = a["iterations"]
+    for h, fn in ((a["slv"], capi.AMGX_solver_destroy),
+                  (a["M"], capi.AMGX_matrix_destroy)):
+        assert fn(h) == 0
+    del a, m, pack, v, y
+    torch.cuda.empty_cache()
+
+    # ---- (b) the C driver at 128³ in a child process
+    dump = os.path.join(work, "x_headline.bin")
+    child = capi_child(built["headline"], ("dDDI", CAPI_SIDE, dump))
+    children.append(child)
+    cout, cerr, wall = capi_child_wait(child, "capi_headline")
+    line = [ln for ln in cout.splitlines()
+            if ln.startswith("CAPI_HEADLINE ")][-1]
+    got = json.loads(line.split(" ", 1)[1])
+    x_c = np.fromfile(dump, dtype=np.float64)
+    assert got["iterations"] == a_iters and got["status"] == 0, \
+        (got, a_iters)
+    assert got["n"] == n and got["nnz"] == A.nnz, got
+    assert got["relres"] <= 1e-8, got
+    assert int(got["x_fnv1a64"], 16) == x_hash, (got, f"{x_hash:016x}")
+    assert np.array_equal(x_c, x_a), "C driver x differs from (a)'s"
+    emit("capi_c_driver", source="amgx_tpu_torch/capi_native/"
+         "capi_headline.c", library=str(built["lib"]),
+         build_s=built["seconds"], child_wall_s=wall,
+         **{k: got[k] for k in ("iterations", "status", "relres",
+                                "import_s", "setup_s", "solve_s",
+                                "wall_s", "x_fnv1a64")},
+         x_bit_equal_inprocess=True, card=smi)
+
+    # ---- (c) native/test_capi.c against the port's library
+    aout, aerr, awall = capi_child_wait(abi, "test_capi")
+    assert "NATIVE CAPI TEST PASSED" in aout, (aout, aerr)
+    emit("capi_abi", driver="native/test_capi.c", mode="hDDI",
+         wall_s=awall, result=aout.strip().splitlines()[-2:])
+
+    # ---- (d) the distributed C API: 48³ in 8 shards, dDDI
+    k = CAPI_DIST_BRICK
+    rc, cfg = capi.AMGX_config_create(DIST_CFG)
+    rc, rsrc = capi.AMGX_resources_create_simple(cfg)
+    rc, M = capi.AMGX_matrix_create(rsrc, "dDDI")
+    rc, b = capi.AMGX_vector_create(rsrc, "dDDI")
+    rc, x = capi.AMGX_vector_create(rsrc, "dDDI")
+    t0 = time.perf_counter()
+    rc, Ad, pv = capi.AMGX_generate_distributed_poisson_7pt(
+        M, b, x, k, k, k, 2, 2, 2)
+    assert rc == 0, rc
+    capi.AMGX_vector_bind(b, M)
+    capi.AMGX_vector_bind(x, M)
+    rc, slv = capi.AMGX_solver_create(rsrc, "dDDI", cfg)
+    assert capi.AMGX_solver_setup(slv, M) == 0
+    torch.cuda.synchronize(dev)
+    dist_setup_s = time.perf_counter() - t0
+    assert M.matrix.dist[0].n_parts == DIST_PARTS and \
+        M.matrix.device().fmt == "sharded-ell"
+    reset_counts()
+    t0 = time.perf_counter()
+    assert capi.AMGX_solver_solve_with_0_initial_guess(slv, b, x) == 0
+    torch.cuda.synchronize(dev)
+    dist_solve_s = time.perf_counter() - t0
+    dc = read_counts()
+    rc, d_iters = capi.AMGX_solver_get_iterations_number(slv)
+    rc, d_status = capi.AMGX_solver_get_status(slv)
+    rc, xd = capi.AMGX_vector_download(x)
+    assert dc["dispatch"].get("sharded/window", 0) > 0, dc["dispatch"]
+    assert not any(dc["dispatch"].get(k_, 0) for k_ in PLAIN_LABELS), \
+        dc["dispatch"]
+    assert sum(dc["B3"].values()) > 0, dc["B3"]
+    from amgx_tpu_torch.distributed import partition_offsets_from_vector
+    direct = dist_solve(amgx, dev, Ad,
+                        partition_offsets_from_vector(pv, DIST_PARTS),
+                        "cuda", np.float32, DIST_CFG, warm=False)
+    assert direct["res"].iterations == d_iters, \
+        (direct["res"].iterations, d_iters)
+    d_equal = bool(np.array_equal(direct["x"].numpy(), xd))
+    assert d_equal, "distributed C API x differs from the direct path's"
+    d_relres = float(np.linalg.norm(1.0 - Ad @ xd) / np.sqrt(Ad.shape[0]))
+    emit("capi_distributed", n=int(Ad.shape[0]), shards=DIST_PARTS,
+         mode="dDDI", pack="f32 (sharded packs are unrefinable)",
+         iterations=d_iters, status=int(d_status), relres=d_relres,
+         setup_s=dist_setup_s, solve_s=dist_solve_s,
+         direct_iterations=direct["res"].iterations,
+         direct_status=int(direct["res"].status), x_bit_equal_direct=True,
+         dispatch=dc["dispatch"], b3_launches_per_solve=dc["B3"],
+         card=smi)
+    out["capi_dist"] = dc
+    del direct, M, slv
+    torch.cuda.empty_cache()
+
+    # ---- (e) card = CPU at 16³: the C API on the card against the
+    # direct solve on the CPU (f32 pack, f64 refinement)
+    As, geos = capi_poisson(CAPI_SMALL_SIDE)
+    e = capi_headline(capi, "dDDI", As, geos, HEADLINE_CFG)
+    from amgx_tpu_torch.capi import _regular_grid_dims
+    mc = amgx.Matrix.from_csr(As.indptr, As.indices, As.data, device="cpu")
+    mc.device_dtype = np.float32
+    mc.geometry = geos
+    mc.grid_dims = _regular_grid_dims(geos)
+    cslv = amgx.create_solver(HEADLINE_CFG)
+    cslv.setup(mc)
+    cres = cslv.solve(np.ones(As.shape[0]))
+    assert cres.iterations == e["iterations"], \
+        (cres.iterations, e["iterations"])
+    assert np.array_equal(cres.x.numpy(), e["x_host"]), \
+        "16³ C API on the card differs from the CPU's x"
+    emit("capi_card_vs_cpu", n=int(As.shape[0]), mode="dDDI",
+         iterations=e["iterations"], x_bit_equal=True)
+    _, _, cwall = capi_child_wait(counter, "capi_copies")
+    with open(copies_path) as f:
+        copies = json.load(f)
+    assert (copies["HtoD"], copies["DtoH"]) == (1, 1), copies
+    emit("capi_copies", n=CAPI_COPIES_SIDE ** 3, mode="dDDI",
+         child_wall_s=cwall, **copies)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5259,6 +5820,8 @@ def main() -> int:
     emit("card", nvidia_smi=smi, torch_name=kind,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
+    # what the C shim of phase 44 embeds (built beside the kernels)
+    emit("capi_python", **capi_python_probe())
 
     # the CPU half of phase 23 (started there; stopped here on any exit)
     cpu_ref = CpuReference()
@@ -5284,6 +5847,8 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     # ---- 2. build the four kernel sources, one nvcc each, started
     # together
     t0 = time.perf_counter()
+    # phase 44's C shim and drivers build on the host compiler meanwhile
+    shim = ShimBuild()
     sources = ("dia_spmv", "ell_spmv", "binned_spmv", "shift_spmv")
     native.build_all(sources)
     build_s = time.perf_counter() - t0
@@ -5636,7 +6201,11 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     c4 = config4_phases(amgx, dev, smi, gen, errs)
 
     # ---- 19.-23. the DFG cylinder path (aggregation AMG, B2)
-    dfg = dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs)
+    # ---- 44. the AMGX C API on the card (in process, through the C shim
+    # from a C driver, the ABI driver, distributed, card = CPU), run
+    # beside phase 23's CPU children, where the card process waits
+    dfg = dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs,
+                     beside=lambda: capi_phase(amgx, dev, smi, shim))
 
     # ---- 24.-28. the solver names of this slice; phase 23's comparison
     # after 27, once the CPU children, running beside 22-27, are done
@@ -5685,6 +6254,8 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     # ---- 43. serving on the card: the service, its endpoint, the warm
     # start across processes
     setup_paths.update(serve_phase(amgx, dev, smi))
+    # phase 44's launches (it ran beside phase 23's CPU children)
+    setup_paths.update(dfg["beside"])
 
     # ---- the kernels of the paths
     kernels = []
@@ -5803,6 +6374,8 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--capi-copies":
+        sys.exit(capi_copies_child(sys.argv[2], sys.argv[3]))
     if len(sys.argv) == 4 and sys.argv[1] == "--cpu-reference":
         sys.exit(cpu_reference(sys.argv[2], sys.argv[3]))
     if len(sys.argv) == 6 and sys.argv[1] == "--serve-child":

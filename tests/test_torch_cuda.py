@@ -1213,3 +1213,68 @@ def test_distributed_config4_and_classical_on_card_match_cpu(card):
         tdm._exchange = orig
     assert calls == []
     assert pre.hierarchy._structure[0][0] == "classical-dist"
+
+
+def _capi_upload(capi, side, cfg_str, mode="dDDI"):
+    """The side³ 7-point CSR and its grid through the C API in ``mode``:
+    (config, resources, matrix handle)."""
+    from chip_smoke import capi_poisson
+    A, geo = capi_poisson(side)
+    rc, cfg = capi.AMGX_config_create(cfg_str)
+    rc, rsrc = capi.AMGX_resources_create_simple(cfg)
+    rc, M = capi.AMGX_matrix_create(rsrc, mode)
+    assert capi.AMGX_matrix_upload_all(M, A.shape[0], A.nnz, 1, 1,
+                                       A.indptr, A.indices, A.data) == 0
+    assert capi.AMGX_matrix_attach_geometry(M, *geo) == 0
+    return A, cfg, rsrc, M
+
+
+def test_capi_spmv_bit_equal_direct(card):
+    """A dDDI upload's ``AMGX_matrix_vector_multiply``: one B1 launch on
+    the mode's f64 pack, bit-equal to the port's direct ``ops.spmv``."""
+    from amgx_tpu_torch import capi
+    from amgx_tpu_torch.ops import dia_spmv as dmod
+    from amgx_tpu_torch.ops import spmv as smod
+    A, cfg, rsrc, M = _capi_upload(capi, 24, "config_version=2")
+    rc, v = capi.AMGX_vector_create(rsrc, "dDDI")
+    rc, y = capi.AMGX_vector_create(rsrc, "dDDI")
+    n = A.shape[0]
+    assert capi.AMGX_vector_upload(
+        v, n, 1, np.random.default_rng(0).standard_normal(n)) == 0
+    assert v.data.is_cuda and v.data.dtype == torch.float64
+    before = dmod.launch_count()
+    assert capi.AMGX_matrix_vector_multiply(M, v, y) == 0
+    torch.cuda.synchronize(card)
+    assert dmod.launch_count() == before + 1
+    pack = M.matrix.device(dtype=np.float64)
+    assert pack.fmt == "dia" and y.data.is_cuda
+    assert torch.equal(y.data, smod.spmv(pack, v.data))
+    rc, yh = capi.AMGX_vector_download(y)
+    np.testing.assert_allclose(yh, A @ v.data.cpu().numpy(), rtol=1e-13,
+                               atol=1e-13)
+
+
+def test_capi_solve_bit_equal_direct(card):
+    """One C-API solve (headline config, dDDI: f32 pack, f64
+    refinement) at 32³, equal in count and bits to the port's direct
+    ``create_solver`` path on the same uploaded matrix."""
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch import capi
+    from chip_smoke import HEADLINE_CFG
+    A, cfg, rsrc, M = _capi_upload(capi, 32, HEADLINE_CFG)
+    n = A.shape[0]
+    rc, b = capi.AMGX_vector_create(rsrc, "dDDI")
+    rc, x = capi.AMGX_vector_create(rsrc, "dDDI")
+    capi.AMGX_vector_upload(b, n, 1, np.ones(n))
+    capi.AMGX_vector_set_zero(x, n, 1)
+    rc, slv = capi.AMGX_solver_create(rsrc, "dDDI", cfg)
+    assert capi.AMGX_solver_setup(slv, M) == 0
+    assert capi.AMGX_solver_solve(slv, b, x) == 0
+    rc, iters = capi.AMGX_solver_get_iterations_number(slv)
+    rc, xs = capi.AMGX_vector_download(x)
+    direct = amgx.create_solver(HEADLINE_CFG)
+    direct.setup(M.matrix)
+    res = direct.solve(np.ones(n))
+    assert res.iterations == iters
+    assert np.array_equal(res.x.cpu().numpy(), xs)
+    assert np.linalg.norm(1.0 - A @ xs) / np.sqrt(n) <= 1e-8

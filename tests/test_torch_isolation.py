@@ -25,7 +25,13 @@ PORT_FILES = sorted((ROOT / "amgx_tpu_torch").rglob("*.py")) + \
      ROOT / "scripts" / "torch_item8a_phases.py",
      ROOT / "scripts" / "torch_item8b_phases.py",
      ROOT / "scripts" / "torch_telemetry_phase.py",
-     ROOT / "scripts" / "torch_serve_phase.py"]
+     ROOT / "scripts" / "torch_serve_phase.py",
+     ROOT / "scripts" / "torch_capi_phase.py"] + \
+    sorted((ROOT / "examples_torch").glob("*.py"))
+#: the port's C sources: the shim embeds the port's C API, never the
+#: JAX package's
+PORT_C_FILES = sorted((ROOT / "amgx_tpu_torch" / "capi_native").glob(
+    "*.[ch]*"))
 
 
 def test_import_leaves_jax_out_of_sys_modules():
@@ -40,7 +46,9 @@ def test_import_leaves_jax_out_of_sys_modules():
             "amgx_tpu_torch.telemetry.overlap, "
             "amgx_tpu_torch.utils.memory, amgx_tpu_torch.utils.retry, "
             "amgx_tpu_torch.utils.signals, "
-            "amgx_tpu_torch.utils.thread_manager\n"
+            "amgx_tpu_torch.utils.thread_manager, amgx_tpu_torch.capi, "
+            "amgx_tpu_torch.utils.matrix_analysis, "
+            "amgx_tpu_torch.capi_native.build\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'amgx_tpu' or "
             "m.startswith('amgx_tpu.')]\n"
@@ -67,6 +75,32 @@ def test_no_file_imports_jax(path):
         for name in names:
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "amgx_tpu"), (path, name)
+
+
+def test_port_files_cover_the_c_api():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"amgx_tpu_torch/capi.py",
+            "amgx_tpu_torch/utils/matrix_analysis.py",
+            "amgx_tpu_torch/capi_native/build.py",
+            "examples_torch/amgx_capi.py"} <= names
+    assert len([n for n in names if n.startswith("examples_torch/")]) == 13
+
+
+@pytest.mark.parametrize("path", PORT_C_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_C_FILES])
+def test_c_sources_embed_the_port(path):
+    text = path.read_text()
+    assert "amgx_tpu." not in text.replace("amgx_tpu_torch.", ""), path
+    assert "jax" not in text.lower(), path
+    if path.name == "amgx_c_shim.cpp":
+        assert 'PyImport_ImportModule("amgx_tpu_torch.capi")' in text
+
+
+def test_example_drivers_import_the_port():
+    for path in sorted((ROOT / "examples_torch").glob("*.py")):
+        text = path.read_text()
+        assert "amgx_tpu_torch" in text, path
+        assert '"-mode", "--mode", default="dDDI"' in text, path
 
 
 @pytest.fixture
