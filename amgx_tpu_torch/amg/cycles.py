@@ -58,8 +58,13 @@ def _scaling_lambda(r, e, Ae, mode: int) -> torch.Tensor:
     else:
         num, den = wdot(r, e), wdot(e, Ae)
     one = torch.ones_like(den)
-    lam = torch.where(den == 0, one, num / torch.where(den == 0, one, den))
-    return torch.sign(lam) * torch.clamp(torch.abs(lam), 0.3, 10.0)
+    lam = torch.where(den == 0, one, div(num, torch.where(den == 0, one,
+                                                          den)))
+    mag = torch.clamp(torch.abs(lam), 0.3, 10.0)
+    if lam.is_complex():
+        # the complex sign λ/|λ| (0 at 0), as ``jnp.sign``
+        return mul(_guarded_div(lam, torch.abs(lam)), mag)
+    return torch.sign(lam) * mag
 
 
 def build_cycle(hierarchy, cycle_type: str = None):
@@ -147,7 +152,7 @@ def build_cycle(hierarchy, cycle_type: str = None):
                 e = smooth(lvl, r, e, h.scaling_smoother_steps)
                 lam = _scaling_lambda(r, e, spmv(lvl.Ad, e),
                                       h.error_scaling)
-                x = x + lam * e
+                x = x + mul(lam, e)
             else:
                 x = lvl.prolongate_and_correct(x, xc)
             if inst:

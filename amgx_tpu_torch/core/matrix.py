@@ -1114,20 +1114,16 @@ class Matrix:
         branch of ``Matrix.device`` upstream): from the uploaded row
         blocks, else from the host matrix split at the distribution's
         offsets; a b×b matrix packs its blocks
-        (:func:`~..distributed.matrix.shard_block_matrix`).  A complex or
-        bf16 distributed matrix is ROADMAP item 7c of the port."""
-        from ..errors import NotImplementedError_
+        (:func:`~..distributed.matrix.shard_block_matrix`).  A complex
+        matrix packs complex; a bf16 pack is the f32 pack cast on the
+        device (bf16(f32(v)), as a single-device bf16 pack)."""
         from ..distributed.matrix import (shard_block_matrix,
                                           shard_block_matrix_from_blocks,
                                           shard_matrix,
                                           shard_matrix_from_blocks)
-        name = "bfloat16" if dtype == torch.bfloat16 else \
-            np.dtype(dtype).name
-        if name == "bfloat16" or "complex" in name or \
-                np.issubdtype(self.dtype, np.complexfloating):
-            raise NotImplementedError_(
-                f"a distributed matrix in {name} (host {self.dtype}) is "
-                "ROADMAP item 7c of the port")
+        if dtype == torch.bfloat16:
+            self._pack_cast_via = np.dtype(np.float32)
+            return self._build_sharded(np.dtype(np.float32)).astype(dtype)
         mesh, axis, offsets, n_loc = self.dist
         b = self.block_dim
         if self._host is None and self.blocks is not None:

@@ -170,6 +170,13 @@ def precision_view(parent, dtype):
         m._pack_cast_via = storage_dtype(dev.dtype)
         m._setup_wide = dev
         cached = getattr(parent, "_dinv_dev", None)
+        if dev.dtype.is_complex and not cast.dtype.is_complex:
+            # a complex pack cast to a real dtype keeps its real parts,
+            # as the JAX package's cast does; the smoother's setup reads
+            # those real parts at the wide precision (1/Re(d), not
+            # Re(1/d))
+            m._setup_wide = dev.astype(dev.dtype.to_real())
+            cached = None
         if cached is not None:
             m._dinv_dev = (cast.dtype, cached[1].to(cast.dtype))
     else:

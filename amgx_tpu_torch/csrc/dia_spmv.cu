@@ -41,10 +41,12 @@
 // So the kernel reproduces its plain version (ops/dia_spmv.py::
 // dia_spmv_reference) bit for bit.  It accumulates in x's type, launches
 // on the caller's stream, allocates nothing, and the launcher returns
-// cudaGetLastError().  The TPU kernel's (rows, 128) x view, VMEM windows
-// and lane concat are TPU layout rules and are not carried over; nor is
-// its n % 128 == 0, n >= 16384 gate: this kernel serves every scalar DIA
-// level.
+// cudaGetLastError().  Type pairs (vals, x): (bf16, f32), (f32, f32),
+// (f32, f64), (bf16, f64) and (f64, f64); each value widens exactly to
+// x's type before its product.  The TPU kernel's (rows, 128) x view,
+// VMEM windows and lane concat are TPU layout rules and are not carried
+// over; nor is its n % 128 == 0, n >= 16384 gate: this kernel serves
+// every scalar DIA level.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,6 +92,12 @@ template <>
 __device__ __forceinline__ float widen<float, __nv_bfloat16>(
     __nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+
+template <>
+__device__ __forceinline__ double widen<double, __nv_bfloat16>(
+    __nv_bfloat16 v) {
+  return static_cast<double>(__bfloat162float(v));
 }
 
 __device__ __forceinline__ float mul(float a, float b) {
@@ -296,5 +304,7 @@ extern "C" int amgx_dia_spmv(int vals_type, int x_type, const void* vals,
     return launch<float, double>(vals, x, y, n, n_cols, offs, s);
   if (vals_type == kF64 && x_type == kF64)
     return launch<double, double>(vals, x, y, n, n_cols, offs, s);
+  if (vals_type == kBF16 && x_type == kF64)
+    return launch<__nv_bfloat16, double>(vals, x, y, n, n_cols, offs, s);
   return -1;
 }

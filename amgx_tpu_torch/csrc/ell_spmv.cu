@@ -42,7 +42,9 @@
 // for a level of a bf16 hierarchy (hierarchy_dtype=bfloat16): each bf16
 // value widens to f32 in registers (exact) before its product, so the
 // sums run in f32 in the same order as the (f32, f32) pair, and the value
-// stream is half as many bytes.
+// stream is half as many bytes.  (f32, f64) and (bf16, f64) serve a level
+// narrowed by hierarchy_dtype under an f64 outer solver: each value
+// widens to f64 (exact) and the sums run in f64, in the same order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,7 +94,7 @@ __global__ void __launch_bounds__(kThreads)
     const V* v = vals + row * K;
     if (cols == nullptr) {
       for (int64_t k = lane; k < K; k += L)
-        acc = add(acc, mul(widen(v[k]), __ldg(x + k)));
+        acc = add(acc, mul(static_cast<T>(widen(v[k])), __ldg(x + k)));
     } else {
       const int32_t* c = cols + row * K;
       int64_t end = K;
@@ -103,7 +105,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int64_t k = lane; k < end; k += L) {
         const int64_t j = c[k];
         if (j >= 0 && j < n_cols)
-          acc = add(acc, mul(widen(v[k]), __ldg(x + j)));
+          acc = add(acc, mul(static_cast<T>(widen(v[k])), __ldg(x + j)));
       }
     }
   }
@@ -167,5 +169,10 @@ extern "C" int amgx_ell_spmv(int vals_type, int x_type, const void* cols,
     return launch<double, double>(c, rl, vals, x, y, n, K, n_cols, s);
   if (vals_type == kBF16 && x_type == kF32)
     return launch<__nv_bfloat16, float>(c, rl, vals, x, y, n, K, n_cols, s);
+  if (vals_type == kF32 && x_type == kF64)
+    return launch<float, double>(c, rl, vals, x, y, n, K, n_cols, s);
+  if (vals_type == kBF16 && x_type == kF64)
+    return launch<__nv_bfloat16, double>(c, rl, vals, x, y, n, K, n_cols,
+                                         s);
   return -1;
 }

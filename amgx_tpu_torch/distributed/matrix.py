@@ -48,8 +48,13 @@ Padding invariant (as upstream): shards are equal-sized; padding rows
 are identity rows whose right-hand side and solution entries stay
 exactly zero through every cycle operation.
 
-Complex and bf16 sharded packs are ROADMAP item 7c of the port; shards
-on several cards are item 8c.
+A complex pack (b = 1 or b×b) exchanges its halo as a real one does and
+applies its interior on the plain path on every device (kernels B3 and
+B5 refuse complex values, as the JAX package's window kernel does); a
+b×b complex pack carries no B5 interior.  A bf16 pack is the f32 pack
+cast on the device (``Matrix.device``); its SpMV takes an f32 x into B3
+or B5 in their (bf16, f32) pairs, accumulates in f32 and rounds once at
+the end.  Shards on several cards are ROADMAP item 8c of the port.
 """
 from __future__ import annotations
 
@@ -63,8 +68,8 @@ import torch
 from ..device import resolve_device, torch_dtype
 from ..errors import BadParametersError, NotImplementedError_
 from ..ops import binned_spmv
-from ..ops.ell_spmv import ell_row_len, ell_spmv
-from ..ops.ordered import sum_along
+from ..ops.ell_spmv import ell_row_len, ell_spmv, ell_spmv_reference
+from ..ops.ordered import mul, sum_along
 from .partition import Partition, build_partition_from_blocks, \
     split_row_blocks
 
@@ -287,8 +292,12 @@ def shard_arrays(blocks, part: Partition, dtype, rect: bool = False,
         if not rect:
             on_diag = gcols == rr + lo
             # duplicate diagonal entries are legal CSR input: added
-            diag[p] += np.bincount(rr[on_diag], weights=sub.data[on_diag],
-                                   minlength=n_loc).astype(dtype)
+            w = sub.data[on_diag]
+            d = np.bincount(rr[on_diag], weights=w.real, minlength=n_loc)
+            if np.iscomplexobj(w):
+                d = d + 1j * np.bincount(rr[on_diag], weights=w.imag,
+                                         minlength=n_loc)
+            diag[p] += d.astype(dtype)
             r = np.arange(nl, n_loc)
             cols[p, r, 0] = r
             vals[p, r, 0] = 1.0
@@ -445,12 +454,12 @@ def shard_matrix_from_blocks(blocks, offsets, mesh: DeviceMesh,
 
 
 def _check_pack_dtype(dtype) -> None:
-    """A sharded pack holds real f32/f64 values; a complex pack is ROADMAP
-    item 7c of the port."""
-    if np.issubdtype(dtype, np.complexfloating) or \
-            not np.issubdtype(dtype, np.floating):
-        raise NotImplementedError_(
-            f"a {dtype} sharded pack is ROADMAP item 7c of the port")
+    """A sharded pack holds f32/f64 or c64/c128 values (a bf16 pack is
+    the f32 pack cast on the device, ``Matrix.device``)."""
+    if not (np.issubdtype(dtype, np.floating)
+            or np.issubdtype(dtype, np.complexfloating)):
+        raise BadParametersError(f"a sharded pack holds floating or "
+                                 f"complex values, not {dtype}")
 
 
 def split_bsr_rows(bsr: sp.bsr_matrix, offsets) -> list:
@@ -696,7 +705,8 @@ def shard_block_matrix_from_blocks(bsr_blocks, offsets, mesh: DeviceMesh,
         halo_counts=tuple(int(c) for c in part.halo_count),
         halo_counts2=tuple(int(c) for c in r2.halo_count),
         bnd_counts=tuple(int(c) for c in part.bnd_count), block_dim=b,
-        interior=stacked_block_interior(bsr_blocks, part, dtype, dev),
+        interior=None if np.issubdtype(dtype, np.complexfloating)
+        else stacked_block_interior(bsr_blocks, part, dtype, dev),
         host_cols=cols)
 
 
@@ -801,42 +811,73 @@ def _exchange_halo(A: ShardedMatrix, x: torch.Tensor, ring: int
     return got[rank, halo_src]
 
 
+def _pair_ok(A: ShardedMatrix, x: torch.Tensor) -> bool:
+    """x in the pack's dtype, or f32 through a bf16 pack."""
+    return x.dtype == A.dtype or (A.dtype == torch.bfloat16
+                                  and x.dtype == torch.float32)
+
+
 def dist_spmv(A: ShardedMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A·x for the flat sharded ``x`` of length P·n_loc_cols: the
     halo exchange, every shard's interior in one call of kernel B3 (its
-    plain version on a CPU tensor), then the boundary rows' halo terms
-    summed in slot order and added row by row."""
-    if x.dtype != A.dtype:
+    plain version on a CPU tensor or a complex pack), then the boundary
+    rows' halo terms summed in slot order and added row by row.  A bf16
+    pack takes an f32 x (``ops.spmv`` widens a bf16 one) and returns y
+    in f32: B3's (bf16, f32) pair, the boundary products in f32."""
+    if not _pair_ok(A, x):
         raise BadParametersError(
             f"dist_spmv: a {A.dtype} pack takes a {A.dtype} vector, got "
             f"{x.dtype}")
     if A.block_dim > 1:
         return _dist_spmv_block(A, x)
     halo = exchange_halo(A, x, 1, op="dist_spmv")
-    y = ell_spmv(A.cols, A.vals, x, A.row_len)
+    if A.dtype.is_complex:
+        y = ell_spmv_reference(A.cols, A.vals, x)
+    else:
+        y = ell_spmv(A.cols, A.vals, x, A.row_len)
     if A.bnd_rows.numel():
         hz = torch.cat([halo.reshape(-1), halo.new_zeros(1)])
-        corr = sum_along(A.bnd_vals * hz[A.bnd_hidx], 1)
+        corr = sum_along(mul(A.bnd_vals, hz[A.bnd_hidx]), 1)
         y[A.bnd_rows] = y[A.bnd_rows] + corr
     return y
+
+
+def _block_slots(vals: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """(N, b): per slot the b×b block of ``vals`` (N, K, b, b) times its
+    gathered x block ``g`` (N, K, b), component c added in order, then
+    the slots added in slot order."""
+    return sum_along(sum_along(mul(vals, g[:, :, None, :]), 3), 1)
+
+
+def _block_interior_plain(A: ShardedMatrix, x: torch.Tensor
+                          ) -> torch.Tensor:
+    """The stacked block interior of a complex b×b pack on the plain
+    path (:func:`_block_slots`); halo slots (−1) add nothing."""
+    b = A.block_dim
+    xb = torch.cat([x.reshape(-1, b), x.new_zeros((1, b))])
+    cols = torch.where(A.cols < 0, xb.shape[0] - 1, A.cols).long()
+    return _block_slots(A.vals, xb[cols]).reshape(-1)
 
 
 def _dist_spmv_block(A: ShardedMatrix, x: torch.Tensor) -> torch.Tensor:
     """The b×b distributed SpMV (``_dist_spmv_block`` upstream): the halo
     exchange of (B, b) block values, every shard's interior in one call
     of kernel B5 over the stacked compact pack (its plain version on a
-    CPU tensor), then each boundary row's halo blocks — per slot the b×b
-    block times its halo block, component c added in order, then the
-    slots in slot order — added row by row."""
+    CPU tensor; :func:`_block_interior_plain` for a complex pack), then
+    each boundary row's halo blocks — per slot the b×b block times its
+    halo block, component c added in order, then the slots in slot
+    order — added row by row."""
     b = A.block_dim
     halo = exchange_halo(A, x, 1, op="dist_spmv")
     I = A.interior
-    y = binned_spmv.compact_spmv(I.compact, I.pos, I.row_of_pos, I.dims, x)
+    if I is None:
+        y = _block_interior_plain(A, x)
+    else:
+        y = binned_spmv.compact_spmv(I.compact, I.pos, I.row_of_pos,
+                                     I.dims, x)
     if A.bnd_rows.numel():
         hz = torch.cat([halo.reshape(-1, b), halo.new_zeros((1, b))])
-        g = hz[A.bnd_hidx]                                # (Nb, Kb, b)
-        p = A.bnd_vals * g[:, :, None, :]                 # (Nb, Kb, b, b)
-        corr = sum_along(sum_along(p, 3), 1)              # (Nb, b)
+        corr = _block_slots(A.bnd_vals, hz[A.bnd_hidx])   # (Nb, b)
         yb = y.reshape(-1, b)
         yb[A.bnd_rows] = yb[A.bnd_rows] + corr
     return y

@@ -20,7 +20,7 @@ import scipy.sparse as sp
 import torch
 
 from ..device import host_scalar, to_host
-from ..errors import SolveStatus
+from ..errors import NotImplementedError_, SolveStatus
 from ..ops.spmv import spmm, spmv
 from ..solvers.base import SolverFactory
 from .base import EigenResult, EigenSolver, register_eigensolver
@@ -93,6 +93,9 @@ class PageRankSolver(EigenSolver):
     link matrix of A's pattern; the dangling pages' mass is spread
     evenly."""
 
+    complex_refused = ("its loop carry turns real, "
+                       "amgx_tpu/eigen/algorithms.py:137")
+
     def pagerank_setup(self, ranks=None):
         from ..core.matrix import Matrix
         from ..device import numpy_dtype
@@ -132,12 +135,21 @@ class PageRankSolver(EigenSolver):
 
 
 def _sym_eigh(G):
-    return torch.linalg.eigh((G + G.T) / 2)
+    """``eigh((G + Gᵀ)/2)`` as the JAX package computes it: its ``eigh``
+    symmetrises its input, ``(H + Hᴴ)/2``, which changes a complex
+    ``H`` (``torch.linalg.eigh`` reads one triangle only)."""
+    H = (G + G.T) / 2
+    if H.is_complex():
+        H = (H + H.mH) / 2
+    return torch.linalg.eigh(H)
 
 
 @register_eigensolver("SUBSPACE_ITERATION")
 class SubspaceIterationSolver(EigenSolver):
     """Block power iteration + Rayleigh–Ritz (``subspace_iteration.cu``)."""
+
+    complex_refused = ("its loop carry turns real, "
+                       "amgx_tpu/eigen/algorithms.py:177")
 
     def _shifted_mm(self, X):
         Y = spmm(self.Ad, X)
@@ -274,6 +286,12 @@ class LOBPCGSolver(EigenSolver):
             self.precond = SolverFactory.allocate(self.cfg, self.scope,
                                                   "preconditioner")
             self.precond.setup(self.A if self.A is not None else self.Ad)
+        if self.precond is None and self.Ad.dtype.is_complex:
+            # the fused loop (no preconditioner)
+            raise NotImplementedError_(
+                "LOBPCG without a preconditioner on a complex operator: "
+                "the reference JAX package does not run it (its fused "
+                "loop's carry turns real, amgx_tpu/eigen/algorithms.py:336)")
 
     def _shifted_mm(self, X):
         AX = spmm(self.Ad, X)

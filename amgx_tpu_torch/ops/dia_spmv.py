@@ -7,8 +7,10 @@ kernel, ``pl.pallas_call`` at :101).  The kernel is
 Contract: ``y[i] = Σ_k vals[k, i] · x[i + offsets[k]]`` for ``i <
 vals.shape[1]``, with ``x`` read as zero outside ``[0, len(x))``, summed
 in ``x``'s dtype.  The output dtype is ``promote(vals, x)``, which for
-the four supported pairs (vals, x) — (bf16, f32), (f32, f32),
-(f32, f64), (f64, f64) — is always ``x``'s dtype.  Any other pair
+the five supported pairs (vals, x) — (bf16, f32), (f32, f32),
+(f32, f64), (bf16, f64), (f64, f64) — is always ``x``'s dtype (each
+value widens exactly to it; (bf16, f64) serves a bf16 level of
+``hierarchy_dtype`` under an f64 outer solver).  Any other pair
 raises.
 
 :func:`dia_spmv` runs the plain version only for CPU tensors; a CUDA
@@ -30,7 +32,8 @@ _TYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 _SHORT = {torch.float32: "f32", torch.float64: "f64",
           torch.bfloat16: "bf16"}
 SUPPORTED = ((torch.bfloat16, torch.float32), (torch.float32, torch.float32),
-             (torch.float32, torch.float64), (torch.float64, torch.float64))
+             (torch.float32, torch.float64), (torch.bfloat16, torch.float64),
+             (torch.float64, torch.float64))
 
 #: kernel launches per (vals, x) type pair, e.g. ``"f32.f32"`` — counted
 #: where the kernel is launched and nowhere else

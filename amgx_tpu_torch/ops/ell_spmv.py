@@ -14,8 +14,10 @@ entries k = l, l + L, … left to right, then the lanes fold in halves.
 Each product and sum is rounded on its own, so the card and the CPU give
 the same bits.  Type pairs (vals, x): (f32, f32), (f64, f64) and (bf16,
 f32) — a level of a bf16 hierarchy: each value widens exactly to f32
-before its product, and the sums run in f32 in the same order; any other
-pair raises.
+before its product, and the sums run in f32 in the same order — and
+(f32, f64) and (bf16, f64), a level narrowed by ``hierarchy_dtype``
+under an f64 outer solver, widened to f64 alike; any other pair
+raises.
 
 ``row_len`` (optional, (n,) int32, :func:`ell_row_len`) is one past the
 last slot of each row whose value is nonzero: the kernel stops every
@@ -42,7 +44,8 @@ _TYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 _SHORT = {torch.float32: "f32", torch.float64: "f64",
           torch.bfloat16: "bf16"}
 SUPPORTED = ((torch.float32, torch.float32), (torch.float64, torch.float64),
-             (torch.bfloat16, torch.float32))
+             (torch.bfloat16, torch.float32), (torch.float32, torch.float64),
+             (torch.bfloat16, torch.float64))
 
 #: kernel launches per (vals, x) type pair, e.g. ``"f32.f32"`` — counted
 #: where the kernel is launched and nowhere else
@@ -152,7 +155,10 @@ def ell_spmv_reference(cols: Optional[torch.Tensor], vals: torch.Tensor,
         p = mul(vals, x)
     else:
         ok = (cols >= 0) & (cols < x.shape[0])
-        if bool(ok.all()):
+        # the masked form while a CUDA graph captures (a complex apply
+        # inside the AMG's graph may not sync with the host)
+        capturing = x.is_cuda and torch.cuda.is_current_stream_capturing()
+        if not capturing and bool(ok.all()):
             p = mul(vals, x[cols])
         else:
             p = torch.where(ok, mul(vals, x[torch.where(ok, cols, 0)]), 0)

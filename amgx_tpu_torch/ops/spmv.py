@@ -32,12 +32,19 @@ package's gates, which admit real f32/bf16 only
 (``amgx_tpu/ops/pallas_spmv.py:57-62``, ``pallas_ell.py:127-129``,
 ``pallas_shift.py:134-136``; the packer builds no shift or binned planes
 of complex values): a scalar DIA pack takes ``dia/slices``, a scalar ELL
-pack ``ell/gather``, and the dense coarse product ``dense/lanes``
+pack ``ell/gather``, a block-DIA pack ``dia/block-slices``, a b×b ELL
+pack ``ell/block-gather``, a sharded pack ``sharded/gather`` or
+``sharded/block-plain``, and the dense coarse product ``dense/lanes``
 (:func:`~.ordered.dense_matvec`), on any device, their c64 products
 rounded part by part (:func:`~.ordered.mul`) so that a c64 apply gives
 the card the CPU's bits.  On a CUDA tensor each such apply is a decline
 and is also counted in ``ON_CUDA`` (:func:`declines` reads both).  The
-kernel wrappers themselves keep refusing a complex tensor.
+kernel wrappers themselves keep refusing a complex tensor.  An f64
+vector through an f32 or bf16 level of ``hierarchy_dtype`` launches B1
+or B3 in their (f32, f64) / (bf16, f64) pairs (the JAX package's gates
+decline such a pair to its plain paths); a real pair that neither
+kernel takes takes ``dia/slices`` or ``ell/gather`` in the promoted
+dtype.
 
 ``sharded/window`` counts the applies of a sharded ELL pack
 (:mod:`amgx_tpu_torch.distributed`) on a CUDA tensor: its halo exchange,
@@ -47,7 +54,9 @@ correction (:func:`~amgx_tpu_torch.distributed.matrix.dist_spmv`);
 B3's plain version.  A b×b sharded pack counts ``sharded/block-binned``
 on a CUDA tensor (its interior one launch of kernel B5 over the stacked
 compact pack) and ``sharded/block-plain`` on a CPU tensor (B5's plain
-version).
+version).  A bf16 sharded pack (``Matrix.device(dtype=torch.bfloat16)``)
+takes an f32 x into B3 or B5 in their (bf16, f32) pairs and rounds y to
+bf16 once, at the end.
 
 ``dense`` counts the applies of an fmt ``dense`` pack (built with
 ``AMGX_DENSE_PACK=1``): kernel B3 over dense rows on a CUDA tensor, its
@@ -80,7 +89,9 @@ from ..telemetry import recorder as _trecorder
 from ..telemetry.scopes import _NULL as _NO_SCOPE
 from .binned_spmv import (binned_abs_rowsum, binned_entries_view,
                           binned_spmv, binned_supported, bn_block_dim)
+from .dia_spmv import SUPPORTED as DIA_PAIRS
 from .dia_spmv import dia_spmv, dia_spmv_reference
+from .ell_spmv import SUPPORTED as ELL_PAIRS
 from .ell_spmv import ell_spmv, ell_spmv_reference
 from .shift_spmv import shift_spmv, shift_supported
 
@@ -93,11 +104,14 @@ DISPATCH = {k: 0 for k in (
     "sharded/block-plain")}
 #: plain-path labels that are a decline only on a CUDA tensor (complex
 #: packs): their CUDA applies, counted apart from the CPU's
-ON_CUDA = {k: 0 for k in ("dia/slices", "ell/gather", "dense/lanes")}
+ON_CUDA = {k: 0 for k in ("dia/slices", "ell/gather", "dense/lanes",
+                           "dia/block-slices", "sharded/gather",
+                           "sharded/block-plain")}
 #: the labels of the JAX package's declines (plain paths a kernel pack
 #: falls to when its planes are missing, or its dtype gate refuses)
 DECLINES = ("ell/block-gather", "csr/segsum", "csr/segsum-lean",
-            "csr/block-segsum", "dia/slices", "ell/gather", "dense/lanes")
+            "csr/block-segsum", "dia/slices", "ell/gather", "dense/lanes",
+            "dia/block-slices", "sharded/gather", "sharded/block-plain")
 
 
 #: modelled bytes of each label's applies while telemetry was on
@@ -188,18 +202,6 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
         # one low-fill embedded matrix
         with _tel("dia3"):
             return spmv(A.R, spmv(A.A, spmv(A.P, x)))
-    if A.fmt == "sharded-ell":
-        # the halo exchange, the shards' interior in one B3 call and the
-        # boundary correction (``spmv.py:107-110`` upstream)
-        from ..distributed.matrix import dist_spmv
-        if A.block_dim > 1:
-            label = "sharded/block-binned" if x.is_cuda \
-                else "sharded/block-plain"
-        else:
-            label = "sharded/window" if x.is_cuda else "sharded/gather"
-        DISPATCH[label] += 1
-        with _tel(label, A):
-            return dist_spmv(A, x)
     if A.fmt == "op":
         # an implicit operator (operators.ImplicitOperator, the
         # reference's Operator::apply); its base pack dispatches as any
@@ -207,19 +209,36 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
         with _tel("op"):
             return A.apply(x)
     if x.dtype == torch.bfloat16:
-        # an all-bf16 apply (a bf16 Krylov pack): the kernels take an f32
-        # x, accumulate in f32, and the result rounds once at the end
+        # an all-bf16 apply (a bf16 Krylov pack, a bf16 sharded pack):
+        # the kernels take an f32 x, accumulate in f32, and the result
+        # rounds once at the end
         return spmv(A, x.float()).to(_out_dtype(A, x))
+    if A.fmt == "sharded-ell":
+        # the halo exchange, the shards' interior in one B3 call and the
+        # boundary correction (``spmv.py:107-110`` upstream)
+        from ..distributed.matrix import dist_spmv
+        plain = not x.is_cuda or _complex(A, x)
+        if A.block_dim > 1:
+            label = "sharded/block-plain" if plain \
+                else "sharded/block-binned"
+        else:
+            label = "sharded/gather" if plain else "sharded/window"
+        if plain:
+            # a complex pack's interior is plain on every device (a
+            # decline on the card)
+            count_plain(label, x)
+        else:
+            DISPATCH[label] += 1
+        with _tel(label, A):
+            return dist_spmv(A, x)
     cplx = _complex(A, x)
-    if cplx and A.block_dim > 1:
-        from ..errors import NotImplementedError_
-        raise NotImplementedError_(
-            f"a complex {A.fmt} pack of {A.block_dim}x{A.block_dim} blocks "
-            "is ROADMAP item 7c of the port")
     if A.fmt == "dia":
         if A.block_dim > 1:
             return _bdia_spmv(A, x)
-        if cplx:
+        if cplx or (A.vals.dtype, x.dtype) not in DIA_PAIRS:
+            # a complex pack, or a real pair B1 has no kernel for: the
+            # plain slices in the promoted dtype, as the JAX package
+            # declines
             count_plain("dia/slices", x)
             with _tel("dia/slices", A):
                 return dia_spmv_reference(A.vals, x, A.dia_offsets)
@@ -241,10 +260,6 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
             return dense_matvec(M, x.to(pet).contiguous()).to(
                 _out_dtype(A, x))
     b = A.block_dim
-    if cplx and A.fmt == "ell" and A.cols is not None:
-        count_plain("ell/gather", x)
-        with _tel("ell/gather", A):
-            return ell_spmv_reference(A.cols, A.vals, x)
     if A.fmt == "ell" and shift_supported(A):
         DISPATCH["ell/shift"] += 1
         with _tel("ell/shift", A):
@@ -256,6 +271,12 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
         with _tel(label, A):
             return binned_spmv(A, x).to(_out_dtype(A, x))
     if A.fmt == "ell":
+        if b == 1 and (A.vals.dtype, x.dtype) not in ELL_PAIRS:
+            # a complex pack, or a real pair B3 has no kernel for: the
+            # JAX package's gather decline, in the promoted dtype
+            count_plain("ell/gather", x)
+            with _tel("ell/gather", A):
+                return ell_spmv_reference(A.cols, A.vals, x)
         if b == 1:
             label = "ell/window" if x.is_cuda else "ell/gather"
             DISPATCH[label] += 1
@@ -323,15 +344,23 @@ def _bdia_spmv(A, x: torch.Tensor) -> torch.Tensor:
     the same order, and round alike."""
     b = A.block_dim
     pet = torch.promote_types(_acc(A.dtype), x.dtype)
-    label = "dia/block-kernel" if x.is_cuda else "dia/block-slices"
-    DISPATCH[label] += 1
+    cplx = _complex(A, x)
+    # a complex pack takes the plain slices on every device (a decline
+    # on the card, as B1 refuses complex values)
+    label = "dia/block-kernel" if x.is_cuda and not cplx \
+        else "dia/block-slices"
+    apply = dia_spmv_reference if cplx else dia_spmv
+    if cplx:
+        count_plain(label, x)
+    else:
+        DISPATCH[label] += 1
     with _tel(label, A):
         xt = x.to(pet).reshape(A.n_cols, b).T.contiguous()  # (b, n_cols)
         cols = []
         for a in range(b):
             acc = None
             for c in range(b):
-                ya = dia_spmv(A.vals[:, :, a, c], xt[c], A.dia_offsets)
+                ya = apply(A.vals[:, :, a, c], xt[c], A.dia_offsets)
                 acc = ya if acc is None else acc + ya
             cols.append(acc)
         return torch.stack(cols, dim=1).reshape(-1).to(_out_dtype(A, x))

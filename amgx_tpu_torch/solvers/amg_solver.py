@@ -32,24 +32,17 @@ from .base import Solver, register_solver
 @register_solver("AMG")
 class AMGSolver(Solver):
     is_smoother = True
-    complex_ok = True
 
     def _check_complex(self):
-        """Complex systems run aggregation AMG (GEO or SIZE_2 selectors)
-        under the V and CG cycles, as the port holds them against the
-        JAX package; every other algorithm, selector, cycle or knob is
-        ROADMAP item 7c."""
-        g = lambda name: self.cfg.get(name, self.scope)
-        for name, ok in (("algorithm", ("AGGREGATION",)),
-                         ("selector", ("GEO", "SIZE_2")),
-                         ("cycle", ("V", "CG")), ("error_scaling", (0,)),
-                         ("structure_reuse_levels", (0,)),
-                         ("amg_host_levels_rows", (-1,)),
-                         ("hierarchy_dtype", ("default",))):
-            if g(name) not in ok:
-                raise NotImplementedError_(
-                    f"AMG with {name}={g(name)!r} on a complex operator is "
-                    "ROADMAP item 7c of the port")
+        """Complex systems run every AMG configuration the JAX package
+        runs on them; classical AMG is refused, as its interpolation
+        casts the complex operator to float64 there."""
+        if str(self.cfg.get("algorithm", self.scope)) == "CLASSICAL":
+            raise NotImplementedError_(
+                "AMG with algorithm='CLASSICAL' on a complex operator: the "
+                "reference JAX package does not run it (its interpolation "
+                "casts to float64, amgx_tpu/amg/classical/"
+                "interpolators.py:22)")
 
     def solver_setup(self):
         if self.A is None:

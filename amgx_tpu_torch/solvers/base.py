@@ -154,9 +154,10 @@ class Solver:
     config_name = "?"
     #: True for relaxation methods whose one iteration is one sweep
     is_smoother = False
-    #: True for the solvers held against the JAX package on complex
-    #: operators; the others raise on a complex pack (ROADMAP item 7c)
-    complex_ok = False
+    #: where the JAX package's setup or first application raises on a
+    #: complex operator (the line that raises there): the port refuses
+    #: the same name at setup, before any work
+    complex_refused: Optional[str] = None
 
     def __init__(self, cfg: AMGConfig, scope: str = "default"):
         self.cfg = cfg
@@ -467,18 +468,12 @@ class Solver:
         """Override: build device-side data (diag inverse, hierarchy, ...)."""
 
     def _check_complex(self):
-        """Raise for a complex operator unless this solver (and its
-        configuration) is one the port holds on complex systems."""
-        why = None
-        if not self.complex_ok:
-            why = f"{self.config_name} on a complex operator"
-        else:
-            comm = getattr(self, "forced_comm", None) or self.krylov_comm
-            if comm != "CLASSIC" and not self.is_smoother:
-                why = f"krylov_comm={comm} on a complex operator"
-        if why is not None:
-            raise NotImplementedError_(f"{why} is ROADMAP item 7c of the "
-                                       "port")
+        """Refuse a complex operator where the JAX package does
+        (:attr:`complex_refused`); every other name runs on it."""
+        if self.complex_refused is not None:
+            raise NotImplementedError_(
+                f"{self.config_name} on a complex operator: the reference "
+                f"JAX package does not run it ({self.complex_refused})")
 
     # -------------------------------------------------------- the protocol
     def solve_init(self, b: torch.Tensor, x: torch.Tensor):

@@ -70,19 +70,31 @@ def lanczos_spectrum(matvec, n: int, dtype: torch.dtype, device,
     V[0] = v0 / torch.clamp(ordered.wnrm2(v0), min=1e-30)
     alpha = torch.zeros(m, dtype=dtype, device=device)
     beta = torch.zeros(m, dtype=dtype, device=device)
+    cplx = V.is_complex()
     for j in range(m):
         w = matvec(V[j])
         a = ordered.wdot(V[j], w)
-        w = w - a * V[j]
-        # full reorthogonalisation against the built rows 0..j
         Vj = V[:j + 1]
-        w = w - ordered.lincomb(Vj, ordered.wgram_dots(Vj, w))
+        if cplx:
+            # the JAX package's complex recurrence: α = Re(v̄ⱼ·w), and the
+            # reorthogonalisation projects with Vᵀ, unconjugated
+            # (``amgx_tpu/solvers/chebyshev.py:51-56``)
+            a = a.real.to(dtype)
+            w = w - ordered.mul(a, V[j])
+            proj = ordered.wgram_dots(Vj.conj().resolve_conj(), w)
+        else:
+            w = w - a * V[j]
+            proj = ordered.wgram_dots(Vj, w)
+        # full reorthogonalisation against the built rows 0..j
+        w = w - ordered.lincomb(Vj, proj)
         b = ordered.wnrm2(w)
-        V[j + 1] = torch.where(b > 1e-30, w / torch.clamp(b, min=1e-30),
-                               torch.zeros_like(w))
+        V[j + 1] = torch.where(b > 1e-30, ordered.div(w, torch.clamp(
+            b, min=1e-30)), torch.zeros_like(w))
         alpha[j] = a
         beta[j] = b
-    got = torch.cat([alpha, beta]).cpu().numpy().astype(np.float64)
+    # the tridiagonal's real parts, as the JAX package casts it
+    # (``amgx_tpu/solvers/chebyshev.py:69-70``)
+    got = torch.cat([alpha, beta]).cpu().numpy().real.astype(np.float64)
     al, be = got[:m], got[m:]
     off = be[:-1]
     T = np.diag(al) + np.diag(off, 1) + np.diag(off, -1)
@@ -222,6 +234,8 @@ class ChebyshevPolySmoother(Solver):
     [λmax/30, λmax], λmax from 20 power steps (×1.05)."""
 
     is_smoother = True
+    complex_refused = ("its power iteration's loop carry, "
+                       "amgx_tpu/solvers/chebyshev.py:91")
 
     def __init__(self, cfg, scope="default"):
         super().__init__(cfg, scope)

@@ -72,7 +72,6 @@ def sharded_dense(A, Ad) -> np.ndarray:
 @register_solver("DENSE_LU_SOLVER")
 class DenseLUSolver(Solver):
     is_smoother = False
-    complex_ok = True
 
     def solver_setup(self):
         if self.Ad.fmt == "sharded-ell":
@@ -119,8 +118,6 @@ class DenseLUSolver(Solver):
 class DummySolver(Solver):
     """The identity (reference ``dummy_solver.cu``): as a preconditioner
     M = I, so an application returns the right-hand side."""
-
-    complex_ok = True
 
     is_smoother = True
 

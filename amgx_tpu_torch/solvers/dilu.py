@@ -51,6 +51,7 @@ import torch
 from ..coloring import color_matrix
 from ..device import torch_dtype
 from ..errors import BadConfigurationError
+from ..ops import ordered
 from ..ops.ordered import guarded_block_inv
 from ..ops.spmv import spmv
 from .base import Solver, register_solver
@@ -405,11 +406,11 @@ class MulticolorDILUSolver(Solver):
             y = torch.zeros_like(r)
             for s in self.L_slabs:
                 t = slab_times(s.vals, y[s.cols])
-                y[s.rows] = s.einv * (r[s.rows] - t)
+                y[s.rows] = ordered.mul(s.einv, r[s.rows] - t)
             z = y.clone()
             for s in reversed(self.U_slabs):
                 t = slab_times(s.vals, z[s.cols])
-                z[s.rows] = y[s.rows] - s.einv * t
+                z[s.rows] = y[s.rows] - ordered.mul(s.einv, t)
             return z
         rb = r.reshape(-1, bd)
         y = torch.zeros_like(rb)

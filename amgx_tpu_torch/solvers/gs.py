@@ -43,6 +43,7 @@ import torch
 from ..coloring import color_matrix, create_coloring
 from ..core.matrix import Matrix, ell_layout
 from ..device import numpy_dtype, torch_dtype
+from ..ops import ordered
 from ..ops.spmv import spmv
 from ..utils.logging import amgx_output
 from .base import Solver, register_solver
@@ -60,13 +61,20 @@ class ColorSlab:
         self.einv = None
 
 
+def _host_dtype(data: np.ndarray):
+    """The host dtype of a slab built from ``data``: f64, or c128 for a
+    complex matrix (the device dtype is applied on upload)."""
+    return np.complex128 if np.iscomplexobj(data) else np.float64
+
+
 def _wrap(device: torch.device, dtype):
     """numpy → tensors on ``device``, floating arrays cast to ``dtype``."""
     tdt = torch_dtype(dtype)
 
     def up(a):
         t = torch.from_numpy(np.ascontiguousarray(a))
-        return t.to(device, tdt if t.is_floating_point() else None)
+        return t.to(device, tdt if t.is_floating_point() or t.is_complex()
+                    else None)
     return up
 
 
@@ -82,7 +90,7 @@ def build_color_slabs(csr, colors, num_colors, dtype,
         sub.sort_indices()
         for_rows, pos, k = ell_layout(sub.indptr, sub.indices)
         cols = np.zeros((len(rows), k), dtype=np.int32)
-        vals = np.zeros((len(rows), k), dtype=np.float64)
+        vals = np.zeros((len(rows), k), dtype=_host_dtype(sub.data))
         cols[for_rows, pos] = sub.indices
         vals[for_rows, pos] = sub.data
         slabs.append(ColorSlab(wrap(rows.astype(np.int32)), wrap(cols),
@@ -105,7 +113,8 @@ def build_color_slabs_block(bsr, colors, num_colors, dtype, bd,
         sub = ind[rows]
         for_rows, pos, k = ell_layout(sub.indptr, sub.indices)
         cols = np.zeros((len(rows), k), dtype=np.int32)
-        vals = np.zeros((len(rows), k, bd, bd), dtype=np.float64)
+        vals = np.zeros((len(rows), k, bd, bd),
+                        dtype=_host_dtype(bsr.data))
         cols[for_rows, pos] = sub.indices
         vals[for_rows, pos] = bsr.data[sub.data]
         slabs.append(ColorSlab(wrap(rows.astype(np.int32)), wrap(cols),
@@ -121,10 +130,10 @@ def slab_times(vals: torch.Tensor, yg: torch.Tensor) -> torch.Tensor:
     orders its sums its own way on each device, and the card's f32
     sweeps would then round otherwise than the CPU's."""
     if vals.dim() == 2:
-        p = vals * yg
+        p = ordered.mul(vals, yg)
         terms = [p[:, k] for k in range(p.shape[1])]
     else:
-        p = vals * yg[:, :, None, :]
+        p = ordered.mul(vals, yg[:, :, None, :])
         terms = [p[:, k, :, c] for k in range(p.shape[1])
                  for c in range(p.shape[3])]
     out = terms[0]
@@ -176,7 +185,7 @@ class _ColoredSmootherBase(Solver):
             from ..distributed.matrix import shard_vector
             self.color_masks = [
                 shard_vector(Ad, np.repeat(colors == c, b)
-                             .astype(np.float64)) > 0.5
+                             .astype(np.float64)).real > 0.5
                 for c in range(self.num_colors)]
         else:
             self.color_masks = [
@@ -333,7 +342,7 @@ class MulticolorGSSolver(_ColoredSmootherBase):
         for c in order:
             s = self.dist_slabs[c]
             r_c = b[s.rows] - slab_times(s.vals, xe[s.cols])
-            xe[s.rows] = xe[s.rows] + relax * s.einv * r_c
+            xe[s.rows] = xe[s.rows] + ordered.mul(relax * s.einv, r_c)
         return xe[:x.shape[0]]
 
     def _color_sweep(self, b, x, order):
@@ -352,7 +361,7 @@ class MulticolorGSSolver(_ColoredSmootherBase):
             for c in order:
                 s = self.color_slabs[c]
                 r_c = b[s.rows] - slab_times(s.vals, x[s.cols])
-                x[s.rows] = x[s.rows] + relax * s.einv * r_c
+                x[s.rows] = x[s.rows] + ordered.mul(relax * s.einv, r_c)
             return x
         xb = x.reshape(-1, bd).clone()
         bb = b.reshape(-1, bd)
@@ -360,7 +369,7 @@ class MulticolorGSSolver(_ColoredSmootherBase):
             s = self.color_slabs[c]
             r_c = bb[s.rows] - slab_times(s.vals, xb[s.cols])
             if s.einv.dim() == 2:       # L1 variant: scalar damped diag
-                dx = relax * s.einv * r_c
+                dx = ordered.mul(relax * s.einv, r_c)
             else:
                 dx = relax * apply_dinv(s.einv, r_c.reshape(-1)) \
                     .reshape(-1, bd)
@@ -480,7 +489,7 @@ class KaczmarzSolver(_ColoredSmootherBase):
             rows = np.repeat(np.arange(sub.shape[0], dtype=np.int64),
                              np.diff(sub.indptr))
             out.append(_Projection(up(rows), up(sub.indices.astype(
-                np.int64)), up(sub.data.astype(np.float64))))
+                np.int64)), up(sub.data.astype(_host_dtype(sub.data)))))
         return out
 
     def solve_iteration(self, b, x, state, iter_idx):
@@ -489,12 +498,12 @@ class KaczmarzSolver(_ColoredSmootherBase):
             x = x.clone()
             for s, pr in zip(self.color_slabs, self.projections):
                 r_c = b[s.rows] - slab_times(s.vals, x[s.cols])
-                w = relax * r_c * s.einv
-                x[pr.cols] = x[pr.cols] + pr.vals * w[pr.rows]
+                w = ordered.mul(relax * r_c, s.einv)
+                x[pr.cols] = x[pr.cols] + ordered.mul(pr.vals, w[pr.rows])
             return x, state
         for c in range(self.num_colors):
             r = b - spmv(self.Ad, x)
-            w = torch.where(self.color_masks[c], r * self.rowinv,
-                            torch.zeros_like(r))
+            w = torch.where(self.color_masks[c],
+                            ordered.mul(r, self.rowinv), torch.zeros_like(r))
             x = x + relax * spmv(self.AdT, w)
         return x, state

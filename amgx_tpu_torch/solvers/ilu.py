@@ -21,6 +21,7 @@ import scipy.sparse as sp
 
 from ..coloring import create_coloring
 from ..errors import BadConfigurationError
+from ..ops import ordered
 from ..ops.spmv import spmv
 from .base import Solver, register_solver
 from .gs import _wrap, build_color_slabs, slab_times
@@ -163,7 +164,8 @@ class MulticolorILUSolver(Solver):
         # U z = y: z_c = dinv_c·(y − U·z)_c
         z = r.new_zeros(r.shape)
         for s in reversed(self.U_slabs):
-            z[s.rows] = s.einv * (y[s.rows] - slab_times(s.vals, z[s.cols]))
+            z[s.rows] = ordered.mul(s.einv, y[s.rows] - slab_times(s.vals,
+                                                          z[s.cols]))
         return z
 
     def solve_iteration(self, b, x, state, iter_idx):

@@ -33,7 +33,7 @@ def apply_dinv(dinv: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if dinv.dim() == 1:
         return mul(dinv, v)
     b = dinv.shape[-1]
-    p = dinv * v.reshape(-1, 1, b)
+    p = mul(dinv, v.reshape(-1, 1, b))
     out = p[..., 0]
     for c in range(1, b):
         out = out + p[..., c]
@@ -76,7 +76,6 @@ class BlockJacobiSolver(Solver):
     """Damped (block) Jacobi: x ← x + ω·D⁻¹·(b − A·x), D⁻¹ applied by
     :func:`apply_dinv` (scalar or b×b blocks)."""
 
-    complex_ok = True
 
     is_smoother = True
 
@@ -119,7 +118,7 @@ class JacobiL1Solver(Solver):
 
     def solve_iteration(self, b, x, state, iter_idx):
         r = b - spmv(self.Ad, x)
-        return x + self.relaxation_factor * self.dinv * r, state
+        return x + mul(self.relaxation_factor * self.dinv, r), state
 
 
 @register_solver("CF_JACOBI")

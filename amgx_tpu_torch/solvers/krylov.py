@@ -163,7 +163,6 @@ class CGSolver(Solver):
     """Plain conjugate gradient (reference ``cg_solver.cu``) in the
     reduction layout of ``krylov_comm`` (or ``forced_comm``)."""
 
-    complex_ok = True
 
     use_preconditioner = False
     forced_comm: Optional[str] = None
@@ -329,7 +328,6 @@ class _GMRESState:
 
 
 class _GMRESBase(Solver):
-    complex_ok = True
     #: keep the preconditioned basis Z (FGMRES), else rebuild x from V
     flexible = False
 
@@ -412,8 +410,9 @@ class _GMRESBase(Solver):
                 # O(ε)·‖w‖)
                 h2, ww = ordered.wgram_dots_with_norm(Vj, w)
                 w = w - ordered.lincomb(Vj, h2)
+                hh = ordered.wdot(h2, h2)     # Σ|h2|², real
                 h_next = torch.sqrt(torch.clamp(
-                    ww - ordered.wdot(h2, h2), min=0.0))
+                    ww - (hh.real if hh.is_complex() else hh), min=0.0))
             else:
                 h2 = ordered.wgram_dots(Vj, w)
                 w = w - ordered.lincomb(Vj, h2)
@@ -601,7 +600,6 @@ _wdot = ordered.wdot
 class _BiCGStabBase(Solver):
     """BiCGStab skeleton; ``_M`` hooks (right) preconditioning."""
 
-    complex_ok = True
 
     def _M(self, r):
         return r

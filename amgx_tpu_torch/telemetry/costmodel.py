@@ -206,6 +206,10 @@ def _sharded_cost(A, out: dict, item: int) -> dict:
         if entries is None:
             entries = A.n_rows * A.ell_width
         byt = ell_bytes(entries, A.n_rows, A.n_cols, item, item)
+    elif A.interior is None:
+        # a complex pack: its interior applies over the block ELL slots
+        byt = binned_bytes(A.n_rows * A.ell_width, b, A.n_rows, A.n_cols,
+                           item, item)
     else:
         S, _n_slices, slots_c, _w, _bb = A.interior.compact.dims
         byt = binned_bytes(int(slots_c) * int(S), b, A.n_rows, A.n_cols,

@@ -141,7 +141,8 @@ exits non-zero (no phase is caught):
     them too, after phase 23's card solves, where the card process would
     otherwise wait for them.
 
-24. the solver family on the classical 128³ stack (``CFG_CLA``, f32
+24. the solver family on the classical stack at ``FAMILY_KRYLOV_SIDE``³
+    (96³, cut from 128³ for time; ``CFG_CLA``, f32
     pack, f64 refinement): the outer solver replaced by GMRES, PCGF,
     PCG_PIPE and PCG_CA (these two on an f64 pack, ``FAMILY_PACK``,
     their f32 runs printed beside), then PCG with the smoother
@@ -331,10 +332,34 @@ exits non-zero (no phase is caught):
     nvcc (``amgx_tpu_torch/capi_native/build.py``, no cmake); the phase
     runs beside phase 23's CPU children (its child processes with
     ``OMP_NUM_THREADS=1``).
+45. ROADMAP item 7c (:func:`item7c_phase`): (a) the 128³ screened
+    complex Helmholtz L + (0.4 + 0.35i)I in c128 under FGMRES(6) +
+    SIZE_4 aggregation, the F cycle,
+    MULTICOLOR_DILU 1 + 1 (the JAX package's real-part E), DENSE_LU, and
+    (b) the 128³ Hermitian L + iK under PCG_PIPE + SIZE_2 aggregation
+    with JACOBI_L1, each counted between a reset and a read (plain
+    complex labels only, no kernel), relres ≤ 1e-8 in f64 on the host;
+    (c) LANCZOS at 64³ against ``scipy.sparse.linalg.eigsh``; (d) every
+    name that joined, card against CPU at 24³ (equal counts, c128 x to
+    1e-12, a c64 stack bit for bit, 2×2 complex blocks, six
+    eigensolvers); (e) bf16 sharded SpMV — the 96³ Poisson in 8 shards
+    (B3 (bf16, f32) on the stacked interior, y equal to the CPU's) and
+    config 4's SPE10 system at ``FAMILY_C4_GRID`` in 8 block-row shards
+    (B5 (bf16, f32) on the stacked block interior), each pair bit-equal
+    to its plain version and timed; (f) the 48³ Helmholtz in 8 shards
+    (c128) under FGMRES + SIZE_2 aggregation, its 16³ card = CPU twin, a
+    complex 2×2 block system in 8 block-row shards under BLOCK_JACOBI;
+    (g) the 64³ Poisson uploaded in f64 under FGMRES + SIZE_2
+    aggregation with ``hierarchy_dtype`` float32, then bfloat16 (B1 and
+    B3 in their (f32, f64) / (bf16, f64) pairs, no decline, each pair
+    bit-equal to its plain version and timed; a 16³ card = CPU twin).
+    (a) and (b) run beside phase 23's CPU children, after phase 44;
+    (d)'s CPU half runs in a child process (``--item7c-cpu-twins``)
+    beside (c) and (d)'s card half.
 
 Phases 11, 28, 30, 31, 33, 40, 41 and 44 hold the card's x bit-equal to the
 CPU's (IDR and IDRMSYNC excepted: their s × s solves are library
-calls).
+calls); phase 45 holds its c64 stack so, and c128 stacks to 1e-12.
 
 Then one JSON line of the paths' kernels and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -466,6 +491,10 @@ DFG_WINDOW_ITERS = 2
 SHIFT_TOL = {"f32": 1e-5, "f64": 1e-12}
 #: phases 24-25: the classical and headline 128³ systems
 FAMILY_SIDE = 128
+#: phase 24's Krylov stacks on the classical system, cut from 128³ for
+#: time (the phase took 46.0 s of a 1,011 s smoke at 128³, H100 80GB
+#: HBM3, 700.00 W)
+FAMILY_KRYLOV_SIDE = 96
 #: phase 24's CF_JACOBI stack (its classical setup runs the host loop:
 #: 21.5 s at 128³ in the first full run, so cut to 96³ for time)
 CF_JACOBI_SIDE = 96
@@ -500,9 +529,11 @@ ILU_NY = 128
 ILU_CFG = CFG4.replace("out:max_iters=200", "out:max_iters=2000") \
     .replace("MULTICOLOR_DILU", "MULTICOLOR_ILU")
 #: phase 28: the card against the CPU for each name of this slice, on
-#: the classical stack at FAMILY_CLA_SIDE³ (θ = 0.2401), the headline at
-#: FAMILY_AGG_SIDE³ and config 4's system on FAMILY_BLOCK_GRID
-FAMILY_CLA_SIDE = 24
+#: the classical stack at FAMILY_CLA_SIDE³ (θ = 0.2401; cut from 24³ for
+#: time: at 24³ phases 28 and 31 took 65.4 and 32.3 s of a 1,011 s
+#: smoke), the headline at FAMILY_AGG_SIDE³ and config 4's system on
+#: FAMILY_BLOCK_GRID
+FAMILY_CLA_SIDE = 16
 FAMILY_AGG_SIDE = 16
 FAMILY_BLOCK_GRID = (12, 12, 12)
 #: phase 29: steps of the resetup loop (step 0 is the fresh setup)
@@ -1451,42 +1482,37 @@ def dfg_solve(amgx, A, where, pdt):
 DFG_CPU_DTYPES = ("float32", "float64")
 
 
-class CpuReference:
-    """Phase 23's CPU solves: one child process per pack dtype
-    (``python3 chip_smoke.py --cpu-reference DIR DTYPE``, no card), both
-    started together at phase 22, after the last kernel timing.
-    ``result()`` waits
-    for them and returns per pack dtype (iterations, x, true relres,
-    seconds); ``stop()`` ends any that still runs."""
+class CpuChildren:
+    """Children of this file on the CPU (``python3 chip_smoke.py FLAG DIR
+    ARG...``, no card), one per entry of ``args``, all started together;
+    each writes its results into DIR (under ``_build/``).  ``wait()``
+    waits for every child, checks its exit code and returns DIR;
+    ``stop()`` ends any that still runs and removes DIR.  Phase 23's DFG
+    solves (``--cpu-reference``, one per pack dtype) and phase 45 (d)'s
+    twins (``--item7c-cpu-twins``) run so."""
 
-    def __init__(self):
+    def __init__(self, flag: str, tag: str, args=((),)):
         here = os.path.dirname(os.path.abspath(__file__))
         self.dir = os.path.join(here, "amgx_tpu_torch", "_build",
-                                f"dfg_cpu_{os.getpid()}")
-        self.procs = {}
+                                f"{tag}_{os.getpid()}")
+        self.flag, self.args, self.procs = flag, args, []
 
     def start(self) -> None:
         os.makedirs(self.dir, exist_ok=True)
         env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-        for name in DFG_CPU_DTYPES:
-            self.procs[name] = subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__),
-                 "--cpu-reference", self.dir, name],
-                cwd=os.path.dirname(self.dir), env=env)
+        self.procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), self.flag, self.dir,
+             *arg], cwd=os.path.dirname(self.dir), env=env)
+            for arg in self.args]
 
-    def result(self) -> dict:
-        out = {}
-        for name, proc in self.procs.items():
+    def wait(self) -> str:
+        for arg, proc in zip(self.args, self.procs):
             rc = proc.wait()
-            assert rc == 0, f"CPU reference ({name}) exited {rc}"
-            with open(os.path.join(self.dir, f"{name}.json")) as f:
-                m = json.load(f)
-            x = np.load(os.path.join(self.dir, f"x_{name}.npy"))
-            out[name] = (m["iterations"], x, m["relres"], m["seconds"])
-        return out
+            assert rc == 0, f"CPU child {self.flag} {arg} exited {rc}"
+        return self.dir
 
     def stop(self) -> None:
-        for proc in self.procs.values():
+        for proc in self.procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -1494,9 +1520,28 @@ class CpuReference:
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
+def dfg_cpu_children() -> CpuChildren:
+    """Phase 23's CPU solves: one child per pack dtype, started together
+    at phase 22, after the last kernel timing."""
+    return CpuChildren("--cpu-reference", "dfg_cpu",
+                       [(name,) for name in DFG_CPU_DTYPES])
+
+
+def dfg_cpu_results(out_dir: str) -> dict:
+    """Per pack dtype, the (iterations, x, true relres, seconds) that
+    :func:`cpu_reference` wrote into ``out_dir``."""
+    out = {}
+    for name in DFG_CPU_DTYPES:
+        with open(os.path.join(out_dir, f"{name}.json")) as f:
+            m = json.load(f)
+        x = np.load(os.path.join(out_dir, f"x_{name}.npy"))
+        out[name] = (m["iterations"], x, m["relres"], m["seconds"])
+    return out
+
+
 def cpu_reference(out_dir: str, name: str) -> int:
-    """A child of :class:`CpuReference`: the ny = 320 DFG solve on the
-    CPU (plain versions) with a ``name`` pack, x saved as .npy."""
+    """A child of :func:`dfg_cpu_children`: the ny = 320 DFG solve on
+    the CPU (plain versions) with a ``name`` pack, x saved as .npy."""
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import amgx_tpu_torch as amgx
@@ -1522,7 +1567,7 @@ def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs,
                beside=None) -> dict:
     """Phases 19-23: the DFG cylinder path (aggregation AMG on an
     uploaded operator) and kernel B2; ``cpu_ref`` is the
-    :class:`CpuReference` it starts at phase 22, ``ell_errs`` B3's
+    :func:`dfg_cpu_children` it starts at phase 22, ``ell_errs`` B3's
     errors, which its checks here join.  ``beside()``, when given, runs
     after phase 23's card solves while the CPU children still run (its
     result is returned as ``beside``)."""
@@ -1704,7 +1749,7 @@ def dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs,
         card[name] = dfg_solve(amgx, A3, "cuda", np.dtype(name).type)
         card[name] += (time.perf_counter() - t0,)
     beside_out = beside() if beside is not None else None
-    cpu = cpu_ref.result()
+    cpu = dfg_cpu_results(cpu_ref.wait())
     for name in DFG_CPU_DTYPES:
         ig, xg, rg, card_s = card[name]
         ic, xc, rc, cpu_s = cpu[name]
@@ -2025,9 +2070,9 @@ def family_phases(amgx, dev, smi, gen) -> dict:
                                    poisson7pt_device, spe10_block_system)
     launches = {}
 
-    # ---- 24. the Krylov family and CF_JACOBI on the classical 128³
+    # ---- 24. the Krylov family and CF_JACOBI on the classical 96³
     t_phase = time.perf_counter()
-    side = FAMILY_SIDE
+    side = FAMILY_KRYLOV_SIDE
     Ahost = poisson7pt(side, side, side)
     total = launches.setdefault("classical_family", {})
     stacks = [(f"family_classical_{name}",
@@ -2062,6 +2107,7 @@ def family_phases(amgx, dev, smi, gen) -> dict:
 
     # ---- 25. Chebyshev on the headline 128³
     t_phase = time.perf_counter()
+    side = FAMILY_SIDE
     total = launches.setdefault("chebyshev", {})
     A = poisson7pt_device(side, side, side, device_dtype=np.float32,
                           device="cuda")
@@ -2729,10 +2775,11 @@ def classical_algorithm_phase(amgx, dev, smi, gen,
 # --------------------------------------------------------------------------
 # phases 32-35: the solve boundary's knobs
 # --------------------------------------------------------------------------
-def bf16_packs(h):
-    """(name, pack) of every bf16 DIA, ``dia3`` stream and ELL pack of a
-    hierarchy's levels and transfers (the coarsest is never narrowed)."""
+def narrow_packs(h, dtype=None):
+    """(name, pack) of every scalar DIA, ``dia3`` stream and ELL pack in
+    ``dtype`` (default bf16) of a hierarchy's levels and transfers."""
     import torch
+    dtype = torch.bfloat16 if dtype is None else dtype
     out, seen = [], set()
     for i, lv in enumerate(h.levels):
         roles = [("A", lv.Ad)]
@@ -2741,7 +2788,7 @@ def bf16_packs(h):
         if lv.kind == "classical":
             roles += [("P", lv.P), ("R", lv.R)]
         for role, M in roles:
-            if id(M) in seen or M.dtype != torch.bfloat16 or \
+            if id(M) in seen or M.dtype != dtype or \
                     M.fmt not in ("dia", "ell") or M.block_dim != 1:
                 continue
             seen.add(id(M))
@@ -2755,7 +2802,7 @@ def check_bf16_packs(dev, gen, label, h, b1_errs, b3_errs) -> dict:
     checked."""
     import torch
     kinds = {}
-    for name, M in bf16_packs(h):
+    for name, M in narrow_packs(h):
         x = torch.randn(M.n_cols, dtype=torch.float64, device=dev,
                         generator=gen).float()
         if M.fmt == "dia":
@@ -2902,7 +2949,7 @@ def precision_phase(amgx, dev, smi, gen, b1_errs, b3_errs) -> dict:
     graph = graph_check(slv.preconditioner, dev, gen)
     kinds = check_bf16_packs(dev, gen, "classical_bf16", h, b1_errs,
                              b3_errs)
-    ell = [(nm, M) for nm, M in bf16_packs(h) if M.fmt == "ell"]
+    ell = [(nm, M) for nm, M in narrow_packs(h) if M.fmt == "ell"]
     if ell:
         name, M = max(ell, key=lambda p: p[1].cols.numel())
         x = torch.randn(M.n_cols, dtype=torch.float32, device=dev,
@@ -5796,6 +5843,794 @@ def _capi_phase(amgx, dev, smi, built, work, children) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 45: ROADMAP item 7c — complex systems on the rest of the solver
+# set, complex and bf16 sharded packs
+# --------------------------------------------------------------------------
+#: phase 45: the side of the full-width complex solves (a) and (b)
+ITEM7C_SIDE = 128
+#: phase 45 (c): LANCZOS's side, and the side it falls to when scipy's
+#: eigsh takes longer than ITEM7C_EIGSH_S on the host
+ITEM7C_LANCZOS_SIDE = 64
+ITEM7C_LANCZOS_SMALL = 32
+ITEM7C_EIGSH_S = 10.0
+#: (c): LANCZOS's largest Ritz value against eigsh after 100 steps (the
+#: top of the 7-point spectrum is clustered: 4.5e-6 at 64³ on the card)
+ITEM7C_LANCZOS_RTOL = 1e-5
+#: phase 45 (d): the side of the card-against-CPU twins
+ITEM7C_TWIN_SIDE = 24
+#: phase 45 (e): the brick of the bf16 sharded scalar SpMV
+#: (``generate_distributed_poisson_7pt(48, 48, 48, 2, 2, 2)``, 96³) and
+#: the SPE10 grid of the block one (phase 26's cut, FAMILY_C4_GRID)
+ITEM7C_BF16_BRICK = 48
+#: phase 45 (f): the complex sharded Helmholtz, its card-against-CPU
+#: twin, the complex 2×2 block system's side (blocks per axis)
+ITEM7C_SHARD_SIDE = 48
+ITEM7C_SHARD_TWIN_SIDE = 16
+ITEM7C_BLOCK_SIDE = 24
+#: phase 45 (g): ROADMAP C13 on the card — FGMRES + SIZE_2 aggregation
+#: on an f64 upload with ``hierarchy_dtype`` float32 or bfloat16 (the
+#: levels narrowed under the f64 outer solver: a DIA fine level, ELL
+#: coarse levels, B1 and B3 in their (·, f64) pairs); its side and its
+#: card-against-CPU twin's
+ITEM7C_NARROW_CFG = (
+    "config_version=2, solver(out)=FGMRES, out:max_iters=100, "
+    "out:monitor_residual=1, out:tolerance=1e-8, "
+    "out:convergence=RELATIVE_INI, out:gmres_n_restart=6, "
+    "out:preconditioner(amg)=AMG, amg:algorithm=AGGREGATION, "
+    "amg:selector=SIZE_2, amg:max_iters=1, amg:max_levels=20, "
+    "amg:smoother(sm)=BLOCK_JACOBI, sm:max_iters=1, amg:presweeps=1, "
+    "amg:postsweeps=1, amg:min_coarse_rows=16, "
+    "amg:coarse_solver=DENSE_LU_SOLVER, hierarchy_dtype={hd}")
+ITEM7C_NARROW_SIDE = 64
+ITEM7C_NARROW_TWIN_SIDE = 16
+#: phase 45: x of a c128 stack, card against CPU (relative)
+ITEM7C_X_RTOL = 1e-12
+#: ... of IDR and IDRMSYNC, whose s × s solves are library calls (2.2e-9
+#: for IDR + MULTICOLOR_ILU at 24³ on the card)
+ITEM7C_IDR_X_RTOL = 1e-7
+
+#: (a)'s operator: the screened complex Helmholtz L + (0.4 + 0.35i)I.
+#: On phase 36's indefinite L + (−0.4 + 0.35i)I this stack stalls from
+#: 32³ on (FGMRES at 200 iterations near relres 0.03; the V cycle from
+#: 48³, the CG cycle from 64³), where GEO + the CG cycle (phase 36)
+#: converges
+ITEM7C_SCREEN_SHIFT = 0.4 + 0.35j
+#: (a): FGMRES(6) + aggregation AMG with SIZE_4, the F cycle, one
+#: MULTICOLOR_DILU sweep each way (the JAX package's real-part E),
+#: DENSE_LU at the coarsest level
+ITEM7C_A_CFG = (
+    "config_version=2, solver(out)=FGMRES, out:max_iters=200, "
+    "out:monitor_residual=1, out:tolerance=1e-8, "
+    "out:convergence=RELATIVE_INI, out:gmres_n_restart=6, "
+    "out:preconditioner(amg)=AMG, amg:algorithm=AGGREGATION, "
+    "amg:selector=SIZE_4, amg:max_iters=1, amg:max_levels=20, "
+    "amg:cycle=F, amg:smoother(sm)=MULTICOLOR_DILU, sm:max_iters=1, "
+    "amg:presweeps=1, amg:postsweeps=1, amg:min_coarse_rows=32, "
+    "amg:coarse_solver=DENSE_LU_SOLVER")
+#: (b): PCG_PIPE + aggregation AMG (SIZE_2, V) with JACOBI_L1
+ITEM7C_B_CFG = (
+    "config_version=2, solver(out)=PCG_PIPE, out:max_iters=200, "
+    "out:monitor_residual=1, out:tolerance=1e-8, "
+    "out:convergence=RELATIVE_INI, "
+    "out:preconditioner(amg)=AMG, amg:algorithm=AGGREGATION, "
+    "amg:selector=SIZE_2, amg:max_iters=1, amg:max_levels=20, "
+    "amg:cycle=V, amg:smoother(sm)=JACOBI_L1, sm:max_iters=1, "
+    "amg:presweeps=1, amg:postsweeps=1, amg:min_coarse_rows=32, "
+    "amg:coarse_solver=DENSE_LU_SOLVER")
+#: (d) and (f): an outer solver around aggregation AMG
+ITEM7C_STACK = (
+    "config_version=2, solver(out)={outer}, out:max_iters={it}, "
+    "out:monitor_residual=1, out:tolerance={tol}, "
+    "out:convergence=RELATIVE_INI, out:gmres_n_restart=10{oextra}, "
+    "out:preconditioner(amg)=AMG, amg:algorithm={alg}, "
+    "amg:selector={sel}, amg:max_iters=1, amg:max_levels=20, "
+    "amg:cycle={cyc}, amg:smoother(sm)={sm}, sm:max_iters=1, "
+    "amg:presweeps=1, amg:postsweeps=1, amg:min_coarse_rows=32, "
+    "amg:coarse_solver=DENSE_LU_SOLVER{extra}")
+
+
+def item7c_stack(outer="FGMRES", sel="SIZE_2", cyc="V",
+                 sm="BLOCK_JACOBI", alg="AGGREGATION", it=200, tol="1e-8",
+                 oextra="", extra=""):
+    return ITEM7C_STACK.format(outer=outer, it=it, tol=tol, oextra=oextra,
+                               alg=alg, sel=sel, cyc=cyc, sm=sm,
+                               extra=extra)
+
+
+#: (d): every name that joined in ROADMAP item 7c, each in at least one
+#: stack at ITEM7C_TWIN_SIDE³ (H: the Hermitian L + iK; Z: the shifted
+#: Helmholtz); the names a stack exercises beside its own label
+ITEM7C_TWINS = (
+    ("PCGF+SIZE_4+JACOBI_L1", "H",
+     item7c_stack("PCGF", sel="SIZE_4", sm="JACOBI_L1")),
+    ("PCG_CA+SIZE_8+POLYNOMIAL", "H",
+     item7c_stack("PCG_CA", sel="SIZE_8", sm="POLYNOMIAL")),
+    ("PCG_PIPE+MULTI_PAIRWISE+CHEBYSHEV", "H",
+     item7c_stack("PCG_PIPE", sel="MULTI_PAIRWISE", sm="CHEBYSHEV")),
+    # the recursive cycles on SIZE_8's few levels (a W cycle visits
+    # level i 2^i times)
+    ("PCG(CA)+SIZE_8+W+JACOBI_L1", "H",
+     item7c_stack("PCG", sel="SIZE_8", cyc="W", sm="JACOBI_L1",
+                  oextra=", out:krylov_comm=CA")),
+    ("PCG(PIPELINED)+SIZE_8+F+POLYNOMIAL", "H",
+     item7c_stack("PCG", sel="SIZE_8", cyc="F", sm="POLYNOMIAL",
+                  oextra=", out:krylov_comm=PIPELINED")),
+    ("FGMRES+SIZE_8+W+GS", "Z",
+     item7c_stack("FGMRES", sel="SIZE_8", cyc="W", sm="GS")),
+    ("FGMRES+SIZE_8+F+FIXCOLOR_GS", "Z",
+     item7c_stack("FGMRES", sel="SIZE_8", cyc="F", sm="FIXCOLOR_GS")),
+    ("FGMRES+SIZE_8+CGF+error_scaling=2", "Z",
+     item7c_stack("FGMRES", sel="SIZE_8", cyc="CGF",
+                  extra=", amg:error_scaling=2")),
+    ("GMRES(CA)+SIZE_4+MULTICOLOR_GS", "Z",
+     item7c_stack("GMRES", sel="SIZE_4", sm="MULTICOLOR_GS",
+                  oextra=", out:krylov_comm=CA")),
+    ("FGMRES(PIPELINED)+MULTICOLOR_DILU+error_scaling=3", "Z",
+     item7c_stack("FGMRES", sm="MULTICOLOR_DILU",
+                  oextra=", out:krylov_comm=PIPELINED",
+                  extra=", amg:error_scaling=3")),
+    ("IDR+MULTICOLOR_ILU", "Z", item7c_stack("IDR", sm="MULTICOLOR_ILU")),
+    ("IDRMSYNC+ENERGYMIN", "Z",
+     item7c_stack("IDRMSYNC", alg="ENERGYMIN", sel="PMIS",
+                  extra=", amg:strength_threshold=0.25")),
+    ("FGMRES+KACZMARZ+reuse+host_levels", "Z",
+     item7c_stack("FGMRES", sm="KACZMARZ", it=20,
+                  extra=", amg:structure_reuse_levels=1, "
+                  "amg_host_levels_rows=500")),
+    ("GMRES(PIPELINED)+CF_JACOBI+hierarchy_float32", "Z",
+     item7c_stack("GMRES", sm="CF_JACOBI",
+                  oextra=", out:krylov_comm=PIPELINED",
+                  extra=", hierarchy_dtype=float32")),
+    ("FGMRES(CA)+hierarchy_bfloat16", "Z",
+     item7c_stack("FGMRES", oextra=", out:krylov_comm=CA",
+                  extra=", hierarchy_dtype=bfloat16")),
+)
+#: (d): the c64 stack held bit for bit (its sums are all ordered: c64
+#: products part by part, c64 dots summed in c128)
+ITEM7C_C64 = ("FGMRES+MULTICOLOR_GS (c64)", "Z",
+              item7c_stack("FGMRES", sm="MULTICOLOR_GS", tol="1e-5"))
+#: (d): the eigensolvers that run on a complex operator
+ITEM7C_EIGEN = (
+    ("POWER_ITERATION", ""), ("LANCZOS", ""), ("ARNOLDI", ""),
+    ("JACOBI_DAVIDSON", ""),
+    ("INVERSE_ITERATION", ", solver=PCG, max_iters=50, tolerance=1e-10, "
+     "preconditioner=NOSOLVER"),
+    ("LOBPCG", ", solver=PCG, preconditioner=NOSOLVER"))
+ITEM7C_EIG_CFG = ("config_version=2, eig_solver={name}, eig_max_iters=60, "
+                  "eig_tolerance=1e-8, eig_which=largest{extra}")
+
+
+def hermitian(side: int):
+    """L + i·K on a side³ grid, K antisymmetric real with s·N(0, 1)
+    entries on L's pattern, seeded with SEED, host CSR
+    (``tests/test_complex.py``'s construction, s = 0.3 at its 10³).
+    Past 10³ s shrinks as (10/side)², as L's smallest eigenvalue does:
+    at s = 0.3 the operator turns indefinite and CG breaks down in both
+    packages (24³: 4 iterations, relres 0.98)."""
+    import scipy.sparse as sp
+    from amgx_tpu_torch.io import poisson7pt
+    L = sp.csr_matrix(poisson7pt(side, side, side), dtype=np.complex128)
+    n = L.shape[0]
+    coo = sp.triu(L, k=1).tocoo()
+    scale = 0.3 * min(1.0, (10.0 / side) ** 2)
+    vals = scale * np.random.default_rng(SEED).standard_normal(
+        len(coo.data))
+    K = sp.csr_matrix((vals, (coo.row, coo.col)), shape=(n, n))
+    A = sp.csr_matrix(L + 1j * (K - K.T))
+    A.sort_indices()
+    return A
+
+
+def screened_helmholtz(side: int):
+    """L + (0.4 + 0.35i)I on a side³ grid, host CSR: its real part
+    positive definite."""
+    import scipy.sparse as sp
+    from amgx_tpu_torch.io import poisson7pt
+    L = poisson7pt(side, side, side).astype(np.complex128)
+    return sp.csr_matrix(L + ITEM7C_SCREEN_SHIFT * sp.identity(L.shape[0]))
+
+
+def complex_block_system(side: int):
+    """A complex 2×2 block system: the shifted Helmholtz operator times a
+    complex coupling block, plus 0.3i on the diagonal (BSR)."""
+    import scipy.sparse as sp
+    B = np.array([[1.0, 0.2 + 0.1j], [0.15 - 0.05j, 1.1]])
+    A = sp.kron(helmholtz(side), B).tocsr() \
+        + sp.kron(sp.identity(side ** 3), 0.3j * np.eye(2))
+    return sp.bsr_matrix(sp.csr_matrix(A), blocksize=(2, 2))
+
+
+def plain_labels_only(counts) -> bool:
+    """No kernel launched and every SpMV label a plain (declined) one."""
+    from amgx_tpu_torch.ops import spmv as smod
+    return (set(counts["dispatch"]) <= set(smod.DECLINES) and
+            not any(v for k in ("B1", "B2", "B3", "B4", "B5", "B5s")
+                    for v in counts[k].values()))
+
+
+def item7c_full_solve(amgx, dev, smi, label, cfg, A, bh) -> dict:
+    """(a) and (b): one complex stack at full width on the card — the host
+    matrix uploaded, set up, counts set to 0 just before the first solve
+    and read just after, a warm solve, the true relres in f64 on the
+    host; every SpMV a plain complex label (no kernel takes complex
+    values)."""
+    import torch
+    n = A.shape[0]
+    t0 = time.perf_counter()
+    m = amgx.Matrix(A, device="cuda")
+    slv = amgx.create_solver(cfg)
+    slv.setup(m)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    b = torch.from_numpy(bh).to(dev)
+    reset_counts()
+    res = slv.solve(b)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    res2 = slv.solve(b)
+    x = res.x
+    assert x.dtype == torch.complex128 and x.shape == (n,) and x.is_cuda
+    assert torch.isfinite(torch.view_as_real(x)).all().item()
+    relres = float(np.linalg.norm(bh - A @ x.cpu().numpy())
+                   / np.linalg.norm(bh))
+    assert res.status == amgx.SolveStatus.SUCCESS, (label, res.status)
+    assert relres <= 1e-8, (label, relres)
+    assert res2.iterations == res.iterations, label
+    assert plain_labels_only(counts), (label, counts)
+    h = slv.preconditioner.hierarchy
+    emit("item7c_full", case=label, n=n, iterations=res.iterations,
+         relres_f64=relres, setup_s=setup_s, solve_s=res.solve_time,
+         solve_warm_s=res2.solve_time,
+         levels=[[lv.Ad.fmt, lv.Ad.n_rows] for lv in h.levels]
+         + [h.coarsest.n_block_rows],
+         dispatch=counts["dispatch"], declines={
+             k: v for k, v in counts["declines"].items() if v},
+         card=smi)
+    del slv, res, res2, x, b, m, h
+    torch.cuda.empty_cache()
+    return counts
+
+
+def item7c_lanczos(amgx, dev, smi) -> dict:
+    """(c): LANCZOS's largest eigenvalue of the Hermitian L + iK on the
+    card, against ``scipy.sparse.linalg.eigsh``.  The JAX package's
+    Lanczos runs its recurrence in f64 on the host, so each operator
+    apply keeps the real part of A·v for a real v: the recurrence is
+    Re(A)'s, and eigsh of Re(A) is its yardstick.  The side falls to ITEM7C_LANCZOS_SMALL when eigsh
+    of Re(A) takes longer than ITEM7C_EIGSH_S."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as sla
+    from amgx_tpu_torch.eigen import EigenSolverFactory
+    side = ITEM7C_LANCZOS_SIDE
+    A = hermitian(side)
+    t0 = time.perf_counter()
+    ref = float(sla.eigsh(sp.csr_matrix(A.real), k=1, which="LA",
+                          tol=1e-12, return_eigenvectors=False)[0])
+    eigsh_s = time.perf_counter() - t0
+    if eigsh_s > ITEM7C_EIGSH_S:
+        side = ITEM7C_LANCZOS_SMALL
+        A = hermitian(side)
+        t0 = time.perf_counter()
+        ref = float(sla.eigsh(sp.csr_matrix(A.real), k=1, which="LA",
+                              tol=1e-12, return_eigenvectors=False)[0])
+        eigsh_s = time.perf_counter() - t0
+    es = EigenSolverFactory.allocate(amgx.AMGConfig(
+        ITEM7C_EIG_CFG.format(name="LANCZOS", extra="").replace(
+            "eig_max_iters=60", "eig_max_iters=100")))
+    t0 = time.perf_counter()
+    es.setup(amgx.Matrix(A, device="cuda"))
+    r = es.solve()
+    lanczos_s = time.perf_counter() - t0
+    lam = float(np.asarray(r.eigenvalues)[0].real)
+    err = abs(lam - ref) / abs(ref)
+    # 100 Krylov steps on the clustered top of Re(A)'s spectrum
+    assert err <= ITEM7C_LANCZOS_RTOL, (lam, ref)
+    emit("item7c_lanczos", side=side, n=A.shape[0], iterations=r.iterations,
+         eigenvalue=lam, eigsh_real_part=ref, rel_err=err,
+         eigsh_s=eigsh_s, lanczos_s=lanczos_s, card=smi)
+    return dict(side=side, rel_err=err)
+
+
+def item7c_twin_cases():
+    """(d)'s cases: (label, kind, build) with ``build()`` → (config, A,
+    b, block_dim) for a solve, (config, A) for an eigensolver."""
+    side = ITEM7C_TWIN_SIDE
+    n = side ** 3
+    ops = {}
+
+    def op(name):
+        if name not in ops:
+            ops[name] = hermitian(side) if name == "H" else helmholtz(side)
+        return ops[name]
+
+    cases = []
+    for label, o, cfg in ITEM7C_TWINS:
+        cases.append((label, "solve", lambda o=o, cfg=cfg: (
+            cfg, op(o), complex_rhs(n, np.complex128), 1)))
+    label, o, cfg = ITEM7C_C64
+    cases.append((label, "solve", lambda: (
+        cfg, op(o).astype(np.complex64), complex_rhs(n, np.complex64), 1)))
+    for pre in ("BLOCK_JACOBI", "MULTICOLOR_GS", "MULTICOLOR_DILU"):
+        def blocks(pre=pre):
+            Ab = complex_block_system(side // 2)
+            return (item7c_stack(sm=pre), Ab,
+                    complex_rhs(Ab.shape[0], np.complex128), 2)
+        cases.append((f"2x2 blocks AMG+{pre}", "solve", blocks))
+    for name, extra in ITEM7C_EIGEN:
+        cases.append((name, "eigen", lambda name=name, extra=extra: (
+            ITEM7C_EIG_CFG.format(name=name, extra=extra), op("H"))))
+    return cases
+
+
+def item7c_run_case(amgx, kind, build, where):
+    """One (d) case on ``where``: (iterations, x or eigenvalue)."""
+    if kind == "solve":
+        cfg, A, b, bd = build()
+        s_ = amgx.create_solver(cfg)
+        s_.setup(amgx.Matrix(A, block_dim=bd, device=where))
+        r = s_.solve(b)
+        return r.iterations, r.x.cpu().numpy()
+    from amgx_tpu_torch.eigen import EigenSolverFactory
+    cfg, A = build()
+    es = EigenSolverFactory.allocate(amgx.AMGConfig(cfg))
+    es.setup(amgx.Matrix(A, device=where))
+    r = es.solve()
+    return r.iterations, np.asarray(r.eigenvalues)[:1]
+
+
+def item7c_cpu_twins(out_dir: str) -> int:
+    """Phase 45 (d)'s CPU half (a :class:`CpuChildren` child started at
+    the phase's start, so it runs beside (a)-(c) on the card): every (d)
+    case on the CPU, its x (or eigenvalue) saved as .npy."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import amgx_tpu_torch as amgx
+    assert not torch.cuda.is_available()
+    # half the cores: the card process sets up (a) and (b) meanwhile
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    meta = []
+    for i, (label, kind, build) in enumerate(item7c_twin_cases()):
+        it, v = item7c_run_case(amgx, kind, build, "cpu")
+        np.save(os.path.join(out_dir, f"{i}.npy"), v)
+        meta.append((label, it))
+    with open(os.path.join(out_dir, "twins.json"), "w") as f:
+        json.dump(meta, f)
+    return 0
+
+
+def item7c_twins(amgx, twins: CpuChildren) -> dict:
+    """(d): each name that joined on the card at ITEM7C_TWIN_SIDE³, then
+    held against the CPU child's results (:func:`item7c_cpu_twins`,
+    which runs meanwhile): equal counts, x (or the eigenvalue) within
+    ITEM7C_X_RTOL — a complex f64 inner product is one library
+    reduction — IDR and IDRMSYNC within ITEM7C_IDR_X_RTOL (their s × s
+    solves are library calls), the c64 stack bit for bit."""
+    cases = item7c_twin_cases()
+    card = {label: item7c_run_case(amgx, kind, build, "cuda")
+            for label, kind, build in cases}
+    out_dir = twins.wait()
+    with open(os.path.join(out_dir, "twins.json")) as f:
+        meta = json.load(f)
+    cpu = {label: (it, np.load(os.path.join(out_dir, f"{i}.npy")))
+           for i, (label, it) in enumerate(meta)}
+    checks = 0
+    for label, kind, _ in cases:
+        ig, vg = card[label]
+        ic, vc = cpu[label]
+        diff = float(np.linalg.norm(vg - vc) / np.linalg.norm(vc))
+        bit_equal = label == ITEM7C_C64[0]
+        limit = 0.0 if bit_equal else ITEM7C_IDR_X_RTOL \
+            if label.startswith("IDR") else ITEM7C_X_RTOL
+        facts = dict(case=label, kind=kind, iterations_card=ig,
+                     iterations_cpu=ic, rel_diff=diff,
+                     bit_equal=bool(np.array_equal(vg, vc)), limit=limit)
+        emit("item7c_card_vs_cpu", **facts)
+        assert ig == ic, facts
+        assert facts["bit_equal"] if bit_equal else diff <= limit, facts
+        checks += 1
+    return dict(checks=checks)
+
+
+def item7c_bf16_scalar(amgx, dev, smi, gen) -> dict:
+    """(e) b = 1: the 96³ Poisson in 8 shards packed in bf16
+    (``Matrix.device(dtype=torch.bfloat16)``), x sharded in bf16;
+    ``ops.spmv`` with the counts set to 0 just before and read just
+    after (B3 (bf16, f32) on the stacked interior, once); y equal bit
+    for bit to the same SpMV on the CPU; B3 against its plain version
+    bit for bit; timed (kernel, plain, cuSPARSE CSR in bf16, the bound
+    at the datasheet and at the measured copy rate, value bytes
+    halved)."""
+    import torch
+    from amgx_tpu_torch.distributed import matrix as tdm
+    from amgx_tpu_torch.ops import ell_spmv as emod
+    from amgx_tpu_torch.ops import spmv as smod
+    from amgx_tpu_torch.telemetry import costmodel
+    A, offsets = dist_system(ITEM7C_BF16_BRICK)
+    xh = np.random.default_rng(SEED).standard_normal(A.shape[0])
+    packs = {}
+    for where in ("cuda", "cpu"):
+        m = dist_matrix(amgx, A, offsets, where, np.float32)
+        packs[where] = m.device(dtype=torch.bfloat16)
+    D = packs["cuda"]
+    assert D.dtype == torch.bfloat16 and D.fmt == "sharded-ell"
+    x = tdm.shard_vector(D, xh)
+    assert x.dtype == torch.bfloat16
+    reset_counts()
+    y = smod.spmv(D, x)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    assert y.dtype == torch.bfloat16
+    assert counts["B3"]["bf16.f32"] == 1 and \
+        counts["dispatch"] == {"sharded/window": 1}, counts
+    y_cpu = smod.spmv(packs["cpu"], tdm.shard_vector(packs["cpu"], xh))
+    card_cpu_equal = bool(torch.equal(y.cpu(), y_cpu))
+    assert card_cpu_equal
+    yh = tdm.unshard_vector(D, y).double().cpu().numpy()
+    xr = tdm.unshard_vector(D, x).double().cpu().numpy()
+    y_rel = float(np.linalg.norm(yh - A @ xr) / np.linalg.norm(A @ xr))
+    assert y_rel <= 1e-2, y_rel
+    errs = {}
+    check_ell(dev, gen, "bf16_sharded_interior", D.cols, D.vals.double(),
+              D.n_cols, errs, row_len=D.row_len,
+              pairs=((torch.bfloat16, torch.float32),))
+    xf = x.float()
+    ms = time_ms(lambda: emod.ell_spmv(D.cols, D.vals, xf, D.row_len), dev)
+    plain_ms = time_ms(lambda: emod.ell_spmv_reference(D.cols, D.vals, xf),
+                       dev)
+    csr, nnz = sharded_interior_csr(D, D.vals)
+    library_ms = library_ms_of(csr, x, dev)
+    n, K = D.cols.shape
+    nbytes = costmodel.ell_bytes(nnz, n, D.n_cols, 2, 4)
+    bound_ms, bound_by = bound_of(nbytes, 2 * nnz, "f32")
+    gbs = costmodel.measured_peak_gbs(dev)
+    timing = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                  library="cusparse-csr", bound_ms=bound_ms,
+                  bound_by=bound_by,
+                  bound_copy_ms=nbytes / (gbs * 1e9) * 1e3)
+    emit("item7c_bf16_sharded_b1", n=A.shape[0], shards=DIST_PARTS,
+         interior=[n, K], interior_nnz=nnz, counts=counts,
+         y_card_equals_cpu=card_cpu_equal, y_rel_to_f64_product=y_rel,
+         least_bytes=nbytes, copy_gbs=gbs, card=smi, **timing)
+    del csr, packs, D, x, y
+    return dict(timing=timing, errs=errs, launches=counts["B3"]["bf16.f32"])
+
+
+def item7c_bf16_block(amgx, dev, smi, gen) -> dict:
+    """(e) b = 4: config 4's SPE10 system (FAMILY_C4_GRID) in 8 block-row
+    shards packed in bf16; ``ops.spmv`` counted as in the scalar case
+    (B5 (bf16, f32) on the stacked block interior, once); B5 against
+    its plain version bit for bit; timed, the library yardstick by
+    :func:`library_of` (a bf16 BSR product where this PyTorch takes one,
+    else cuSPARSE CSR in bf16 on the interior's scalar expansion, the
+    choice recorded)."""
+    import torch
+    from amgx_tpu_torch.distributed import make_mesh
+    from amgx_tpu_torch.distributed import matrix as tdm
+    from amgx_tpu_torch.ops import binned_spmv as bmod
+    from amgx_tpu_torch.ops import spmv as smod
+    from amgx_tpu_torch.telemetry import costmodel
+    bsr = amgx.io.spe10_block_system(*FAMILY_C4_GRID)
+    m = amgx.Matrix(bsr, block_dim=4, device="cuda")
+    m.set_distribution(make_mesh(DIST_PARTS))
+    D = m.device(dtype=torch.bfloat16)
+    I = D.interior
+    assert D.dtype == torch.bfloat16 and I.compact.vals.dtype == \
+        torch.bfloat16
+    xh = np.random.default_rng(SEED).standard_normal(bsr.shape[0])
+    x = tdm.shard_vector(D, xh)
+    reset_counts()
+    y = smod.spmv(D, x)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    assert y.dtype == torch.bfloat16
+    assert counts["B5s"]["bf16.f32"] == 1 and \
+        counts["dispatch"] == {"sharded/block-binned": 1}, counts
+    yh = tdm.unshard_vector(D, y).double().cpu().numpy()
+    xr = tdm.unshard_vector(D, x).double().cpu().numpy()
+    y_rel = float(np.linalg.norm(yh - bsr @ xr) / np.linalg.norm(bsr @ xr))
+    assert y_rel <= 1e-2, y_rel
+    xf = x.float()
+    before = bmod.launch_count("B5-stacked")
+    yk = bmod.compact_spmv(I.compact, I.pos, I.row_of_pos, I.dims, xf)
+    torch.cuda.synchronize(dev)
+    assert bmod.launch_count("B5-stacked") == before + 1
+    ref = bmod.binned_compact_reference(I.compact, I.pos, I.dims, xf)
+    bit_equal = bool(torch.equal(yk, ref))
+    assert bit_equal
+    errs = {}
+    record(errs, "bf16.f32", (yk - ref).abs().max().item(), 0.0)
+    interior, nnzb = stacked_interior_bsr(D)
+    nb, b = D.n_rows, D.block_dim
+    ms = time_ms(lambda: bmod.compact_spmv(I.compact, I.pos, I.row_of_pos,
+                                           I.dims, xf), dev)
+    plain_ms = time_ms(lambda: bmod.binned_compact_reference(
+        I.compact, I.pos, I.dims, xf), dev)
+    library, lib = library_of(interior, interior.tocsr(), torch.bfloat16,
+                              dev)
+    library_ms = library_ms_of(lib, x, dev)
+    nbytes = costmodel.binned_bytes(nnzb, b, nb, nb, 2, 4)
+    bound_ms, bound_by = bound_of(nbytes, 2 * b * b * nnzb, "f32")
+    gbs = costmodel.measured_peak_gbs(dev)
+    timing = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                  library=library, bound_ms=bound_ms, bound_by=bound_by,
+                  bound_copy_ms=nbytes / (gbs * 1e9) * 1e3)
+    emit("item7c_bf16_sharded_b4", grid=list(FAMILY_C4_GRID),
+         n=bsr.shape[0], shards=DIST_PARTS, block_rows=nb,
+         stored_blocks=nnzb, counts=counts, kernel_bit_equal=bit_equal,
+         y_rel_to_f64_product=y_rel, least_bytes=nbytes, copy_gbs=gbs,
+         card=smi, **timing)
+    del D, I, x, y, lib, interior
+    return dict(timing=timing, errs=errs,
+                launches=counts["B5s"]["bf16.f32"])
+
+
+def item7c_sharded(amgx, dev, smi) -> dict:
+    """(f): the 48³ Helmholtz (c128) in 8 shards under FGMRES + SIZE_2
+    aggregation (the interior plain: ``sharded/gather`` declines, no
+    kernel), its 16³ twin on the CPU (equal counts), and a complex 2×2
+    block system in 8 block-row shards under FGMRES + BLOCK_JACOBI."""
+    import torch
+    from amgx_tpu_torch.distributed import make_mesh
+    cfg = item7c_stack("FGMRES")
+    A = helmholtz(ITEM7C_SHARD_SIDE)
+    bh = complex_rhs(A.shape[0], np.complex128)
+    m = amgx.Matrix(A, device="cuda")
+    m.set_distribution(make_mesh(DIST_PARTS))
+    t0 = time.perf_counter()
+    slv = amgx.create_solver(cfg)
+    slv.setup(m)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    reset_counts()
+    res = slv.solve(bh)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    relres = float(np.linalg.norm(bh - A @ res.x.cpu().numpy())
+                   / np.linalg.norm(bh))
+    assert slv.Ad.fmt == "sharded-ell" and \
+        slv.Ad.dtype == torch.complex128
+    assert res.status == amgx.SolveStatus.SUCCESS and relres <= 1e-8, \
+        (res.status, relres)
+    assert plain_labels_only(counts), counts
+    assert counts["declines"]["sharded/gather"] > 0, counts
+    emit("item7c_complex_sharded", n=A.shape[0], shards=DIST_PARTS,
+         iterations=res.iterations, relres_f64=relres, setup_s=setup_s,
+         solve_s=res.solve_time, dispatch=counts["dispatch"], card=smi)
+    del slv, res, m
+    twin = {}
+    A16 = helmholtz(ITEM7C_SHARD_TWIN_SIDE)
+    b16 = complex_rhs(A16.shape[0], np.complex128)
+    for where in ("cuda", "cpu"):
+        m = amgx.Matrix(A16, device=where)
+        m.set_distribution(make_mesh(DIST_PARTS, device=where))
+        s_ = amgx.create_solver(cfg)
+        s_.setup(m)
+        r = s_.solve(b16)
+        twin[where] = (r.iterations, r.x.cpu().numpy())
+    diff = float(np.linalg.norm(twin["cuda"][1] - twin["cpu"][1])
+                 / np.linalg.norm(twin["cpu"][1]))
+    assert twin["cuda"][0] == twin["cpu"][0], twin
+    assert diff <= ITEM7C_X_RTOL, diff
+    Ab = complex_block_system(ITEM7C_BLOCK_SIDE)
+    bb = complex_rhs(Ab.shape[0], np.complex128)
+    m = amgx.Matrix(Ab, block_dim=2, device="cuda")
+    m.set_distribution(make_mesh(DIST_PARTS))
+    bj = ("config_version=2, solver(out)=FGMRES, out:max_iters=400, "
+          "out:monitor_residual=1, out:tolerance=1e-8, "
+          "out:convergence=RELATIVE_INI, out:gmres_n_restart=20, "
+          "out:preconditioner(pre)=BLOCK_JACOBI, pre:max_iters=1")
+    s_ = amgx.create_solver(bj)
+    s_.setup(m)
+    reset_counts()
+    rb = s_.solve(bb)
+    torch.cuda.synchronize(dev)
+    bcounts = read_counts()
+    brel = float(np.linalg.norm(bb - Ab @ rb.x.cpu().numpy())
+                 / np.linalg.norm(bb))
+    assert rb.status == amgx.SolveStatus.SUCCESS and brel <= 1e-8, \
+        (rb.status, brel)
+    assert plain_labels_only(bcounts), bcounts
+    emit("item7c_complex_sharded_small", n=A16.shape[0],
+         iterations=twin["cpu"][0], x_rel_diff_card_vs_cpu=diff,
+         block_n=Ab.shape[0], block_iterations=rb.iterations,
+         block_relres_f64=brel, block_dispatch=bcounts["dispatch"],
+         card=smi)
+    return counts
+
+
+def item7c_narrow(amgx, dev, smi, gen) -> dict:
+    """(g) ROADMAP C13 on the card: the ITEM7C_NARROW_SIDE³ Poisson
+    uploaded in f64 under ITEM7C_NARROW_CFG with ``hierarchy_dtype``
+    float32, then bfloat16.  Each solve with the counts set to 0 just
+    before and read just after: B1 and B3 in their (f32, f64) /
+    (bf16, f64) pairs launched, no decline, relres ≤ 1e-8 in f64 on the
+    host; each narrowed pack's pair against its plain version bit for
+    bit; one launch of each pair timed on the fine DIA level and on the
+    largest ELL level (kernel, plain, the library product of the narrow
+    matrix with x cast to its dtype — no library call takes the mixed
+    pair — and the bound); the ITEM7C_NARROW_TWIN_SIDE³ twin on the
+    CPU: equal counts, x within ITEM7C_X_RTOL (an f64 inner product is
+    one library reduction).  Returns the paths' counts, the timings and
+    the errors by pair."""
+    import torch
+    from amgx_tpu_torch.io import poisson7pt
+    from amgx_tpu_torch.ops import dia_spmv as dmod
+    from amgx_tpu_torch.ops import ell_spmv as emod
+    from amgx_tpu_torch.telemetry import costmodel
+    f64 = torch.float64
+    side = ITEM7C_NARROW_SIDE
+    Ah = poisson7pt(side, side, side)
+    paths, timing, b1_errs, b3_errs = {}, {}, {}, {}
+    for hd, dt in (("float32", torch.float32),
+                   ("bfloat16", torch.bfloat16)):
+        key = f"{short(dt)}.f64"
+        cfg = ITEM7C_NARROW_CFG.format(hd=hd)
+        t0 = time.perf_counter()
+        slv = amgx.create_solver(cfg)
+        slv.setup(amgx.Matrix(Ah, device="cuda"))
+        torch.cuda.synchronize(dev)
+        setup_s = time.perf_counter() - t0
+        b = torch.ones(Ah.shape[0], dtype=f64, device=dev)
+        reset_counts()
+        res = slv.solve(b)
+        torch.cuda.synchronize(dev)
+        counts = read_counts()
+        res2 = slv.solve(b)
+        assert res.status == amgx.SolveStatus.SUCCESS, (hd, res.status)
+        assert res2.iterations == res.iterations and res.x.dtype == f64
+        assert counts["B1"][key] > 0 and counts["B3"][key] > 0, counts
+        assert not any(counts["declines"].values()), counts
+        relres = host_relres(Ah)(res.x)
+        assert relres <= 1e-8, (hd, relres)
+        h = slv.preconditioner.hierarchy
+        levels = [(lv.Ad.fmt, short(lv.Ad.dtype)) for lv in h.levels]
+        graph = graph_check(slv.preconditioner, dev, gen)
+        packs = narrow_packs(h, dt)
+        for name, M in packs:
+            x = torch.randn(M.n_cols, dtype=f64, device=dev, generator=gen)
+            if M.fmt == "dia":
+                check_dia_once(f"narrow_{hd}.{name}", M.vals, x,
+                               M.dia_offsets, b1_errs)
+            else:
+                check_ell(dev, gen, f"narrow_{hd}.{name}", M.cols,
+                          M.vals.double(), M.n_cols, b3_errs,
+                          row_len=M.row_len, pairs=((dt, f64),))
+        P0 = h.levels[0].Ad
+        assert P0.fmt == "dia" and P0.dtype == dt, levels
+        n = P0.n_rows
+        x = torch.randn(n, dtype=f64, device=dev, generator=gen)
+        csr = csr_of_dia(P0.vals, P0.dia_offsets)
+        b1_bound, b1_by = bound(len(P0.dia_offsets), n, dt, f64)
+        t1 = dict(
+            ms=time_ms(lambda: dmod.dia_spmv(P0.vals, x, P0.dia_offsets),
+                       dev),
+            plain_ms=time_ms(lambda: dmod.dia_spmv_reference(
+                P0.vals, x, P0.dia_offsets), dev),
+            library_ms=library_ms_of(csr, x.to(dt), dev),
+            library=f"cusparse-csr {short(dt)} (x cast to {short(dt)})",
+            bound_ms=b1_bound, bound_by=b1_by,
+            operator=f"{side}³ level 0 ({n} rows, "
+            f"{len(P0.dia_offsets)} diagonals, {short(dt)})")
+        name, M = max(((nm, M) for nm, M in packs if M.fmt == "ell"),
+                      key=lambda p: p[1].cols.numel())
+        x = torch.randn(M.n_cols, dtype=f64, device=dev, generator=gen)
+        csr = csr_of_ell(M.cols, M.vals, M.n_cols)
+        nnz = int((M.vals != 0).sum().item())
+        nb, K = M.cols.shape
+        nbytes = costmodel.ell_bytes(nnz, nb, M.n_cols, dt.itemsize, 8)
+        b3_bound, b3_by = bound_of(nbytes, 2 * nnz, "f64")
+        t3 = dict(
+            ms=time_ms(lambda: emod.ell_spmv(M.cols, M.vals, x, M.row_len),
+                       dev),
+            plain_ms=time_ms(lambda: emod.ell_spmv_reference(
+                M.cols, M.vals, x), dev),
+            library_ms=library_ms_of(csr, x.to(dt), dev),
+            library=f"cusparse-csr {short(dt)} (x cast to {short(dt)})",
+            bound_ms=b3_bound, bound_by=b3_by,
+            operator=f"{side}³ {name} ({nb} × {K}, {nnz} nonzeros, "
+            f"{short(dt)})")
+        timing[f"B1.{key}"], timing[f"B3.{key}"] = t1, t3
+        del csr
+        emit("item7c_narrow_hierarchy", n=Ah.shape[0], config=cfg,
+             iterations=res.iterations, relres_f64=relres, setup_s=setup_s,
+             solve_s=res.solve_time, solve_warm_s=res2.solve_time,
+             levels=levels, counts=counts, amg_graph=graph,
+             packs_checked=len(packs), b1_timing=t1, b3_timing=t3, card=smi)
+        paths[f"item7c_narrow_{short(dt)}"] = counts
+        del slv, res, res2, h, P0, M, packs
+        torch.cuda.empty_cache()
+        # the twin: the card against the port on the CPU
+        At = poisson7pt(*(ITEM7C_NARROW_TWIN_SIDE,) * 3)
+        out = {}
+        for where in ("cuda", "cpu"):
+            s_ = amgx.create_solver(cfg)
+            s_.setup(amgx.Matrix(At, device=where))
+            rr = s_.solve(np.ones(At.shape[0]))
+            assert rr.status == amgx.SolveStatus.SUCCESS, (hd, where)
+            out[where] = (rr.iterations, rr.x.cpu().numpy())
+        (ig, xg), (ic, xc) = out["cuda"], out["cpu"]
+        facts = dict(config=hd, n=At.shape[0], iterations_card=ig,
+                     iterations_cpu=ic,
+                     rel_diff=float(np.linalg.norm(xg - xc)
+                                    / np.linalg.norm(xc)),
+                     bit_equal=bool(np.array_equal(xg, xc)),
+                     limit=ITEM7C_X_RTOL)
+        emit("item7c_narrow_card_vs_cpu", **facts)
+        assert ig == ic and facts["rel_diff"] <= ITEM7C_X_RTOL, facts
+    return dict(paths=paths, timing=timing, b1_errs=b1_errs,
+                b3_errs=b3_errs)
+
+
+def item7c_full_phase(amgx, dev, smi, parts="ab") -> dict:
+    """Phase 45 (a) and (b), the two full-width complex solves at
+    ITEM7C_SIDE³ (in ``chip_smoke.py`` they run beside phase 23's CPU
+    children, where the card process waits); returns their counts."""
+    side = ITEM7C_SIDE
+    n = side ** 3
+    paths = {}
+    if "a" in parts:
+        paths["item7c_screened_128"] = item7c_full_solve(
+            amgx, dev, smi, "screened_fgmres_size4_F_dilu",
+            ITEM7C_A_CFG, screened_helmholtz(side),
+            complex_rhs(n, np.complex128))
+    if "b" in parts:
+        paths["item7c_hermitian_128"] = item7c_full_solve(
+            amgx, dev, smi, "hermitian_pcg_pipe_size2_jacobi_l1",
+            ITEM7C_B_CFG, hermitian(side), complex_rhs(n, np.complex128))
+    return paths
+
+
+def item7c_phase(amgx, dev, smi, gen, parts="abcdefg") -> dict:
+    """Phase 45 (ROADMAP item 7c): (a) dZZI on the 128³ screened complex
+    Helmholtz under FGMRES(6) + SIZE_4 aggregation, the F cycle,
+    MULTICOLOR_DILU; (b) the 128³ Hermitian L + iK under PCG_PIPE +
+    SIZE_2 aggregation with JACOBI_L1; (c) LANCZOS against eigsh; (d)
+    every name that joined, card against CPU at 24³; (e) bf16 sharded
+    SpMV, B3 and B5 in their (bf16, f32) pairs on the stacked interiors;
+    (f) complex sharded solves (``parts`` picks some of them).  Returns
+    the complex paths' counts (no kernel launch) and, with (e), the two
+    bf16 pairs' timings, errors and launches."""
+    import torch
+    t_phase = time.perf_counter()
+    paths, out, split = {}, {}, {}
+
+    def mark(part):
+        split[part] = time.perf_counter() - t_phase - sum(split.values())
+
+    twins = CpuChildren("--item7c-cpu-twins", "item7c_cpu")
+    if "d" in parts:
+        twins.start()
+    try:
+        if "a" in parts or "b" in parts:
+            paths.update(item7c_full_phase(amgx, dev, smi, parts))
+            mark("ab")
+        if "c" in parts:
+            out["lanczos"] = item7c_lanczos(amgx, dev, smi)
+            mark("c")
+        if "d" in parts:
+            out["twins"] = item7c_twins(amgx, twins)
+            mark("d")
+        if "e" in parts:
+            out["b3"] = item7c_bf16_scalar(amgx, dev, smi, gen)
+            out["b5"] = item7c_bf16_block(amgx, dev, smi, gen)
+            torch.cuda.empty_cache()
+            mark("e")
+        if "f" in parts:
+            paths["item7c_complex_sharded"] = item7c_sharded(amgx, dev,
+                                                             smi)
+            mark("f")
+        if "g" in parts:
+            out["narrow"] = item7c_narrow(amgx, dev, smi, gen)
+            paths.update(out["narrow"]["paths"])
+            mark("g")
+    finally:
+        twins.stop()
+    emit("item7c_phase", parts=parts, elapsed_by_part_s=split, card=smi,
+         elapsed_phase_s=time.perf_counter() - t_phase)
+    return dict(paths=paths, **out)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5824,7 +6659,7 @@ def main() -> int:
     emit("capi_python", **capi_python_probe())
 
     # the CPU half of phase 23 (started there; stopped here on any exit)
-    cpu_ref = CpuReference()
+    cpu_ref = dfg_cpu_children()
     try:
         return run_phases(amgx, dev, smi, kind, cpu_ref)
     finally:
@@ -6203,9 +7038,13 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     # ---- 19.-23. the DFG cylinder path (aggregation AMG, B2)
     # ---- 44. the AMGX C API on the card (in process, through the C shim
     # from a C driver, the ABI driver, distributed, card = CPU), run
-    # beside phase 23's CPU children, where the card process waits
+    # beside phase 23's CPU children, where the card process waits;
+    # ---- 45 (a), (b). the two full-width complex solves of item 7c, in
+    # the same wait
     dfg = dfg_phases(amgx, dev, smi, gen, cpu_ref, ell_errs,
-                     beside=lambda: capi_phase(amgx, dev, smi, shim))
+                     beside=lambda: {
+                         **capi_phase(amgx, dev, smi, shim),
+                         **item7c_full_phase(amgx, dev, smi)})
 
     # ---- 24.-28. the solver names of this slice; phase 23's comparison
     # after 27, once the CPU children, running beside 22-27, are done
@@ -6254,8 +7093,16 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     # ---- 43. serving on the card: the service, its endpoint, the warm
     # start across processes
     setup_paths.update(serve_phase(amgx, dev, smi))
-    # phase 44's launches (it ran beside phase 23's CPU children)
+    # the launches of phase 44 and phase 45's (a) and (b) (they ran beside
+    # phase 23's CPU children)
     setup_paths.update(dfg["beside"])
+
+    # ---- 45 (c)-(g). item 7c: LANCZOS, card against CPU, bf16 and
+    # complex sharded packs, levels narrowed under an f64 outer solver
+    # ((a) and (b) ran beside phase 23; the complex paths launch no
+    # kernel; the bf16 sharded pairs are listed on their own below)
+    d7c = item7c_phase(amgx, dev, smi, gen, parts="cdefg")
+    setup_paths.update(d7c["paths"])
 
     # ---- the kernels of the paths
     kernels = []
@@ -6317,6 +7164,25 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
             max_row_rel_err=e["bf16.f32"]["rel"],
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}))
+    # B1 and B3 in their (·, f64) pairs: phase 45 (g)'s levels narrowed
+    # under an f64 outer solver (their launches come from the paths
+    # below)
+    nar = d7c["narrow"]
+    for kern, name, src, replaces, e in (
+            ("B1", "dia_spmv", "dia_spmv.cu",
+             "amgx_tpu/ops/pallas_spmv.py:101", nar["b1_errs"]),
+            ("B3", "ell_spmv", "ell_spmv.cu",
+             "amgx_tpu/ops/pallas_ell.py:209", nar["b3_errs"])):
+        for key in ("f32.f64", "bf16.f64"):
+            t = nar["timing"][f"{kern}.{key}"]
+            kernels.append(dict(
+                name=f"{name}<{key.replace('.', ',')}>", route="cuda",
+                source=f"amgx_tpu_torch/csrc/{src}", replaces=replaces,
+                launches=0, launches_by_path={},
+                max_abs_err=e[key]["abs"], max_row_rel_err=e[key]["rel"],
+                **{k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms",
+                                     "library")}))
     kernels.extend(c4["kernels"])
     kernels.extend(dfg["kernels"])
     # the launches of phases 24-27's and 29-31's full-width stacks, by
@@ -6366,6 +7232,25 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
             max_row_rel_err=d8b["b5"]["errs"][key]["rel"],
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "bound_copy_ms")}))
+    # B3 and B5 in their (bf16, f32) pairs on the stacked interiors of
+    # phase 45's bf16 sharded packs (its launches: one ops.spmv each,
+    # counted between a reset and a read)
+    for kern, name, src, replaces in (
+            ("b3", "ell_spmv<bf16,f32,sharded_interior>", "ell_spmv.cu",
+             "amgx_tpu/ops/pallas_ell.py:209"),
+            ("b5", "binned_spmv_B5<bf16,f32,b=4,stacked_interior>",
+             "binned_spmv.cu", "amgx_tpu/ops/pallas_csr.py:497")):
+        t = d7c[kern]["timing"]
+        n_ = d7c[kern]["launches"]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"amgx_tpu_torch/csrc/{src}",
+            replaces=replaces, launches=n_,
+            launches_by_path={"item7c_bf16_sharded": n_},
+            max_abs_err=d7c[kern]["errs"]["bf16.f32"]["abs"],
+            max_row_rel_err=d7c[kern]["errs"]["bf16.f32"]["rel"],
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "library",
+                                 "bound_copy_ms")}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -6373,11 +7258,16 @@ def run_phases(amgx, dev, smi, kind, cpu_ref) -> int:
     return 0
 
 
+#: the entry of each :class:`CpuChildren` child, by its flag
+CPU_CHILDREN = {"--cpu-reference": cpu_reference,
+                "--item7c-cpu-twins": item7c_cpu_twins}
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--capi-copies":
         sys.exit(capi_copies_child(sys.argv[2], sys.argv[3]))
-    if len(sys.argv) == 4 and sys.argv[1] == "--cpu-reference":
-        sys.exit(cpu_reference(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) >= 3 and sys.argv[1] in CPU_CHILDREN:
+        sys.exit(CPU_CHILDREN[sys.argv[1]](*sys.argv[2:]))
     if len(sys.argv) == 6 and sys.argv[1] == "--serve-child":
         sys.exit(serve_child(*sys.argv[2:]))
     sys.exit(main())

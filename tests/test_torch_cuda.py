@@ -28,7 +28,8 @@ def _rel(got, want):
 
 @pytest.mark.parametrize("vdt,xdt", [
     (torch.bfloat16, torch.float32), (torch.float32, torch.float32),
-    (torch.float32, torch.float64), (torch.float64, torch.float64)])
+    (torch.float32, torch.float64), (torch.float64, torch.float64),
+    (torch.bfloat16, torch.float64)])
 def test_dia_kernel_matches_plain(card, vdt, xdt):
     from amgx_tpu_torch.ops import dia_spmv as dmod
     g = torch.Generator(device=card).manual_seed(0)
@@ -865,6 +866,75 @@ def test_ell_bf16_pair_bit_equal(card, K, n, n_cols):
         assert torch.equal(y, ref)
 
 
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,n,n_cols", [(1, 999, 1000), (7, 5000, 7001),
+                                        (27, 3000, 2000), (256, 300, 900)])
+def test_ell_f64_widening_pairs_bit_equal(card, vdt, K, n, n_cols):
+    """B3's (f32, f64) and (bf16, f64) pairs (a level narrowed by
+    ``hierarchy_dtype`` under an f64 outer solver): each value widened
+    exactly to f64 — bit-equal to the plain version, with and without
+    row_len, one counted launch each."""
+    from amgx_tpu_torch.ops import ell_spmv as emod
+    g = torch.Generator(device=card).manual_seed(K + 2)
+    cols = torch.randint(-2, n_cols + 2, (n, K), dtype=torch.int32,
+                         device=card, generator=g)
+    vals = torch.randn((n, K), dtype=torch.float64, device=card,
+                       generator=g).to(vdt)
+    keep = torch.randint(0, K + 1, (n, 1), device=card, generator=g)
+    vals = torch.where(torch.arange(K, device=card) < keep, vals, 0)
+    x = torch.randn(n_cols, dtype=torch.float64, device=card, generator=g)
+    ref = emod.ell_spmv_reference(cols, vals, x)
+    key = f"{emod._SHORT[vdt]}.f64"
+    for rl in (None, emod.ell_row_len(vals)):
+        before = emod.LAUNCHES[key]
+        y = emod.ell_spmv(cols, vals, x, rl)
+        torch.cuda.synchronize(card)
+        assert emod.LAUNCHES[key] == before + 1
+        assert y.dtype == torch.float64
+        assert torch.equal(y, ref)
+
+
+@pytest.mark.parametrize("hd", ["float32", "bfloat16"])
+def test_narrow_levels_under_f64_launch_kernels(card, hd):
+    """ROADMAP C13 on the card: ``hierarchy_dtype`` float32 / bfloat16
+    under an f64 outer solver (an f64 upload, SIZE_2 aggregation: a DIA
+    fine level, ELL coarse levels) launches B1 and B3 in their (·, f64)
+    pairs, counts no decline, and takes the CPU's count, x within 1e-12
+    (an f64 inner product is one library reduction)."""
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.io import poisson7pt
+    from amgx_tpu_torch.ops import dia_spmv as dmod
+    from amgx_tpu_torch.ops import ell_spmv as emod
+    from amgx_tpu_torch.ops import spmv as smod
+    A = poisson7pt(12, 12, 12)
+    cfg = ("config_version=2, solver(out)=FGMRES, out:max_iters=100, "
+           "out:monitor_residual=1, out:tolerance=1e-8, "
+           "out:convergence=RELATIVE_INI, out:gmres_n_restart=6, "
+           "out:preconditioner(amg)=AMG, amg:algorithm=AGGREGATION, "
+           "amg:selector=SIZE_2, amg:max_iters=1, amg:max_levels=20, "
+           "amg:smoother(sm)=BLOCK_JACOBI, sm:max_iters=1, "
+           "amg:presweeps=1, amg:postsweeps=1, amg:min_coarse_rows=16, "
+           f"amg:coarse_solver=DENSE_LU_SOLVER, hierarchy_dtype={hd}")
+    short = "f32" if hd == "float32" else "bf16"
+    out = {}
+    for where in ("cuda", "cpu"):
+        s = amgx.create_solver(cfg)
+        s.setup(amgx.Matrix(A, device=where))
+        smod.reset_dispatch()
+        dmod.reset_launches()
+        emod.reset_launches()
+        r = s.solve(np.ones(A.shape[0]))
+        out[where] = (r.iterations, r.x.cpu(), dict(dmod.LAUNCHES),
+                      dict(emod.LAUNCHES), dict(smod.declines()))
+    it, x, b1, b3, declines = out["cuda"]
+    assert x.dtype == torch.float64
+    assert b1[f"{short}.f64"] > 0 and b3[f"{short}.f64"] > 0, (b1, b3)
+    assert not any(declines.values()), declines
+    assert it == out["cpu"][0]
+    xc = out["cpu"][1]
+    assert (x - xc).norm() <= 1e-12 * xc.norm()
+
+
 def test_dia_bf16_pair_bit_equal_at_128(card):
     """B1's (bf16, f32) pair on the 128³ operator cast to bf16 (the
     headline's narrowed fine level), bit-equal to its plain version."""
@@ -1167,6 +1237,90 @@ def test_stacked_block_interior_b5_bit_equal(card, dt):
     assert smod.DISPATCH["sharded/block-binned"] == 1
     assert smod.DISPATCH["sharded/block-plain"] == 0
     assert torch.equal(yg.cpu(), dist_spmv(Acd, shard_vector(Acd, xv)))
+
+
+def test_bf16_sharded_interior_pairs_bit_equal(card):
+    """ROADMAP item 7c: a bf16 sharded pack (``Matrix.device(dtype=
+    torch.bfloat16)``) — B3 (bf16, f32) on the stacked interior and B5
+    (bf16, f32) on the stacked block interior, each its plain version
+    bit for bit; ``ops.spmv`` of each counts one kernel launch and no
+    plain label, and y (bf16) is the CPU's bit for bit."""
+    from amgx_tpu_torch.distributed import shard_vector
+    from amgx_tpu_torch.ops import binned_spmv as bmod
+    from amgx_tpu_torch.ops import ell_spmv as emod
+    from amgx_tpu_torch.ops import spmv as smod
+    bf16 = torch.bfloat16
+    A, m = _dist_poisson(12, "cuda", np.float32)
+    _, mc = _dist_poisson(12, "cpu", np.float32)
+    B, mb = _dist_block("cuda", np.float32)
+    _, mbc = _dist_block("cpu", np.float32)
+    for host, mg, mcpu, label in ((A, m, mc, "sharded/window"),
+                                  (B, mb, mbc, "sharded/block-binned")):
+        D, Dc = mg.device(dtype=bf16), mcpu.device(dtype=bf16)
+        assert D.dtype == bf16
+        xv = np.random.default_rng(2).standard_normal(host.shape[0])
+        x = shard_vector(D, xv)
+        assert x.dtype == bf16
+        xf = x.float()
+        if D.block_dim == 1:
+            before = emod.launch_count()
+            y = emod.ell_spmv(D.cols, D.vals, xf, D.row_len)
+            torch.cuda.synchronize(card)
+            assert emod.launch_count() == before + 1
+            assert torch.equal(y, emod.ell_spmv_reference(D.cols, D.vals,
+                                                          xf))
+        else:
+            I = D.interior
+            before = bmod.launch_count("B5-stacked")
+            y = bmod.compact_spmv(I.compact, I.pos, I.row_of_pos, I.dims,
+                                  xf)
+            torch.cuda.synchronize(card)
+            assert bmod.launch_count("B5-stacked") == before + 1
+            assert torch.equal(y, bmod.binned_compact_reference(
+                I.compact, I.pos, I.dims, xf))
+        smod.reset_dispatch()
+        yg = smod.spmv(D, x)
+        assert yg.dtype == bf16 and smod.DISPATCH[label] == 1
+        assert not any(smod.declines().values())
+        assert torch.equal(yg.cpu(), smod.spmv(Dc, shard_vector(Dc, xv)))
+
+
+def test_complex_sharded_solve_on_card_matches_cpu(card):
+    """ROADMAP item 7c: the 8³ Helmholtz (c128) in 8 shards under FGMRES
+    + SIZE_2 aggregation — the card takes the CPU's count, x to 1e-12;
+    its interiors are counted declines (``sharded/gather``), no kernel
+    launch."""
+    import scipy.sparse as sp
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.distributed import make_mesh
+    from amgx_tpu_torch.io import poisson7pt
+    from amgx_tpu_torch.ops import spmv as smod
+    L = sp.csr_matrix(poisson7pt(8, 8, 8), dtype=np.complex128)
+    A = sp.csr_matrix(L + (-0.4 + 0.35j) * sp.identity(512))
+    rng = np.random.default_rng(2)
+    b = rng.standard_normal(512) + 1j * rng.standard_normal(512)
+    cfg = ("config_version=2, solver(out)=FGMRES, out:max_iters=100, "
+           "out:monitor_residual=1, out:tolerance=1e-8, "
+           "out:convergence=RELATIVE_INI, out:gmres_n_restart=6, "
+           "out:preconditioner(amg)=AMG, amg:algorithm=AGGREGATION, "
+           "amg:selector=SIZE_2, amg:max_iters=1, amg:max_levels=20, "
+           "amg:smoother(sm)=BLOCK_JACOBI, sm:max_iters=1, "
+           "amg:presweeps=1, amg:postsweeps=1, amg:min_coarse_rows=16, "
+           "amg:coarse_solver=DENSE_LU_SOLVER")
+    out = {}
+    for where in ("cuda", "cpu"):
+        m = amgx.Matrix(A, device=where)
+        m.set_distribution(make_mesh(8, device=where))
+        s = amgx.create_solver(cfg)
+        s.setup(m)
+        smod.reset_dispatch()
+        r = s.solve(b)
+        out[where] = (r.iterations, r.x.cpu().numpy(),
+                      dict(smod.declines()))
+    assert out["cuda"][0] == out["cpu"][0]
+    xg, xc = out["cuda"][1], out["cpu"][1]
+    assert np.linalg.norm(xg - xc) <= 1e-12 * np.linalg.norm(xc)
+    assert out["cuda"][2]["sharded/gather"] > 0
 
 
 def test_distributed_config4_and_classical_on_card_match_cpu(card):

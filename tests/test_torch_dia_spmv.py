@@ -85,6 +85,24 @@ def test_reference_matches_jax_spmv_f64(n, offsets):
     assert _rel(got.numpy(), A @ x) < F64_REL
 
 
+def test_bf16_vals_f64_x_widens_exactly():
+    """(bf16, f64): a bf16 level of ``hierarchy_dtype`` under an f64
+    outer solver.  Each value widens exactly, so y is the plain version
+    on the widened values bit for bit, and the f64 product of the
+    rounded values."""
+    n, offsets = 200, (-10, 0, 3)
+    A = _dia_csr(n, offsets, seed=5)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(n))
+    vals16 = Matrix(A, device="cpu").device(np.float32).vals.to(
+        torch.bfloat16)
+    got = dia_spmv(vals16, x, offsets)
+    assert got.dtype == torch.float64
+    assert torch.equal(got, dia_spmv_reference(vals16.double(), x, offsets))
+    A16 = A.astype(np.float32)
+    A16.data = torch.from_numpy(A16.data).to(torch.bfloat16).double().numpy()
+    assert _rel(got.numpy(), A16 @ x.numpy()) < F64_REL
+
+
 def test_f32_vals_f64_x_promotes():
     n, offsets = 200, (-10, 0, 3)
     A = _dia_csr(n, offsets, seed=3)
@@ -107,7 +125,7 @@ def test_rectangular_and_out_of_range_columns_read_zero():
 
 @pytest.mark.parametrize("vdt,xdt", [
     (torch.float64, torch.float32), (torch.bfloat16, torch.bfloat16),
-    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float64)])
+    (torch.float32, torch.bfloat16), (torch.float16, torch.float32)])
 def test_unsupported_type_pairs_raise(vdt, xdt):
     with pytest.raises(BadParametersError):
         dia_spmv(torch.ones((1, 4), dtype=vdt), torch.ones(4, dtype=xdt),

@@ -19,7 +19,7 @@ from amgx_tpu.io import poisson7pt as jpoisson7pt
 
 import amgx_tpu_torch as amgx
 from amgx_tpu_torch.distributed import matrix as tdm
-from amgx_tpu_torch.errors import NotImplementedError_
+from amgx_tpu_torch.errors import BadParametersError
 from amgx_tpu_torch.io import spe10_block_system
 from amgx_tpu_torch.ops import binned_spmv as bmod
 from amgx_tpu_torch.ops import spmv as smod
@@ -90,16 +90,21 @@ def test_shard_block_matrix_arrays_match_jax(b, case, jmesh, tmesh):
 
 
 def test_block_matrix_dtype_gates(tmesh):
-    """Complex sharded packs are ROADMAP item 7c, and a bf16 one
-    raises there too."""
+    """ROADMAP item 7c: a complex b×b sharded pack packs complex values
+    and carries no B5 interior (B5 refuses complex values; its interior
+    applies on the plain path); a bf16 one is the f32 pack cast on the
+    device, its B5 interior bf16; a pack of integers raises."""
     bsr = _random_bsr(2)
-    with pytest.raises(NotImplementedError_, match="item 7c"):
-        tdm.shard_block_matrix(bsr.astype(np.complex128), 2, tmesh)
+    C = tdm.shard_block_matrix(bsr.astype(np.complex128), 2, tmesh)
+    assert C.dtype == torch.complex128 and C.interior is None
     m = amgx.Matrix(bsr, block_dim=2, device="cpu")
     m.set_distribution(tmesh)
     m.device_dtype = torch.bfloat16
-    with pytest.raises(NotImplementedError_, match="item 7c"):
-        m.device()
+    B = m.device()
+    assert B.dtype == torch.bfloat16
+    assert B.interior.compact.vals.dtype == torch.bfloat16
+    with pytest.raises(BadParametersError):
+        tdm.shard_block_matrix(bsr, 2, tmesh, dtype=np.int32)
 
 
 SPMV_CASES = {"b2": (2, 8, None), "b3": (3, 8, "nonuniform"),

@@ -207,14 +207,38 @@ def test_width_budget_raises():
 
 
 @pytest.mark.parametrize("vdt,xdt", [
-    (torch.float32, torch.float64), (torch.float64, torch.float32),
-    (torch.bfloat16, torch.float64), (torch.float16, torch.float16)])
+    (torch.float32, torch.bfloat16), (torch.float64, torch.float32),
+    (torch.float16, torch.float32), (torch.float16, torch.float16)])
 def test_unsupported_type_pairs_raise(vdt, xdt):
-    """(bf16, f32) is a supported pair (a level of a bf16 hierarchy);
-    bf16 values with an f64 x are not."""
+    """(bf16, f32), (f32, f64) and (bf16, f64) are supported pairs (a
+    level of a narrowed hierarchy); a vector narrower than the values,
+    or f16 values, are not."""
     with pytest.raises(BadParametersError):
         ell_spmv(torch.zeros((4, 2), dtype=torch.int32),
                  torch.ones((4, 2), dtype=vdt), torch.ones(4, dtype=xdt))
+
+
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+def test_narrow_values_f64_x_widen_exactly(vdt):
+    """(f32, f64) and (bf16, f64): a level narrowed by ``hierarchy_dtype``
+    under an f64 outer solver.  Each value widens exactly, so y is the
+    plain version on the widened values bit for bit, and the f64 product
+    of the rounded values; ``ops.spmv`` takes the kernel's path."""
+    A = sp.csr_matrix(poisson7pt(6, 5, 4)) \
+        - 0.3 * sp.identity(120, format="csr")
+    pd = _port_pack(A, np.float32)
+    vals = pd.vals.to(vdt)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(120))
+    got = ell_spmv(pd.cols, vals, x, emod.ell_row_len(vals))
+    assert got.dtype == torch.float64
+    assert torch.equal(got, ell_spmv_reference(pd.cols, vals.double(), x))
+    An = A.astype(np.float32)
+    An.data = torch.from_numpy(An.data).to(vdt).double().numpy()
+    assert _rel(got.numpy(), An @ x.numpy()) < F64_REL
+    narrow = pd.astype(vdt)
+    before = dict(DISPATCH)
+    assert torch.equal(spmv(narrow, x), got)
+    assert DISPATCH["ell/gather"] == before["ell/gather"] + 1
 
 
 def test_bad_arguments_raise():
